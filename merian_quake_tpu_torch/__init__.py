@@ -1,0 +1,20 @@
+"""merian_quake_tpu_torch — the PyTorch + CUDA port of merian_quake_tpu.
+
+Same module names and contracts as the JAX package, which stays the
+reference: every ported function takes the same inputs and gives the
+same outputs within a stated tolerance (tests/test_torch_*.py).
+
+- ``models``: scene containers, texture atlas, procedural scenes (host
+  build in numpy, tensors placed on the requested ``device`` once)
+- ``accel``: accel tables, the Möller–Trumbore oracle (CPU tensors) and
+  the hand-written CUDA Woop nearest-hit kernel (CUDA tensors)
+- ``ops``: math/sampling library as plain torch functions
+- ``render``: trace + shading, gbuffer, path tracer
+- ``post``: accumulation and tonemapping
+- ``renderer``: the frame loop
+
+Nothing here imports JAX. Every entry point takes ``device=``
+explicitly; a CUDA tensor never falls back to a CPU path.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,316 @@
+"""Woop unit-triangle intersection: host precompute + the K1 CUDA kernel.
+
+Port of merian_quake_tpu/accel/woop.py for the nearest-hit path. Each
+triangle stores the affine map M = [e1 e2 n]^-1, b = -M·v0 that takes
+world points to (u, v, signed-dist) space (Woop et al., JCGT 2013, the
+affine variant); the hit test on the transformed origin/direction is
+division-free.
+
+- ``build_woop`` / ``bake_candidacy``: host tables (numpy).
+- ``woop_nearest``: the wrapper of K1, ``csrc/woop_nearest.cu`` — the
+  hand-written Hopper kernel that replaces the TPU kernel
+  ``_kernel_resident`` + ``_intersect_tile``. A CUDA tensor launches the
+  kernel; a CPU tensor runs the plain version.
+- ``intersect_woop_reference``: the plain PyTorch version (a dense
+  sweep over every triangle, same epilogue and tie rule).
+- ``intersect_woop``: the HitRecord-level entry point: optional coherence
+  sort of bounce rays, packing, K1, un-sort, exact t/u/v recompute.
+
+The TPU schedule knobs of the reference (visit groups, sub-gates,
+compaction, fine tables, target keys, node levels, partitioned sweeps)
+are not carried over: they change which tiles a TPU block visits,
+never the hit.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..models.types import CLUSTER_SIZE
+from ..ops.linalg import as_f32
+
+BIG = 3e38
+# rays per CUDA thread block
+RAY_BLOCK = 128
+
+
+def build_woop(
+    v0, v1, v2, candidate, chunk: int = CLUSTER_SIZE
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host precompute: (w[3T, 8] packed rows, updated candidate).
+
+    Layout (3T, 8): per CLUSTER_SIZE chunk, the chunk's row-0 vectors,
+    then row-1, then row-2 (each [A | b] in columns 0-3). Front-facing
+    by the reference's convention (n_ref = cross(v2-v0, v1-v0), hit iff
+    d·n_ref < 0) ⇔ dz > 0. Non-candidate triangles get all-zero rows
+    (dz ≡ 0 → never front-facing), so candidacy is baked in.
+    """
+    v0 = np.asarray(v0, np.float64)
+    v1 = np.asarray(v1, np.float64)
+    v2 = np.asarray(v2, np.float64)
+    e1 = v1 - v0
+    e2 = v2 - v0
+    n = np.cross(e1, e2)
+    m = np.stack([e1, e2, n], axis=-1)  # columns e1 e2 n
+    det = np.linalg.det(m)
+    ok = np.abs(det) > 1e-12
+    cand = np.asarray(candidate, bool) & ok
+    m_safe = np.where(ok[:, None, None], m, np.eye(3)[None])
+    inv = np.linalg.inv(m_safe)  # (T, 3, 3) rows of M
+    b = -np.einsum("tij,tj->ti", inv, v0)
+    t = v0.shape[0]
+    c = chunk
+    if t % c:
+        raise ValueError(f"triangle count {t} is not a multiple of {c}")
+    rows = np.concatenate([inv, b[:, :, None]], axis=2).astype(np.float32)
+    rows = np.where(cand[:, None, None], rows, 0.0)
+    blocks = rows.reshape(t // c, c, 3, 4).transpose(0, 2, 1, 3)
+    w = np.zeros((3 * t, 8), np.float32)
+    w[:, :4] = blocks.reshape(3 * t, 4)
+    return w, cand
+
+
+def bake_candidacy(w: np.ndarray, cand: np.ndarray) -> np.ndarray:
+    """Zero the w rows of non-candidate triangles (layout-aware); the
+    any-hit tables of K2 are built this way from ``woop_w``."""
+    t = cand.shape[0]
+    c = CLUSTER_SIZE
+    mask = np.broadcast_to(
+        np.asarray(cand, bool).reshape(t // c, 1, c), (t // c, 3, c)
+    ).reshape(3 * t)
+    return np.where(mask[:, None], w, 0.0).astype(np.float32)
+
+
+def _sort_keys(accel, o, d):
+    """Bounce-ray binning key (u32 value in int64): direction octant +
+    dominant-axis pair in the high bits, then the origin Morton code."""
+    lo = accel.world_lo
+    ext = torch.clamp_min(accel.world_hi - lo, 1e-3)
+    q = torch.clamp((o - lo) / ext * 255.0, 0.0, 255.0).to(torch.int64)
+
+    def spread(v):
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    morton = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+    octant = (
+        (d[:, 0] >= 0).long()
+        | ((d[:, 1] >= 0).long() << 1)
+        | ((d[:, 2] >= 0).long() << 2)
+    )
+    ad = d.abs()
+    fine = (ad[:, 0] > ad[:, 2]).long() | ((ad[:, 1] > ad[:, 2]).long() << 1)
+    return (octant << 26) | (fine << 24) | (morton & 0xFFFFFF)
+
+
+def _recompute_tuv(accel, o, d, t_approx, tri):
+    """Exact (t, u, v) at the committed hit, from the winning triangle's
+    vertices — O(rays) instead of tracking u/v through the sweep."""
+    vattr = accel.tri_attr[torch.clamp_min(tri, 0).long(), 0:9]
+    v0, v1, v2 = vattr[:, 0:3], vattr[:, 3:6], vattr[:, 6:9]
+    e1 = v1 - v0
+    e2 = v2 - v0
+    nrm = torch.linalg.cross(e1, e2, dim=-1)
+    dn = (d * nrm).sum(-1)
+    t = ((v0 - o) * nrm).sum(-1) / torch.where(dn.abs() > 1e-20, dn, 1.0)
+    p = o + t[:, None] * d
+    q = p - v0
+    d00 = (e1 * e1).sum(-1)
+    d01 = (e1 * e2).sum(-1)
+    d11 = (e2 * e2).sum(-1)
+    d20 = (q * e1).sum(-1)
+    d21 = (q * e2).sum(-1)
+    denom = d00 * d11 - d01 * d01
+    inv = 1.0 / torch.where(denom.abs() > 1e-18, denom, 1.0)
+    u = (d11 * d20 - d01 * d21) * inv
+    v = (d00 * d21 - d01 * d20) * inv
+    hit = tri >= 0
+    return (
+        torch.where(hit, t, t_approx),
+        torch.where(hit, u, 0.0),
+        torch.where(hit, v, 0.0),
+    )
+
+
+def _pack_rays(o, d, t_min_b, t_max_b, ray_block):
+    """(8, n_padded) ray matrix; padding rays are dead (t_max = -1)."""
+    n = o.shape[0]
+    pad = (-n) % ray_block
+    if pad:
+        o = torch.cat([o, o.new_zeros((pad, 3))])
+        d = torch.cat([d, d.new_ones((pad, 3))])
+        t_min_b = torch.cat([t_min_b, t_min_b.new_zeros((pad,))])
+        t_max_b = torch.cat([t_max_b, t_max_b.new_full((pad,), -1.0)])
+    return torch.cat(
+        [o.T, d.T, t_min_b[None], t_max_b[None]], dim=0
+    ).contiguous()
+
+
+def _pad_bounds(lo, hi):
+    """Cluster AABBs grown by a small relative + absolute margin, so the
+    kernel's per-ray gate stays conservative under rounding. Empty
+    clusters (lo = +1e30 > hi = -1e30) stay empty."""
+    return lo - (lo.abs() * 1e-5 + 1e-3), hi + (hi.abs() * 1e-5 + 1e-3)
+
+
+def intersect_woop_reference(rays: torch.Tensor, w: torch.Tensor):
+    """Plain PyTorch version of K1: dense Woop sweep over every triangle.
+
+    rays f32[8, n], w f32[3T, 8] → (t f32[n] (BIG on a miss), tri i32[n]
+    (-1 on a miss)). Same epilogue, arithmetic order and lowest-index tie
+    rule as the kernel; chunked over rays so that each (rays × T)
+    temporary holds 2^24 elements on the CPU, 2^26 on a card.
+    """
+    max_pairs = 1 << 26 if rays.is_cuda else 1 << 24
+    n = rays.shape[1]
+    T = w.shape[0] // 3
+    C = CLUSTER_SIZE
+    rows = w.reshape(T // C, 3, C, 8)[..., :4].permute(1, 0, 2, 3).reshape(3, T, 4)
+    tri_ids = torch.arange(T, device=w.device, dtype=torch.int32)
+    out_t = torch.empty(n, dtype=torch.float32, device=rays.device)
+    out_tri = torch.empty(n, dtype=torch.int32, device=rays.device)
+    step = max(1, max_pairs // max(T, 1))
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        o = rays[0:3, s:e].T[:, :, None]  # (R, 3, 1)
+        d = rays[3:6, s:e].T[:, :, None]
+        t_min = rays[6, s:e][:, None]
+        t_max = rays[7, s:e][:, None]
+
+        def affine(a):  # a: (T, 4) → origin and direction images (R, T)
+            po = o[:, 0] * a[:, 0] + o[:, 1] * a[:, 1] + o[:, 2] * a[:, 2] + a[:, 3]
+            pd = d[:, 0] * a[:, 0] + d[:, 1] * a[:, 1] + d[:, 2] * a[:, 2]
+            return po, pd
+
+        u0, du = affine(rows[0])
+        v0, dv = affine(rows[1])
+        z0, dz = affine(rows[2])
+        z0n = -z0
+        U = u0 * dz - z0 * du
+        V = v0 * dz - z0 * dv
+        front = dz > 1e-12
+        ok = (
+            front
+            & (U >= 0.0)
+            & (V >= 0.0)
+            & (U + V <= dz)
+            & (z0n > t_min * dz)
+            & (z0n <= t_max * dz)
+        )
+        t_m = torch.where(ok, z0n / torch.where(front, dz, 1.0), BIG)
+        best = t_m.amin(1)
+        first = torch.where(t_m == best[:, None], tri_ids, T).amin(1)
+        out_t[s:e] = best
+        out_tri[s:e] = torch.where(best < BIG, first, -1).to(torch.int32)
+    return out_t, out_tri
+
+
+def _kernel_lib():
+    from ..kernels import load_library
+
+    lib = load_library("woop_nearest")
+    fn = lib.mq_woop_nearest
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, ctypes.c_int64, p, p, p, ctypes.c_int, ctypes.c_int,
+                       p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, x, dtype, shape, device):
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: expected {dtype}{tuple(shape)}, got {x.dtype}{tuple(x.shape)}"
+        )
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def woop_nearest(rays, w, cluster_lo, cluster_hi):
+    """K1: nearest front-facing hit per ray. Returns (t f32[n_pad],
+    tri i32[n_pad]); t = BIG and tri = -1 on a miss.
+
+    rays f32[8, n_pad] (o.xyz, d.xyz, t_min, t_max), n_pad a multiple of
+    RAY_BLOCK; w f32[3T, 8]; cluster_lo/hi f32[nc, 3], the AABBs of the
+    per-ray gate. On CUDA tensors this launches csrc/woop_nearest.cu and
+    counts the launch in ``woop_nearest.launches``; on CPU tensors it
+    runs :func:`intersect_woop_reference`.
+    """
+    dev = rays.device
+    n_pad = rays.shape[1] if rays.dim() == 2 else -1
+    T = w.shape[0] // 3
+    nc = T // CLUSTER_SIZE
+    if n_pad <= 0 or n_pad % RAY_BLOCK:
+        raise ValueError(f"{n_pad} rays: must be a positive multiple of {RAY_BLOCK}")
+    _check("rays", rays, torch.float32, (8, n_pad), dev)
+    _check("w", w, torch.float32, (3 * nc * CLUSTER_SIZE, 8), dev)
+    _check("cluster_lo", cluster_lo, torch.float32, (nc, 3), dev)
+    _check("cluster_hi", cluster_hi, torch.float32, (nc, 3), dev)
+    if dev.type == "cpu":
+        return intersect_woop_reference(rays, w)
+    if dev.type != "cuda":
+        raise ValueError(f"woop_nearest: unsupported device {dev}")
+    out_t = torch.empty(n_pad, dtype=torch.float32, device=dev)
+    out_tri = torch.empty(n_pad, dtype=torch.int32, device=dev)
+    fn = _kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            rays.data_ptr(), n_pad, w.data_ptr(), cluster_lo.data_ptr(),
+            cluster_hi.data_ptr(), nc, RAY_BLOCK, out_t.data_ptr(),
+            out_tri.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"woop_nearest kernel launch failed: CUDA error {err}")
+    woop_nearest.launches += 1
+    return out_t, out_tri
+
+
+woop_nearest.launches = 0
+
+
+def sort_perm(accel, o, d, t_max_b):
+    """Coherence order for bounce rays (stable sort by ``_sort_keys``;
+    dead rays, t_max ≤ 0, go to trailing blocks)."""
+    key = _sort_keys(accel, o, d) | ((t_max_b <= 0.0).long() << 29)
+    return torch.sort(key, stable=True).indices
+
+
+def k1_inputs(accel, o, d, t_min_b, t_max_b):
+    """Arguments of :func:`woop_nearest` for rays in the given order:
+    packed rays, the Woop table and the padded cluster bounds."""
+    rays = _pack_rays(o, d, t_min_b, t_max_b, RAY_BLOCK)
+    lo, hi = _pad_bounds(accel.cluster_lo, accel.cluster_hi)
+    return rays, accel.woop_w, lo.contiguous(), hi.contiguous()
+
+
+def intersect_woop(accel, o, d, t_min, t_max, sort_rays: bool = False):
+    """HitRecord-level nearest-hit trace through K1.
+
+    ``sort_rays`` bins incoherent (bounce) rays by direction octant,
+    dominant axis and origin Morton code (dead rays, t_max ≤ 0, go to
+    trailing blocks) so that each ray block has a tight bundle; the
+    results are scattered back to the caller's order.
+    """
+    from .intersect import HitRecord
+
+    n = o.shape[0]
+    t_min_b = as_f32(t_min, o).expand(n).contiguous()
+    t_max_b = as_f32(t_max, o).expand(n).contiguous()
+    if sort_rays and n >= RAY_BLOCK:
+        perm = sort_perm(accel, o, d, t_max_b)
+        hr = intersect_woop(accel, o[perm], d[perm], t_min_b[perm], t_max_b[perm])
+        back = lambda x: torch.empty_like(x).index_copy_(0, perm, x)
+        return HitRecord(*[back(x) for x in hr])
+    t, tri = woop_nearest(*k1_inputs(accel, o, d, t_min_b, t_max_b))
+    t, tri = t[:n], tri[:n]
+    t, u, v = _recompute_tuv(accel, o, d, t, tri)
+    return HitRecord(t=t, tri=tri, u=u, v=v)

@@ -1,0 +1,66 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` is a plain-C-interface source compiled by
+``nvcc`` for ``sm_90a`` into a shared library and bound with ``ctypes``.
+The library is built at first use, from the sources in this checkout
+only, into ``_build/`` beside this file (listed in .gitignore). Its file
+name carries a hash of the source, so an edited source is rebuilt and a
+stale library is never loaded. Nothing is built or loaded on import.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(fallback):
+        return fallback
+    raise RuntimeError("nvcc not found: CUDA kernels need the CUDA toolkit")
+
+
+def library_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if needed and load it.
+
+    The compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) is kept beside the library as ``<lib>.log``.
+    """
+    so = library_path(name)
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {name}.cu ({proc.returncode}):\n{proc.stderr}"
+            )
+        with open(so + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, so)
+    return ctypes.CDLL(so)

@@ -1,0 +1,123 @@
+"""The frame: gbuffer → integrator → accumulate → exposure → tonemap.
+
+Port of merian_quake_tpu/renderer.py for the path-traced frame without
+denoise. PyTorch runs eagerly, so ``render_frame`` is ``frame_core``
+over the whole image; the state's accumulators are updated out of
+place, like the JAX package's.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .accel.build import AccelScene, build_accel, scene_features
+from .models.procedural import SceneBundle
+from .models.types import RenderConfig, TextureAtlas, Uniforms
+from .ops import color as color_ops
+from .post.accumulate import accumulate
+from .post.tonemap import tonemap_reinhard_extended
+from .render.gbuffer import render_gbuffer
+from .render.pt import render_pt
+
+# ROADMAP.md "Modules to port" items for the paths not ported yet
+_NOT_PORTED = {
+    "mcpg": "ROADMAP.md item 5 (MCPG surface path)",
+    "restir": "ROADMAP.md item 11 (ReSTIR and SSMM)",
+    "ssmm": "ROADMAP.md item 11 (ReSTIR and SSMM)",
+}
+
+
+class FrameState(NamedTuple):
+    """State threaded across frames (the accumulation histories)."""
+
+    accum_irradiance: torch.Tensor  # f32[H, W, 4] path irradiance
+    accum_direct: torch.Tensor  # f32[H, W, 4] first-hit emission
+    accum_albedo: torch.Tensor  # f32[H, W, 4]
+    iteration: int
+
+
+def _check_supported(config: RenderConfig) -> None:
+    if config.denoise:
+        raise NotImplementedError(
+            "denoise=True is not ported yet: ROADMAP.md item 9 "
+            "(denoise and beauty chain)"
+        )
+    if config.integrator != "pt":
+        raise NotImplementedError(
+            f"integrator {config.integrator!r} is not ported yet: "
+            + _NOT_PORTED.get(config.integrator, "unknown integrator")
+        )
+
+
+def init_state(config: RenderConfig, device="cpu") -> FrameState:
+    _check_supported(config)
+    H, W = config.height, config.width
+    z = lambda: torch.zeros((H, W, 4), device=device)
+    return FrameState(
+        accum_irradiance=z(), accum_direct=z(), accum_albedo=z(), iteration=0
+    )
+
+
+def frame_core(
+    accel: AccelScene,
+    atlas: TextureAtlas,
+    uniforms: Uniforms,
+    config: RenderConfig,
+    state: FrameState,
+):
+    """One frame. Returns (new_state, outputs) with outputs
+    {"hdr", "ldr", "irradiance", "gbuffer"}."""
+    _check_supported(config)
+    gbuf = render_gbuffer(accel, atlas, uniforms, config)
+    irr = render_pt(accel, atlas, uniforms, config, gbuf)
+    it = state.iteration
+    new_state = FrameState(
+        accum_irradiance=accumulate(state.accum_irradiance, irr, it),
+        accum_direct=accumulate(state.accum_direct, gbuf.irradiance, it),
+        accum_albedo=accumulate(state.accum_albedo, gbuf.albedo, it),
+        iteration=it + 1,
+    )
+    beauty_hdr = (
+        new_state.accum_irradiance[..., :3]
+        * torch.clamp_min(new_state.accum_albedo[..., :3], 0.0)
+        + new_state.accum_direct[..., :3]
+    )
+    # auto exposure (key / log-average luminance, merian Exposure node)
+    lum = color_ops.yuv_luminance(beauty_hdr)
+    log_mean = torch.log(lum + 1e-4).mean()
+    scale = 0.18 / torch.clamp_min(torch.exp(log_mean), 1e-4)
+    ldr = tonemap_reinhard_extended(beauty_hdr * scale)
+    outputs = {"hdr": beauty_hdr, "ldr": ldr, "irradiance": irr, "gbuffer": gbuf}
+    return new_state, outputs
+
+
+def render_frame(
+    accel: AccelScene,
+    atlas: TextureAtlas,
+    uniforms: Uniforms,
+    config: RenderConfig,
+    state: FrameState,
+):
+    """One full frame on one device. Returns (new_state, outputs)."""
+    return frame_core(accel, atlas, uniforms, config, state)
+
+
+def render_sequence(
+    bundle: SceneBundle, config: RenderConfig, frames: int = 1, device="cpu"
+):
+    """Render ``frames`` frames of a static scene on ``device``,
+    returning the final (state, outputs)."""
+    _check_supported(config)
+    bundle = SceneBundle(*[x.to(device) for x in bundle])
+    accel = build_accel(bundle.scene, bundle.atlas, device=device)
+    config = config._replace(
+        features=scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
+    )
+    state = init_state(config, device=device)
+    uniforms = bundle.uniforms
+    outputs = None
+    for i in range(frames):
+        uniforms = uniforms._replace(frame=i)
+        state, outputs = render_frame(accel, bundle.atlas, uniforms, config, state)
+    return state, outputs

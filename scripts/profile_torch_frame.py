@@ -1,0 +1,184 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's 1080p path-traced frame.
+
+    python3 scripts/profile_torch_frame.py [--frames 2] [--out profiling]
+
+Needs one CUDA device. On procedural ``city`` at 1920×1080, 2 spp, max
+path length 3 (chip_smoke.py's configuration) it measures:
+
+1. host ms per stage of a steady frame (gbuffer, path tracer, and the
+   rest of the frame = accumulate, exposure, tonemap), each stage ended
+   by a device sync inside one frame;
+2. a ``torch.profiler`` trace of ``--frames`` steady frames: device time
+   against the host clock (the device's busy share), and device time by
+   op, the K1 kernel (``woop_nearest_kernel``) among them;
+3. the coherence sort of bounce rays (``woop.intersect_woop(...,
+   sort_rays=True)``: key, sort, gathers, scatter back) against none, on
+   one 2,073,600-ray bounce population: the whole trace and K1 alone,
+   timed with CUDA events in turns (sort, none, none, sort); then the
+   whole frame with each, in the same turns, 5 steady frames a turn.
+
+Prints one line per measurement and the card's name and power limit;
+the full op table goes to ``<out>/profile_frame.txt``.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402  (primary/bounce ray populations, cuda_time)
+from merian_quake_tpu_torch.accel import build_accel, woop  # noqa: E402
+from merian_quake_tpu_torch.accel.build import scene_features  # noqa: E402
+from merian_quake_tpu_torch.models.procedural import city  # noqa: E402
+from merian_quake_tpu_torch.models.types import RenderConfig  # noqa: E402
+from merian_quake_tpu_torch import renderer  # noqa: E402
+from merian_quake_tpu_torch.renderer import init_state, render_frame  # noqa: E402
+
+W, H, SPP, MPL = chip_smoke.W, chip_smoke.H, chip_smoke.SPP, chip_smoke.MPL
+
+
+def host_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--frames", type=int, default=2, help="frames in the profile")
+    ap.add_argument("--out", default=os.path.join(ROOT, "profiling"),
+                    help="directory for profile_frame.txt")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_frame: no CUDA device")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+
+    bundle = city(device=dev)
+    accel = build_accel(bundle.scene, bundle.atlas)
+    feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
+    config = RenderConfig(width=W, height=H, spp=SPP, max_path_length=MPL, features=feats)
+    state = init_state(config, device=dev)
+    u = bundle.uniforms
+    frame = 0
+
+    def step():
+        nonlocal state, frame
+        state, _ = render_frame(accel, bundle.atlas, u._replace(frame=frame), config, state)
+        frame += 1
+
+    for _ in range(2):  # warm up: kernel build, allocator, first launches
+        step()
+
+    # ---- 1: host ms per stage ----
+    stages = {"gbuffer": [], "pt": [], "rest": []}
+    stage_fns = {"gbuffer": renderer.render_gbuffer, "pt": renderer.render_pt}
+
+    def timed(key):
+        def run(*a, **k):
+            out, ms = host_ms(lambda: stage_fns[key](*a, **k))
+            stages[key].append(ms)
+            return out
+        return run
+
+    try:
+        for key in stage_fns:
+            setattr(renderer, f"render_{key}", timed(key))
+        for _ in range(3):
+            _, f_ms = host_ms(step)
+            stages["rest"].append(f_ms - stages["gbuffer"][-1] - stages["pt"][-1])
+    finally:
+        for key, fn in stage_fns.items():
+            setattr(renderer, f"render_{key}", fn)
+    print(f"stages [{smi}]: " + ", ".join(
+        f"{k} {np.mean(v):.2f} ms" for k, v in stages.items()) + " (host clock, mean of 3)",
+        flush=True)
+
+    # ---- 2: profiler ----
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.frames):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+    rows = sorted(avgs, key=dev_us, reverse=True)
+    # device-side events (kernels, copies) carry the time once; the ops
+    # that launched them repeat it as their self device time
+    on_dev = [e for e in rows if e.device_type.name != "CPU"]
+    ops = [e for e in rows if e.device_type.name == "CPU" and dev_us(e) > 0]
+    total_ms = sum(dev_us(e) for e in on_dev) / 1e3
+    print(f"profile [{smi}]: {args.frames} frames, wall {wall_ms:.1f} ms, device "
+          f"{total_ms:.1f} ms, busy {total_ms / wall_ms:.3f}, "
+          f"{sum(e.count for e in on_dev)} device kernels/copies", flush=True)
+    for kind, sel in (("op", ops[:12]), ("kernel", on_dev[:8])):
+        for e in sel:
+            print(f"  {kind:6s} {dev_us(e) / 1e3:9.2f} ms {dev_us(e) / 1e3 / total_ms:6.1%} "
+                  f"x{e.count:<6d} {e.key[:90]}")
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "profile_frame.txt"), "w") as f:
+        f.write(f"{smi}\n")
+        f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=80))
+
+    # ---- 3: bounce sort vs none ----
+    bo, bd, bt = chip_smoke.bounce_rays(bundle, accel, config, dev)
+    perm = woop.sort_perm(accel, bo, bd, bt)
+    trace = lambda s: woop.intersect_woop(accel, bo, bd, 0.0, bt, sort_rays=s)
+    hr_s, hr_n = trace(True), trace(False)
+    if not (torch.equal(hr_s.tri, hr_n.tri) and torch.equal(hr_s.t, hr_n.t)):
+        raise AssertionError("the bounce trace gives other hits without the sort")
+    k1_args = {
+        "sort": woop.k1_inputs(accel, bo[perm], bd[perm], torch.zeros_like(bt), bt[perm]),
+        "none": woop.k1_inputs(accel, bo, bd, torch.zeros_like(bt), bt),
+    }
+    times = {}
+    for label in ("sort", "none", "none", "sort"):
+        whole = chip_smoke.cuda_time(lambda: trace(label == "sort"), 10)
+        k1 = chip_smoke.cuda_time(lambda: woop.woop_nearest(*k1_args[label]), 10)
+        times.setdefault(label, []).append((whole, k1))
+    print(f"sort bounce {W * H} rays [{smi}]: " + "; ".join(
+        f"{k}: trace {'/'.join(f'{a:.3f}' for a, _ in v)} ms, "
+        f"K1 {'/'.join(f'{b:.3f}' for _, b in v)} ms" for k, v in times.items()),
+        flush=True)
+
+    frames_ms = {}
+    sorted_trace = woop.intersect_woop
+    try:
+        for label in ("sort", "none", "none", "sort"):
+            if label == "sort":
+                woop.intersect_woop = sorted_trace
+            else:
+                woop.intersect_woop = lambda *a, sort_rays=False, **k: sorted_trace(*a, **k)
+            step()
+            ms = [host_ms(step)[1] for _ in range(5)]
+            frames_ms.setdefault(label, []).append(float(np.mean(ms)))
+    finally:
+        woop.intersect_woop = sorted_trace
+    print(f"sort frame [{smi}]: " + "; ".join(
+        f"{k} {'/'.join(f'{x:.2f}' for x in v)} ms/frame" for k, v in frames_ms.items())
+        + " (host clock, mean of 5 steady frames per turn)", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,360 @@
+"""The port's accel layer against the JAX package's, on the same inputs.
+
+Tables: the triangle order, ``candidate`` and ``needs_alpha`` are equal;
+the Woop rows, cluster bounds and shading attributes agree to f32
+rounding (rtol 1e-6; the JAX build inverts each triangle's 3×3 matrix
+in C++, the port with numpy's LAPACK, and both round the float64 result
+to f32). Hits: triangle ids are equal wherever the nearest t is unique,
+and t agrees as in tests/test_accel.py (rtol 1e-4, atol 1e-3): XLA fuses
+multiply-adds on the CPU and PyTorch does not.
+
+The CUDA kernel itself cannot run here; its traversal schedule (every
+cluster in index order behind a per-ray AABB gate with a slack limit)
+is modelled in torch below and must give exactly the dense plain
+version's result.
+The kernel is compared with the plain version on the card by the
+``cuda``-marked test and by chip_smoke.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from merian_quake_tpu.accel import build_accel as j_build_accel
+from merian_quake_tpu.accel import intersect as j_intersect
+from merian_quake_tpu.accel import trace_nearest as j_trace_nearest
+from merian_quake_tpu.accel import woop as j_woop
+from merian_quake_tpu.models import materials
+from merian_quake_tpu.models import procedural as j_procedural
+from merian_quake_tpu.models.types import build_scene_from_soup as j_soup
+from merian_quake_tpu_torch.accel import build_accel, intersect, trace_nearest, woop
+from merian_quake_tpu_torch.models import procedural
+from merian_quake_tpu_torch.models.types import (
+    Scene, TextureAtlas, build_scene_from_soup,
+)
+
+# The suite runs several test processes side by side on a few cores;
+# torch would start one thread per core in each and oversubscribe them.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
+T_RTOL, T_ATOL = 1e-4, 1e-3
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _port_scene(j_scene):
+    return Scene(*[torch.from_numpy(np.array(a)) for a in j_scene])
+
+
+def _port_atlas(j_atlas):
+    t = lambda a: torch.from_numpy(np.array(a))
+    return TextureAtlas(
+        data=t(j_atlas.data), table=t(j_atlas.table),
+        mips=tuple(t(m) for m in j_atlas.mips), flat=t(j_atlas.flat),
+    )
+
+
+def _random_soup(rng, n_tri=256, spread=8.0):
+    c = rng.uniform(-40, 40, (n_tri, 1, 3))
+    tri = (c + rng.uniform(-spread, spread, (n_tri, 3, 3))).astype(np.float32)
+    return tri[:, 0], tri[:, 1], tri[:, 2]
+
+
+def _soup_rays(rng, n=512):
+    """test_accel.py's rays: half of them aimed away from the soup."""
+    o = rng.uniform(-60, 60, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o[: n // 2] = 500.0
+    d[: n // 2] = np.abs(d[: n // 2])
+    return o, d
+
+
+def _city_primary(bundle, width=64, height=64):
+    from merian_quake_tpu_torch.ops import camera
+    from merian_quake_tpu_torch.render import layout
+
+    u = bundle.uniforms
+    px, py = layout.gen_pixels(width, height)
+    d = camera.ray_dir(px.float(), py.float(), width, height, u.cam_u, u.cam_w, u.fov_tan_half)
+    return u.cam_x.expand_as(d).contiguous(), d
+
+
+def _assert_hits_match(ours, ref):
+    """tri equal where t is unique; t within test_accel's tolerance."""
+    o_tri, r_tri = _np(ours.tri), _np(ref.tri)
+    o_t, r_t = _np(ours.t), _np(ref.t)
+    np.testing.assert_array_equal(o_tri >= 0, r_tri >= 0)
+    hit = r_tri >= 0
+    np.testing.assert_allclose(o_t[hit], r_t[hit], rtol=T_RTOL, atol=T_ATOL)
+    differ = o_tri != r_tri
+    # a differing id must be an exact-tie: same t (shared edge / coplanar)
+    np.testing.assert_allclose(o_t[differ], r_t[differ], rtol=T_RTOL, atol=T_ATOL)
+    assert differ.mean() <= 1e-3, differ.mean()
+
+
+# ------------------------------------------------------------------ tables
+
+
+@pytest.mark.parametrize("name", ["box", "city"])
+def test_build_accel_tables_match_jax(name):
+    jb = j_procedural.get_scene(name)
+    tb = procedural.get_scene(name)
+    ja = j_build_accel(jb.scene, jb.atlas)
+    ta = build_accel(tb.scene, tb.atlas)
+    # same procedural soup and the same median-split order
+    for f in ("v0", "v1", "v2", "st", "texnum", "flags", "valid"):
+        np.testing.assert_array_equal(_np(getattr(ta.scene, f)), np.asarray(getattr(ja.scene, f)))
+    np.testing.assert_array_equal(_np(ta.candidate), np.asarray(ja.candidate))
+    np.testing.assert_array_equal(_np(ta.needs_alpha), np.asarray(ja.needs_alpha))
+    np.testing.assert_array_equal(_np(ta.cluster_lo), np.asarray(ja.cluster_lo))
+    np.testing.assert_array_equal(_np(ta.cluster_hi), np.asarray(ja.cluster_hi))
+    np.testing.assert_array_equal(_np(ta.world_lo), np.asarray(ja.world_lo))
+    np.testing.assert_array_equal(_np(ta.world_hi), np.asarray(ja.world_hi))
+    # Woop rows: f32 rounding of two float64 inversions; the atol covers
+    # entries that are 0 in exact arithmetic (axis-aligned quads)
+    jw = np.asarray(ja.woop_w)
+    np.testing.assert_allclose(_np(ta.woop_w), jw, rtol=1e-6, atol=1e-6 * np.abs(jw).max())
+    np.testing.assert_allclose(_np(ta.tri_attr), np.asarray(ja.tri_attr), rtol=1e-6)
+    assert ta.woop_w.shape == (3 * ta.scene.num_tris, 8)
+    # candidacy baking (the any-hit tables' recipe) on the port's table
+    keep = np.arange(ta.scene.num_tris) % 3 != 0
+    np.testing.assert_array_equal(
+        woop.bake_candidacy(_np(ta.woop_w), keep),
+        j_woop.bake_candidacy(_np(ta.woop_w), keep),
+    )
+
+
+def test_atlas_matches_jax():
+    jb, tb = j_procedural.city(), procedural.city()
+    np.testing.assert_array_equal(_np(tb.atlas.table), np.asarray(jb.atlas.table))
+    # sRGB decode: numpy's f32 pow vs XLA's, a few ulps
+    np.testing.assert_allclose(_np(tb.atlas.flat), np.asarray(jb.atlas.flat), rtol=1e-6, atol=1e-7)
+
+
+def test_sort_keys_bit_exact(rng):
+    jb, tb = j_procedural.city(), procedural.city()
+    ja, ta = j_build_accel(jb.scene, jb.atlas), build_accel(tb.scene, tb.atlas)
+    o = rng.uniform(-200, 4200, (4096, 3)).astype(np.float32)
+    d = rng.normal(size=(4096, 3)).astype(np.float32)
+    d[:16] = 0.0  # sign ties
+    ref = np.asarray(j_woop._sort_keys(ja, jnp.asarray(o), jnp.asarray(d)))
+    ours = woop._sort_keys(ta, torch.from_numpy(o), torch.from_numpy(d))
+    np.testing.assert_array_equal(ours.numpy().astype(np.uint32), ref)
+
+
+# ------------------------------------------------------------------ hits
+
+
+def test_oracle_matches_jax_on_random_soup(rng):
+    v0, v1, v2 = _random_soup(rng, spread=20.0)
+    ja = j_build_accel(j_soup(v0, v1, v2))
+    ta = build_accel(build_scene_from_soup(v0, v1, v2))
+    o, d = _soup_rays(rng, 1024)
+    o[:512] = rng.uniform(-60, 60, (512, 3))  # all of them near the soup
+    d[:512] = rng.normal(size=(512, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    ref = j_intersect(ja, jnp.asarray(o), jnp.asarray(d), 0.0, 1e4)
+    ours = intersect(ta, torch.from_numpy(o), torch.from_numpy(d), 0.0, 1e4)
+    assert (_np(ref.tri) >= 0).sum() > 100
+    _assert_hits_match(ours, ref)
+    hit = _np(ref.tri) >= 0
+    np.testing.assert_allclose(_np(ours.u)[hit], np.asarray(ref.u)[hit], atol=1e-4)
+    np.testing.assert_allclose(_np(ours.v)[hit], np.asarray(ref.v)[hit], atol=1e-4)
+
+
+def test_oracle_matches_jax_on_city():
+    jb, tb = j_procedural.city(), procedural.city()
+    ja, ta = j_build_accel(jb.scene, jb.atlas), build_accel(tb.scene, tb.atlas)
+    o, d = _city_primary(tb, 48, 32)
+    ref = j_intersect(ja, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), 0.0, 1e4)
+    ours = intersect(ta, o, d, 0.0, 1e4)
+    _assert_hits_match(ours, ref)
+
+
+def test_woop_reference_matches_jax_kernel_random_soup(rng):
+    """intersect_woop (CPU: the plain version) vs the JAX Woop kernel in
+    interpret mode, on test_accel.py:205's soup with half misses."""
+    v0, v1, v2 = _random_soup(rng)
+    ja = j_build_accel(j_soup(v0, v1, v2))
+    ta = build_accel(build_scene_from_soup(v0, v1, v2))
+    o, d = _soup_rays(rng)
+    ref = j_woop.intersect_woop(ja, jnp.asarray(o), jnp.asarray(d), 0.0, 1e4,
+                                ray_block=256, interpret=True)
+    ours = woop.intersect_woop(ta, torch.from_numpy(o), torch.from_numpy(d), 0.0, 1e4)
+    _assert_hits_match(ours, ref)
+    assert not (_np(ours.tri)[:256] >= 0).all()  # misses really occur
+    # the coherence-sorted path scatters results back to the same order
+    sorted_ = woop.intersect_woop(
+        ta, torch.from_numpy(o), torch.from_numpy(d), 0.0, 1e4, sort_rays=True
+    )
+    for a, b in zip(sorted_, ours):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_woop_reference_matches_jax_kernel_city():
+    jb, tb = j_procedural.city(), procedural.city()
+    ja, ta = j_build_accel(jb.scene, jb.atlas), build_accel(tb.scene, tb.atlas)
+    o, d = _city_primary(tb, 64, 64)  # 4,096 rays
+    ref = j_woop.intersect_woop(ja, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
+                                0.0, 1e4, ray_block=1024, interpret=True)
+    ours = woop.intersect_woop(ta, o, d, 0.0, 1e4)
+    _assert_hits_match(ours, ref)
+
+
+def test_trace_nearest_alpha_grate():
+    """test_accel.py:89's alpha-tested grates (outdoor court, built by
+    the JAX package's procedural code and handed over as arrays)."""
+    jb = j_procedural.outdoor_court()
+    ja = j_build_accel(jb.scene, jb.atlas)
+    atlas = _port_atlas(jb.atlas)
+    ta = build_accel(_port_scene(jb.scene), atlas)
+    ys = np.linspace(110, 290, 64)
+    o = np.asarray([[600.0, y, 80.0] for y in ys], np.float32)
+    d = np.broadcast_to(np.asarray([1.0, 0.0, 0.0], np.float32), (64, 3)).copy()
+    ref = j_trace_nearest(ja, jb.atlas, jnp.asarray(o), jnp.asarray(d), 0.0, materials.T_MAX)
+    ours = trace_nearest(ta, atlas, torch.from_numpy(o), torch.from_numpy(d), 0.0, materials.T_MAX)
+    _assert_hits_match(ours, ref)
+    t = _np(ours.t)
+    assert (np.abs(t - 40.0) < 1.5).any(), "some rays should hit the near grate"
+    assert (t > 400).any(), "some rays should pass through grate holes"
+    assert bool(ta.needs_alpha.any())
+
+
+# ------------------------------------------------------------------ K1
+
+
+def _model_k1(rays, w, lo, hi):
+    """torch model of csrc/woop_nearest.cu's schedule, one lane per ray:
+    per ray block, visit every cluster in index order; skip a cluster for
+    rays whose slab gate with the slack limit fails; commit the
+    lexicographic (t, tri) minimum. Arithmetic in the plain version's
+    order, so the result must be bit-equal."""
+    nc = lo.shape[0]
+    blk = woop.RAY_BLOCK
+    nb = rays.shape[1] // blk
+    r = rays.reshape(8, nb, blk)
+    o, d, t_min, t_max = r[0:3], r[3:6], r[6], r[7]
+    inv = 1.0 / torch.where(d.abs() < 1e-20, torch.where(d >= 0, 1e-20, -1e-20), d)
+    rows = w.reshape(nc, 3, 64, 8)[..., :4]
+    ids = torch.arange(64, dtype=torch.int32)
+    best = torch.full((nb, blk), woop.BIG)
+    best_tri = torch.full((nb, blk), -1, dtype=torch.int32)
+    for ci in range(nc):
+        lim = torch.minimum(best, t_max)
+        lim = lim + lim.abs() * 1e-4 + 1e-3
+        c = torch.full((nb,), ci)
+        tn, tf = torch.zeros_like(lim), lim
+        for k in range(3):
+            t1 = (lo[c, k][:, None] - o[k]) * inv[k]
+            t2 = (hi[c, k][:, None] - o[k]) * inv[k]
+            tn = torch.maximum(tn, torch.minimum(t1, t2))
+            tf = torch.minimum(tf, torch.maximum(t1, t2))
+        reach = tn <= tf
+        a = rows[c][:, :, None]  # (nb, 3, 1, 64, 4)
+
+        def img(x, i, aff):
+            p = (x[0][..., None] * a[:, i, :, :, 0] + x[1][..., None] * a[:, i, :, :, 1]
+                 + x[2][..., None] * a[:, i, :, :, 2])
+            return p + a[:, i, :, :, 3] if aff else p
+
+        u0, v0, z0 = (img(o, i, True) for i in range(3))
+        du, dv, dz = (img(d, i, False) for i in range(3))
+        z0n = -z0
+        U = u0 * dz - z0 * du
+        V = v0 * dz - z0 * dv
+        front = dz > 1e-12
+        ok = (front & (U >= 0) & (V >= 0) & (U + V <= dz)
+              & (z0n > t_min[..., None] * dz) & (z0n <= t_max[..., None] * dz)
+              & reach[..., None])
+        t = torch.where(ok, z0n / torch.where(front, dz, 1.0), woop.BIG)
+        ct = t.amin(-1)
+        ck = torch.where(t == ct[..., None], ids, 64).amin(-1)
+        ctri = (c[:, None] * 64 + ck).to(torch.int32)
+        better = (ct < best) | ((ct == best) & (ctri < best_tri) & (ct < woop.BIG))
+        best = torch.where(better, ct, best)
+        best_tri = torch.where(better, ctri, best_tri)
+    return best.reshape(-1), best_tri.reshape(-1)
+
+
+def _bounce_population(bundle, accel, width=48, height=32):
+    from merian_quake_tpu_torch.models.types import RenderConfig
+    from merian_quake_tpu_torch.ops import bsdf, linalg, rng
+    from merian_quake_tpu_torch.render import layout
+    from merian_quake_tpu_torch.render.gbuffer import render_gbuffer
+    from merian_quake_tpu_torch.render.hit import decompress_hit
+
+    cfg = RenderConfig(width=width, height=height)
+    cur = decompress_hit(render_gbuffer(accel, bundle.atlas, bundle.uniforms, cfg).hits)
+    px, py = layout.gen_pixels(width, height)
+    _, u3 = rng.uniform3(rng.seed_pixel(px, py, 0, cfg.seed))
+    wo = bsdf.sample(cur.wi, cur.normal, bsdf.roughness_to_alpha(cur.roughness), u3)
+    live = (linalg.dot(wo, cur.geo_normal) > 1e-3) & (cur.albedo >= 1e-7).any(-1)
+    return cur.pos - cur.wi * 1e-3, wo, torch.where(live, 1e4, -1.0)
+
+
+@pytest.mark.parametrize("population", ["soup", "primary", "bounce", "bounce_tmin"])
+def test_k1_schedule_matches_plain_version(rng, population):
+    if population == "soup":
+        v0, v1, v2 = _random_soup(rng)
+        acc = build_accel(build_scene_from_soup(v0, v1, v2))
+        o, d = (torch.from_numpy(x) for x in _soup_rays(rng))
+        t_min, t_max = torch.zeros(512), torch.full((512,), 1e4)
+    else:
+        bundle = procedural.city()
+        acc = build_accel(bundle.scene, bundle.atlas)
+        if population == "primary":
+            o, d = _city_primary(bundle, 48, 32)
+            t_max = torch.full((o.shape[0],), 1e4)
+        else:
+            o, d, t_max = _bounce_population(bundle, acc)
+            perm = woop.sort_perm(acc, o, d, t_max)
+            o, d, t_max = o[perm], d[perm], t_max[perm]
+        t_min = torch.full((o.shape[0],), 1e-3 if population == "bounce_tmin" else 0.0)
+    args = woop.k1_inputs(acc, o.contiguous(), d.contiguous(), t_min, t_max.contiguous())
+    t_ref, tri_ref = woop.intersect_woop_reference(args[0], args[1])
+    t_mod, tri_mod = _model_k1(*args)
+    assert (tri_ref >= 0).sum() > 0
+    torch.testing.assert_close(tri_mod, tri_ref, rtol=0, atol=0)
+    torch.testing.assert_close(t_mod, t_ref, rtol=0, atol=0)
+    # the CPU wrapper is the plain version
+    t_w, tri_w = woop.woop_nearest(*args)
+    torch.testing.assert_close(tri_w, tri_ref, rtol=0, atol=0)
+
+
+def test_woop_nearest_rejects_bad_inputs(rng):
+    v0, v1, v2 = _random_soup(rng, 64)
+    acc = build_accel(build_scene_from_soup(v0, v1, v2))
+    o, d = (torch.from_numpy(x) for x in _soup_rays(rng, 256))
+    args = list(woop.k1_inputs(acc, o, d, torch.zeros(256), torch.full((256,), 1e4)))
+    for i, bad in (
+        (0, args[0].double()),  # dtype
+        (0, args[0][:, :200]),  # shape / block split
+        (2, args[2].double()),  # bounds dtype
+        (0, args[0].T.contiguous().T),  # not contiguous
+    ):
+        broken = list(args)
+        broken[i] = bad
+        with pytest.raises(ValueError):
+            woop.woop_nearest(*broken)
+
+
+@pytest.mark.cuda
+def test_k1_kernel_matches_plain_version_on_card(rng):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    bundle = procedural.city(device=dev)
+    acc = build_accel(bundle.scene, bundle.atlas)
+    o, d = _city_primary(bundle, 256, 256)
+    n = o.shape[0]
+    args = woop.k1_inputs(acc, o.to(dev), d.to(dev), torch.zeros(n, device=dev),
+                          torch.full((n,), 1e4, device=dev))
+    before = woop.woop_nearest.launches
+    t_k, tri_k = woop.woop_nearest(*args)
+    assert woop.woop_nearest.launches == before + 1
+    t_r, tri_r = woop.intersect_woop_reference(args[0], args[1])
+    torch.testing.assert_close(tri_k, tri_r, rtol=0, atol=0)
+    torch.testing.assert_close(t_k, t_r, rtol=0, atol=0)
