@@ -7,11 +7,13 @@ same outputs within a stated tolerance (tests/test_torch_*.py).
 - ``models``: scene containers, texture atlas, procedural scenes (host
   build in numpy, tensors placed on the requested ``device`` once)
 - ``accel``: accel tables, the Möller–Trumbore oracle (CPU tensors) and
-  the hand-written CUDA Woop nearest-hit kernel (CUDA tensors)
+  the hand-written CUDA Woop nearest-hit and any-hit kernels (CUDA
+  tensors)
 - ``ops``: math/sampling library as plain torch functions
-- ``render``: trace + shading, gbuffer, path tracer
+- ``render``: trace + shading, gbuffer, path tracer, ReSTIR DI
 - ``post``: accumulation and tonemapping
 - ``renderer``: the frame loop
+- ``interop``: the JAX package's objects, as arrays, into these containers
 
 Nothing here imports JAX. Every entry point takes ``device=``
 explicitly; a CUDA tensor never falls back to a CPU path.

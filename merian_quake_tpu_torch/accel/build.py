@@ -12,7 +12,11 @@ once:
 - a cluster-aligned recursive median-split triangle order, with one
   AABB per CLUSTER_SIZE-triangle cluster;
 - the Woop affine rows ``woop_w`` (accel/woop.py) and the packed
-  shading attributes ``tri_attr``.
+  shading attributes ``tri_attr``;
+- the any-hit tables of K2 (build.py:231-296 of the JAX package): the
+  shadow table (sky and alpha-tested triangles zeroed), the alpha-only
+  table with its own AABBs, and the proxy table of the largest shadow
+  candidates.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 
 from ..models import materials
 from ..models.types import CLUSTER_SIZE, Scene, SceneFeatures, TextureAtlas
-from .woop import build_woop
+from .woop import bake_candidacy, build_woop
 
 
 class AccelScene(NamedTuple):
@@ -38,6 +42,23 @@ class AccelScene(NamedTuple):
     tri_attr: torch.Tensor  # f32[T, 40] packed shading attributes
     world_lo: torch.Tensor  # f32[3] scene bounds (ray-sort quantization)
     world_hi: torch.Tensor
+    # SHADOW table: sky + alpha-tested triangles zeroed (sky passes light,
+    # raytrace.glsl:122-145; alpha resolved on the alpha-only table). The
+    # same tensor as woop_w when the scene has neither.
+    woop_w_shadow: torch.Tensor | None = None  # f32[3T, 8]
+    # ALPHA-ONLY table: just the needs_alpha triangles, with their own
+    # cluster AABBs (empty clusters: lo = +1e30, hi = -1e30). None when
+    # no triangle is alpha-tested.
+    woop_w_alpha: torch.Tensor | None = None  # f32[3T, 8]
+    cluster_lo_alpha: torch.Tensor | None = None  # f32[C, 3]
+    cluster_hi_alpha: torch.Tensor | None = None
+    # PROXY table: the largest shadow candidates re-packed in their
+    # cluster order. A sweep against it first occludes many rays with
+    # genuine occluders (a subset of the shadow table), which the full
+    # sweep then skips. None below 4,096 triangles.
+    woop_w_proxy: torch.Tensor | None = None  # f32[3P, 8]
+    cluster_lo_proxy: torch.Tensor | None = None  # f32[Cp, 3]
+    cluster_hi_proxy: torch.Tensor | None = None
 
     @property
     def num_clusters(self) -> int:
@@ -139,6 +160,7 @@ def build_accel(
 
     lo_c, hi_c = cluster_aabbs(v0, v1, v2, candidate)
     woop_w, _ = build_woop(v0, v1, v2, candidate)
+    anyhit = _anyhit_tables(v0, v1, v2, sc.flags, candidate, needs_alpha, woop_w)
 
     attr = np.zeros((T, 40), np.float32)
     attr[:, 0:3] = v0
@@ -171,17 +193,57 @@ def build_accel(
 
     vmask = valid[:, None]
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    woop_w_dev = dev(woop_w)
+    extra = {
+        k: (woop_w_dev if a is woop_w else None if a is None else dev(a))
+        for k, a in anyhit.items()
+    }
     return AccelScene(
         scene=Scene(*[dev(a) for a in sc]),
         candidate=dev(candidate),
         needs_alpha=dev(needs_alpha),
         cluster_lo=dev(lo_c.astype(np.float32)),
         cluster_hi=dev(hi_c.astype(np.float32)),
-        woop_w=dev(woop_w),
+        woop_w=woop_w_dev,
         tri_attr=dev(attr),
         world_lo=dev(np.nanmin(np.where(vmask, host[0], np.nan), axis=0).astype(np.float32)),
         world_hi=dev(np.nanmax(np.where(vmask, host[0], np.nan), axis=0).astype(np.float32)),
+        **extra,
     )
+
+
+def _anyhit_tables(v0, v1, v2, flags, candidate, needs_alpha, woop_w) -> dict:
+    """The shadow, alpha-only and proxy tables of K2 (host arrays; None
+    where the scene has no such table). The shadow table *is* ``woop_w``
+    when it zeroes nothing."""
+    T = v0.shape[0]
+    shadow_cand = candidate & (flags != materials.MAT_FLAGS_SKY) & ~needs_alpha
+    out = dict.fromkeys(
+        ("woop_w_alpha", "cluster_lo_alpha", "cluster_hi_alpha",
+         "woop_w_proxy", "cluster_lo_proxy", "cluster_hi_proxy")
+    )
+    out["woop_w_shadow"] = (
+        woop_w if shadow_cand.sum() == candidate.sum()
+        else bake_candidacy(woop_w, shadow_cand)
+    )
+    alpha_cand = candidate & needs_alpha
+    if alpha_cand.any():
+        out["woop_w_alpha"] = bake_candidacy(woop_w, alpha_cand)
+        out["cluster_lo_alpha"], out["cluster_hi_alpha"] = cluster_aabbs(v0, v1, v2, alpha_cand)
+    # proxy: the largest shadow candidates (by twice their area), in
+    # their cluster order
+    n_shadow = int(shadow_cand.sum())
+    if T >= 4096 and n_shadow >= CLUSTER_SIZE:
+        area2 = np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1)
+        area2 = np.where(shadow_cand, area2, -1.0)
+        nc_proxy = int(np.clip((T // CLUSTER_SIZE) // 16, 2, 64))
+        n_proxy = min(nc_proxy * CLUSTER_SIZE, n_shadow)
+        n_proxy -= n_proxy % CLUSTER_SIZE
+        sel = np.sort(np.argpartition(-area2, n_proxy - 1)[:n_proxy])
+        pv0, pv1, pv2 = v0[sel], v1[sel], v2[sel]
+        out["woop_w_proxy"], pcand = build_woop(pv0, pv1, pv2, shadow_cand[sel])
+        out["cluster_lo_proxy"], out["cluster_hi_proxy"] = cluster_aabbs(pv0, pv1, pv2, pcand)
+    return out
 
 
 def scene_features(scene: Scene, uniforms=None, atlas=None) -> SceneFeatures:

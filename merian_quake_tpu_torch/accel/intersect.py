@@ -8,7 +8,8 @@ past the surface when the texel alpha is below ALPHA_THRESHOLD.
 
 Dispatch is by device and nothing else: CPU tensors run the chunked
 Möller–Trumbore oracle (what the JAX package runs on the CPU), CUDA
-tensors run K1 (accel/woop.py, csrc/woop_nearest.cu).
+tensors run K1 (accel/woop.py, csrc/woop_nearest.cu) and, for
+visibility, K2 (csrc/woop_any.cu).
 """
 from __future__ import annotations
 
@@ -164,3 +165,48 @@ def trace_nearest(
         cur_tmin = torch.where(reject & active, hr.t + _ADVANCE, cur_tmin)
         active = active & reject
     return result
+
+
+def trace_visibility(accel: AccelScene, tex, from_pos, to_pos, offset: float = 1e-3,
+                     sort_rays: bool = False) -> torch.Tensor:
+    """Visibility between points, bool[N]; sky hits count as visible
+    (raytrace.glsl:122-145). The segment is traced over
+    [offset, max(offset, dist − 2·offset)].
+
+    CPU tensors run what the JAX package runs on the CPU: the nearest
+    accepted hit on the full table (alpha loop when ``tex`` is given),
+    visible when it misses or hits sky. CUDA tensors run K2 on the
+    shadow table (after the proxy pre-pass), then, when ``tex`` is given
+    and the scene has alpha-tested triangles, a nearest + alpha-loop
+    trace (K1) on the alpha-only table. The two differ only where an
+    opaque surface lies behind a sky polygon within range: K2 calls it
+    occluded, the oracle visible (real maps keep sky as the outer shell).
+    """
+    wo = to_pos - from_pos
+    dist = torch.linalg.vector_norm(wo, dim=-1)
+    d = wo / torch.clamp_min(dist, 1e-20)[..., None]
+    t_max = torch.clamp_min(dist - 2.0 * offset, offset)
+    if from_pos.is_cuda:
+        return _visible_anyhit(accel, tex, from_pos, d, offset, t_max, sort_rays)
+    if from_pos.device.type != "cpu":
+        raise ValueError(f"trace_visibility: unsupported device {from_pos.device}")
+    hr = trace_nearest(accel, tex, from_pos, d, offset, t_max)
+    sky = accel.scene.flags[torch.clamp_min(hr.tri, 0).long()] == materials.MAT_FLAGS_SKY
+    return ~hr.hit | sky
+
+
+def _visible_anyhit(accel: AccelScene, tex, o, d, offset, t_max, sort_rays=False):
+    """The card's visibility: K2 on the shadow table, then alpha-tested
+    triangles resolved by a nearest + alpha-loop trace on the alpha-only
+    table (the woop rows and AABBs swapped in; it goes through K1)."""
+    from .woop import intersect_woop_any
+
+    vis = ~intersect_woop_any(accel, o, d, offset, t_max, sort_rays=sort_rays)
+    if tex is not None and accel.woop_w_alpha is not None:
+        aacc = accel._replace(
+            woop_w=accel.woop_w_alpha,
+            cluster_lo=accel.cluster_lo_alpha,
+            cluster_hi=accel.cluster_hi_alpha,
+        )
+        vis &= ~trace_nearest(aacc, tex, o, d, offset, t_max).hit
+    return vis

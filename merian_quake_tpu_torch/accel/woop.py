@@ -1,10 +1,10 @@
-"""Woop unit-triangle intersection: host precompute + the K1 CUDA kernel.
+"""Woop unit-triangle intersection: host precompute + the K1 and K2 kernels.
 
-Port of merian_quake_tpu/accel/woop.py for the nearest-hit path. Each
-triangle stores the affine map M = [e1 e2 n]^-1, b = -M·v0 that takes
-world points to (u, v, signed-dist) space (Woop et al., JCGT 2013, the
-affine variant); the hit test on the transformed origin/direction is
-division-free.
+Port of merian_quake_tpu/accel/woop.py for the nearest-hit and any-hit
+(visibility) paths. Each triangle stores the affine map
+M = [e1 e2 n]^-1, b = -M·v0 that takes world points to (u, v,
+signed-dist) space (Woop et al., JCGT 2013, the affine variant); the hit
+test on the transformed origin/direction is division-free.
 
 - ``build_woop`` / ``bake_candidacy``: host tables (numpy).
 - ``woop_nearest``: the wrapper of K1, ``csrc/woop_nearest.cu`` — the
@@ -15,6 +15,11 @@ division-free.
   sweep over every triangle, same epilogue and tie rule).
 - ``intersect_woop``: the HitRecord-level entry point: optional coherence
   sort of bounce rays, packing, K1, un-sort, exact t/u/v recompute.
+- ``woop_any``: the wrapper of K2, ``csrc/woop_any.cu`` — the same TPU
+  kernel with its any-hit epilogue (occlusion only), with
+  ``intersect_woop_any_reference`` as its plain version and
+  ``intersect_woop_any`` (shadow table, proxy pre-pass) as its entry
+  point.
 
 The TPU schedule knobs of the reference (visit groups, sub-gates,
 compaction, fine tables, target keys, node levels, partitioned sweeps)
@@ -210,11 +215,61 @@ def intersect_woop_reference(rays: torch.Tensor, w: torch.Tensor):
     return out_t, out_tri
 
 
-def _kernel_lib():
+def intersect_woop_any_reference(rays: torch.Tensor, w: torch.Tensor, occluded_in=None):
+    """Plain PyTorch version of K2: dense any-hit sweep over every triangle.
+
+    rays f32[8, n], w f32[3T, 8] → occluded bool[n]: some pair passes the
+    any-hit epilogue of the TPU kernel (woop.py:786-807 of the JAX
+    package), every term ≥ 0:
+        U, V, (dz − U) − V, dz − 1e-12, z0n − t_min·dz, t_max·dz − z0n.
+    A NaN term rejects its pair. ``occluded_in`` (bool[n]) is OR-ed in:
+    a warm start from an earlier sweep. Arithmetic in the kernel's order;
+    chunked over rays like :func:`intersect_woop_reference`.
+    """
+    max_pairs = 1 << 26 if rays.is_cuda else 1 << 24
+    n = rays.shape[1]
+    T = w.shape[0] // 3
+    C = CLUSTER_SIZE
+    rows = w.reshape(T // C, 3, C, 8)[..., :4].permute(1, 0, 2, 3).reshape(3, T, 4)
+    out = torch.empty(n, dtype=torch.bool, device=rays.device)
+    step = max(1, max_pairs // max(T, 1))
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        o = rays[0:3, s:e].T[:, :, None]  # (R, 3, 1)
+        d = rays[3:6, s:e].T[:, :, None]
+        t_min = rays[6, s:e][:, None]
+        t_max = rays[7, s:e][:, None]
+
+        def affine(a):  # a: (T, 4) → origin and direction images (R, T)
+            po = o[:, 0] * a[:, 0] + o[:, 1] * a[:, 1] + o[:, 2] * a[:, 2] + a[:, 3]
+            pd = d[:, 0] * a[:, 0] + d[:, 1] * a[:, 1] + d[:, 2] * a[:, 2]
+            return po, pd
+
+        u0, du = affine(rows[0])
+        v0, dv = affine(rows[1])
+        z0, dz = affine(rows[2])
+        z0n = -z0
+        U = u0 * dz - z0 * du
+        V = v0 * dz - z0 * dv
+        ok = (
+            (U >= 0.0)
+            & (V >= 0.0)
+            & (dz - U - V >= 0.0)
+            & (dz - 1e-12 >= 0.0)
+            & (z0n - t_min * dz >= 0.0)
+            & (t_max * dz - z0n >= 0.0)
+        )
+        out[s:e] = ok.any(1)
+    if occluded_in is not None:
+        out |= occluded_in
+    return out
+
+
+def _kernel_lib(name):
     from ..kernels import load_library
 
-    lib = load_library("woop_nearest")
-    fn = lib.mq_woop_nearest
+    lib = load_library(name)
+    fn = getattr(lib, f"mq_{name}")
     if fn.argtypes is None:
         p = ctypes.c_void_p
         fn.argtypes = [p, ctypes.c_int64, p, p, p, ctypes.c_int, ctypes.c_int,
@@ -234,16 +289,8 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def woop_nearest(rays, w, cluster_lo, cluster_hi):
-    """K1: nearest front-facing hit per ray. Returns (t f32[n_pad],
-    tri i32[n_pad]); t = BIG and tri = -1 on a miss.
-
-    rays f32[8, n_pad] (o.xyz, d.xyz, t_min, t_max), n_pad a multiple of
-    RAY_BLOCK; w f32[3T, 8]; cluster_lo/hi f32[nc, 3], the AABBs of the
-    per-ray gate. On CUDA tensors this launches csrc/woop_nearest.cu and
-    counts the launch in ``woop_nearest.launches``; on CPU tensors it
-    runs :func:`intersect_woop_reference`.
-    """
+def _check_k_inputs(rays, w, cluster_lo, cluster_hi):
+    """Validate the arguments K1 and K2 share; returns n_pad."""
     dev = rays.device
     n_pad = rays.shape[1] if rays.dim() == 2 else -1
     T = w.shape[0] // 3
@@ -254,18 +301,33 @@ def woop_nearest(rays, w, cluster_lo, cluster_hi):
     _check("w", w, torch.float32, (3 * nc * CLUSTER_SIZE, 8), dev)
     _check("cluster_lo", cluster_lo, torch.float32, (nc, 3), dev)
     _check("cluster_hi", cluster_hi, torch.float32, (nc, 3), dev)
-    if dev.type == "cpu":
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return n_pad
+
+
+def woop_nearest(rays, w, cluster_lo, cluster_hi):
+    """K1: nearest front-facing hit per ray. Returns (t f32[n_pad],
+    tri i32[n_pad]); t = BIG and tri = -1 on a miss.
+
+    rays f32[8, n_pad] (o.xyz, d.xyz, t_min, t_max), n_pad a multiple of
+    RAY_BLOCK; w f32[3T, 8]; cluster_lo/hi f32[nc, 3], the AABBs of the
+    per-ray gate. On CUDA tensors this launches csrc/woop_nearest.cu and
+    counts the launch in ``woop_nearest.launches``; on CPU tensors it
+    runs :func:`intersect_woop_reference`.
+    """
+    n_pad = _check_k_inputs(rays, w, cluster_lo, cluster_hi)
+    if rays.device.type == "cpu":
         return intersect_woop_reference(rays, w)
-    if dev.type != "cuda":
-        raise ValueError(f"woop_nearest: unsupported device {dev}")
+    dev = rays.device
     out_t = torch.empty(n_pad, dtype=torch.float32, device=dev)
     out_tri = torch.empty(n_pad, dtype=torch.int32, device=dev)
-    fn = _kernel_lib()
+    fn = _kernel_lib("woop_nearest")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             rays.data_ptr(), n_pad, w.data_ptr(), cluster_lo.data_ptr(),
-            cluster_hi.data_ptr(), nc, RAY_BLOCK, out_t.data_ptr(),
+            cluster_hi.data_ptr(), cluster_lo.shape[0], RAY_BLOCK, out_t.data_ptr(),
             out_tri.data_ptr(), stream,
         )
     if err != 0:
@@ -275,6 +337,40 @@ def woop_nearest(rays, w, cluster_lo, cluster_hi):
 
 
 woop_nearest.launches = 0
+
+
+def woop_any(rays, w, cluster_lo, cluster_hi, occluded_in=None):
+    """K2: is each ray occluded? Returns bool[n_pad].
+
+    Arguments as :func:`woop_nearest`'s (``w`` is the shadow, proxy or
+    full table); ``occluded_in`` (bool[n_pad] or None) marks rays already
+    known to be occluded. On CUDA tensors this launches
+    csrc/woop_any.cu and counts the launch in ``woop_any.launches``; on
+    CPU tensors it runs :func:`intersect_woop_any_reference`.
+    """
+    n_pad = _check_k_inputs(rays, w, cluster_lo, cluster_hi)
+    if occluded_in is not None:
+        _check("occluded_in", occluded_in, torch.bool, (n_pad,), rays.device)
+    if rays.device.type == "cpu":
+        return intersect_woop_any_reference(rays, w, occluded_in)
+    dev = rays.device
+    out = torch.empty(n_pad, dtype=torch.bool, device=dev)
+    fn = _kernel_lib("woop_any")
+    occ_ptr = None if occluded_in is None else occluded_in.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            rays.data_ptr(), n_pad, w.data_ptr(), cluster_lo.data_ptr(),
+            cluster_hi.data_ptr(), cluster_lo.shape[0], RAY_BLOCK, occ_ptr,
+            out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"woop_any kernel launch failed: CUDA error {err}")
+    woop_any.launches += 1
+    return out
+
+
+woop_any.launches = 0
 
 
 def sort_perm(accel, o, d, t_max_b):
@@ -290,6 +386,41 @@ def k1_inputs(accel, o, d, t_min_b, t_max_b):
     rays = _pack_rays(o, d, t_min_b, t_max_b, RAY_BLOCK)
     lo, hi = _pad_bounds(accel.cluster_lo, accel.cluster_hi)
     return rays, accel.woop_w, lo.contiguous(), hi.contiguous()
+
+
+def k2_inputs(accel, o, d, t_min_b, t_max_b):
+    """Arguments of :func:`woop_any` for rays in the given order: packed
+    rays, then (table, padded bounds) for the proxy pre-pass (None when
+    the scene has no proxy table) and for the shadow sweep."""
+    rays = _pack_rays(o, d, t_min_b, t_max_b, RAY_BLOCK)
+    pad = lambda lo, hi: tuple(x.contiguous() for x in _pad_bounds(lo, hi))
+    proxy = None
+    if accel.woop_w_proxy is not None:
+        proxy = (accel.woop_w_proxy, *pad(accel.cluster_lo_proxy, accel.cluster_hi_proxy))
+    w = accel.woop_w if accel.woop_w_shadow is None else accel.woop_w_shadow
+    return rays, proxy, (w, *pad(accel.cluster_lo, accel.cluster_hi))
+
+
+def intersect_woop_any(accel, o, d, t_min, t_max, sort_rays: bool = False):
+    """Occlusion-only visibility sweep through K2: bool[n] ``occluded``.
+
+    Uses the shadow table (sky and alpha-tested triangles zeroed; the
+    full table when absent). When the scene has a proxy table, a K2
+    sweep over it runs first and its result warm-starts the shadow
+    sweep: proxy triangles are genuine occluders, so this changes no
+    result, only how many rays the second sweep still tests.
+    ``sort_rays`` bins the rays as :func:`intersect_woop` does.
+    """
+    n = o.shape[0]
+    t_min_b = as_f32(t_min, o).expand(n).contiguous()
+    t_max_b = as_f32(t_max, o).expand(n).contiguous()
+    if sort_rays and n >= RAY_BLOCK:
+        perm = sort_perm(accel, o, d, t_max_b)
+        occ = intersect_woop_any(accel, o[perm], d[perm], t_min_b[perm], t_max_b[perm])
+        return torch.empty_like(occ).index_copy_(0, perm, occ)
+    rays, proxy, shadow = k2_inputs(accel, o, d, t_min_b, t_max_b)
+    occ = None if proxy is None else woop_any(rays, *proxy)
+    return woop_any(rays, *shadow, occ)[:n]
 
 
 def intersect_woop(accel, o, d, t_min, t_max, sort_rays: bool = False):

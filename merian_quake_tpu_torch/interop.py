@@ -1,0 +1,90 @@
+"""Carry host arrays into the port's containers.
+
+Each ``*_from_numpy`` takes a container of the JAX package's layout (a
+NamedTuple with the same field names, holding anything ``np.asarray``
+reads: numpy arrays, JAX arrays, lists) and returns the port's
+container with every tensor on ``device``. Nothing here imports JAX:
+a JAX array is read through ``np.asarray`` like any other array.
+
+Types follow the port's conventions: u32 values (octahedral codes,
+reservoir flags, the uniforms' ``frame`` and ``player``) become int64
+tensors or Python ints, bfloat16 stays bfloat16 (through float32, which
+holds every bfloat16 value exactly).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.types import Scene, TextureAtlas, Uniforms
+
+
+def tensor(x, device="cpu") -> torch.Tensor:
+    """One array as a tensor on ``device``: u32 → int64, bfloat16 kept.
+    The data is copied: the tensor never shares the caller's buffer."""
+    a = np.array(x, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.from_numpy(a).to(device)
+
+
+def scene_from_numpy(scene, device="cpu") -> Scene:
+    return Scene(*[tensor(getattr(scene, f), device) for f in Scene._fields])
+
+
+def atlas_from_numpy(atlas, device="cpu") -> TextureAtlas:
+    return TextureAtlas(
+        data=tensor(atlas.data, device),
+        table=tensor(atlas.table, device),
+        mips=tuple(tensor(m, device) for m in atlas.mips),
+        flat=None if atlas.flat is None else tensor(atlas.flat, device),
+    )
+
+
+def uniforms_from_numpy(uniforms, device="cpu") -> Uniforms:
+    as_int = ("frame", "player")
+    return Uniforms(**{
+        f: int(np.asarray(getattr(uniforms, f))) if f in as_int
+        else tensor(getattr(uniforms, f), device)
+        for f in Uniforms._fields
+    })
+
+
+def gbuffer_from_numpy(gbuf, device="cpu"):
+    from .render.gbuffer import GBufferOutput
+    from .render.hit import CompressedHit
+
+    hits = CompressedHit(*[tensor(getattr(gbuf.hits, f), device) for f in CompressedHit._fields])
+    return GBufferOutput(**{
+        f: hits if f == "hits" else tensor(getattr(gbuf, f), device)
+        for f in GBufferOutput._fields
+    })
+
+
+def restir_state_from_numpy(state, device="cpu"):
+    from .render.restir import ReSTIRState
+    from .render.restir.reservoir import Reservoir
+
+    res = Reservoir(*[tensor(getattr(state.reservoirs, f), device) for f in Reservoir._fields])
+    return ReSTIRState(
+        reservoirs=res,
+        prev_normal=tensor(state.prev_normal, device),
+        prev_linear_z=tensor(state.prev_linear_z, device),
+    )
+
+
+def frame_state_from_numpy(state, device="cpu"):
+    """The accumulators, the frame count and, where present, the ReSTIR
+    state of a frame state."""
+    from .renderer import FrameState
+
+    restir = getattr(state, "restir", None)
+    return FrameState(
+        accum_irradiance=tensor(state.accum_irradiance, device),
+        accum_direct=tensor(state.accum_direct, device),
+        accum_albedo=tensor(state.accum_albedo, device),
+        iteration=int(np.asarray(state.iteration)),
+        restir=None if restir is None else restir_state_from_numpy(restir, device),
+    )

@@ -43,24 +43,37 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
 
 
-@functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and load it.
-
-    The compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside the library as ``<lib>.log``.
-    """
-    so = library_path(name)
-    if not os.path.exists(so):
+def build_libraries(*names: str) -> None:
+    """Compile the named sources that are not built yet, one ``nvcc`` per
+    source, all started together. The compiler's output (``-Xptxas -v``:
+    registers, shared memory, spills) is kept beside each library as
+    ``<lib>.log``. Raises if any build fails."""
+    started = []
+    for name in names:
+        so = library_path(name)
+        if os.path.exists(so):
+            continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        started.append((name, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )))
+    failed = []
+    for name, so, tmp, proc in started:
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {name}.cu ({proc.returncode}):\n{proc.stderr}"
-            )
+            failed.append(f"nvcc failed for {name}.cu ({proc.returncode}):\n{err}")
+            continue
         with open(so + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write(out + err)
         os.replace(tmp, so)
-    return ctypes.CDLL(so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if needed and load it."""
+    build_libraries(name)
+    return ctypes.CDLL(library_path(name))

@@ -1,9 +1,11 @@
 """The frame: gbuffer → integrator → accumulate → exposure → tonemap.
 
-Port of merian_quake_tpu/renderer.py for the path-traced frame without
-denoise. PyTorch runs eagerly, so ``render_frame`` is ``frame_core``
-over the whole image; the state's accumulators are updated out of
-place, like the JAX package's.
+Port of merian_quake_tpu/renderer.py for the path-traced (``pt``) and
+ReSTIR DI (``restir``) frames without denoise. PyTorch runs eagerly, so
+``render_frame`` is ``frame_core`` over the whole image; the state is
+updated out of place, like the JAX package's. The integrator's config
+goes under the JAX package's keyword ``mcpg_config`` (a ReSTIRConfig
+for ``restir``), so that call sites map one to one.
 """
 from __future__ import annotations
 
@@ -23,9 +25,9 @@ from .render.pt import render_pt
 # ROADMAP.md "Modules to port" items for the paths not ported yet
 _NOT_PORTED = {
     "mcpg": "ROADMAP.md item 5 (MCPG surface path)",
-    "restir": "ROADMAP.md item 11 (ReSTIR and SSMM)",
     "ssmm": "ROADMAP.md item 11 (ReSTIR and SSMM)",
 }
+_PORTED = ("pt", "restir")
 
 
 class FrameState(NamedTuple):
@@ -35,6 +37,7 @@ class FrameState(NamedTuple):
     accum_direct: torch.Tensor  # f32[H, W, 4] first-hit emission
     accum_albedo: torch.Tensor  # f32[H, W, 4]
     iteration: int
+    restir: object = None  # ReSTIRState when integrator == "restir"
 
 
 def _check_supported(config: RenderConfig) -> None:
@@ -43,19 +46,25 @@ def _check_supported(config: RenderConfig) -> None:
             "denoise=True is not ported yet: ROADMAP.md item 9 "
             "(denoise and beauty chain)"
         )
-    if config.integrator != "pt":
+    if config.integrator not in _PORTED:
         raise NotImplementedError(
             f"integrator {config.integrator!r} is not ported yet: "
             + _NOT_PORTED.get(config.integrator, "unknown integrator")
         )
 
 
-def init_state(config: RenderConfig, device="cpu") -> FrameState:
+def init_state(config: RenderConfig, mcpg_config=None, device="cpu") -> FrameState:
     _check_supported(config)
     H, W = config.height, config.width
     z = lambda: torch.zeros((H, W, 4), device=device)
+    restir = None
+    if config.integrator == "restir":
+        from .render.restir import init_restir_state
+
+        restir = init_restir_state(W, H, device=device)
     return FrameState(
-        accum_irradiance=z(), accum_direct=z(), accum_albedo=z(), iteration=0
+        accum_irradiance=z(), accum_direct=z(), accum_albedo=z(), iteration=0,
+        restir=restir,
     )
 
 
@@ -65,18 +74,29 @@ def frame_core(
     uniforms: Uniforms,
     config: RenderConfig,
     state: FrameState,
+    mcpg_config=None,
 ):
     """One frame. Returns (new_state, outputs) with outputs
     {"hdr", "ldr", "irradiance", "gbuffer"}."""
     _check_supported(config)
     gbuf = render_gbuffer(accel, atlas, uniforms, config)
-    irr = render_pt(accel, atlas, uniforms, config, gbuf)
+    new_restir = state.restir
+    if config.integrator == "restir":
+        from .render.restir import ReSTIRConfig, render_restir
+
+        irr, new_restir = render_restir(
+            accel, atlas, uniforms, config, mcpg_config or ReSTIRConfig(),
+            state.restir, gbuf,
+        )
+    else:
+        irr = render_pt(accel, atlas, uniforms, config, gbuf)
     it = state.iteration
     new_state = FrameState(
         accum_irradiance=accumulate(state.accum_irradiance, irr, it),
         accum_direct=accumulate(state.accum_direct, gbuf.irradiance, it),
         accum_albedo=accumulate(state.accum_albedo, gbuf.albedo, it),
         iteration=it + 1,
+        restir=new_restir,
     )
     beauty_hdr = (
         new_state.accum_irradiance[..., :3]
@@ -98,13 +118,15 @@ def render_frame(
     uniforms: Uniforms,
     config: RenderConfig,
     state: FrameState,
+    mcpg_config=None,
 ):
     """One full frame on one device. Returns (new_state, outputs)."""
-    return frame_core(accel, atlas, uniforms, config, state)
+    return frame_core(accel, atlas, uniforms, config, state, mcpg_config=mcpg_config)
 
 
 def render_sequence(
-    bundle: SceneBundle, config: RenderConfig, frames: int = 1, device="cpu"
+    bundle: SceneBundle, config: RenderConfig, frames: int = 1, mcpg_config=None,
+    device="cpu",
 ):
     """Render ``frames`` frames of a static scene on ``device``,
     returning the final (state, outputs)."""
@@ -114,10 +136,12 @@ def render_sequence(
     config = config._replace(
         features=scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
     )
-    state = init_state(config, device=device)
+    state = init_state(config, mcpg_config, device=device)
     uniforms = bundle.uniforms
     outputs = None
     for i in range(frames):
         uniforms = uniforms._replace(frame=i)
-        state, outputs = render_frame(accel, bundle.atlas, uniforms, config, state)
+        state, outputs = render_frame(
+            accel, bundle.atlas, uniforms, config, state, mcpg_config
+        )
     return state, outputs

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's 1080p path-traced frame.
+"""Where the time goes in the PyTorch port's 1080p frame.
 
-    python3 scripts/profile_torch_frame.py [--frames 2] [--out profiling]
+    python3 scripts/profile_torch_frame.py [--integrator pt|restir] [--frames 2] [--out profiling]
 
-Needs one CUDA device. On procedural ``city`` at 1920×1080, 2 spp, max
-path length 3 (chip_smoke.py's configuration) it measures:
+Needs one CUDA device. On procedural ``city`` at 1920×1080 with
+chip_smoke.py's configurations (``pt``: 2 spp, max path length 3;
+``restir``: ``ReSTIRConfig()``) it measures:
 
-1. host ms per stage of a steady frame (gbuffer, path tracer, and the
+1. host ms per stage of a steady frame (gbuffer, the integrator, and the
    rest of the frame = accumulate, exposure, tonemap), each stage ended
-   by a device sync inside one frame;
+   by a device sync inside one frame; for ``restir`` also the share of
+   its traces (``trace_ray`` of the generate pass, ``trace_visibility``
+   of the shade pass);
 2. a ``torch.profiler`` trace of ``--frames`` steady frames: device time
    against the host clock (the device's busy share), and device time by
    op, the K1 kernel (``woop_nearest_kernel``) among them;
@@ -16,10 +19,11 @@ path length 3 (chip_smoke.py's configuration) it measures:
    sort_rays=True)``: key, sort, gathers, scatter back) against none, on
    one 2,073,600-ray bounce population: the whole trace and K1 alone,
    timed with CUDA events in turns (sort, none, none, sort); then the
-   whole frame with each, in the same turns, 5 steady frames a turn.
+   whole frame with each, in the same turns, 5 steady frames a turn
+   (``pt`` only).
 
 Prints one line per measurement and the card's name and power limit;
-the full op table goes to ``<out>/profile_frame.txt``.
+the full op table goes to ``<out>/profile_frame_<integrator>.txt``.
 """
 from __future__ import annotations
 
@@ -41,6 +45,8 @@ from merian_quake_tpu_torch.accel.build import scene_features  # noqa: E402
 from merian_quake_tpu_torch.models.procedural import city  # noqa: E402
 from merian_quake_tpu_torch.models.types import RenderConfig  # noqa: E402
 from merian_quake_tpu_torch import renderer  # noqa: E402
+from merian_quake_tpu_torch.render import restir as restir_pkg  # noqa: E402
+from merian_quake_tpu_torch.render.restir import restir as restir_mod  # noqa: E402
 from merian_quake_tpu_torch.renderer import init_state, render_frame  # noqa: E402
 
 W, H, SPP, MPL = chip_smoke.W, chip_smoke.H, chip_smoke.SPP, chip_smoke.MPL
@@ -56,9 +62,10 @@ def host_ms(fn):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--integrator", choices=("pt", "restir"), default="pt")
     ap.add_argument("--frames", type=int, default=2, help="frames in the profile")
     ap.add_argument("--out", default=os.path.join(ROOT, "profiling"),
-                    help="directory for profile_frame.txt")
+                    help="directory for profile_frame_<integrator>.txt")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_frame: no CUDA device")
@@ -72,40 +79,56 @@ def main() -> int:
     bundle = city(device=dev)
     accel = build_accel(bundle.scene, bundle.atlas)
     feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
-    config = RenderConfig(width=W, height=H, spp=SPP, max_path_length=MPL, features=feats)
-    state = init_state(config, device=dev)
+    config = RenderConfig(width=W, height=H, spp=SPP, max_path_length=MPL, features=feats,
+                          integrator=args.integrator)
+    rcfg = restir_pkg.ReSTIRConfig() if args.integrator == "restir" else None
+    state = init_state(config, rcfg, device=dev)
     u = bundle.uniforms
     frame = 0
 
     def step():
         nonlocal state, frame
-        state, _ = render_frame(accel, bundle.atlas, u._replace(frame=frame), config, state)
+        state, _ = render_frame(accel, bundle.atlas, u._replace(frame=frame), config, state, rcfg)
         frame += 1
 
     for _ in range(2):  # warm up: kernel build, allocator, first launches
         step()
 
     # ---- 1: host ms per stage ----
-    stages = {"gbuffer": [], "pt": [], "rest": []}
-    stage_fns = {"gbuffer": renderer.render_gbuffer, "pt": renderer.render_pt}
+    # (module, attribute) of each timed stage; the integrator's traces are
+    # timed inside the integrator stage and are part of it
+    top = {"gbuffer": (renderer, "render_gbuffer")}
+    inner = {}
+    if args.integrator == "pt":
+        top["pt"] = (renderer, "render_pt")
+    else:
+        top["restir"] = (restir_pkg, "render_restir")
+        inner = {"restir trace_ray": (restir_mod, "trace_ray"),
+                 "restir trace_visibility": (restir_mod, "trace_visibility")}
+    stage_fns = {k: (mod, name, getattr(mod, name)) for k, (mod, name) in {**top, **inner}.items()}
+    stages = {k: [] for k in stage_fns}
+    stages["rest"] = []
 
-    def timed(key):
+    def timed(key, fn):
         def run(*a, **k):
-            out, ms = host_ms(lambda: stage_fns[key](*a, **k))
+            out, ms = host_ms(lambda: fn(*a, **k))
             stages[key].append(ms)
             return out
         return run
 
     try:
-        for key in stage_fns:
-            setattr(renderer, f"render_{key}", timed(key))
+        for key, (mod, name, fn) in stage_fns.items():
+            setattr(mod, name, timed(key, fn))
         for _ in range(3):
+            n_inner = {k: len(stages[k]) for k in inner}
             _, f_ms = host_ms(step)
-            stages["rest"].append(f_ms - stages["gbuffer"][-1] - stages["pt"][-1])
+            for k in inner:  # one entry per frame: the sum of its calls
+                stages[k][n_inner[k]:] = [sum(stages[k][n_inner[k]:])]
+            stages["rest"].append(f_ms - sum(stages[k][-1] for k in top))
     finally:
-        for key, fn in stage_fns.items():
-            setattr(renderer, f"render_{key}", fn)
-    print(f"stages [{smi}]: " + ", ".join(
+        for mod, name, fn in stage_fns.values():
+            setattr(mod, name, fn)
+    print(f"stages {args.integrator} [{smi}]: " + ", ".join(
         f"{k} {np.mean(v):.2f} ms" for k, v in stages.items()) + " (host clock, mean of 3)",
         flush=True)
 
@@ -128,7 +151,7 @@ def main() -> int:
     on_dev = [e for e in rows if e.device_type.name != "CPU"]
     ops = [e for e in rows if e.device_type.name == "CPU" and dev_us(e) > 0]
     total_ms = sum(dev_us(e) for e in on_dev) / 1e3
-    print(f"profile [{smi}]: {args.frames} frames, wall {wall_ms:.1f} ms, device "
+    print(f"profile {args.integrator} [{smi}]: {args.frames} frames, wall {wall_ms:.1f} ms, device "
           f"{total_ms:.1f} ms, busy {total_ms / wall_ms:.3f}, "
           f"{sum(e.count for e in on_dev)} device kernels/copies", flush=True)
     for kind, sel in (("op", ops[:12]), ("kernel", on_dev[:8])):
@@ -136,9 +159,12 @@ def main() -> int:
             print(f"  {kind:6s} {dev_us(e) / 1e3:9.2f} ms {dev_us(e) / 1e3 / total_ms:6.1%} "
                   f"x{e.count:<6d} {e.key[:90]}")
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_frame.txt"), "w") as f:
+    with open(os.path.join(args.out, f"profile_frame_{args.integrator}.txt"), "w") as f:
         f.write(f"{smi}\n")
         f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=80))
+
+    if args.integrator != "pt":
+        return 0
 
     # ---- 3: bounce sort vs none ----
     bo, bd, bt = chip_smoke.bounce_rays(bundle, accel, config, dev)

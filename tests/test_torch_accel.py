@@ -8,13 +8,22 @@ to f32). Hits: triangle ids are equal wherever the nearest t is unique,
 and t agrees as in tests/test_accel.py (rtol 1e-4, atol 1e-3): XLA fuses
 multiply-adds on the CPU and PyTorch does not.
 
-The CUDA kernel itself cannot run here; its traversal schedule (every
-cluster in index order behind a per-ray AABB gate with a slack limit)
-is modelled in torch below and must give exactly the dense plain
-version's result.
-The kernel is compared with the plain version on the card by the
-``cuda``-marked test and by chip_smoke.py.
+The CUDA kernels cannot run here; their traversal schedules (every
+cluster in index order behind a per-ray AABB gate with a slack limit;
+for K2 also occluded rays dropping out and a warm start) are modelled
+in torch below and must give exactly the dense plain versions' results.
+The kernels are compared with the plain versions on the card by the
+``cuda``-marked tests and by chip_smoke.py.
+
+Any-hit (K2): the shadow, alpha-only and proxy tables are built as the
+JAX package builds them (zero-row masks and AABBs exact, rows to
+rtol 1e-6). The plain K2 agrees with the JAX kernel in interpret mode
+and with the oracle's occlusion on every ray except those whose nearest
+hit lies within 1e-3·max(t_max, 1) of t_max, as in tests/test_accel.py
+(the any-hit test is premultiplied by dz; the oracle divides).
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,15 +32,19 @@ import torch
 from merian_quake_tpu.accel import build_accel as j_build_accel
 from merian_quake_tpu.accel import intersect as j_intersect
 from merian_quake_tpu.accel import trace_nearest as j_trace_nearest
+from merian_quake_tpu.accel.intersect import trace_visibility as j_trace_visibility
 from merian_quake_tpu.accel import woop as j_woop
 from merian_quake_tpu.models import materials
 from merian_quake_tpu.models import procedural as j_procedural
 from merian_quake_tpu.models.types import build_scene_from_soup as j_soup
+from merian_quake_tpu_torch import interop
 from merian_quake_tpu_torch.accel import build_accel, intersect, trace_nearest, woop
+from merian_quake_tpu_torch.accel.intersect import trace_visibility
 from merian_quake_tpu_torch.models import procedural
-from merian_quake_tpu_torch.models.types import (
-    Scene, TextureAtlas, build_scene_from_soup,
-)
+from merian_quake_tpu_torch.models.types import build_scene_from_soup
+
+# the module (the package's ``intersect`` attribute is the function)
+intersect_mod = importlib.import_module("merian_quake_tpu_torch.accel.intersect")
 
 # The suite runs several test processes side by side on a few cores;
 # torch would start one thread per core in each and oversubscribe them.
@@ -42,18 +55,6 @@ T_RTOL, T_ATOL = 1e-4, 1e-3
 
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def _port_scene(j_scene):
-    return Scene(*[torch.from_numpy(np.array(a)) for a in j_scene])
-
-
-def _port_atlas(j_atlas):
-    t = lambda a: torch.from_numpy(np.array(a))
-    return TextureAtlas(
-        data=t(j_atlas.data), table=t(j_atlas.table),
-        mips=tuple(t(m) for m in j_atlas.mips), flat=t(j_atlas.flat),
-    )
 
 
 def _random_soup(rng, n_tri=256, spread=8.0):
@@ -209,8 +210,8 @@ def test_trace_nearest_alpha_grate():
     the JAX package's procedural code and handed over as arrays)."""
     jb = j_procedural.outdoor_court()
     ja = j_build_accel(jb.scene, jb.atlas)
-    atlas = _port_atlas(jb.atlas)
-    ta = build_accel(_port_scene(jb.scene), atlas)
+    atlas = interop.atlas_from_numpy(jb.atlas)
+    ta = build_accel(interop.scene_from_numpy(jb.scene), atlas)
     ys = np.linspace(110, 290, 64)
     o = np.asarray([[600.0, y, 80.0] for y in ys], np.float32)
     d = np.broadcast_to(np.asarray([1.0, 0.0, 0.0], np.float32), (64, 3)).copy()
@@ -358,3 +359,342 @@ def test_k1_kernel_matches_plain_version_on_card(rng):
     t_r, tri_r = woop.intersect_woop_reference(args[0], args[1])
     torch.testing.assert_close(tri_k, tri_r, rtol=0, atol=0)
     torch.testing.assert_close(t_k, t_r, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------------ K2
+
+
+def _mixed_soup(rng, t=4096, sky_share=0.0):
+    """test_accel.py:376's soup: mixed scales, so that the proxy table
+    really selects the big triangles; optionally some sky triangles."""
+    c = rng.uniform(-40, 40, (t, 1, 3))
+    scale = rng.uniform(0.5, 2.0, (t, 1, 1)) * np.where(rng.uniform(size=(t, 1, 1)) < 0.05, 12.0, 1.0)
+    tri = (c + rng.uniform(-1, 1, (t, 3, 3)) * scale).astype(np.float32)
+    flags = np.where(rng.uniform(size=t) < sky_share, materials.MAT_FLAGS_SKY, 0).astype(np.int32)
+    return tri[:, 0], tri[:, 1], tri[:, 2], flags
+
+
+def _shadow_rays(rng, n=512, lo=-60, hi=60):
+    """test_accel.py:317's rays: random origins and directions, per-ray
+    t_max in [1, 200]."""
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d, rng.uniform(1.0, 200.0, (n,)).astype(np.float32)
+
+
+def _clear_of_band(ta, o, d, t_max):
+    """Oracle occlusion, and the rays outside the t_max boundary band."""
+    ho = intersect(ta, torch.from_numpy(o), torch.from_numpy(d), 1e-3, torch.from_numpy(t_max))
+    oh, tt = _np(ho.tri) >= 0, _np(ho.t)
+    return oh, ~oh | (np.abs(tt - t_max) > 1e-3 * np.maximum(t_max, 1.0))
+
+
+def _assert_table(ours, ref, exact=False):
+    assert (ours is None) == (ref is None)
+    if ours is None:
+        return
+    ref = np.asarray(ref)
+    ours = _np(ours)
+    assert ours.shape == ref.shape
+    np.testing.assert_array_equal((ours == 0).all(-1), (ref == 0).all(-1))  # masks
+    if exact:
+        np.testing.assert_array_equal(ours, ref)
+    else:
+        np.testing.assert_allclose(ours, ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("name", ["city", "soup", "court"])
+def test_anyhit_tables_match_jax(rng, name):
+    if name == "city":
+        ja = j_build_accel(*j_procedural.city()[:2])
+        ta = build_accel(*procedural.city()[:2])
+    elif name == "soup":  # proxy + sky-zeroed shadow rows, no alpha
+        v0, v1, v2, flags = _mixed_soup(rng, sky_share=0.05)
+        ja = j_build_accel(j_soup(v0, v1, v2, flags=flags))
+        ta = build_accel(build_scene_from_soup(v0, v1, v2, flags=flags))
+    else:  # alpha grates, sky walls; built by the JAX package, carried across
+        jb = j_procedural.outdoor_court()
+        ja = j_build_accel(jb.scene, jb.atlas)
+        ta = build_accel(interop.scene_from_numpy(jb.scene), interop.atlas_from_numpy(jb.atlas))
+    assert (ta.woop_w_shadow is ta.woop_w) == (ja.woop_w_shadow is ja.woop_w)
+    _assert_table(ta.woop_w_shadow, ja.woop_w_shadow)
+    _assert_table(ta.woop_w_alpha, ja.woop_w_alpha)
+    _assert_table(ta.cluster_lo_alpha, ja.cluster_lo_alpha, exact=True)
+    _assert_table(ta.cluster_hi_alpha, ja.cluster_hi_alpha, exact=True)
+    _assert_table(ta.woop_w_proxy, ja.woop_w_proxy)
+    _assert_table(ta.cluster_lo_proxy, ja.cluster_lo_proxy, exact=True)
+    _assert_table(ta.cluster_hi_proxy, ja.cluster_hi_proxy, exact=True)
+    expect = {"city": (False, False, True), "soup": (False, False, True), "court": (False, True, False)}
+    has = (ta.woop_w_shadow is ta.woop_w, ta.woop_w_alpha is not None, ta.woop_w_proxy is not None)
+    assert has == expect[name]
+
+
+def test_k2_plain_matches_jax_anyhit_and_oracle(rng):
+    """Twin of test_accel.py:317: no sky or alpha, so K2 and the oracle
+    mean the same; per-ray t_max and rays that miss everything."""
+    v0, v1, v2 = _random_soup(rng)
+    ja = j_build_accel(j_soup(v0, v1, v2))
+    ta = build_accel(build_scene_from_soup(v0, v1, v2))
+    assert ta.woop_w_shadow is ta.woop_w and ta.woop_w_proxy is None
+    o, d, t_max = _shadow_rays(rng)
+    ref = np.asarray(j_woop.intersect_woop_any(
+        ja, jnp.asarray(o), jnp.asarray(d), 1e-3, jnp.asarray(t_max), ray_block=256, interpret=True,
+    ))
+    ours = _np(woop.intersect_woop_any(ta, torch.from_numpy(o), torch.from_numpy(d), 1e-3,
+                                       torch.from_numpy(t_max)))
+    oh, clear = _clear_of_band(ta, o, d, t_max)
+    np.testing.assert_array_equal(ours[clear], ref[clear])
+    np.testing.assert_array_equal(ours[clear], oh[clear])
+    assert oh.any() and (~oh).any() and clear.mean() > 0.95
+
+
+def test_k2_proxy_prepass_matches_jax_and_oracle(rng):
+    """Twin of test_accel.py:376 (the proxy pre-pass), plus: the pre-pass
+    changes no ray, K2(shadow, occluded_in=K2(proxy)) == K2(shadow)."""
+    v0, v1, v2, _ = _mixed_soup(rng)
+    ja = j_build_accel(j_soup(v0, v1, v2))
+    ta = build_accel(build_scene_from_soup(v0, v1, v2))
+    assert ta.woop_w_proxy is not None and ta.cluster_lo_proxy.shape[0] >= 2
+    o, d, t_max = _shadow_rays(rng, lo=-50, hi=50)
+    ref = np.asarray(j_woop.intersect_woop_any(
+        ja, jnp.asarray(o), jnp.asarray(d), 1e-3, jnp.asarray(t_max), ray_block=256, interpret=True,
+    ))
+    ot, dt, tt = (torch.from_numpy(x) for x in (o, d, t_max))
+    ours = _np(woop.intersect_woop_any(ta, ot, dt, 1e-3, tt))
+    oh, clear = _clear_of_band(ta, o, d, t_max)
+    np.testing.assert_array_equal(ours[clear], ref[clear])
+    np.testing.assert_array_equal(ours[clear], oh[clear])
+    assert oh.any() and (~oh).any()
+    rays, proxy, shadow = woop.k2_inputs(ta, ot, dt, torch.full((512,), 1e-3), tt)
+    pre = woop.woop_any(rays, *proxy)
+    assert pre.any()  # the proxy really occludes some rays
+    torch.testing.assert_close(woop.woop_any(rays, *shadow, pre), woop.woop_any(rays, *shadow), rtol=0, atol=0)
+    # the coherence-sorted path scatters results back to the same order
+    sorted_ = woop.intersect_woop_any(ta, ot, dt, 1e-3, tt, sort_rays=True)
+    np.testing.assert_array_equal(_np(sorted_), ours)
+
+
+def _sky_soup():
+    """An opaque wall at x = 20 behind a sky wall at x = 10, each
+    two-sided (one quad per facing)."""
+    quads, flags = [], []
+    for x, flag in ((10.0, materials.MAT_FLAGS_SKY), (20.0, 0)):
+        a, b, c, e = ([x, -5, -5], [x, 5, -5], [x, 5, 5], [x, -5, 5])
+        quads += [(a, e, b), (c, b, e), (a, b, e), (c, e, b)]
+        flags += [flag] * 4
+    tri = np.asarray(quads, np.float32)
+    return tri[:, 0], tri[:, 1], tri[:, 2], np.asarray(flags, np.int32)
+
+
+def test_k2_sky_quad_in_front_of_occluder():
+    """Sky passes light in K2 (its rows are zeroed in the shadow table), so
+    the wall behind it occludes; the CPU oracle commits the nearer sky hit
+    and calls the segment visible. Both are what the JAX package does."""
+    v0, v1, v2, flags = _sky_soup()
+    ja = j_build_accel(j_soup(v0, v1, v2, flags=flags))
+    ta = build_accel(build_scene_from_soup(v0, v1, v2, flags=flags))
+    assert ta.woop_w_shadow is not ta.woop_w
+    o = np.zeros((4, 3), np.float32)
+    o[:, 1:] = [[0, 0], [1, 1], [-2, 3], [4, -4]]
+    to = o + np.asarray([30.0, 0.0, 0.0], np.float32)
+    d = np.tile(np.asarray([[1.0, 0.0, 0.0]], np.float32), (4, 1))
+    t_max = np.full((4,), 30.0 - 2e-3, np.float32)
+    occ = woop.intersect_woop_any(ta, torch.from_numpy(o), torch.from_numpy(d), 1e-3, torch.from_numpy(t_max))
+    j_occ = j_woop.intersect_woop_any(ja, jnp.asarray(o), jnp.asarray(d), 1e-3, jnp.asarray(t_max),
+                                      ray_block=128, interpret=True)
+    assert bool(occ.all()) and bool(np.asarray(j_occ).all())
+    vis = trace_visibility(ta, None, torch.from_numpy(o), torch.from_numpy(to))
+    j_vis = j_trace_visibility(ja, None, jnp.asarray(o), jnp.asarray(to))
+    assert bool(vis.all()) and bool(np.asarray(j_vis).all())
+    # a segment that ends before the sky wall is visible in both
+    short = o + np.asarray([5.0, 0.0, 0.0], np.float32)
+    assert bool(trace_visibility(ta, None, torch.from_numpy(o), torch.from_numpy(short)).all())
+    assert not bool(woop.intersect_woop_any(ta, torch.from_numpy(o), torch.from_numpy(d), 1e-3, 5.0).any())
+
+
+def _model_k2(rays, w, lo, hi, occluded_in=None):
+    """torch model of csrc/woop_any.cu's schedule, one lane per ray: per
+    ray block, visit every cluster in index order; a lane tests a cluster
+    when it is not yet occluded and its slab gate (limit t_max with the
+    slack) passes; a block stops once all its lanes are occluded."""
+    nc = lo.shape[0]
+    blk = woop.RAY_BLOCK
+    nb = rays.shape[1] // blk
+    r = rays.reshape(8, nb, blk)
+    o, d, t_min, t_max = r[0:3], r[3:6], r[6], r[7]
+    inv = 1.0 / torch.where(d.abs() < 1e-20, torch.where(d >= 0, 1e-20, -1e-20), d)
+    rows = w.reshape(nc, 3, 64, 8)[..., :4]
+    occ = torch.zeros((nb, blk), dtype=torch.bool)
+    if occluded_in is not None:
+        occ = occluded_in.reshape(nb, blk).clone()
+    lim = t_max + t_max.abs() * 1e-4 + 1e-3
+    for ci in range(nc):
+        if bool(occ.all()):
+            break
+        c = torch.full((nb,), ci)
+        tn, tf = torch.zeros_like(lim), lim
+        for k in range(3):
+            t1 = (lo[c, k][:, None] - o[k]) * inv[k]
+            t2 = (hi[c, k][:, None] - o[k]) * inv[k]
+            tn = torch.maximum(tn, torch.minimum(t1, t2))
+            tf = torch.minimum(tf, torch.maximum(t1, t2))
+        reach = (tn <= tf) & ~occ
+        a = rows[c][:, :, None]  # (nb, 3, 1, 64, 4)
+
+        def img(x, i, aff):
+            p = (x[0][..., None] * a[:, i, :, :, 0] + x[1][..., None] * a[:, i, :, :, 1]
+                 + x[2][..., None] * a[:, i, :, :, 2])
+            return p + a[:, i, :, :, 3] if aff else p
+
+        u0, v0, z0 = (img(o, i, True) for i in range(3))
+        du, dv, dz = (img(d, i, False) for i in range(3))
+        z0n = -z0
+        U = u0 * dz - z0 * du
+        V = v0 * dz - z0 * dv
+        hit = ((U >= 0) & (V >= 0) & (dz - U - V >= 0) & (dz - 1e-12 >= 0)
+               & (z0n - t_min[..., None] * dz >= 0) & (t_max[..., None] * dz - z0n >= 0))
+        occ = occ | (reach & hit.any(-1))
+    return occ.reshape(-1)
+
+
+def _city_shadow_rays(bundle, accel, width=48, height=32):
+    """Gbuffer points to the hit points of one bounce each (from the
+    bounce population), and to random points in the city's bounds."""
+    from merian_quake_tpu_torch.render.gbuffer import render_gbuffer
+    from merian_quake_tpu_torch.render.hit import decompress_hit
+    from merian_quake_tpu_torch.models.types import RenderConfig
+
+    o, d, t_max = _bounce_population(bundle, accel, width, height)
+    hr = intersect(accel, o, d, 0.0, 1e4)
+    to = torch.where(hr.hit[:, None], o + d * hr.t[:, None], o + d * 500.0)
+    g = torch.Generator().manual_seed(5)
+    lo, hi = accel.world_lo, accel.world_hi
+    rnd = lo + (hi - lo) * torch.rand(to.shape, generator=g)
+    to = torch.cat([to, rnd])
+    cfg = RenderConfig(width=width, height=height)
+    pos = decompress_hit(render_gbuffer(accel, bundle.atlas, bundle.uniforms, cfg).hits).pos
+    frm = torch.cat([pos, pos])
+    wo = to - frm
+    dist = torch.linalg.vector_norm(wo, dim=-1)
+    dd = wo / torch.clamp_min(dist, 1e-20)[:, None]
+    return frm.contiguous(), dd.contiguous(), torch.clamp_min(dist - 2e-3, 1e-3).contiguous()
+
+
+@pytest.mark.parametrize("population", ["soup", "city"])
+def test_k2_schedule_matches_plain_version(rng, population):
+    if population == "soup":
+        v0, v1, v2, flags = _mixed_soup(rng, sky_share=0.05)
+        acc = build_accel(build_scene_from_soup(v0, v1, v2, flags=flags))
+        o, d, t_max = (torch.from_numpy(x) for x in _shadow_rays(rng, lo=-50, hi=50))
+    else:
+        bundle = procedural.city()
+        acc = build_accel(bundle.scene, bundle.atlas)
+        o, d, t_max = _city_shadow_rays(bundle, acc, 32, 16)
+    n = o.shape[0]
+    rays, proxy, shadow = woop.k2_inputs(acc, o, d, torch.full((n,), 1e-3), t_max)
+    dense = woop.intersect_woop_any_reference(rays, shadow[0])
+    assert dense[:n].any() and (~dense[:n]).any()
+    torch.testing.assert_close(_model_k2(rays, *shadow), dense, rtol=0, atol=0)
+    pre = _model_k2(rays, *proxy)
+    torch.testing.assert_close(pre, woop.intersect_woop_any_reference(rays, proxy[0]), rtol=0, atol=0)
+    assert pre.any()
+    torch.testing.assert_close(_model_k2(rays, *shadow, pre), dense, rtol=0, atol=0)
+    # the CPU wrapper is the plain version, warm start included
+    torch.testing.assert_close(woop.woop_any(rays, *shadow, pre), dense, rtol=0, atol=0)
+
+
+def test_woop_any_rejects_bad_inputs(rng):
+    v0, v1, v2 = _random_soup(rng, 64)
+    acc = build_accel(build_scene_from_soup(v0, v1, v2))
+    o, d = (torch.from_numpy(x) for x in _soup_rays(rng, 256))
+    rays, _, (w, lo, hi) = woop.k2_inputs(acc, o, d, torch.full((256,), 1e-3), torch.full((256,), 1e4))
+    good = torch.zeros(256, dtype=torch.bool)
+    for args, occ in (
+        ((rays.double(), w, lo, hi), good),  # dtype
+        ((rays[:, :200], w, lo, hi), good),  # shape / block split
+        ((rays, w, lo[:-1] if lo.shape[0] > 1 else lo.double(), hi), good),  # bounds
+        ((rays, w, lo, hi), good.to(torch.uint8)),  # warm start dtype
+        ((rays, w, lo, hi), good[:128]),  # warm start shape
+    ):
+        with pytest.raises(ValueError):
+            woop.woop_any(*args, occ)
+
+
+# ------------------------------------------------------------------ visibility
+
+
+def test_trace_visibility_through_box():
+    """Twin of test_accel.py:116 on both packages' cornell_box."""
+    jb, tb = j_procedural.cornell_box(), procedural.cornell_box()
+    ja, ta = j_build_accel(jb.scene, jb.atlas), build_accel(tb.scene, tb.atlas)
+    a = np.asarray([[60.0, 256.0, 130.0]] * 2, np.float32)
+    bc = np.asarray([[200.0, 256.0, 130.0], [345.0, 335.0, 60.0]], np.float32)  # open air, block
+    ref = np.asarray(j_trace_visibility(ja, jb.atlas, jnp.asarray(a), jnp.asarray(bc)))
+    ours = _np(trace_visibility(ta, tb.atlas, torch.from_numpy(a), torch.from_numpy(bc)))
+    np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_array_equal(ours, [True, False])
+    # the card's composition (K2, then the alpha table) gives the same
+    at, bt = torch.from_numpy(a), torch.from_numpy(bc)
+    d, t_max = _segments(at, bt)
+    np.testing.assert_array_equal(_np(intersect_mod._visible_anyhit(ta, tb.atlas, at, d, 1e-3, t_max)),
+                                  [True, False])
+
+
+def _segments(a, b):
+    """Unit directions and t_max of trace_visibility's segments a → b."""
+    wo = b - a
+    dist = torch.linalg.vector_norm(wo, dim=-1)
+    return wo / dist[:, None], torch.clamp_min(dist - 2e-3, 1e-3)
+
+
+def test_trace_visibility_outdoor_court(rng, monkeypatch):
+    """Random segments inside the court (alpha grates, water, sky walls):
+    the CPU oracle path against the JAX package's CPU path, and the
+    card's composition (plain K2 on the shadow table, then the alpha loop
+    on the alpha-only table through plain K1) against both, outside the
+    t_max boundary band."""
+    jb = j_procedural.outdoor_court()
+    ja = j_build_accel(jb.scene, jb.atlas)
+    atlas = interop.atlas_from_numpy(jb.atlas)
+    ta = build_accel(interop.scene_from_numpy(jb.scene), atlas)
+    lo, hi = _np(ta.world_lo), _np(ta.world_hi)
+    n = 1024
+    a = (lo + (hi - lo) * rng.uniform(0.02, 0.98, (n, 3))).astype(np.float32)
+    b = (lo + (hi - lo) * rng.uniform(0.02, 0.98, (n, 3))).astype(np.float32)
+    # half of the segments cross the grates' plane region head-on
+    b[: n // 2, 1:] = a[: n // 2, 1:]
+    ref = np.asarray(j_trace_visibility(ja, jb.atlas, jnp.asarray(a), jnp.asarray(b)))
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    ours = _np(trace_visibility(ta, atlas, at, bt))
+    d, t_max = _segments(at, bt)
+    hr = trace_nearest(ta, atlas, at, d, 1e-3, t_max)
+    clear = ~_np(hr.hit) | (np.abs(_np(hr.t) - _np(t_max)) > 1e-3 * np.maximum(_np(t_max), 1.0))
+    np.testing.assert_array_equal(ours[clear], ref[clear])
+    assert clear.mean() > 0.99 and ours.any() and (~ours).any()
+    # the card's composition, with plain versions of K1 and K2
+    monkeypatch.setattr(intersect_mod, "intersect", lambda acc, o, d, t0, t1, sort_rays=False:
+                        woop.intersect_woop(acc, o, d, t0, t1))
+    card = _np(intersect_mod._visible_anyhit(ta, atlas, at, d, 1e-3, t_max))
+    np.testing.assert_array_equal(card[clear], ours[clear])
+    assert ta.woop_w_alpha is not None
+
+
+@pytest.mark.cuda
+def test_k2_kernel_matches_plain_version_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    bundle = procedural.city()
+    acc = build_accel(bundle.scene, bundle.atlas)
+    o, d, t_max = _city_shadow_rays(bundle, acc, 256, 128)
+    acc = build_accel(bundle.scene, bundle.atlas, device=dev)
+    n = o.shape[0]
+    rays, proxy, shadow = woop.k2_inputs(acc, o.to(dev), d.to(dev), torch.full((n,), 1e-3, device=dev),
+                                         t_max.to(dev))
+    before = woop.woop_any.launches
+    pre = woop.woop_any(rays, *proxy)
+    occ = woop.woop_any(rays, *shadow, pre)
+    assert woop.woop_any.launches == before + 2
+    torch.testing.assert_close(pre, woop.intersect_woop_any_reference(rays, proxy[0]), rtol=0, atol=0)
+    torch.testing.assert_close(occ, woop.intersect_woop_any_reference(rays, shadow[0]), rtol=0, atol=0)

@@ -1,6 +1,7 @@
 """The port must run where JAX is not installed (the GPU machine has
 none): in a subprocess that blocks ``jax`` before anything is imported,
-build cornell_box and render one 32×16 path-traced frame on the CPU."""
+build cornell_box and render one 32×16 path-traced frame and one 32×16
+ReSTIR frame on the CPU, and import ``interop``."""
 import os
 import subprocess
 import sys
@@ -14,6 +15,10 @@ from merian_quake_tpu_torch.models.types import RenderConfig
 from merian_quake_tpu_torch.renderer import render_sequence
 state, out = render_sequence(cornell_box(), RenderConfig(width=32, height=16, spp=1), frames=1)
 assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["hdr"]).all())
+state, out = render_sequence(cornell_box(), RenderConfig(width=32, height=16, integrator="restir"), frames=1)
+assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["hdr"]).all())
+assert state.restir.reservoirs.M.shape == (32 * 16,)
+import merian_quake_tpu_torch.interop
 loaded = [m for m, mod in sys.modules.items() if mod is not None]
 assert not [m for m in loaded if m in ("jax", "merian_quake_tpu") or m.startswith(("jax.", "merian_quake_tpu."))]
 print("ok")

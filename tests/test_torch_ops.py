@@ -22,6 +22,7 @@ from merian_quake_tpu.ops import transmittance as j_trans
 from merian_quake_tpu.ops import vmf as j_vmf
 from merian_quake_tpu_torch.ops import bsdf, camera, color, linalg, octahedral
 from merian_quake_tpu_torch.ops import rng as t_rng
+from merian_quake_tpu_torch.interop import tensor as _t
 from merian_quake_tpu_torch.ops import transmittance, vmf
 
 # The suite runs several test processes side by side on a few cores;
@@ -29,10 +30,6 @@ from merian_quake_tpu_torch.ops import transmittance, vmf
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
 RTOL, ATOL = 1e-6, 1e-6
-
-
-def _t(x):
-    return torch.from_numpy(np.array(x))
 
 
 def _u32(x):

@@ -22,34 +22,17 @@ from merian_quake_tpu.models.types import RenderConfig as JConfig
 from merian_quake_tpu.models.types import SceneFeatures as JFeatures
 from merian_quake_tpu.render.gbuffer import render_gbuffer as j_render_gbuffer
 from merian_quake_tpu.render.trace import trace_ray as j_trace_ray
+from merian_quake_tpu_torch import interop
 from merian_quake_tpu_torch.accel.build import build_accel, scene_features
 from merian_quake_tpu_torch.models import procedural
-from merian_quake_tpu_torch.models.types import (
-    RenderConfig, Scene, TextureAtlas, Uniforms,
-)
+from merian_quake_tpu_torch.interop import tensor as _t
+from merian_quake_tpu_torch.models.types import RenderConfig
 from merian_quake_tpu_torch.render.gbuffer import render_gbuffer
 from merian_quake_tpu_torch.render.trace import ALL_FEATURES, trace_ray
 
 # The suite runs several test processes side by side on a few cores;
 # torch would start one thread per core in each and oversubscribe them.
 torch.set_num_threads(min(2, torch.get_num_threads()))
-
-
-def _t(x):
-    return torch.from_numpy(np.array(x))
-
-
-def _port(j_bundle):
-    """The JAX bundle's host arrays as the port's containers."""
-    u = j_bundle.uniforms
-    uniforms = Uniforms(**{
-        f: (int(getattr(u, f)) if f in ("frame", "player") else _t(getattr(u, f)))
-        for f in u._fields
-    })
-    a = j_bundle.atlas
-    atlas = TextureAtlas(data=_t(a.data), table=_t(a.table),
-                         mips=tuple(_t(m) for m in a.mips), flat=_t(a.flat))
-    return Scene(*[_t(x) for x in j_bundle.scene]), atlas, uniforms
 
 
 def _close(ours, ref, rtol=1e-5, atol=1e-4, mask=None):
@@ -82,7 +65,9 @@ def test_trace_ray_matches_jax(rng, scene):
         assert t_feat == tuple(j_feat)
     else:
         jb = j_procedural.outdoor_court()
-        t_scene, t_atlas, t_uni = _port(jb)
+        t_scene = interop.scene_from_numpy(jb.scene)
+        t_atlas = interop.atlas_from_numpy(jb.atlas)
+        t_uni = interop.uniforms_from_numpy(jb.uniforms)
         j_feat = JFeatures(*ALL_FEATURES)
         t_feat = ALL_FEATURES
         assert t_feat.has_alpha_tris and t_feat.sky_mode == "cubemap"

@@ -90,7 +90,7 @@ def test_accumulated_irradiance_matches_jax(frames):
 
 
 @pytest.mark.parametrize("config", [
-    RenderConfig(integrator="mcpg"), RenderConfig(denoise=True),
+    RenderConfig(integrator="mcpg"), RenderConfig(integrator="ssmm"), RenderConfig(denoise=True),
 ])
 def test_unported_paths_raise(config):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
