@@ -3,22 +3,27 @@
 
     python3 chip_smoke.py
 
-Drives merian_quake_tpu_torch's two paths on the procedural ``city``
-scene (16,640 triangles) at 1920×1080 — the path-traced frame (2 spp,
-max path length 3) and the ReSTIR DI frame (``ReSTIRConfig()``) — on the
-first CUDA device, after building and checking their hand-written
-kernels, K1 (csrc/woop_nearest.cu, nearest hit) and K2
-(csrc/woop_any.cu, any hit). Phases, one line each or more:
+Drives merian_quake_tpu_torch's two paths at 1920×1080 — the
+path-traced frame (2 spp, max path length 3) and the ReSTIR DI frame
+(``ReSTIRConfig()``) — on the first CUDA device, on the procedural
+``city`` (16,640 triangles) and on the map scene ``city(n_buildings=
+28000, seed=11)`` (281,536 triangles), after building and checking
+their hand-written kernels: K1 (csrc/woop_nearest.cu, nearest hit), K2
+(csrc/woop_any.cu, any hit), K3 (csrc/woop_stream.cu, both for tables
+above 65,536 triangles) and K8 (csrc/mt_dense.cu, the dense
+Möller–Trumbore sweep of ``accel.dense.intersect_dense``). Phases, one
+line each or more:
 
 1. device: the card's name and power limit (nvidia-smi), and the time to
-   build K1 and K2 with nvcc for sm_90a (both started together), with
-   each kernel's ptxas line;
-2. K1 against its plain PyTorch version on the card: a random soup with
-   half misses; 65,536-ray subsets of city's 1080p primary rays and of
-   one sorted bounce population (t_min = 0 and 1e-3); then the whole
-   2,073,600-ray primary and bounce populations (t_min = 0 and 1e-3), as
-   the frame launches K1 on them, with both timed by CUDA events in
-   turns at t_min = 0;
+   build the four kernels with nvcc for sm_90a (all started together),
+   with each kernel's ptxas line;
+2. K1 against its plain PyTorch version on the card, bit for bit: a
+   random soup with half misses; 65,536-ray subsets of city's 1080p
+   primary rays and of one sorted bounce population (t_min = 0 and
+   1e-3); then the whole 2,073,600-ray primary and bounce populations
+   (t_min = 0 and 1e-3), as the frame launches K1 on them, with both
+   timed by CUDA events in turns at t_min = 0, and K1's bound from its
+   count of the pairs it tested;
 3. the slice: 6 frames on the card, K1 launched exactly 5 times a frame,
    finite outputs, cold and steady ms/frame and Mrays/s;
 4. the same frames at 64×36 on the CPU (Möller–Trumbore oracle) and on
@@ -38,11 +43,38 @@ kernels, K1 (csrc/woop_nearest.cu, nearest hit) and K2
 7. 3 ReSTIR frames at 64×36 on the CPU (oracle) and on the card (K1 +
    K2), with defaults and with both bias corrections set to 2 (so that
    all three visibility call sites launch K2): the LDR images agree
-   within the slice test's tolerance.
+   within the slice test's tolerance;
+8. K3 against its plain versions on the card, bit for bit: a random soup
+   (nearest and any-hit); 65,536-ray subsets of the map's 1080p primary,
+   sorted bounce (t_min 0 and 1e-3) and shade-pass shadow rays (with and
+   without the proxy pre-pass's warm start); then K3 against K1/K2 called
+   directly on the same table on the whole 2,073,600-ray populations;
+   K2's proxy pre-pass on the map (4,096 triangles, as the map ReSTIR
+   frame launches it) against its plain version on the subset and the
+   whole population; K3, K1/K2 and the plain version timed with CUDA
+   events in turns, and the bound from K3's own count of the pairs it
+   tested;
+9. K8 against the oracle (``accel.intersect._intersect_oracle``) on CUDA
+   tensors: the random soup and a 65,536-ray map subset, driven through
+   ``intersect_dense`` (the dense path); K8 against K3 there; times;
+10. 6 PT and 6 ReSTIR frames of the map at 1080p: exactly 5 K3 launches
+    and no K1 a PT frame, 2 K3 nearest + 1 K3 any-hit + 1 K2 (proxy)
+    and no K1 a ReSTIR frame; finite outputs, cold and steady ms/frame;
+11. 2 PT and 2 ReSTIR frames of the map at 32×18 on the CPU (oracle) and
+    on the card (K3 + K2; ``render_sequence`` called without ``device=``,
+    whose default is the card): the LDR images agree within the slice test's
+    tolerance (at 64×36 the CPU oracle took 61 s for the PT frames alone
+    on the card's host, so the size is a quarter of phase 4's).
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Any failure raises before it. Without a
-CUDA device the script fails at once and prints no result.
+Each path (PT city, ReSTIR city, dense map, PT map, ReSTIR map) is
+driven with every launch count set to 0 just before it and read just
+after. The line before the last is the kernels' JSON record (with each
+kernel's launches by path and its bound: the larger of the bytes it must
+move over 3.35 TB/s and its FP32 operations over the card's issue rate
+for them, from the H100 SXM's data-sheet rates); the last line is
+{"ok": true, "device": {...}}.
+Any failure raises before it. Without a CUDA device the script fails at
+once and prints no result.
 """
 from __future__ import annotations
 
@@ -58,12 +90,23 @@ KERNEL_SOURCE = "merian_quake_tpu_torch/csrc/woop_nearest.cu"
 REPLACES = "merian_quake_tpu/accel/woop.py:289"
 K2_SOURCE = "merian_quake_tpu_torch/csrc/woop_any.cu"
 K2_REPLACES = "merian_quake_tpu/accel/woop.py:786"
+K3_SOURCE = "merian_quake_tpu_torch/csrc/woop_stream.cu"
+K3_REPLACES = "merian_quake_tpu/accel/woop.py:111"
+K8_SOURCE = "merian_quake_tpu_torch/csrc/mt_dense.cu"
+K8_REPLACES = "merian_quake_tpu/accel/pallas_intersect.py:32"
 W, H, SPP, MPL = 1920, 1080, 2, 3
 SUBSET = 65536
-# K1 vs its plain version: tri equal on at least this share of rays, and
-# where tri differs both hits at the same t. K1 rounds each multiply and
-# add like the plain version, so the runs so far were identical.
-TRI_EQUAL_MIN = 0.99999
+MAP = {"n_buildings": 28000, "seed": 11}  # bench.py's map row: 281,536 triangles
+# the bound: H100 SXM data-sheet rates (FP32 outside the tensor cores, HBM3).
+# 67 TFLOP/s counts an FMA as two operations; the kernels round every
+# multiply and add on its own (no FMA), so each is one instruction in an
+# FMA's issue slot, and they issue at most half that many a second.
+FP32_RATE, HBM_RATE = 67e12, 3.35e12
+FP32_ISSUE_RATE = FP32_RATE / 2
+# FP32 multiplies and adds a (ray, triangle) pair: the Woop nearest test,
+# the Woop any-hit test, Möller–Trumbore (with its reciprocal)
+OPS_NEAREST, OPS_ANY, OPS_MT = 42, 46, 46
+# K8 against the oracle (t, u, v) and against K3 (t): relative tolerance
 T_RTOL = 1e-5
 # CPU vs card LDR agreement (the slice test's tolerance)
 PIX_TOL, PIX_SHARE, MEAN_TOL = 1e-3, 0.995, 1e-4
@@ -75,6 +118,44 @@ VIS_AGREE = 0.998
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_launches() -> None:
+    from merian_quake_tpu_torch.accel import dense, woop
+
+    woop.woop_nearest.launches = woop.woop_any.launches = 0
+    woop.woop_stream.launches = woop.woop_stream.anyhit_launches = 0
+    dense.mt_dense.launches = 0
+
+
+def launches() -> dict:
+    from merian_quake_tpu_torch.accel import dense, woop
+
+    return {"woop_nearest": woop.woop_nearest.launches, "woop_any": woop.woop_any.launches,
+            "woop_stream": woop.woop_stream.launches,
+            "woop_stream_any": woop.woop_stream.anyhit_launches,
+            "mt_dense": dense.mt_dense.launches}
+
+
+def bound_ms(ops: float, nbytes: float):
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = ops / FP32_ISSUE_RATE, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def woop_work(kernel, args, any_ops=False, **kw):
+    """Run a Woop kernel once with its per-CTA pair counts; returns (ops,
+    bytes) of that launch: the pairs it tested times the FP32 operations
+    a pair (any-hit's with ``any_ops``), and the rays in, results out,
+    warm start, table rows (48 B a triangle) and bounds read once."""
+    rays, w, lo = args[0], args[1], args[2]
+    n = rays.shape[1]
+    counts = torch.zeros(n // 128, dtype=torch.int64, device=rays.device)
+    kernel(*args, counts=counts, **kw)
+    out = n if any_ops else 8 * n
+    warm = n if kw.get("occluded_in") is not None else 0
+    nbytes = n * 32 + out + warm + (w.shape[0] // 3) * 48 + lo.shape[0] * 24
+    return float(counts.sum()) * (OPS_ANY if any_ops else OPS_NEAREST), nbytes
 
 
 def cuda_time(fn, reps: int) -> float:
@@ -89,33 +170,10 @@ def cuda_time(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def check_k1(name, kernel_out, plain_out):
-    """Hold K1's (t, tri) against its plain version's on the same rays."""
-    (t_k, tri_k), (t_r, tri_r) = kernel_out, plain_out
-    torch.cuda.synchronize()
-    eq = tri_k == tri_r
-    share = float(eq.float().mean())
-    hit = (tri_r >= 0) | (tri_k >= 0)
-    rel = (t_k - t_r).abs() / torch.clamp_min(t_r.abs(), 1e-6)
-    worst_rel = float(rel[hit].max()) if bool(hit.any()) else 0.0
-    max_abs = float((t_k - t_r)[hit].abs().max()) if bool(hit.any()) else 0.0
-    log(
-        f"phase 2 {name}: rays={t_k.numel()} hits={int(hit.sum())} "
-        f"tri_equal={share:.7f} t_max_rel_err={worst_rel:.3e} "
-        f"t_max_abs_err={max_abs:.3e}"
-    )
-    if share < TRI_EQUAL_MIN:
-        raise AssertionError(f"{name}: tri equal on {share} < {TRI_EQUAL_MIN}")
-    if worst_rel > T_RTOL:
-        raise AssertionError(f"{name}: t differs by rel {worst_rel} > {T_RTOL}")
-    return max_abs
-
-
 def compare_k1(name, args, woop):
-    """Run K1 and its plain version on the same inputs; check tri/t."""
-    return check_k1(
-        name, woop.woop_nearest(*args), woop.intersect_woop_reference(args[0], args[1])
-    )
+    """Run K1 and its plain version on the same inputs: bit for bit."""
+    return check_exact(2, name, woop.woop_nearest(*args),
+                       woop.intersect_woop_reference(args[0], args[1]))
 
 
 def primary_rays(bundle, accel, dev):
@@ -148,17 +206,31 @@ def bounce_rays(bundle, accel, config, dev):
     return (cur.pos - cur.wi * 1e-3).contiguous(), wo.contiguous(), t_max
 
 
-def check_k2(name, kernel_out, plain_out):
-    """Hold K2's occlusion against its plain version's: equal on every ray.
-    Returns the largest |K2 - plain| over the 0/1 occlusion values."""
+def check_k2(name, kernel_out, plain_out, phase=5):
+    """Hold an any-hit kernel's occlusion against another's: equal on every
+    ray. Returns the largest |difference| over the 0/1 occlusion values."""
     torch.cuda.synchronize()
     diff = (kernel_out.float() - plain_out.float()).abs()
     differ = int((diff > 0).sum())
-    log(f"phase 5 {name}: rays={kernel_out.numel()} occluded={int(plain_out.sum())} "
+    log(f"phase {phase} {name}: rays={kernel_out.numel()} occluded={int(plain_out.sum())} "
         f"differ={differ}")
     if differ:
-        raise AssertionError(f"{name}: K2 and its plain version differ on {differ} rays")
+        raise AssertionError(f"{name}: the two sweeps differ on {differ} rays")
     return float(diff.max())
+
+
+def check_exact(phase, name, kernel_out, other_out):
+    """Hold a nearest-hit kernel's (t, tri) against another's: bit for bit
+    on every ray. Returns the largest |t difference| (0)."""
+    (t_k, tri_k), (t_r, tri_r) = kernel_out, other_out
+    torch.cuda.synchronize()
+    tri_differ = int((tri_k != tri_r).sum())
+    t_differ = int((t_k != t_r).sum())
+    log(f"phase {phase} {name}: rays={t_k.numel()} hits={int((tri_r >= 0).sum())} "
+        f"tri differ={tri_differ} t differ={t_differ}")
+    if tri_differ or t_differ:
+        raise AssertionError(f"{name}: tri differs on {tri_differ} rays, t on {t_differ}")
+    return float((t_k - t_r).abs().max())
 
 
 def shade_rays(bundle, accel, config, dev):
@@ -201,8 +273,9 @@ def grate_soup(dev):
         b.quad((x, 0, 0), (0, 0, Z), (0, Y, 0), uv_scale=(6, 6), texnum=2)
     b.quad((95, 40, 0), (0, 0, Z), (0, 20, 0), texnum=1)  # a pillar wall
     b.quad((95, 40, 0), (0, 20, 0), (0, 0, Z), texnum=1)
-    atlas = pack_textures([_const_tex((255, 255, 255), 1), _const_tex((200, 200, 200)), grate])
-    return b.build(), atlas
+    atlas = pack_textures([_const_tex((255, 255, 255), 1), _const_tex((200, 200, 200)), grate],
+                          device=dev)
+    return b.build(dev), atlas
 
 
 def phase5(dev, rng, acc_soup, bundle, accel, config, smi):
@@ -269,6 +342,9 @@ def phase5(dev, rng, acc_soup, bundle, accel, config, smi):
 
     # one visibility trace's K2 work (proxy pre-pass + shadow sweep)
     # against the plain version's, timed in turns
+    ops_p, bytes_p = woop_work(woop.woop_any, (rays, *proxy), True)
+    ops_s, bytes_s = woop_work(woop.woop_any, (rays, *shadow), True, occluded_in=pre)
+    bound = bound_ms(ops_p, bytes_p)[0] + bound_ms(ops_s, bytes_s)[0]
     kern = lambda: woop.woop_any(rays, *shadow, woop.woop_any(rays, *proxy))
     ref = lambda: woop.intersect_woop_any_reference(
         rays, shadow[0], woop.intersect_woop_any_reference(rays, proxy[0]))
@@ -282,7 +358,8 @@ def phase5(dev, rng, acc_soup, bundle, accel, config, smi):
     log(f"phase 5 timing shade {n_full} rays [{smi}]: K2 proxy + shadow {k_1:.3f} / {k_2:.3f} ms, "
         f"K2 shadow alone {s_1:.3f} / {s_2:.3f} ms, plain {r1:.1f} / {r2:.1f} ms; "
         f"occluded {float(plain[:n_full].float().mean()):.4f}, "
-        f"by the proxy {float(pre[:n_full].float().mean()):.4f}")
+        f"by the proxy {float(pre[:n_full].float().mean()):.4f}; bound {bound:.4f} ms "
+        f"({(ops_p + ops_s) / OPS_ANY:.4g} pairs tested)")
 
     # trace_visibility: the card (K2 + alpha table through K1) against the
     # CPU oracle, on an alpha-grate soup
@@ -304,7 +381,8 @@ def phase5(dev, rng, acc_soup, bundle, accel, config, smi):
         f"card {float(gpu.float().mean()):.4f}, agree {agree:.5f}")
     if agree < VIS_AGREE or bool(cpu.all()) or not bool(cpu.any()):
         raise AssertionError("trace_visibility: the card and the CPU oracle disagree")
-    return {"ms": (k_1 + k_2) / 2, "plain_ms": (r1 + r2) / 2, "max_abs_err": max(errs)}
+    return {"ms": (k_1 + k_2) / 2, "plain_ms": (r1 + r2) / 2, "max_abs_err": max(errs),
+            "bound_ms": bound, "bound_by": bound_ms(ops_s, bytes_s)[1]}
 
 
 def phase6(dev, bundle, accel, feats, smi):
@@ -317,8 +395,7 @@ def phase6(dev, bundle, accel, feats, smi):
     config = RenderConfig(width=W, height=H, integrator="restir", features=feats)
     rcfg = ReSTIRConfig()
     state = init_state(config, rcfg, device=dev)
-    woop.woop_nearest.launches = 0
-    woop.woop_any.launches = 0
+    reset_launches()
     frame_ms = []
     for i in range(6):
         before = (woop.woop_nearest.launches, woop.woop_any.launches)
@@ -331,7 +408,9 @@ def phase6(dev, bundle, accel, feats, smi):
         got = (woop.woop_nearest.launches - before[0], woop.woop_any.launches - before[1])
         if got != (2, 2):
             raise AssertionError(f"ReSTIR frame {i}: (K1, K2) launched {got} times, expected (2, 2)")
-    launches = {"woop_nearest": woop.woop_nearest.launches, "woop_any": woop.woop_any.launches}
+    got = launches()
+    if got["woop_stream"] or got["mt_dense"]:
+        raise AssertionError(f"the city ReSTIR frames launched K3 or K8: {got}")
     res = state.restir.reservoirs
     for name, x in (("ldr", out["ldr"]), ("hdr", out["hdr"]), ("irradiance", out["irradiance"]),
                     ("accum_irradiance", state.accum_irradiance), ("reservoir w", res.w),
@@ -345,12 +424,12 @@ def phase6(dev, bundle, accel, feats, smi):
     if tuple(out["ldr"].shape) != (H, W, 3) or float(out["ldr"].std()) <= 0.0:
         raise AssertionError("ReSTIR ldr has the wrong shape or is constant")
     steady = float(np.mean(frame_ms[2:]))
-    log(f"phase 6 restir city {W}x{H} [{smi}]: K1 launches {launches['woop_nearest']}, "
-        f"K2 launches {launches['woop_any']}; cold {frame_ms[0]:.1f} ms, steady {steady:.1f} "
+    log(f"phase 6 restir city {W}x{H} [{smi}]: K1 launches {got['woop_nearest']}, "
+        f"K2 launches {got['woop_any']}; cold {frame_ms[0]:.1f} ms, steady {steady:.1f} "
         f"ms/frame (frames {', '.join(f'{x:.1f}' for x in frame_ms)}); max M {m_max}; "
         f"valid reservoirs {float((res.y_flags & 1).float().mean()):.4f}; "
         f"ldr mean {float(out['ldr'].mean()):.4f}")
-    return launches
+    return got
 
 
 def phase7(dev):
@@ -364,9 +443,11 @@ def phase7(dev):
     small = RenderConfig(width=64, height=36, integrator="restir")
     for name, rcfg in (("defaults", ReSTIRConfig()),
                        ("bias 2", ReSTIRConfig(temporal_bias_correction=2, spatial_bias_correction=2))):
-        _, out_cpu = render_sequence(city(), small, frames=3, mcpg_config=rcfg, device="cpu")
+        _, out_cpu = render_sequence(city(device="cpu"), small, frames=3, mcpg_config=rcfg,
+                                     device="cpu")
         k2_before = woop.woop_any.launches
-        _, out_gpu = render_sequence(city(), small, frames=3, mcpg_config=rcfg, device=dev)
+        _, out_gpu = render_sequence(city(device="cpu"), small, frames=3, mcpg_config=rcfg,
+                                     device=dev)
         k2 = woop.woop_any.launches - k2_before
         expect = 3 * 2 * (3 if rcfg.temporal_bias_correction == 2 else 1)
         if k2 != expect:
@@ -378,6 +459,284 @@ def phase7(dev):
             f"{PIX_TOL} {share:.5f}, mean |d| {mean:.3e}, max |d| {float(diff.max()):.3e}")
         if share < PIX_SHARE or mean >= MEAN_TOL:
             raise AssertionError(f"ReSTIR {name}: CPU and card LDR images disagree")
+
+
+def map_scene(dev):
+    """The map scene on the card: (bundle, accel, config at 1080p)."""
+    from merian_quake_tpu_torch.accel import build_accel
+    from merian_quake_tpu_torch.accel.build import scene_features
+    from merian_quake_tpu_torch.models.procedural import city
+    from merian_quake_tpu_torch.models.types import RenderConfig
+
+    t0 = time.perf_counter()
+    bundle = city(**MAP, device=dev)
+    accel = build_accel(bundle.scene, bundle.atlas)
+    feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
+    log(f"phase 8 map city({MAP['n_buildings']}, {MAP['seed']}): {bundle.scene.num_tris} "
+        f"triangles, {accel.cluster_lo.shape[0]} clusters, scene + accel build "
+        f"{time.perf_counter() - t0:.2f} s")
+    return bundle, accel, RenderConfig(width=W, height=H, spp=SPP, max_path_length=MPL,
+                                       features=feats)
+
+
+def phase8(dev, soup, bundle, accel, config, smi):
+    """K3 against its plain versions (subsets) and against K1/K2 on the
+    same table (whole populations); K2's map proxy pre-pass against its
+    plain version; times and bounds."""
+    from merian_quake_tpu_torch.accel import woop
+
+    full = lambda v, k: torch.full((k,), v, device=dev)
+    errs = []
+    acc_soup, o_t, d_t = soup
+    n = o_t.shape[0]
+    args = woop.k1_inputs(acc_soup, o_t, d_t, full(0.0, n), full(1e4, n))
+    errs.append(check_exact(8, "random soup K3 vs plain", woop.woop_stream(*args),
+                            woop.intersect_woop_reference(args[0], args[1])))
+    rays, _, shadow = woop.k2_inputs(acc_soup, o_t, d_t, full(1e-3, n), full(60.0, n))
+    errs.append(check_k2("random soup K3 any-hit vs plain",
+                         woop.woop_stream(rays, *shadow, anyhit=True),
+                         woop.intersect_woop_any_reference(rays, shadow[0]), phase=8))
+
+    n_full = W * H
+    po, pd = primary_rays(bundle, accel, dev)
+    bo, bd, bt = bounce_rays(bundle, accel, config, dev)
+    perm = woop.sort_perm(accel, bo, bd, bt)
+    bo, bd, bt = bo[perm].contiguous(), bd[perm].contiguous(), bt[perm].contiguous()
+    so, sd, st = shade_rays(bundle, accel, config, dev)
+    mid = slice(n_full // 2, n_full // 2 + SUBSET)
+    sub = lambda x: x[mid].contiguous()
+    subsets = {
+        "primary": woop.k1_inputs(accel, sub(po), sub(pd), full(0.0, SUBSET), full(1e4, SUBSET)),
+        "bounce": woop.k1_inputs(accel, sub(bo), sub(bd), full(0.0, SUBSET), sub(bt)),
+    }
+    for name, args in subsets.items():
+        errs.append(check_exact(8, f"map {name} {SUBSET} t_min=0.0 K3 vs plain",
+                                woop.woop_stream(*args),
+                                woop.intersect_woop_reference(args[0], args[1])))
+    args = woop.k1_inputs(accel, sub(bo), sub(bd), full(1e-3, SUBSET), sub(bt))
+    errs.append(check_exact(8, f"map bounce {SUBSET} t_min=0.001 K3 vs plain",
+                            woop.woop_stream(*args), woop.intersect_woop_reference(args[0], args[1])))
+    rays, proxy, shadow = woop.k2_inputs(accel, sub(so), sub(sd), full(1e-3, SUBSET), sub(st))
+    pre = woop.woop_any(rays, *proxy)
+    errs.append(check_k2(f"map shade {SUBSET} K2 proxy vs plain", pre,
+                         woop.intersect_woop_any_reference(rays, proxy[0]), phase=8))
+    plain = woop.intersect_woop_any_reference(rays, shadow[0])
+    errs.append(check_k2(f"map shade {SUBSET} K3 any-hit vs plain",
+                         woop.woop_stream(rays, *shadow, anyhit=True), plain, phase=8))
+    errs.append(check_k2(f"map shade {SUBSET} K3 any-hit after proxy vs plain",
+                         woop.woop_stream(rays, *shadow, anyhit=True, occluded_in=pre), plain,
+                         phase=8))
+    subsets["shadow"] = (rays, shadow, pre)
+
+    # the whole populations: K3 against K1/K2 on the same table
+    pops = {
+        "primary": woop.k1_inputs(accel, po, pd, full(0.0, n_full), full(1e4, n_full)),
+        "bounce": woop.k1_inputs(accel, bo, bd, full(0.0, n_full), bt),
+    }
+    for name, args in pops.items():
+        errs.append(check_exact(8, f"map {name} {n_full} t_min=0.0 K3 vs K1",
+                                woop.woop_stream(*args), woop.woop_nearest(*args)))
+    args = woop.k1_inputs(accel, bo, bd, full(1e-3, n_full), bt)
+    errs.append(check_exact(8, f"map bounce {n_full} t_min=0.001 K3 vs K1",
+                            woop.woop_stream(*args), woop.woop_nearest(*args)))
+    rays_f, proxy_f, shadow_f = woop.k2_inputs(accel, so, sd, full(1e-3, n_full), st)
+    pre_f = woop.woop_any(rays_f, *proxy_f)
+    errs.append(check_k2(f"map shade {n_full} K2 proxy vs plain", pre_f,
+                         woop.intersect_woop_any_reference(rays_f, proxy_f[0]), phase=8))
+    occ = woop.woop_any(rays_f, *shadow_f)
+    errs.append(check_k2(f"map shade {n_full} K3 any-hit vs K2",
+                         woop.woop_stream(rays_f, *shadow_f, anyhit=True), occ, phase=8))
+    errs.append(check_k2(f"map shade {n_full} K3 any-hit after proxy vs K2 after proxy",
+                         woop.woop_stream(rays_f, *shadow_f, anyhit=True, occluded_in=pre_f),
+                         woop.woop_any(rays_f, *shadow_f, pre_f), phase=8))
+    if not (bool(occ.any()) and bool((~occ[:n_full]).any())):
+        raise AssertionError("map shade rays: all occluded or none")
+    log(f"phase 8 map shade {n_full}: occluded {float(occ[:n_full].float().mean()):.4f}, "
+        f"by the proxy {float(pre_f[:n_full].float().mean()):.4f}")
+
+    # times: K3 and K1/K2 on the whole populations in turns (K3, K1, K1,
+    # K3; 5 launches a reading), then K3 and the plain version on the
+    # subsets (plain, K3, K3, plain); bounds from K3's counts
+    kern = {
+        "primary": (lambda: woop.woop_stream(*pops["primary"]),
+                    lambda: woop.woop_nearest(*pops["primary"])),
+        "bounce": (lambda: woop.woop_stream(*pops["bounce"]),
+                   lambda: woop.woop_nearest(*pops["bounce"])),
+        "shadow": (lambda: woop.woop_stream(rays_f, *shadow_f, anyhit=True, occluded_in=pre_f),
+                   lambda: woop.woop_any(rays_f, *shadow_f, pre_f)),
+    }
+    rays_s, shadow_s, pre_s = subsets["shadow"]
+    plain = {
+        "primary": (lambda: woop.intersect_woop_reference(*subsets["primary"][:2]),
+                    lambda: woop.woop_stream(*subsets["primary"])),
+        "bounce": (lambda: woop.intersect_woop_reference(*subsets["bounce"][:2]),
+                   lambda: woop.woop_stream(*subsets["bounce"])),
+        "shadow": (lambda: woop.intersect_woop_any_reference(rays_s, shadow_s[0], pre_s),
+                   lambda: woop.woop_stream(rays_s, *shadow_s, anyhit=True, occluded_in=pre_s)),
+    }
+    out = {}
+    for name in ("primary", "bounce", "shadow"):
+        k3, other = kern[name]
+        a1, b1, b2, a2 = cuda_time(k3, 5), cuda_time(other, 5), cuda_time(other, 5), cuda_time(k3, 5)
+        ref, k3s = plain[name]
+        p1, s1, s2, p2 = cuda_time(ref, 1), cuda_time(k3s, 5), cuda_time(k3s, 5), cuda_time(ref, 1)
+        if name == "shadow":
+            ops, nbytes = woop_work(woop.woop_stream, (rays_f, *shadow_f), True, anyhit=True,
+                                    occluded_in=pre_f)
+        else:
+            ops, nbytes = woop_work(woop.woop_stream, pops[name])
+        bnd, by = bound_ms(ops, nbytes)
+        out[name] = {"ms": (a1 + a2) / 2, "other_ms": (b1 + b2) / 2, "plain_ms": (p1 + p2) / 2,
+                     "subset_ms": (s1 + s2) / 2, "bound_ms": bnd, "bound_by": by}
+        log(f"phase 8 timing map {name} [{smi}]: K3 {a1:.3f} / {a2:.3f} ms, "
+            f"{'K2' if name == 'shadow' else 'K1'} {b1:.3f} / {b2:.3f} ms on {n_full} rays; "
+            f"on {SUBSET} rays plain {p1:.1f} / {p2:.1f} ms, K3 {s1:.3f} / {s2:.3f} ms; "
+            f"bound {bnd:.4f} ms ({by}; {ops / (OPS_ANY if name == 'shadow' else OPS_NEAREST):.4g} "
+            f"pairs tested)")
+    out["max_abs_err"] = max(errs)
+    return out, (po, pd)
+
+
+def check_k8(name, kernel_out, oracle_out):
+    """K8's (t, tri, u, v) against the oracle's: tri equal on every ray;
+    t, u, v within 1e-5 relative (counted where not bit-equal)."""
+    torch.cuda.synchronize()
+    tri_differ = int((kernel_out[1] != oracle_out[1]).sum())
+    worst, bits = 0.0, []
+    for a, b in zip(kernel_out[0:1] + kernel_out[2:], oracle_out[0:1] + oracle_out[2:]):
+        rel = (a - b).abs() / torch.clamp_min(b.abs(), 1e-6)
+        worst = max(worst, float(rel.max()))
+        bits.append(int((a != b).sum()))
+    log(f"phase 9 {name}: rays={kernel_out[0].numel()} hits={int((oracle_out[1] >= 0).sum())} "
+        f"tri differ={tri_differ}; t, u, v not bit-equal on {bits[0]}, {bits[1]}, {bits[2]} "
+        f"rays, worst rel {worst:.3e}")
+    if tri_differ or worst > T_RTOL:
+        raise AssertionError(f"{name}: K8 and the oracle disagree")
+    return float((kernel_out[0] - oracle_out[0]).abs().max())
+
+
+def phase9(dev, soup, accel, po, pd, smi):
+    """K8 against the oracle on CUDA tensors and against K3; the dense
+    path's launches, times and bound."""
+    from merian_quake_tpu_torch.accel import dense, woop
+    from merian_quake_tpu_torch.accel.intersect import _intersect_oracle
+
+    acc_soup, o_t, d_t = soup
+    errs = [check_k8("random soup K8 vs oracle", dense.intersect_dense(acc_soup, o_t, d_t, 0.0, 1e4),
+                     _intersect_oracle(acc_soup, o_t, d_t, 0.0, 1e4))]
+    n_full = W * H
+    mid = slice(n_full // 2, n_full // 2 + SUBSET)
+    o, d = po[mid].contiguous(), pd[mid].contiguous()
+    reset_launches()
+    hr = dense.intersect_dense(accel, o, d, 0.0, 1e4)  # the dense path
+    got = launches()
+    if got != {**{k: 0 for k in got}, "mt_dense": 1}:
+        raise AssertionError(f"intersect_dense launched {got}, expected K8 once")
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = _intersect_oracle(accel, o, d, 0.0, 1e4)
+    stop.record()
+    torch.cuda.synchronize()
+    p1 = start.elapsed_time(stop)
+    errs.append(check_k8(f"map primary {SUBSET} K8 vs oracle", hr, ref))
+    t3, tri3 = woop.woop_stream(*woop.k1_inputs(accel, o, d, torch.zeros_like(o[:, 0]),
+                                                torch.full_like(o[:, 0], 1e4)))
+    t3, tri3 = t3[:SUBSET], tri3[:SUBSET]
+    agree = (hr.t - t3).abs() <= T_RTOL * torch.clamp_min(t3.abs(), 1e-6)
+    share = float(agree.float().mean())
+    ties = int((agree & (hr.tri != tri3)).sum())
+    log(f"phase 9 map primary {SUBSET} K8 vs K3: t within {T_RTOL} rel on {share:.6f} of rays "
+        f"({int((~agree).sum())} split on an edge); tri differ at an equal t on {ties}")
+    if share < 0.9999:
+        raise AssertionError("K8 and K3 disagree on the map")
+    rays = woop._pack_rays(o, d, torch.zeros_like(o[:, 0]), torch.full_like(o[:, 0], 1e4), 128)
+    tris = dense.pack_tris(accel.scene.v0, accel.scene.v1, accel.scene.v2, accel.candidate)
+    k8 = lambda: dense.mt_dense(rays, tris)
+    k_1, k_2 = cuda_time(k8, 3), cuda_time(k8, 3)
+    p2 = cuda_time(lambda: dense.intersect_dense_reference(rays, tris), 1)
+    T = tris.shape[1]
+    bnd, by = bound_ms(float(SUBSET) * T * OPS_MT, SUBSET * (32 + 16) + T * 40)
+    log(f"phase 9 timing map primary {SUBSET} rays x {T} triangles [{smi}]: K8 {k_1:.3f} / "
+        f"{k_2:.3f} ms, plain {p1:.1f} / {p2:.1f} ms; bound {bnd:.4f} ms ({by})")
+    return {"ms": (k_1 + k_2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bnd, "bound_by": by,
+            "max_abs_err": max(errs), "launches": got}
+
+
+def phase10(dev, bundle, accel, config, smi):
+    """6 PT and 6 ReSTIR frames of the map at 1080p; returns each path's
+    launches."""
+    from merian_quake_tpu_torch.render.restir import ReSTIRConfig
+    from merian_quake_tpu_torch.renderer import init_state, render_frame
+
+    per_path = {}
+    for integrator, expect in (
+        ("pt", {"woop_stream": 5}),
+        ("restir", {"woop_stream": 3, "woop_stream_any": 1, "woop_any": 1}),
+    ):
+        cfg = config._replace(integrator=integrator)
+        rcfg = ReSTIRConfig() if integrator == "restir" else None
+        state = init_state(cfg, rcfg, device=dev)
+        reset_launches()
+        frame_ms = []
+        for i in range(6):
+            before = launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, out = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=i), cfg,
+                                      state, rcfg)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            got = {k: v - before[k] for k, v in launches().items()}
+            if got != {**{k: 0 for k in got}, **expect}:
+                raise AssertionError(f"map {integrator} frame {i}: launched {got}, expected {expect}")
+        per_path[integrator] = launches()
+        for name, x in (("ldr", out["ldr"]), ("hdr", out["hdr"]), ("irradiance", out["irradiance"]),
+                        ("accum_irradiance", state.accum_irradiance)):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"map {integrator} {name} is not finite")
+        if tuple(out["ldr"].shape) != (H, W, 3) or float(out["ldr"].std()) <= 0.0:
+            raise AssertionError(f"map {integrator} ldr has the wrong shape or is constant")
+        steady = float(np.mean(frame_ms[2:]))
+        rate = ""
+        if integrator == "pt":
+            rate = f", {W * H * (1 + SPP * (MPL - 1)) / steady / 1e3:.2f} Mrays/s"
+        log(f"phase 10 {integrator} map {W}x{H} [{smi}]: launches {per_path[integrator]}; cold "
+            f"{frame_ms[0]:.1f} ms, steady {steady:.1f} ms/frame (frames "
+            f"{', '.join(f'{x:.1f}' for x in frame_ms)}){rate}; ldr mean {float(out['ldr'].mean()):.4f}")
+    return per_path
+
+
+def phase11(dev):
+    """2 PT and 2 ReSTIR frames of the map at 32×18: CPU oracle against
+    the card (K3 + K2)."""
+    from merian_quake_tpu_torch.accel import woop
+    from merian_quake_tpu_torch.models.procedural import city
+    from merian_quake_tpu_torch.models.types import RenderConfig
+    from merian_quake_tpu_torch.render.restir import ReSTIRConfig
+    from merian_quake_tpu_torch.renderer import render_sequence
+
+    bundle = city(**MAP, device="cpu")
+    for name, cfg, rcfg in (
+        ("pt", RenderConfig(width=32, height=18, spp=SPP, max_path_length=MPL), None),
+        ("restir", RenderConfig(width=32, height=18, integrator="restir"), ReSTIRConfig()),
+    ):
+        t0 = time.perf_counter()
+        _, out_cpu = render_sequence(bundle, cfg, frames=2, mcpg_config=rcfg, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        k1, k3 = woop.woop_nearest.launches, woop.woop_stream.launches
+        # no device=: the entry point's default is the card
+        _, out_gpu = render_sequence(bundle, cfg, frames=2, mcpg_config=rcfg)
+        if out_gpu["ldr"].device != dev:
+            raise AssertionError(f"render_sequence without device= ran on {out_gpu['ldr'].device}")
+        if woop.woop_stream.launches == k3 or woop.woop_nearest.launches != k1:
+            raise AssertionError(f"map {name} 32x18 on the card did not trace through K3 alone")
+        diff = (out_cpu["ldr"] - out_gpu["ldr"].cpu()).abs()
+        share = float((diff.amax(-1) <= PIX_TOL).float().mean())
+        mean = float(diff.mean())
+        log(f"phase 11 map {name} cpu vs cuda 32x18 x2 frames (cpu {cpu_s:.1f} s): pixels within "
+            f"{PIX_TOL} {share:.5f}, mean |d| {mean:.3e}, max |d| {float(diff.max()):.3e}")
+        if share < PIX_SHARE or mean >= MEAN_TOL:
+            raise AssertionError(f"map {name}: CPU and card LDR images disagree")
 
 
 def main() -> int:
@@ -403,16 +762,17 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(smi)
     t0 = time.perf_counter()
-    kernels.build_libraries("woop_nearest", "woop_any")
+    kernels.build_libraries(*kernels.KERNELS)
     build_s = time.perf_counter() - t0
     ptxas = {}
-    for name in ("woop_nearest", "woop_any"):
+    for name in kernels.KERNELS:
         kernels.load_library(name)
         with open(kernels.library_path(name) + ".log") as f:
-            ptxas[name] = " | ".join(line.strip() for line in f if "ptxas info" in line)
+            ptxas[name] = " | ".join(line.strip() for line in f if "ptxas info" in line
+                                     and ("Used" in line or "spill" in line))
     log(f"phase 1 device: {kind} x{count} [{smi}] torch {torch.__version__} "
-        f"cuda {torch.version.cuda}; K1 + K2 build {build_s:.2f} s; "
-        f"K1 ({ptxas['woop_nearest']}); K2 ({ptxas['woop_any']})")
+        f"cuda {torch.version.cuda}; K1 + K2 + K3 + K8 build {build_s:.2f} s; "
+        + "; ".join(f"{k} ({ptxas[k]})" for k in kernels.KERNELS))
 
     # ---- phase 2: K1 vs plain version ----
     rng = np.random.default_rng(1337)
@@ -464,21 +824,28 @@ def main() -> int:
     ):
         ref = lambda: woop.intersect_woop_reference(args[0], args[1])
         k1 = lambda: woop.woop_nearest(*args)
-        max_abs.append(check_k1(f"city {name} {n_full} t_min=0.0", k1(), ref()))
+        max_abs.append(check_exact(2, f"city {name} {n_full} t_min=0.0", k1(), ref()))
         r1 = cuda_time(ref, 1)
         k_1 = cuda_time(k1, 10)
         k_2 = cuda_time(k1, 10)
         r2 = cuda_time(ref, 1)
-        timings[name] = ((k_1 + k_2) / 2, (r1 + r2) / 2)
+        ops, nbytes = woop_work(woop.woop_nearest, args)
+        timings[name] = ((k_1 + k_2) / 2, (r1 + r2) / 2, *bound_ms(ops, nbytes))
+        # K3 on the same table: the other side of the routing threshold,
+        # timed in turns with K1
+        k3 = lambda: woop.woop_stream(*args)
+        check_exact(2, f"city {name} {n_full} K3 vs K1", k3(), k1())
+        s_1, c_1, c_2, s_2 = cuda_time(k3, 10), cuda_time(k1, 10), cuda_time(k1, 10), cuda_time(k3, 10)
         log(f"phase 2 timing {name} {n_full} rays [{smi}]: K1 {k_1:.3f} / {k_2:.3f} ms, "
-            f"plain {r1:.1f} / {r2:.1f} ms")
+            f"plain {r1:.1f} / {r2:.1f} ms; bound {timings[name][2]:.4f} ms "
+            f"({timings[name][3]}; {ops / OPS_NEAREST:.4g} pairs tested); K3 forced "
+            f"{s_1:.3f} / {s_2:.3f} ms against K1 {c_1:.3f} / {c_2:.3f} ms")
     max_abs.append(compare_k1(f"city bounce {n_full} t_min=0.001", woop.k1_inputs(
         accel, bo, bd, full(1e-3, n_full), bt), woop))
 
     # ---- phase 3: the slice on the card ----
-    woop.woop_nearest.launches = 0
-    woop.woop_any.launches = 0
     state = init_state(config, device=dev)
+    reset_launches()
     uniforms = bundle.uniforms
     frame_ms = []
     for i in range(6):
@@ -491,10 +858,9 @@ def main() -> int:
         launched = woop.woop_nearest.launches - before
         if launched != 1 + SPP * (MPL - 1):
             raise AssertionError(f"frame {i}: K1 launched {launched} times, expected 5")
-    launches = woop.woop_nearest.launches
-    pt_k2 = woop.woop_any.launches
-    if pt_k2 != 0:
-        raise AssertionError(f"the path-traced frames launched K2 {pt_k2} times, expected 0")
+    pt_city = launches()
+    if pt_city != {**{k: 0 for k in pt_city}, "woop_nearest": 6 * (1 + SPP * (MPL - 1))}:
+        raise AssertionError(f"the path-traced city frames launched {pt_city}, expected K1 alone")
     for name, x in (("ldr", out["ldr"]), ("hdr", out["hdr"]),
                     ("accum_irradiance", state.accum_irradiance),
                     ("accum_direct", state.accum_direct),
@@ -505,16 +871,15 @@ def main() -> int:
         raise AssertionError("ldr has the wrong shape or is constant")
     steady = float(np.mean(frame_ms[2:]))
     rays = W * H * (1 + SPP * (MPL - 1))
-    log(f"phase 3 slice city {W}x{H} spp {SPP} mpl {MPL} [{smi}]: K1 launches {launches}, "
-        f"K2 launches {pt_k2}; "
+    log(f"phase 3 slice city {W}x{H} spp {SPP} mpl {MPL} [{smi}]: launches {pt_city}; "
         f"cold {frame_ms[0]:.1f} ms, steady {steady:.1f} ms/frame "
         f"(frames {', '.join(f'{x:.1f}' for x in frame_ms)}), "
         f"{rays / steady / 1e3:.2f} Mrays/s; ldr mean {float(out['ldr'].mean()):.4f}")
 
     # ---- phase 4: CPU oracle vs card K1 ----
     small = RenderConfig(width=64, height=36, spp=SPP, max_path_length=MPL)
-    _, out_cpu = render_sequence(city(), small, frames=3, device="cpu")
-    _, out_gpu = render_sequence(city(), small, frames=3, device=dev)
+    _, out_cpu = render_sequence(city(device="cpu"), small, frames=3, device="cpu")
+    _, out_gpu = render_sequence(city(device="cpu"), small, frames=3, device=dev)
     diff = (out_cpu["ldr"] - out_gpu["ldr"].cpu()).abs()
     share = float((diff.amax(-1) <= PIX_TOL).float().mean())
     mean = float(diff.mean())
@@ -527,23 +892,56 @@ def main() -> int:
     k2 = phase5(dev, rng, acc_soup, bundle, accel, config, smi)
 
     # ---- phase 6: the ReSTIR slice on the card ----
-    restir_launches = phase6(dev, bundle, accel, feats, smi)
+    restir_city = phase6(dev, bundle, accel, feats, smi)
 
     # ---- phase 7: CPU oracle vs card K1 + K2, ReSTIR ----
     phase7(dev)
 
-    k_ms = (timings["primary"][0] * 1 + timings["bounce"][0] * 4) / 5
-    p_ms = (timings["primary"][1] * 1 + timings["bounce"][1] * 4) / 5
+    # ---- phases 8-11: the map scene, K3 and K8 ----
+    soup = (acc_soup, o_t, d_t)
+    m_bundle, m_accel, m_config = map_scene(dev)
+    k3, (mpo, mpd) = phase8(dev, soup, m_bundle, m_accel, m_config, smi)
+    k8 = phase9(dev, soup, m_accel, mpo, mpd, smi)
+    map_paths = phase10(dev, m_bundle, m_accel, m_config, smi)
+    phase11(dev)
+
+    paths = {"pt": pt_city, "restir": restir_city, "dense_map": k8["launches"],
+             "pt_map": map_paths["pt"], "restir_map": map_paths["restir"]}
+    by_path = lambda k: {p: v[k] for p, v in paths.items()}
+    total = lambda k: sum(by_path(k).values())
+    mix = lambda x, key: (x["primary"][key] + 4 * x["bounce"][key]) / 5  # 1 primary + 4 bounce traces
+    city_t = {k: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), v)) for k, v in timings.items()}
     print(json.dumps({"kernels": [{
         "name": "woop_nearest", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches + restir_launches["woop_nearest"],
-        "launches_by_path": {"pt": launches, "restir": restir_launches["woop_nearest"]},
-        "max_abs_err": max(max_abs), "ms": k_ms, "plain_ms": p_ms,
+        "replaces": REPLACES, "launches": total("woop_nearest"),
+        "launches_by_path": by_path("woop_nearest"),
+        "max_abs_err": max(max_abs), "ms": mix(city_t, "ms"), "plain_ms": mix(city_t, "plain_ms"),
+        "bound_ms": mix(city_t, "bound_ms"), "bound_by": city_t["bounce"]["bound_by"],
+        "library_ms": None, "rays": n_full, "scene": "city",
     }, {
         "name": "woop_any", "route": "cuda", "source": K2_SOURCE,
-        "replaces": K2_REPLACES, "launches": pt_k2 + restir_launches["woop_any"],
-        "launches_by_path": {"pt": pt_k2, "restir": restir_launches["woop_any"]},
+        "replaces": K2_REPLACES, "launches": total("woop_any"),
+        "launches_by_path": by_path("woop_any"),
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
+        "rays": n_full, "scene": "city",
+    }, {
+        "name": "woop_stream", "route": "cuda", "source": K3_SOURCE,
+        "replaces": K3_REPLACES, "launches": total("woop_stream"),
+        "launches_by_path": by_path("woop_stream"),
+        "anyhit_launches_by_path": by_path("woop_stream_any"),
+        "max_abs_err": k3["max_abs_err"], "ms": mix(k3, "ms"), "plain_ms": mix(k3, "plain_ms"),
+        "bound_ms": mix(k3, "bound_ms"), "bound_by": k3["bounce"]["bound_by"], "library_ms": None,
+        "rays": n_full, "plain_rays": SUBSET, "ms_plain_rays": mix(k3, "subset_ms"),
+        "scene": "map", "shadow_ms": k3["shadow"]["ms"],
+        "shadow_bound_ms": k3["shadow"]["bound_ms"],
+    }, {
+        "name": "mt_dense", "route": "cuda", "source": K8_SOURCE,
+        "replaces": K8_REPLACES, "launches": total("mt_dense"),
+        "launches_by_path": by_path("mt_dense"),
+        "max_abs_err": k8["max_abs_err"], "ms": k8["ms"], "plain_ms": k8["plain_ms"],
+        "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"], "library_ms": None,
+        "rays": SUBSET, "scene": "map",
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

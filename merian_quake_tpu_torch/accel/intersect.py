@@ -8,8 +8,9 @@ past the surface when the texel alpha is below ALPHA_THRESHOLD.
 
 Dispatch is by device and nothing else: CPU tensors run the chunked
 Möller–Trumbore oracle (what the JAX package runs on the CPU), CUDA
-tensors run K1 (accel/woop.py, csrc/woop_nearest.cu) and, for
-visibility, K2 (csrc/woop_any.cu).
+tensors run the Woop kernels of accel/woop.py: K1 (csrc/woop_nearest.cu)
+and, for visibility, K2 (csrc/woop_any.cu), or K3 (csrc/woop_stream.cu)
+for tables of more than RESIDENT_MAX_TRIS triangles.
 """
 from __future__ import annotations
 
@@ -21,13 +22,10 @@ from ..models import atlas as atlas_mod
 from ..models import materials
 from ..ops.linalg import as_f32
 from .build import AccelScene
+from .dense import mt_nearest
 
 _BIG = 3e38
-_DET_EPS = 1e-9
 _ADVANCE = 1e-3  # re-trace offset past a rejected surface (quake units)
-# (rays × triangles) elements per oracle step: bounds its temporaries
-_ORACLE_PAIRS = 1 << 20
-_ORACLE_RAYS = 1 << 16
 
 
 class HitRecord(NamedTuple):
@@ -46,8 +44,8 @@ def intersect(
 ) -> HitRecord:
     """Nearest front-facing candidate hit. o, d: f32[N, 3].
 
-    CUDA tensors go through K1 (``sort_rays`` bins incoherent rays
-    first); CPU tensors run the oracle, where ``sort_rays`` changes
+    CUDA tensors go through K1 or K3 (``sort_rays`` bins incoherent
+    rays first); CPU tensors run the oracle, where ``sort_rays`` changes
     nothing.
     """
     if o.is_cuda:
@@ -60,60 +58,12 @@ def intersect(
 
 
 def _intersect_oracle(accel: AccelScene, o, d, t_min, t_max) -> HitRecord:
-    """Möller–Trumbore over all triangles, in triangle chunks with a
-    running nearest hit (the lowest index wins exact ties)."""
+    """Möller–Trumbore over all triangles (accel/dense.py::mt_nearest, the
+    plain version of K8): the lowest index wins exact ties."""
     n = o.shape[0]
-    t_min = as_f32(t_min, o).expand(n)
-    t_max = as_f32(t_max, o).expand(n)
-    if n > _ORACLE_RAYS:
-        parts = [
-            _intersect_oracle(accel, o[s:s + _ORACLE_RAYS], d[s:s + _ORACLE_RAYS],
-                              t_min[s:s + _ORACLE_RAYS], t_max[s:s + _ORACLE_RAYS])
-            for s in range(0, n, _ORACLE_RAYS)
-        ]
-        return HitRecord(*[torch.cat(x) for x in zip(*parts)])
-    scene = accel.scene
-    T = scene.num_tris
-    chunk = min(T, max(64, _ORACLE_PAIRS // max(n, 1) // 64 * 64))
-
-    best_t = torch.full((n,), _BIG, dtype=torch.float32, device=o.device)
-    best_tri = torch.full((n,), -1, dtype=torch.int32, device=o.device)
-    best_u = torch.zeros((n,), device=o.device)
-    best_v = torch.zeros((n,), device=o.device)
-    rows = torch.arange(n, device=o.device)
-    oo, dd = o[:, None, :], d[:, None, :]
-    for c0 in range(0, T, chunk):
-        sl = slice(c0, min(T, c0 + chunk))
-        cv0, cv1, cv2 = scene.v0[sl], scene.v1[sl], scene.v2[sl]
-        e1 = (cv1 - cv0)[None]  # (1, C, 3)
-        e2 = (cv2 - cv0)[None]
-        pvec = torch.linalg.cross(dd.expand(-1, e2.shape[1], -1), e2.expand(n, -1, -1), dim=-1)
-        det = (e1 * pvec).sum(-1)  # (N, C)
-        front = det < -_DET_EPS
-        inv_det = 1.0 / torch.where(front, det, -1.0)
-        tvec = oo - cv0[None]
-        u = (tvec * pvec).sum(-1) * inv_det
-        qvec = torch.linalg.cross(tvec, e1.expand(n, -1, -1), dim=-1)
-        v = (dd * qvec).sum(-1) * inv_det
-        t = (e2 * qvec).sum(-1) * inv_det
-        ok = (
-            front
-            & accel.candidate[sl][None]
-            & (u >= 0.0)
-            & (v >= 0.0)
-            & (u + v <= 1.0)
-            & (t > t_min[:, None])
-            & (t <= t_max[:, None])
-        )
-        t_m = torch.where(ok, t, _BIG)
-        j = torch.argmin(t_m, dim=-1)  # first index of the minimum
-        tj = t_m[rows, j]
-        better = tj < best_t
-        best_tri = torch.where(better, (c0 + j).to(torch.int32), best_tri)
-        best_u = torch.where(better, u[rows, j], best_u)
-        best_v = torch.where(better, v[rows, j], best_v)
-        best_t = torch.where(better, tj, best_t)
-    return HitRecord(t=best_t, tri=best_tri, u=best_u, v=best_v)
+    s = accel.scene
+    return HitRecord(*mt_nearest(o, d, as_f32(t_min, o).expand(n), as_f32(t_max, o).expand(n),
+                                 s.v0, s.v1, s.v2, accel.candidate))
 
 
 def _hit_uv(accel: AccelScene, hr: HitRecord) -> torch.Tensor:
@@ -175,10 +125,11 @@ def trace_visibility(accel: AccelScene, tex, from_pos, to_pos, offset: float = 1
 
     CPU tensors run what the JAX package runs on the CPU: the nearest
     accepted hit on the full table (alpha loop when ``tex`` is given),
-    visible when it misses or hits sky. CUDA tensors run K2 on the
-    shadow table (after the proxy pre-pass), then, when ``tex`` is given
-    and the scene has alpha-tested triangles, a nearest + alpha-loop
-    trace (K1) on the alpha-only table. The two differ only where an
+    visible when it misses or hits sky. CUDA tensors run K2 (K3 at map
+    scale) on the shadow table (after the proxy pre-pass, on K2), then,
+    when ``tex`` is given and the scene has alpha-tested triangles, a
+    nearest + alpha-loop trace (K1 or K3, by the table's size) on the
+    alpha-only table. The two differ only where an
     opaque surface lies behind a sky polygon within range: K2 calls it
     occluded, the oracle visible (real maps keep sky as the outer shell).
     """
@@ -196,9 +147,10 @@ def trace_visibility(accel: AccelScene, tex, from_pos, to_pos, offset: float = 1
 
 
 def _visible_anyhit(accel: AccelScene, tex, o, d, offset, t_max, sort_rays=False):
-    """The card's visibility: K2 on the shadow table, then alpha-tested
-    triangles resolved by a nearest + alpha-loop trace on the alpha-only
-    table (the woop rows and AABBs swapped in; it goes through K1)."""
+    """The card's visibility: K2 or K3 on the shadow table, then
+    alpha-tested triangles resolved by a nearest + alpha-loop trace on
+    the alpha-only table (the woop rows and AABBs swapped in; it goes
+    through K1 or K3)."""
     from .woop import intersect_woop_any
 
     vis = ~intersect_woop_any(accel, o, d, offset, t_max, sort_rays=sort_rays)

@@ -20,11 +20,22 @@ test on the transformed origin/direction is division-free.
   ``intersect_woop_any_reference`` as its plain version and
   ``intersect_woop_any`` (shadow table, proxy pre-pass) as its entry
   point.
+- ``woop_stream``: the wrapper of K3, ``csrc/woop_stream.cu`` — the
+  hand-written Hopper kernel that replaces the TPU's streamed-table
+  kernel ``_kernel_stream``: the nearest-hit or any-hit result of K1/K2
+  for tables of any size, each ray block walking its own near-to-far
+  cluster list with an exact horizon exit. Its plain versions are
+  ``intersect_woop_reference`` and ``intersect_woop_any_reference``.
 
-The TPU schedule knobs of the reference (visit groups, sub-gates,
-compaction, fine tables, target keys, node levels, partitioned sweeps)
-are not carried over: they change which tiles a TPU block visits,
-never the hit.
+Routing by table size is the JAX package's default: a table of more
+than ``RESIDENT_MAX_TRIS`` triangles goes to K3, a smaller one to K1 or
+K2 (:func:`streamed`); the JAX package's ``resident=`` override is not
+carried over. The JAX package chains resident sweeps over parts of a
+large table (``_sweep_parts``) because a TPU core's VMEM holds 65,536
+triangles; K3 gives the same result in one launch, so that is not
+carried over, nor are the other TPU schedule knobs (visit groups, sub-gates,
+compaction, fine tables, target keys, node levels): they change which
+tiles a TPU block visits, never the hit.
 """
 from __future__ import annotations
 
@@ -39,6 +50,11 @@ from ..ops.linalg import as_f32
 BIG = 3e38
 # rays per CUDA thread block
 RAY_BLOCK = 128
+# tables above this many triangles go to K3 (the JAX package's VMEM
+# budget, woop.py:54 there; not a crossover measured on a GPU)
+RESIDENT_MAX_TRIS = 65536
+# K3's largest cluster count: its visit-list sort key holds a 14-bit id
+MAX_STREAM_CLUSTERS = 1 << 14
 
 
 def build_woop(
@@ -265,17 +281,46 @@ def intersect_woop_any_reference(rays: torch.Tensor, w: torch.Tensor, occluded_i
     return out
 
 
-def _kernel_lib(name):
+def _kernel_lib(name, entry=None):
+    """The C entry point ``entry`` (default ``mq_<name>``) of
+    ``csrc/<name>.cu``. Every one takes (rays, n_pad, w, lo, hi, nc,
+    block, out0, out1, counts, stream)."""
     from ..kernels import load_library
 
-    lib = load_library(name)
-    fn = getattr(lib, f"mq_{name}")
+    fn = getattr(load_library(name), entry or f"mq_{name}")
     if fn.argtypes is None:
         p = ctypes.c_void_p
         fn.argtypes = [p, ctypes.c_int64, p, p, p, ctypes.c_int, ctypes.c_int,
-                       p, p, p]
+                       p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name, rays, w, cluster_lo, cluster_hi, out0, out1, counts, entry=None):
+    """Launch a Woop kernel on the current stream; raise on a refused
+    launch. ``counts`` is None (the frame path: the kernel is built
+    without its counter) or an int64[n_pad / RAY_BLOCK] CUDA tensor that
+    gets the (ray, triangle) pairs each CTA tested (zeroed here)."""
+    n_pad = rays.shape[1]
+    cptr = None
+    if counts is not None:
+        _check("counts", counts, torch.int64, (n_pad // RAY_BLOCK,), rays.device)
+        counts.zero_()
+        cptr = counts.data_ptr()
+    fn = _kernel_lib(name, entry)
+    with torch.cuda.device(rays.device):
+        stream = torch.cuda.current_stream(rays.device).cuda_stream
+        err = fn(
+            rays.data_ptr(), n_pad, w.data_ptr(), cluster_lo.data_ptr(), cluster_hi.data_ptr(),
+            cluster_lo.shape[0], RAY_BLOCK, out0, out1, cptr, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{entry or name} kernel launch failed: CUDA error {err}")
+
+
+def _refuse_counts_on_cpu(counts):
+    if counts is not None:
+        raise ValueError("counts: only a kernel on the card counts its work")
 
 
 def _check(name, x, dtype, shape, device):
@@ -306,7 +351,7 @@ def _check_k_inputs(rays, w, cluster_lo, cluster_hi):
     return n_pad
 
 
-def woop_nearest(rays, w, cluster_lo, cluster_hi):
+def woop_nearest(rays, w, cluster_lo, cluster_hi, counts=None):
     """K1: nearest front-facing hit per ray. Returns (t f32[n_pad],
     tri i32[n_pad]); t = BIG and tri = -1 on a miss.
 
@@ -314,24 +359,17 @@ def woop_nearest(rays, w, cluster_lo, cluster_hi):
     RAY_BLOCK; w f32[3T, 8]; cluster_lo/hi f32[nc, 3], the AABBs of the
     per-ray gate. On CUDA tensors this launches csrc/woop_nearest.cu and
     counts the launch in ``woop_nearest.launches``; on CPU tensors it
-    runs :func:`intersect_woop_reference`.
+    runs :func:`intersect_woop_reference`. ``counts``: see
+    :func:`_launch` (None on the frame path).
     """
     n_pad = _check_k_inputs(rays, w, cluster_lo, cluster_hi)
     if rays.device.type == "cpu":
+        _refuse_counts_on_cpu(counts)
         return intersect_woop_reference(rays, w)
-    dev = rays.device
-    out_t = torch.empty(n_pad, dtype=torch.float32, device=dev)
-    out_tri = torch.empty(n_pad, dtype=torch.int32, device=dev)
-    fn = _kernel_lib("woop_nearest")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            rays.data_ptr(), n_pad, w.data_ptr(), cluster_lo.data_ptr(),
-            cluster_hi.data_ptr(), cluster_lo.shape[0], RAY_BLOCK, out_t.data_ptr(),
-            out_tri.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"woop_nearest kernel launch failed: CUDA error {err}")
+    out_t = torch.empty(n_pad, dtype=torch.float32, device=rays.device)
+    out_tri = torch.empty(n_pad, dtype=torch.int32, device=rays.device)
+    _launch("woop_nearest", rays, w, cluster_lo, cluster_hi, out_t.data_ptr(),
+            out_tri.data_ptr(), counts)
     woop_nearest.launches += 1
     return out_t, out_tri
 
@@ -339,7 +377,7 @@ def woop_nearest(rays, w, cluster_lo, cluster_hi):
 woop_nearest.launches = 0
 
 
-def woop_any(rays, w, cluster_lo, cluster_hi, occluded_in=None):
+def woop_any(rays, w, cluster_lo, cluster_hi, occluded_in=None, counts=None):
     """K2: is each ray occluded? Returns bool[n_pad].
 
     Arguments as :func:`woop_nearest`'s (``w`` is the shadow, proxy or
@@ -352,25 +390,72 @@ def woop_any(rays, w, cluster_lo, cluster_hi, occluded_in=None):
     if occluded_in is not None:
         _check("occluded_in", occluded_in, torch.bool, (n_pad,), rays.device)
     if rays.device.type == "cpu":
+        _refuse_counts_on_cpu(counts)
         return intersect_woop_any_reference(rays, w, occluded_in)
-    dev = rays.device
-    out = torch.empty(n_pad, dtype=torch.bool, device=dev)
-    fn = _kernel_lib("woop_any")
+    out = torch.empty(n_pad, dtype=torch.bool, device=rays.device)
     occ_ptr = None if occluded_in is None else occluded_in.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            rays.data_ptr(), n_pad, w.data_ptr(), cluster_lo.data_ptr(),
-            cluster_hi.data_ptr(), cluster_lo.shape[0], RAY_BLOCK, occ_ptr,
-            out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"woop_any kernel launch failed: CUDA error {err}")
+    _launch("woop_any", rays, w, cluster_lo, cluster_hi, occ_ptr, out.data_ptr(), counts)
     woop_any.launches += 1
     return out
 
 
 woop_any.launches = 0
+
+
+def woop_stream(rays, w, cluster_lo, cluster_hi, *, anyhit=False, occluded_in=None,
+                counts=None):
+    """K3: K1's result (``anyhit=False``: (t f32[n_pad], tri i32[n_pad]))
+    or K2's (``anyhit=True``: occluded bool[n_pad], warm-started by
+    ``occluded_in``) for a table of any size up to MAX_STREAM_CLUSTERS
+    clusters, arguments as theirs.
+
+    On CUDA tensors this launches csrc/woop_stream.cu (its nearest or
+    any-hit entry point) and counts the launch in
+    ``woop_stream.launches`` (the any-hit ones also in
+    ``woop_stream.anyhit_launches``); on CPU tensors it runs
+    :func:`intersect_woop_reference` or
+    :func:`intersect_woop_any_reference`, which compute exactly its
+    function: only the schedule differs.
+    """
+    nc = cluster_lo.shape[0]
+    if nc > MAX_STREAM_CLUSTERS:
+        raise ValueError(f"woop_stream: {nc} clusters, at most {MAX_STREAM_CLUSTERS}")
+    n_pad = _check_k_inputs(rays, w, cluster_lo, cluster_hi)
+    if occluded_in is not None:
+        if not anyhit:
+            raise ValueError("woop_stream: occluded_in needs anyhit=True")
+        _check("occluded_in", occluded_in, torch.bool, (n_pad,), rays.device)
+    if rays.device.type == "cpu":
+        _refuse_counts_on_cpu(counts)
+        if anyhit:
+            return intersect_woop_any_reference(rays, w, occluded_in)
+        return intersect_woop_reference(rays, w)
+    if w.data_ptr() % 16:
+        raise ValueError("woop_stream: w must be 16-byte aligned (cp.async)")
+    if anyhit:
+        out = torch.empty(n_pad, dtype=torch.bool, device=rays.device)
+        occ_ptr = None if occluded_in is None else occluded_in.data_ptr()
+        _launch("woop_stream", rays, w, cluster_lo, cluster_hi, occ_ptr, out.data_ptr(),
+                counts, entry="mq_woop_stream_any")
+        woop_stream.anyhit_launches += 1
+    else:
+        out_t = torch.empty(n_pad, dtype=torch.float32, device=rays.device)
+        out_tri = torch.empty(n_pad, dtype=torch.int32, device=rays.device)
+        _launch("woop_stream", rays, w, cluster_lo, cluster_hi, out_t.data_ptr(),
+                out_tri.data_ptr(), counts)
+        out = (out_t, out_tri)
+    woop_stream.launches += 1
+    return out
+
+
+woop_stream.launches = 0
+woop_stream.anyhit_launches = 0
+
+
+def streamed(w) -> bool:
+    """Does a sweep over table ``w`` go to K3 (more than
+    RESIDENT_MAX_TRIS triangles) rather than K1/K2?"""
+    return w.shape[0] // 3 > RESIDENT_MAX_TRIS
 
 
 def sort_perm(accel, o, d, t_max_b):
@@ -402,14 +487,15 @@ def k2_inputs(accel, o, d, t_min_b, t_max_b):
 
 
 def intersect_woop_any(accel, o, d, t_min, t_max, sort_rays: bool = False):
-    """Occlusion-only visibility sweep through K2: bool[n] ``occluded``.
+    """Occlusion-only visibility sweep: bool[n] ``occluded``.
 
     Uses the shadow table (sky and alpha-tested triangles zeroed; the
     full table when absent). When the scene has a proxy table, a K2
     sweep over it runs first and its result warm-starts the shadow
     sweep: proxy triangles are genuine occluders, so this changes no
-    result, only how many rays the second sweep still tests.
-    ``sort_rays`` bins the rays as :func:`intersect_woop` does.
+    result, only how many rays the second sweep still tests. The shadow
+    sweep goes to K2 or K3 as :func:`streamed` says. ``sort_rays`` bins
+    the rays as :func:`intersect_woop` does.
     """
     n = o.shape[0]
     t_min_b = as_f32(t_min, o).expand(n).contiguous()
@@ -420,11 +506,14 @@ def intersect_woop_any(accel, o, d, t_min, t_max, sort_rays: bool = False):
         return torch.empty_like(occ).index_copy_(0, perm, occ)
     rays, proxy, shadow = k2_inputs(accel, o, d, t_min_b, t_max_b)
     occ = None if proxy is None else woop_any(rays, *proxy)
+    if streamed(shadow[0]):
+        return woop_stream(rays, *shadow, anyhit=True, occluded_in=occ)[:n]
     return woop_any(rays, *shadow, occ)[:n]
 
 
 def intersect_woop(accel, o, d, t_min, t_max, sort_rays: bool = False):
-    """HitRecord-level nearest-hit trace through K1.
+    """HitRecord-level nearest-hit trace through K1 or K3 (as
+    :func:`streamed` says for ``accel.woop_w``).
 
     ``sort_rays`` bins incoherent (bounce) rays by direction octant,
     dominant axis and origin Morton code (dead rays, t_max ≤ 0, go to
@@ -441,7 +530,9 @@ def intersect_woop(accel, o, d, t_min, t_max, sort_rays: bool = False):
         hr = intersect_woop(accel, o[perm], d[perm], t_min_b[perm], t_max_b[perm])
         back = lambda x: torch.empty_like(x).index_copy_(0, perm, x)
         return HitRecord(*[back(x) for x in hr])
-    t, tri = woop_nearest(*k1_inputs(accel, o, d, t_min_b, t_max_b))
+    args = k1_inputs(accel, o, d, t_min_b, t_max_b)
+    kernel = woop_stream if streamed(accel.woop_w) else woop_nearest
+    t, tri = kernel(*args)
     t, tri = t[:n], tri[:n]
     t, u, v = _recompute_tuv(accel, o, d, t, tri)
     return HitRecord(t=t, tri=tri, u=u, v=v)

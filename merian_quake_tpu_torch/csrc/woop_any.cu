@@ -28,9 +28,10 @@
 // an OR over pairs, so it does not depend on the order of visits: K2
 // equals the plain version on every ray.
 //
-// What bounds it on this card: arithmetic, as for K1 (~35 FP32 multiplies
-// and adds per pair; the table lives in L2). Shadow rays stop at their
-// first hit, so the design spends its effort on testing fewer pairs:
+// What bounds it on this card: arithmetic, as for K1 (46 FP32 multiplies
+// and adds per pair, each its own instruction; the table lives in L2).
+// Shadow rays stop at their first hit, so the design spends its effort on
+// testing fewer pairs:
 //   - one CTA per block of consecutive rays, one thread per ray;
 //   - the block walks all clusters; a per-ray slab gate against the
 //     cluster AABB with limit t_max (plus K1's slack; the wrapper pads
@@ -69,14 +70,19 @@ __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / (fabsf(d) < 1e-20f ? tiny : d);
 }
 
+// kCount: add up the (ray, triangle) pairs tested into counts[CTA]; the
+// frame path launches the kCount = false instance, which has no counter.
+template <bool kCount>
 __global__ void __launch_bounds__(kMaxBlock)
 woop_any_kernel(const float* __restrict__ rays, int64_t n_pad,
                 const float4* __restrict__ w4, const float* __restrict__ lo,
                 const float* __restrict__ hi, int nc,
                 const uint8_t* __restrict__ occ_in,
-                uint8_t* __restrict__ out) {
+                uint8_t* __restrict__ out,
+                unsigned long long* __restrict__ counts) {
   __shared__ float4 tile[3 * kCluster];
   __shared__ int live;  // rays of this CTA not yet occluded
+  unsigned long long pairs = 0;  // kCount only
 
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const float ox = rays[i], oy = rays[n_pad + i], oz = rays[2 * n_pad + i];
@@ -125,6 +131,7 @@ woop_any_kernel(const float* __restrict__ rays, int64_t n_pad,
 
     if (reach) {
       for (int k = 0; k < kCluster; ++k) {
+        if (kCount) ++pairs;
         const float4 r0 = tile[k];
         const float4 r1 = tile[kCluster + k];
         const float4 r2 = tile[2 * kCluster + k];
@@ -151,25 +158,34 @@ woop_any_kernel(const float* __restrict__ rays, int64_t n_pad,
     }
   }
   out[i] = occ ? 1 : 0;
+  if (kCount && pairs) atomicAdd(counts + blockIdx.x, pairs);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on `stream`, does not
 // synchronise, allocates nothing; returns cudaGetLastError() (0 = launched).
-// `occ_in` may be null (no warm start).
+// `occ_in` may be null (no warm start). `counts` (u64[n_pad / block],
+// zeroed by the caller, or null) gets per CTA the (ray, triangle) pairs
+// tested; null launches the kernel without the counter.
 extern "C" int mq_woop_any(const float* rays, int64_t n_pad, const float* w,
                            const float* lo, const float* hi, int nc, int block,
-                           const uint8_t* occ_in, uint8_t* out, void* stream) {
+                           const uint8_t* occ_in, uint8_t* out,
+                           unsigned long long* counts, void* stream) {
   if (block <= 0 || block > kMaxBlock || block % 32 != 0 ||
       n_pad % block != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t nb = n_pad / block;
   if (nb > 0) {
-    woop_any_kernel<<<(unsigned)nb, block, 0, (cudaStream_t)stream>>>(
-        rays, n_pad, reinterpret_cast<const float4*>(w), lo, hi, nc, occ_in,
-        out);
+    const float4* w4 = reinterpret_cast<const float4*>(w);
+    if (counts != nullptr) {
+      woop_any_kernel<true><<<(unsigned)nb, block, 0, (cudaStream_t)stream>>>(
+          rays, n_pad, w4, lo, hi, nc, occ_in, out, counts);
+    } else {
+      woop_any_kernel<false><<<(unsigned)nb, block, 0, (cudaStream_t)stream>>>(
+          rays, n_pad, w4, lo, hi, nc, occ_in, out, nullptr);
+    }
   }
   return (int)cudaGetLastError();
 }

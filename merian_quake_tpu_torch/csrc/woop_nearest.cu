@@ -26,8 +26,9 @@
 // to the dense sweep's choice.
 //
 // What bounds it on this card: arithmetic. Each (ray, triangle) pair
-// costs ~35 FP32 multiplies and adds plus compares; the table (96 B/triangle, 1.6 MB at
-// 16,640 triangles) lives in L2, so memory traffic is small next to the
+// costs 42 FP32 multiplies and adds (each its own instruction) plus
+// compares; the table (96 B/triangle, 1.6 MB at 16,640 triangles) lives
+// in L2, so memory traffic is small next to the
 // pairs tested. The design therefore spends its effort on testing fewer
 // pairs, simply:
 //   - one CTA per block of consecutive rays, one thread per ray (bounce
@@ -76,13 +77,18 @@ __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / (fabsf(d) < 1e-20f ? tiny : d);
 }
 
+// kCount: add up the (ray, triangle) pairs tested into counts[CTA]; the
+// frame path launches the kCount = false instance, which has no counter.
+template <bool kCount>
 __global__ void __launch_bounds__(kMaxBlock)
 woop_nearest_kernel(const float* __restrict__ rays, int64_t n_pad,
                     const float4* __restrict__ w4,
                     const float* __restrict__ lo,
                     const float* __restrict__ hi, int nc,
-                    float* __restrict__ out_t, int* __restrict__ out_tri) {
+                    float* __restrict__ out_t, int* __restrict__ out_tri,
+                    unsigned long long* __restrict__ counts) {
   __shared__ float4 tile[3 * kCluster];
+  unsigned long long pairs = 0;  // kCount only
 
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const float ox = rays[i], oy = rays[n_pad + i], oz = rays[2 * n_pad + i];
@@ -121,6 +127,7 @@ woop_nearest_kernel(const float* __restrict__ rays, int64_t n_pad,
     __syncthreads();
 
     if (reach) {
+      if (kCount) pairs += kCluster;
 #pragma unroll 4
       for (int k = 0; k < kCluster; ++k) {
         const float4 r0 = tile[k];
@@ -152,25 +159,35 @@ woop_nearest_kernel(const float* __restrict__ rays, int64_t n_pad,
   }
   out_t[i] = best;
   out_tri[i] = best_tri;
+  if (kCount && pairs) atomicAdd(counts + blockIdx.x, pairs);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on `stream`, does not
 // synchronise, allocates nothing; returns cudaGetLastError() (0 = launched).
+// `counts` (u64[n_pad / block], zeroed by the caller, or null) gets per
+// CTA the (ray, triangle) pairs tested; null launches the kernel without
+// the counter.
 extern "C" int mq_woop_nearest(const float* rays, int64_t n_pad,
                                const float* woop_w, const float* lo,
                                const float* hi, int nc, int block,
-                               float* out_t, int* out_tri, void* stream) {
+                               float* out_t, int* out_tri,
+                               unsigned long long* counts, void* stream) {
   if (block <= 0 || block > kMaxBlock || block % 32 != 0 ||
       n_pad % block != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t nb = n_pad / block;
   if (nb > 0) {
-    woop_nearest_kernel<<<(unsigned)nb, block, 0, (cudaStream_t)stream>>>(
-        rays, n_pad, reinterpret_cast<const float4*>(woop_w), lo, hi, nc,
-        out_t, out_tri);
+    const float4* w4 = reinterpret_cast<const float4*>(woop_w);
+    if (counts != nullptr) {
+      woop_nearest_kernel<true><<<(unsigned)nb, block, 0, (cudaStream_t)stream>>>(
+          rays, n_pad, w4, lo, hi, nc, out_t, out_tri, counts);
+    } else {
+      woop_nearest_kernel<false><<<(unsigned)nb, block, 0, (cudaStream_t)stream>>>(
+          rays, n_pad, w4, lo, hi, nc, out_t, out_tri, nullptr);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -19,7 +19,7 @@ import torch
 from .models.types import Scene, TextureAtlas, Uniforms
 
 
-def tensor(x, device="cpu") -> torch.Tensor:
+def tensor(x, device="cuda") -> torch.Tensor:
     """One array as a tensor on ``device``: u32 → int64, bfloat16 kept.
     The data is copied: the tensor never shares the caller's buffer."""
     a = np.array(x, order="C")
@@ -30,11 +30,11 @@ def tensor(x, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def scene_from_numpy(scene, device="cpu") -> Scene:
+def scene_from_numpy(scene, device="cuda") -> Scene:
     return Scene(*[tensor(getattr(scene, f), device) for f in Scene._fields])
 
 
-def atlas_from_numpy(atlas, device="cpu") -> TextureAtlas:
+def atlas_from_numpy(atlas, device="cuda") -> TextureAtlas:
     return TextureAtlas(
         data=tensor(atlas.data, device),
         table=tensor(atlas.table, device),
@@ -43,7 +43,7 @@ def atlas_from_numpy(atlas, device="cpu") -> TextureAtlas:
     )
 
 
-def uniforms_from_numpy(uniforms, device="cpu") -> Uniforms:
+def uniforms_from_numpy(uniforms, device="cuda") -> Uniforms:
     as_int = ("frame", "player")
     return Uniforms(**{
         f: int(np.asarray(getattr(uniforms, f))) if f in as_int
@@ -52,7 +52,7 @@ def uniforms_from_numpy(uniforms, device="cpu") -> Uniforms:
     })
 
 
-def gbuffer_from_numpy(gbuf, device="cpu"):
+def gbuffer_from_numpy(gbuf, device="cuda"):
     from .render.gbuffer import GBufferOutput
     from .render.hit import CompressedHit
 
@@ -63,7 +63,7 @@ def gbuffer_from_numpy(gbuf, device="cpu"):
     })
 
 
-def restir_state_from_numpy(state, device="cpu"):
+def restir_state_from_numpy(state, device="cuda"):
     from .render.restir import ReSTIRState
     from .render.restir.reservoir import Reservoir
 
@@ -75,7 +75,7 @@ def restir_state_from_numpy(state, device="cpu"):
     )
 
 
-def frame_state_from_numpy(state, device="cpu"):
+def frame_state_from_numpy(state, device="cuda"):
     """The accumulators, the frame count and, where present, the ReSTIR
     state of a frame state."""
     from .renderer import FrameState

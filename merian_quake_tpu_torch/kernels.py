@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 
+# every kernel source under csrc/: K1, K2, K3 and K8
+KERNELS = ("woop_nearest", "woop_any", "woop_stream", "mt_dense")
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")

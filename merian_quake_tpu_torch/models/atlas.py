@@ -29,7 +29,7 @@ def pack_textures(
     srgb: list[bool] | None = None,
     max_textures: int = materials.MAX_GLTEXTURES,
     mip_levels: int = 4,
-    device="cpu",
+    device="cuda",
 ) -> TextureAtlas:
     """Shelf-pack RGBA uint8 (or float) textures into one atlas.
 

@@ -75,7 +75,7 @@ class _SoupBuilder:
         self.tri(a, d, b, st=((0, 0), (0, sv), (su, 0)), **kw)
         self.tri(c, b, d, st=((su, sv), (su, 0), (0, sv)), **kw)
 
-    def build(self, device="cpu") -> Scene:
+    def build(self, device="cuda") -> Scene:
         n = len(self.v0)
         return build_scene_from_soup(
             np.asarray(self.v0, np.float32).reshape(n, 3),
@@ -131,7 +131,7 @@ def _sky_tex(size=64, seed=7):
     return t
 
 
-def cornell_box(emission=16.0, device="cpu") -> SceneBundle:
+def cornell_box(emission=16.0, device="cuda") -> SceneBundle:
     """Closed room, one ceiling area light, two blocks.
 
     Room interior: x,y in [0, 512], z in [0, 256]. Camera looks +x.
@@ -187,7 +187,7 @@ def cornell_box(emission=16.0, device="cpu") -> SceneBundle:
     return SceneBundle(scene, atlas, uniforms)
 
 
-def city(n_buildings=1650, seed=7, device="cpu") -> SceneBundle:
+def city(n_buildings=1650, seed=7, device="cuda") -> SceneBundle:
     """Map-scale stress scene (~17k triangles): a court of box buildings
     under a sunlit sky with scattered emissive panels. Stands in for a
     real Quake map (ad_azad-class triangle counts) in benchmarks."""

@@ -133,7 +133,7 @@ def default_uniforms(
     sky_cube=(-1, -1, -1, -1, -1, -1),
     player=0,
     prev_cam=None,
-    device="cpu",
+    device="cuda",
 ) -> Uniforms:
     f3 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
     cam = (f3(cam_x), f3(cam_w), f3(cam_u))
@@ -205,7 +205,7 @@ def build_scene_from_soup(
     pv0=None,
     pv1=None,
     pv2=None,
-    device="cpu",
+    device="cuda",
 ) -> Scene:
     """Host-side (numpy) scene assembly with padding to CLUSTER_SIZE."""
     v0 = np.asarray(v0, np.float32)

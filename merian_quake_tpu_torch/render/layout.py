@@ -16,7 +16,7 @@ def is_tiled(width: int, height: int) -> bool:
     return width % TILE_W == 0 and height % TILE_H == 0
 
 
-def gen_pixels(width: int, height: int, device="cpu"):
+def gen_pixels(width: int, height: int, device="cuda"):
     """Flat (px, py) int32 tensors in buffer order."""
     ar = lambda k: torch.arange(k, dtype=torch.int32, device=device)
     if not is_tiled(width, height):

@@ -31,7 +31,7 @@ class Reservoir(NamedTuple):
     y_flags: torch.Tensor  # u32 value (int64) [N]
 
 
-def reservoir_init(n: int, device="cpu") -> Reservoir:
+def reservoir_init(n: int, device="cuda") -> Reservoir:
     z = lambda *s: torch.zeros(s, device=device)
     return Reservoir(
         M=torch.zeros((n,), dtype=torch.int32, device=device),

@@ -52,7 +52,7 @@ class ReSTIRState(NamedTuple):
     prev_linear_z: torch.Tensor  # f32[N]
 
 
-def init_restir_state(width: int, height: int, device="cpu") -> ReSTIRState:
+def init_restir_state(width: int, height: int, device="cuda") -> ReSTIRState:
     n = width * height
     return ReSTIRState(
         reservoirs=rsv.reservoir_init(n, device),

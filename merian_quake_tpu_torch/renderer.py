@@ -53,7 +53,7 @@ def _check_supported(config: RenderConfig) -> None:
         )
 
 
-def init_state(config: RenderConfig, mcpg_config=None, device="cpu") -> FrameState:
+def init_state(config: RenderConfig, mcpg_config=None, device="cuda") -> FrameState:
     _check_supported(config)
     H, W = config.height, config.width
     z = lambda: torch.zeros((H, W, 4), device=device)
@@ -126,7 +126,7 @@ def render_frame(
 
 def render_sequence(
     bundle: SceneBundle, config: RenderConfig, frames: int = 1, mcpg_config=None,
-    device="cpu",
+    device="cuda",
 ):
     """Render ``frames`` frames of a static scene on ``device``,
     returning the final (state, outputs)."""

@@ -2,10 +2,13 @@
 """Where the time goes in the PyTorch port's 1080p frame.
 
     python3 scripts/profile_torch_frame.py [--integrator pt|restir] [--frames 2] [--out profiling]
+        [--n-buildings N --seed S]
 
-Needs one CUDA device. On procedural ``city`` at 1920×1080 with
-chip_smoke.py's configurations (``pt``: 2 spp, max path length 3;
-``restir``: ``ReSTIRConfig()``) it measures:
+Needs one CUDA device. On procedural ``city`` (its defaults: 16,640
+triangles; ``--n-buildings 28000 --seed 11`` is the map scene, 281,536
+triangles, traced by K3) at 1920×1080 with chip_smoke.py's
+configurations (``pt``: 2 spp, max path length 3; ``restir``:
+``ReSTIRConfig()``) it measures:
 
 1. host ms per stage of a steady frame (gbuffer, the integrator, and the
    rest of the frame = accumulate, exposure, tonemap), each stage ended
@@ -14,16 +17,19 @@ chip_smoke.py's configurations (``pt``: 2 spp, max path length 3;
    of the shade pass);
 2. a ``torch.profiler`` trace of ``--frames`` steady frames: device time
    against the host clock (the device's busy share), and device time by
-   op, the K1 kernel (``woop_nearest_kernel``) among them;
+   op, the trace kernels (``woop_nearest_kernel``, ``woop_stream_kernel``
+   and the others) among them;
 3. the coherence sort of bounce rays (``woop.intersect_woop(...,
    sort_rays=True)``: key, sort, gathers, scatter back) against none, on
-   one 2,073,600-ray bounce population: the whole trace and K1 alone,
+   one 2,073,600-ray bounce population: the whole trace and its kernel
+   alone (K1, or K3 above 65,536 triangles),
    timed with CUDA events in turns (sort, none, none, sort); then the
    whole frame with each, in the same turns, 5 steady frames a turn
    (``pt`` only).
 
 Prints one line per measurement and the card's name and power limit;
-the full op table goes to ``<out>/profile_frame_<integrator>.txt``.
+the full op table goes to ``<out>/profile_frame_<integrator>[_<n>].txt``
+(``_<n>`` with ``--n-buildings``).
 """
 from __future__ import annotations
 
@@ -66,6 +72,9 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=2, help="frames in the profile")
     ap.add_argument("--out", default=os.path.join(ROOT, "profiling"),
                     help="directory for profile_frame_<integrator>.txt")
+    ap.add_argument("--n-buildings", type=int, default=None,
+                    help="city's building count (default: its own; 28000 is the map scene)")
+    ap.add_argument("--seed", type=int, default=None, help="city's seed (default: its own)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_frame: no CUDA device")
@@ -76,8 +85,14 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    bundle = city(device=dev)
+    scene_kw = {k: v for k, v in (("n_buildings", args.n_buildings), ("seed", args.seed))
+                if v is not None}
+    bundle = city(**scene_kw, device=dev)
     accel = build_accel(bundle.scene, bundle.atlas)
+    kernel = woop.woop_stream if woop.streamed(accel.woop_w) else woop.woop_nearest
+    print(f"scene city({scene_kw or 'defaults'}): {bundle.scene.num_tris} triangles, "
+          f"traced by {kernel.__name__}", flush=True)
+    tag = f"_{args.n_buildings}" if args.n_buildings is not None else ""
     feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
     config = RenderConfig(width=W, height=H, spp=SPP, max_path_length=MPL, features=feats,
                           integrator=args.integrator)
@@ -159,7 +174,7 @@ def main() -> int:
             print(f"  {kind:6s} {dev_us(e) / 1e3:9.2f} ms {dev_us(e) / 1e3 / total_ms:6.1%} "
                   f"x{e.count:<6d} {e.key[:90]}")
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, f"profile_frame_{args.integrator}.txt"), "w") as f:
+    with open(os.path.join(args.out, f"profile_frame_{args.integrator}{tag}.txt"), "w") as f:
         f.write(f"{smi}\n")
         f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=80))
 
@@ -180,11 +195,11 @@ def main() -> int:
     times = {}
     for label in ("sort", "none", "none", "sort"):
         whole = chip_smoke.cuda_time(lambda: trace(label == "sort"), 10)
-        k1 = chip_smoke.cuda_time(lambda: woop.woop_nearest(*k1_args[label]), 10)
+        k1 = chip_smoke.cuda_time(lambda: kernel(*k1_args[label]), 10)
         times.setdefault(label, []).append((whole, k1))
     print(f"sort bounce {W * H} rays [{smi}]: " + "; ".join(
         f"{k}: trace {'/'.join(f'{a:.3f}' for a, _ in v)} ms, "
-        f"K1 {'/'.join(f'{b:.3f}' for _, b in v)} ms" for k, v in times.items()),
+        f"{kernel.__name__} {'/'.join(f'{b:.3f}' for _, b in v)} ms" for k, v in times.items()),
         flush=True)
 
     frames_ms = {}

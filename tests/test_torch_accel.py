@@ -78,7 +78,7 @@ def _city_primary(bundle, width=64, height=64):
     from merian_quake_tpu_torch.render import layout
 
     u = bundle.uniforms
-    px, py = layout.gen_pixels(width, height)
+    px, py = layout.gen_pixels(width, height, device="cpu")
     d = camera.ray_dir(px.float(), py.float(), width, height, u.cam_u, u.cam_w, u.fov_tan_half)
     return u.cam_x.expand_as(d).contiguous(), d
 
@@ -102,7 +102,7 @@ def _assert_hits_match(ours, ref):
 @pytest.mark.parametrize("name", ["box", "city"])
 def test_build_accel_tables_match_jax(name):
     jb = j_procedural.get_scene(name)
-    tb = procedural.get_scene(name)
+    tb = procedural.get_scene(name, device="cpu")
     ja = j_build_accel(jb.scene, jb.atlas)
     ta = build_accel(tb.scene, tb.atlas)
     # same procedural soup and the same median-split order
@@ -129,14 +129,14 @@ def test_build_accel_tables_match_jax(name):
 
 
 def test_atlas_matches_jax():
-    jb, tb = j_procedural.city(), procedural.city()
+    jb, tb = j_procedural.city(), procedural.city(device="cpu")
     np.testing.assert_array_equal(_np(tb.atlas.table), np.asarray(jb.atlas.table))
     # sRGB decode: numpy's f32 pow vs XLA's, a few ulps
     np.testing.assert_allclose(_np(tb.atlas.flat), np.asarray(jb.atlas.flat), rtol=1e-6, atol=1e-7)
 
 
 def test_sort_keys_bit_exact(rng):
-    jb, tb = j_procedural.city(), procedural.city()
+    jb, tb = j_procedural.city(), procedural.city(device="cpu")
     ja, ta = j_build_accel(jb.scene, jb.atlas), build_accel(tb.scene, tb.atlas)
     o = rng.uniform(-200, 4200, (4096, 3)).astype(np.float32)
     d = rng.normal(size=(4096, 3)).astype(np.float32)
@@ -152,7 +152,7 @@ def test_sort_keys_bit_exact(rng):
 def test_oracle_matches_jax_on_random_soup(rng):
     v0, v1, v2 = _random_soup(rng, spread=20.0)
     ja = j_build_accel(j_soup(v0, v1, v2))
-    ta = build_accel(build_scene_from_soup(v0, v1, v2))
+    ta = build_accel(build_scene_from_soup(v0, v1, v2, device="cpu"))
     o, d = _soup_rays(rng, 1024)
     o[:512] = rng.uniform(-60, 60, (512, 3))  # all of them near the soup
     d[:512] = rng.normal(size=(512, 3))
@@ -167,7 +167,7 @@ def test_oracle_matches_jax_on_random_soup(rng):
 
 
 def test_oracle_matches_jax_on_city():
-    jb, tb = j_procedural.city(), procedural.city()
+    jb, tb = j_procedural.city(), procedural.city(device="cpu")
     ja, ta = j_build_accel(jb.scene, jb.atlas), build_accel(tb.scene, tb.atlas)
     o, d = _city_primary(tb, 48, 32)
     ref = j_intersect(ja, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), 0.0, 1e4)
@@ -180,7 +180,7 @@ def test_woop_reference_matches_jax_kernel_random_soup(rng):
     interpret mode, on test_accel.py:205's soup with half misses."""
     v0, v1, v2 = _random_soup(rng)
     ja = j_build_accel(j_soup(v0, v1, v2))
-    ta = build_accel(build_scene_from_soup(v0, v1, v2))
+    ta = build_accel(build_scene_from_soup(v0, v1, v2, device="cpu"))
     o, d = _soup_rays(rng)
     ref = j_woop.intersect_woop(ja, jnp.asarray(o), jnp.asarray(d), 0.0, 1e4,
                                 ray_block=256, interpret=True)
@@ -196,7 +196,7 @@ def test_woop_reference_matches_jax_kernel_random_soup(rng):
 
 
 def test_woop_reference_matches_jax_kernel_city():
-    jb, tb = j_procedural.city(), procedural.city()
+    jb, tb = j_procedural.city(), procedural.city(device="cpu")
     ja, ta = j_build_accel(jb.scene, jb.atlas), build_accel(tb.scene, tb.atlas)
     o, d = _city_primary(tb, 64, 64)  # 4,096 rays
     ref = j_woop.intersect_woop(ja, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
@@ -210,8 +210,8 @@ def test_trace_nearest_alpha_grate():
     the JAX package's procedural code and handed over as arrays)."""
     jb = j_procedural.outdoor_court()
     ja = j_build_accel(jb.scene, jb.atlas)
-    atlas = interop.atlas_from_numpy(jb.atlas)
-    ta = build_accel(interop.scene_from_numpy(jb.scene), atlas)
+    atlas = interop.atlas_from_numpy(jb.atlas, device="cpu")
+    ta = build_accel(interop.scene_from_numpy(jb.scene, device="cpu"), atlas)
     ys = np.linspace(110, 290, 64)
     o = np.asarray([[600.0, y, 80.0] for y in ys], np.float32)
     d = np.broadcast_to(np.asarray([1.0, 0.0, 0.0], np.float32), (64, 3)).copy()
@@ -289,7 +289,7 @@ def _bounce_population(bundle, accel, width=48, height=32):
 
     cfg = RenderConfig(width=width, height=height)
     cur = decompress_hit(render_gbuffer(accel, bundle.atlas, bundle.uniforms, cfg).hits)
-    px, py = layout.gen_pixels(width, height)
+    px, py = layout.gen_pixels(width, height, device="cpu")
     _, u3 = rng.uniform3(rng.seed_pixel(px, py, 0, cfg.seed))
     wo = bsdf.sample(cur.wi, cur.normal, bsdf.roughness_to_alpha(cur.roughness), u3)
     live = (linalg.dot(wo, cur.geo_normal) > 1e-3) & (cur.albedo >= 1e-7).any(-1)
@@ -300,11 +300,11 @@ def _bounce_population(bundle, accel, width=48, height=32):
 def test_k1_schedule_matches_plain_version(rng, population):
     if population == "soup":
         v0, v1, v2 = _random_soup(rng)
-        acc = build_accel(build_scene_from_soup(v0, v1, v2))
+        acc = build_accel(build_scene_from_soup(v0, v1, v2, device="cpu"))
         o, d = (torch.from_numpy(x) for x in _soup_rays(rng))
         t_min, t_max = torch.zeros(512), torch.full((512,), 1e4)
     else:
-        bundle = procedural.city()
+        bundle = procedural.city(device="cpu")
         acc = build_accel(bundle.scene, bundle.atlas)
         if population == "primary":
             o, d = _city_primary(bundle, 48, 32)
@@ -327,7 +327,7 @@ def test_k1_schedule_matches_plain_version(rng, population):
 
 def test_woop_nearest_rejects_bad_inputs(rng):
     v0, v1, v2 = _random_soup(rng, 64)
-    acc = build_accel(build_scene_from_soup(v0, v1, v2))
+    acc = build_accel(build_scene_from_soup(v0, v1, v2, device="cpu"))
     o, d = (torch.from_numpy(x) for x in _soup_rays(rng, 256))
     args = list(woop.k1_inputs(acc, o, d, torch.zeros(256), torch.full((256,), 1e4)))
     for i, bad in (
@@ -408,15 +408,15 @@ def _assert_table(ours, ref, exact=False):
 def test_anyhit_tables_match_jax(rng, name):
     if name == "city":
         ja = j_build_accel(*j_procedural.city()[:2])
-        ta = build_accel(*procedural.city()[:2])
+        ta = build_accel(*procedural.city(device="cpu")[:2])
     elif name == "soup":  # proxy + sky-zeroed shadow rows, no alpha
         v0, v1, v2, flags = _mixed_soup(rng, sky_share=0.05)
         ja = j_build_accel(j_soup(v0, v1, v2, flags=flags))
-        ta = build_accel(build_scene_from_soup(v0, v1, v2, flags=flags))
+        ta = build_accel(build_scene_from_soup(v0, v1, v2, flags=flags, device="cpu"))
     else:  # alpha grates, sky walls; built by the JAX package, carried across
         jb = j_procedural.outdoor_court()
         ja = j_build_accel(jb.scene, jb.atlas)
-        ta = build_accel(interop.scene_from_numpy(jb.scene), interop.atlas_from_numpy(jb.atlas))
+        ta = build_accel(interop.scene_from_numpy(jb.scene, device="cpu"), interop.atlas_from_numpy(jb.atlas, device="cpu"))
     assert (ta.woop_w_shadow is ta.woop_w) == (ja.woop_w_shadow is ja.woop_w)
     _assert_table(ta.woop_w_shadow, ja.woop_w_shadow)
     _assert_table(ta.woop_w_alpha, ja.woop_w_alpha)
@@ -435,7 +435,7 @@ def test_k2_plain_matches_jax_anyhit_and_oracle(rng):
     mean the same; per-ray t_max and rays that miss everything."""
     v0, v1, v2 = _random_soup(rng)
     ja = j_build_accel(j_soup(v0, v1, v2))
-    ta = build_accel(build_scene_from_soup(v0, v1, v2))
+    ta = build_accel(build_scene_from_soup(v0, v1, v2, device="cpu"))
     assert ta.woop_w_shadow is ta.woop_w and ta.woop_w_proxy is None
     o, d, t_max = _shadow_rays(rng)
     ref = np.asarray(j_woop.intersect_woop_any(
@@ -454,7 +454,7 @@ def test_k2_proxy_prepass_matches_jax_and_oracle(rng):
     changes no ray, K2(shadow, occluded_in=K2(proxy)) == K2(shadow)."""
     v0, v1, v2, _ = _mixed_soup(rng)
     ja = j_build_accel(j_soup(v0, v1, v2))
-    ta = build_accel(build_scene_from_soup(v0, v1, v2))
+    ta = build_accel(build_scene_from_soup(v0, v1, v2, device="cpu"))
     assert ta.woop_w_proxy is not None and ta.cluster_lo_proxy.shape[0] >= 2
     o, d, t_max = _shadow_rays(rng, lo=-50, hi=50)
     ref = np.asarray(j_woop.intersect_woop_any(
@@ -493,7 +493,7 @@ def test_k2_sky_quad_in_front_of_occluder():
     and calls the segment visible. Both are what the JAX package does."""
     v0, v1, v2, flags = _sky_soup()
     ja = j_build_accel(j_soup(v0, v1, v2, flags=flags))
-    ta = build_accel(build_scene_from_soup(v0, v1, v2, flags=flags))
+    ta = build_accel(build_scene_from_soup(v0, v1, v2, flags=flags, device="cpu"))
     assert ta.woop_w_shadow is not ta.woop_w
     o = np.zeros((4, 3), np.float32)
     o[:, 1:] = [[0, 0], [1, 1], [-2, 3], [4, -4]]
@@ -585,10 +585,10 @@ def _city_shadow_rays(bundle, accel, width=48, height=32):
 def test_k2_schedule_matches_plain_version(rng, population):
     if population == "soup":
         v0, v1, v2, flags = _mixed_soup(rng, sky_share=0.05)
-        acc = build_accel(build_scene_from_soup(v0, v1, v2, flags=flags))
+        acc = build_accel(build_scene_from_soup(v0, v1, v2, flags=flags, device="cpu"))
         o, d, t_max = (torch.from_numpy(x) for x in _shadow_rays(rng, lo=-50, hi=50))
     else:
-        bundle = procedural.city()
+        bundle = procedural.city(device="cpu")
         acc = build_accel(bundle.scene, bundle.atlas)
         o, d, t_max = _city_shadow_rays(bundle, acc, 32, 16)
     n = o.shape[0]
@@ -606,7 +606,7 @@ def test_k2_schedule_matches_plain_version(rng, population):
 
 def test_woop_any_rejects_bad_inputs(rng):
     v0, v1, v2 = _random_soup(rng, 64)
-    acc = build_accel(build_scene_from_soup(v0, v1, v2))
+    acc = build_accel(build_scene_from_soup(v0, v1, v2, device="cpu"))
     o, d = (torch.from_numpy(x) for x in _soup_rays(rng, 256))
     rays, _, (w, lo, hi) = woop.k2_inputs(acc, o, d, torch.full((256,), 1e-3), torch.full((256,), 1e4))
     good = torch.zeros(256, dtype=torch.bool)
@@ -626,7 +626,7 @@ def test_woop_any_rejects_bad_inputs(rng):
 
 def test_trace_visibility_through_box():
     """Twin of test_accel.py:116 on both packages' cornell_box."""
-    jb, tb = j_procedural.cornell_box(), procedural.cornell_box()
+    jb, tb = j_procedural.cornell_box(), procedural.cornell_box(device="cpu")
     ja, ta = j_build_accel(jb.scene, jb.atlas), build_accel(tb.scene, tb.atlas)
     a = np.asarray([[60.0, 256.0, 130.0]] * 2, np.float32)
     bc = np.asarray([[200.0, 256.0, 130.0], [345.0, 335.0, 60.0]], np.float32)  # open air, block
@@ -656,8 +656,8 @@ def test_trace_visibility_outdoor_court(rng, monkeypatch):
     t_max boundary band."""
     jb = j_procedural.outdoor_court()
     ja = j_build_accel(jb.scene, jb.atlas)
-    atlas = interop.atlas_from_numpy(jb.atlas)
-    ta = build_accel(interop.scene_from_numpy(jb.scene), atlas)
+    atlas = interop.atlas_from_numpy(jb.atlas, device="cpu")
+    ta = build_accel(interop.scene_from_numpy(jb.scene, device="cpu"), atlas)
     lo, hi = _np(ta.world_lo), _np(ta.world_hi)
     n = 1024
     a = (lo + (hi - lo) * rng.uniform(0.02, 0.98, (n, 3))).astype(np.float32)
@@ -685,7 +685,7 @@ def test_k2_kernel_matches_plain_version_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     dev = torch.device("cuda")
-    bundle = procedural.city()
+    bundle = procedural.city(device="cpu")
     acc = build_accel(bundle.scene, bundle.atlas)
     o, d, t_max = _city_shadow_rays(bundle, acc, 256, 128)
     acc = build_accel(bundle.scene, bundle.atlas, device=dev)

@@ -50,8 +50,8 @@ def jax_run():
 
 def test_scene_and_atlas_round_trip(jax_run):
     bundle, _, _ = jax_run
-    _same_fields(interop.scene_from_numpy(bundle.scene), bundle.scene)
-    atlas = interop.atlas_from_numpy(bundle.atlas)
+    _same_fields(interop.scene_from_numpy(bundle.scene, device="cpu"), bundle.scene)
+    atlas = interop.atlas_from_numpy(bundle.atlas, device="cpu")
     for f in ("data", "table", "flat"):
         _same(getattr(atlas, f), getattr(bundle.atlas, f))
     assert len(atlas.mips) == len(bundle.atlas.mips)
@@ -62,7 +62,7 @@ def test_scene_and_atlas_round_trip(jax_run):
 def test_uniforms_round_trip(jax_run):
     bundle, _, _ = jax_run
     ref = bundle.uniforms._replace(frame=jnp.uint32(2**32 - 3), player=jnp.uint32(5))
-    ours = interop.uniforms_from_numpy(ref)
+    ours = interop.uniforms_from_numpy(ref, device="cpu")
     assert ours.frame == 2**32 - 3 and ours.player == 5
     for f in ours._fields:
         if f not in ("frame", "player"):
@@ -72,7 +72,7 @@ def test_uniforms_round_trip(jax_run):
 def test_gbuffer_round_trip(jax_run):
     _, _, out = jax_run
     ref = out["gbuffer"]
-    ours = interop.gbuffer_from_numpy(ref)
+    ours = interop.gbuffer_from_numpy(ref, device="cpu")
     assert ours._fields == ref._fields
     for f in ref._fields:
         if f != "hits":
@@ -83,7 +83,7 @@ def test_gbuffer_round_trip(jax_run):
 
 def test_frame_and_restir_state_round_trip(jax_run):
     _, state, _ = jax_run
-    ours = interop.frame_state_from_numpy(state)
+    ours = interop.frame_state_from_numpy(state, device="cpu")
     assert ours.iteration == int(state.iteration) == 1
     for f in ("accum_irradiance", "accum_direct", "accum_albedo"):
         _same(getattr(ours, f), getattr(state, f))
@@ -93,6 +93,6 @@ def test_frame_and_restir_state_round_trip(jax_run):
     assert int(ours.restir.reservoirs.M.max()) > 0
     _same(ours.restir.prev_normal, state.restir.prev_normal)
     _same(ours.restir.prev_linear_z, state.restir.prev_linear_z)
-    direct = interop.restir_state_from_numpy(state.restir)
+    direct = interop.restir_state_from_numpy(state.restir, device="cpu")
     for a, b in zip(direct.reservoirs, ours.restir.reservoirs):
         torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -1,10 +1,19 @@
 """The port must run where JAX is not installed (the GPU machine has
 none): in a subprocess that blocks ``jax`` before anything is imported,
 build cornell_box and render one 32×16 path-traced frame and one 32×16
-ReSTIR frame on the CPU, and import ``interop``."""
+ReSTIR frame on the CPU, and import ``interop``. And the port's entry
+points run on the card unless the caller asks for the CPU: without a
+CUDA device, a call without ``device=`` raises."""
 import os
 import subprocess
 import sys
+
+import pytest
+import torch
+
+from merian_quake_tpu_torch.models.procedural import city, cornell_box
+from merian_quake_tpu_torch.models.types import RenderConfig
+from merian_quake_tpu_torch.renderer import render_sequence
 
 _SCRIPT = """
 import sys
@@ -13,9 +22,9 @@ import torch
 from merian_quake_tpu_torch.models.procedural import cornell_box
 from merian_quake_tpu_torch.models.types import RenderConfig
 from merian_quake_tpu_torch.renderer import render_sequence
-state, out = render_sequence(cornell_box(), RenderConfig(width=32, height=16, spp=1), frames=1)
+state, out = render_sequence(cornell_box(device="cpu"), RenderConfig(width=32, height=16, spp=1), frames=1, device="cpu")
 assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["hdr"]).all())
-state, out = render_sequence(cornell_box(), RenderConfig(width=32, height=16, integrator="restir"), frames=1)
+state, out = render_sequence(cornell_box(device="cpu"), RenderConfig(width=32, height=16, integrator="restir"), frames=1, device="cpu")
 assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["hdr"]).all())
 assert state.restir.reservoirs.M.shape == (32 * 16,)
 import merian_quake_tpu_torch.interop
@@ -34,3 +43,15 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults run on it")
+    # torch built for the CPU raises AssertionError, a CUDA build with no
+    # device RuntimeError
+    with pytest.raises((AssertionError, RuntimeError)):
+        city()
+    bundle = cornell_box(device="cpu")
+    with pytest.raises((AssertionError, RuntimeError)):
+        render_sequence(bundle, RenderConfig(width=8, height=4, spp=1))

@@ -22,8 +22,14 @@ from merian_quake_tpu.ops import transmittance as j_trans
 from merian_quake_tpu.ops import vmf as j_vmf
 from merian_quake_tpu_torch.ops import bsdf, camera, color, linalg, octahedral
 from merian_quake_tpu_torch.ops import rng as t_rng
-from merian_quake_tpu_torch.interop import tensor as _t
+from merian_quake_tpu_torch.interop import tensor
 from merian_quake_tpu_torch.ops import transmittance, vmf
+
+
+def _t(x):
+    """An array as a CPU tensor (the interop default is the card)."""
+    return tensor(x, device="cpu")
+
 
 # The suite runs several test processes side by side on a few cores;
 # torch would start one thread per core in each and oversubscribe them.

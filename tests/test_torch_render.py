@@ -25,10 +25,16 @@ from merian_quake_tpu.render.trace import trace_ray as j_trace_ray
 from merian_quake_tpu_torch import interop
 from merian_quake_tpu_torch.accel.build import build_accel, scene_features
 from merian_quake_tpu_torch.models import procedural
-from merian_quake_tpu_torch.interop import tensor as _t
+from merian_quake_tpu_torch.interop import tensor
 from merian_quake_tpu_torch.models.types import RenderConfig
 from merian_quake_tpu_torch.render.gbuffer import render_gbuffer
 from merian_quake_tpu_torch.render.trace import ALL_FEATURES, trace_ray
+
+
+def _t(x):
+    """An array as a CPU tensor (the interop default is the card)."""
+    return tensor(x, device="cpu")
+
 
 # The suite runs several test processes side by side on a few cores;
 # torch would start one thread per core in each and oversubscribe them.
@@ -58,16 +64,16 @@ def _rays(rng, uniforms, n=1024):
 def test_trace_ray_matches_jax(rng, scene):
     if scene == "city":
         jb = j_procedural.city()
-        tb = procedural.city()
+        tb = procedural.city(device="cpu")
         t_scene, t_atlas, t_uni = tb
         j_feat = j_scene_features(jb.scene, jb.uniforms, jb.atlas)
         t_feat = scene_features(t_scene, t_uni, t_atlas)
         assert t_feat == tuple(j_feat)
     else:
         jb = j_procedural.outdoor_court()
-        t_scene = interop.scene_from_numpy(jb.scene)
-        t_atlas = interop.atlas_from_numpy(jb.atlas)
-        t_uni = interop.uniforms_from_numpy(jb.uniforms)
+        t_scene = interop.scene_from_numpy(jb.scene, device="cpu")
+        t_atlas = interop.atlas_from_numpy(jb.atlas, device="cpu")
+        t_uni = interop.uniforms_from_numpy(jb.uniforms, device="cpu")
         j_feat = JFeatures(*ALL_FEATURES)
         t_feat = ALL_FEATURES
         assert t_feat.has_alpha_tris and t_feat.sky_mode == "cubemap"
@@ -93,7 +99,7 @@ def test_trace_ray_matches_jax(rng, scene):
 
 def test_gbuffer_matches_jax_city():
     W, H = 48, 27
-    jb, tb = j_procedural.city(), procedural.city()
+    jb, tb = j_procedural.city(), procedural.city(device="cpu")
     ja, ta = j_build_accel(jb.scene, jb.atlas), build_accel(tb.scene, tb.atlas)
     jc = JConfig(width=W, height=H, features=j_scene_features(jb.scene, jb.uniforms, jb.atlas))
     tc = RenderConfig(width=W, height=H, features=scene_features(tb.scene, tb.uniforms, tb.atlas))
@@ -127,7 +133,7 @@ def test_layout_matches_jax(rng, size):
 
     W, H = size
     assert layout.is_tiled(W, H) == j_layout.is_tiled(W, H)
-    for a, b in zip(layout.gen_pixels(W, H), j_layout.gen_pixels(W, H)):
+    for a, b in zip(layout.gen_pixels(W, H, device="cpu"), j_layout.gen_pixels(W, H)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     flat = rng.normal(size=(W * H, 3)).astype(np.float32)
     img = layout.flat_to_image(_t(flat), W, H)

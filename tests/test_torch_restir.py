@@ -56,7 +56,11 @@ from merian_quake_tpu_torch.render.restir.restir import _seed
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
 W, H = 48, 27
-_t = interop.tensor
+
+
+def _t(x):
+    """An array as a CPU tensor (the interop default is the card)."""
+    return interop.tensor(x, device="cpu")
 
 
 def _u32(x):
@@ -145,7 +149,7 @@ def test_reservoir_add_sample_probabilities():
     """Twin of test_restir.py:23: WRS selects sample i with probability
     w_i / sum(w)."""
     n = 20000
-    r = rsv.reservoir_init(n)
+    r = rsv.reservoir_init(n, device="cpu")
     state = t_rng.seed_pixel(torch.arange(n, dtype=torch.int64), 0, 0, 3)
     weights = [1.0, 3.0, 6.0]
     for i, w in enumerate(weights):
@@ -164,7 +168,7 @@ def test_reservoir_add_sample_probabilities():
 def test_reservoir_finalize():
     """Twin of test_restir.py:51."""
     n = 4
-    r = rsv.reservoir_init(n)._replace(
+    r = rsv.reservoir_init(n, device="cpu")._replace(
         M=torch.full((n,), 5, dtype=torch.int32), w=torch.full((n,), 10.0),
         p_target=torch.full((n,), 2.0),
     )
@@ -219,13 +223,13 @@ def test_render_restir_frame_from_carried_state(jax_city, kw, share, mean):
     ref_irr, ref_state = jax.jit(j_render_restir, static_argnums=(3, 4))(
         j_accel, bundle.atlas, uniforms, cfg, JReSTIRConfig(**kw), mid_state.restir, gbuf,
     )
-    atlas = interop.atlas_from_numpy(bundle.atlas)
-    accel = build_accel(interop.scene_from_numpy(bundle.scene), atlas)
+    atlas = interop.atlas_from_numpy(bundle.atlas, device="cpu")
+    accel = build_accel(interop.scene_from_numpy(bundle.scene, device="cpu"), atlas)
     irr, state = render_restir(
-        accel, atlas, interop.uniforms_from_numpy(uniforms),
+        accel, atlas, interop.uniforms_from_numpy(uniforms, device="cpu"),
         RenderConfig(width=W, height=H, integrator="restir", features=SceneFeatures(*cfg.features)),
-        ReSTIRConfig(**kw), interop.restir_state_from_numpy(mid_state.restir),
-        interop.gbuffer_from_numpy(gbuf),
+        ReSTIRConfig(**kw), interop.restir_state_from_numpy(mid_state.restir, device="cpu"),
+        interop.gbuffer_from_numpy(gbuf, device="cpu"),
     )
     _agree(irr, ref_irr, share, mean)
     assert (irr[..., :3].amax(-1) > 0).float().mean() > 0.5  # lit, not an empty frame

@@ -54,8 +54,8 @@ def frames():
     )
     jax.block_until_ready(j_out["ldr"])
     t_state, t_out = render_sequence(
-        city(), RenderConfig(width=W, height=H, integrator="restir"), frames=FRAMES,
-        mcpg_config=ReSTIRConfig(),
+        city(device="cpu"), RenderConfig(width=W, height=H, integrator="restir"), frames=FRAMES,
+        mcpg_config=ReSTIRConfig(), device="cpu",
     )
     return j_state, j_out, t_state, t_out
 

@@ -51,7 +51,8 @@ def frames():
     )
     jax.block_until_ready(j_out["ldr"])
     t_state, t_out = render_sequence(
-        city(), RenderConfig(width=W, height=H, spp=SPP, max_path_length=MPL), frames=FRAMES
+        city(device="cpu"), RenderConfig(width=W, height=H, spp=SPP, max_path_length=MPL), frames=FRAMES,
+        device="cpu",
     )
     return j_state, j_out, t_state, t_out
 
@@ -94,4 +95,4 @@ def test_accumulated_irradiance_matches_jax(frames):
 ])
 def test_unported_paths_raise(config):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_state(config)
+        init_state(config, device="cpu")
