@@ -6,13 +6,17 @@
 Drives merian_quake_tpu_torch's two paths at 1920×1080 — the
 path-traced frame (2 spp, max path length 3) and the ReSTIR DI frame
 (``ReSTIRConfig()``) — on the first CUDA device, on the procedural
-``city`` (16,640 triangles) and on the map scene ``city(n_buildings=
-28000, seed=11)`` (281,536 triangles), after building and checking
-their hand-written kernels: K1 (csrc/woop_nearest.cu, nearest hit), K2
-(csrc/woop_any.cu, any hit), K3 (csrc/woop_stream.cu, both for tables
-above 65,536 triangles) and K8 (csrc/mt_dense.cu, the dense
-Möller–Trumbore sweep of ``accel.dense.intersect_dense``). Phases, one
-line each or more:
+``city`` (16,640 triangles), on the map scene ``city(n_buildings=
+28000, seed=11)`` (281,536 triangles) and, under the trace schedules
+(``woop.TraceSchedule``), on ``city(n_buildings=1600)`` (16,128
+triangles in 252 clusters, so that the target key applies), after
+building and checking their hand-written kernels: K1
+(csrc/woop_nearest.cu, nearest hit), K2 (csrc/woop_any.cu, any hit), K3
+(csrc/woop_stream.cu, both for tables above 65,536 triangles), K4 and K5
+(csrc/woop_keys.cu, target keys and block union entries), the list
+walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
+(csrc/mt_dense.cu, the dense Möller–Trumbore sweep of
+``accel.dense.intersect_dense``). Phases, one line each or more:
 
 1. device: the card's name and power limit (nvidia-smi), and the time to
    build the four kernels with nvcc for sm_90a (all started together),
@@ -64,12 +68,38 @@ line each or more:
     on the card (K3 + K2; ``render_sequence`` called without ``device=``,
     whose default is the card): the LDR images agree within the slice test's
     tolerance (at 64×36 the CPU oracle took 61 s for the PT frames alone
-    on the card's host, so the size is a quarter of phase 4's).
+    on the card's host, so the size is a quarter of phase 4's);
+12. K4 and K5 against their plain versions on the card, bit for bit: the
+    random soup, 65,536-ray subsets of city(1600)'s 1080p primary, bounce
+    and target-sorted bounce rays, and the whole 2,073,600-ray
+    target-sorted bounce population; K5 on cluster boxes and on node
+    boxes of 8 clusters, in the JAX package's mode and in the walker's;
+    times in turns with the plain versions (CUDA events) and bounds;
+13. the walker against its plain versions, bit for bit (nearest) and on
+    every ray (any-hit): P = 1 (on target-sorted rays), 8 and 16 with
+    compact 0 and 32; any-hit P = 1, 8 and 16 with and without the proxy
+    pre-pass's warm start; the soup, the subsets and the whole
+    populations; its counts (pairs tested, tile visits, compacted visits,
+    which must be > 0 where it compacts) and its time against K1/K2 on
+    the same rays;
+14. 6 frames at 1080p on city(1600) for each schedule and for the
+    default routes (the yardstick), with exact launch counts a frame: PT
+    5 K1; ReSTIR 2 K1 + 2 K2; PT ``TraceSchedule(target_key=True)`` 1 K1,
+    4 K4, 4 K5, 4 walks (P = 1); PT ``TraceSchedule(True, 8, 32)`` 4 K4,
+    5 K5, 5 walks at P = 8 with compaction, no K1; ReSTIR
+    ``TraceSchedule(node_clusters=8)`` 1 K2 (the proxy), 3 K5, 2 nearest
+    and 1 any-hit walks at P = 8, no K1; each schedule's LDR against the
+    default routes' (bit-identical or not, and within the slice test's
+    tolerance); cold and steady ms/frame;
+15. 2 PT and 2 ReSTIR frames of city(1600) at 32×18 on the CPU (oracle)
+    and on the card under ``TraceSchedule(True, 8, 32)``: the LDR images
+    agree within the slice test's tolerance.
 
-Each path (PT city, ReSTIR city, dense map, PT map, ReSTIR map) is
-driven with every launch count set to 0 just before it and read just
-after. The line before the last is the kernels' JSON record (with each
-kernel's launches by path and its bound: the larger of the bytes it must
+Each path (PT city, ReSTIR city, dense map, PT map, ReSTIR map and the
+five city(1600) frame runs of phase 14) is driven with every launch
+count set to 0 just before it and read just after. The line before the
+last is the kernels' JSON record (with each kernel's launches by path
+and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its FP32 operations over the card's issue rate
 for them, from the H100 SXM's data-sheet rates); the last line is
 {"ok": true, "device": {...}}.
@@ -94,6 +124,15 @@ K3_SOURCE = "merian_quake_tpu_torch/csrc/woop_stream.cu"
 K3_REPLACES = "merian_quake_tpu/accel/woop.py:111"
 K8_SOURCE = "merian_quake_tpu_torch/csrc/mt_dense.cu"
 K8_REPLACES = "merian_quake_tpu/accel/pallas_intersect.py:32"
+K45_SOURCE = "merian_quake_tpu_torch/csrc/woop_keys.cu"
+K4_REPLACES = "merian_quake_tpu/accel/woop.py:877"
+K5_REPLACES = "merian_quake_tpu/accel/woop.py:914"
+K67_SOURCE = "merian_quake_tpu_torch/csrc/woop_list.cu"
+K6_REPLACES = "merian_quake_tpu/accel/woop.py:488"
+K7_REPLACES = "merian_quake_tpu/accel/woop.py:627"
+# city with 1,600 buildings: 16,128 triangles in 252 clusters, so the
+# target key (at most 256 clusters) applies; default city() has 260
+CITY1600 = {"n_buildings": 1600, "seed": 7}
 W, H, SPP, MPL = 1920, 1080, 2, 3
 SUBSET = 65536
 MAP = {"n_buildings": 28000, "seed": 11}  # bench.py's map row: 281,536 triangles
@@ -106,6 +145,9 @@ FP32_ISSUE_RATE = FP32_RATE / 2
 # FP32 multiplies and adds a (ray, triangle) pair: the Woop nearest test,
 # the Woop any-hit test, Möller–Trumbore (with its reciprocal)
 OPS_NEAREST, OPS_ANY, OPS_MT = 42, 46, 46
+# FP32 operations of a (ray, box) slab (K4, K5): 6 subtracts, 6 multiplies
+# and 12 min/max
+OPS_SLAB = 24
 # K8 against the oracle (t, u, v) and against K3 (t): relative tolerance
 T_RTOL = 1e-5
 # CPU vs card LDR agreement (the slice test's tolerance)
@@ -126,6 +168,9 @@ def reset_launches() -> None:
     woop.woop_nearest.launches = woop.woop_any.launches = 0
     woop.woop_stream.launches = woop.woop_stream.anyhit_launches = 0
     dense.mt_dense.launches = 0
+    woop.target_keys.launches = woop.te_union.launches = woop.woop_list.launches = 0
+    woop.woop_list.node_launches = woop.woop_list.compact_launches = 0
+    woop.woop_list.anyhit_launches = 0
 
 
 def launches() -> dict:
@@ -134,7 +179,11 @@ def launches() -> dict:
     return {"woop_nearest": woop.woop_nearest.launches, "woop_any": woop.woop_any.launches,
             "woop_stream": woop.woop_stream.launches,
             "woop_stream_any": woop.woop_stream.anyhit_launches,
-            "mt_dense": dense.mt_dense.launches}
+            "mt_dense": dense.mt_dense.launches, "target_keys": woop.target_keys.launches,
+            "te_union": woop.te_union.launches, "woop_list": woop.woop_list.launches,
+            "woop_list_nodes": woop.woop_list.node_launches,
+            "woop_list_compact": woop.woop_list.compact_launches,
+            "woop_list_any": woop.woop_list.anyhit_launches}
 
 
 def bound_ms(ops: float, nbytes: float):
@@ -739,6 +788,311 @@ def phase11(dev):
             raise AssertionError(f"map {name}: CPU and card LDR images disagree")
 
 
+def city1600(dev):
+    """city(1600, 7) on the card: (bundle, accel, 1080p config) and its
+    1080p ray populations: primary (pixel order), the first PT bounce in
+    pixel order and sorted by the target key, and the shade-pass shadow
+    rays."""
+    from merian_quake_tpu_torch.accel import build_accel, woop
+    from merian_quake_tpu_torch.accel.build import scene_features
+    from merian_quake_tpu_torch.models.procedural import city
+    from merian_quake_tpu_torch.models.types import RenderConfig
+
+    bundle = city(**CITY1600, device=dev)
+    accel = build_accel(bundle.scene, bundle.atlas)
+    config = RenderConfig(width=W, height=H, spp=SPP, max_path_length=MPL,
+                          features=scene_features(bundle.scene, bundle.uniforms, bundle.atlas))
+    po, pd = primary_rays(bundle, accel, dev)
+    bo, bd, bt = bounce_rays(bundle, accel, config, dev)
+    perm = torch.sort(woop.target_sort_key(accel, bo, bd, bt), stable=True).indices
+    pops = {"primary": (po, pd, torch.zeros_like(bt), torch.full_like(bt, 1e4)),
+            "bounce": (bo, bd, torch.zeros_like(bt), bt),
+            "bounce_target": (bo[perm].contiguous(), bd[perm].contiguous(),
+                              torch.zeros_like(bt), bt[perm].contiguous()),
+            "shade": shade_rays(bundle, accel, config, dev)}
+    log(f"phase 12 city({CITY1600['n_buildings']}, {CITY1600['seed']}): {bundle.scene.num_tris} "
+        f"triangles, {accel.cluster_lo.shape[0]} clusters; bounce rays live "
+        f"{float((bt > 0).float().mean()):.4f}")
+    return bundle, accel, config, pops
+
+
+def _sub(pop):
+    n_full = W * H
+    mid = slice(n_full // 2, n_full // 2 + SUBSET)
+    return tuple(x[mid].contiguous() for x in pop)
+
+
+def timed_turns(plain, kernel, reps):
+    """(kernel ms, plain ms): plain, kernel, kernel, plain; plain once a
+    reading, the kernel ``reps`` times."""
+    p1, k1, k2, p2 = (cuda_time(plain, 1), cuda_time(kernel, reps), cuda_time(kernel, reps),
+                      cuda_time(plain, 1))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def phase12(dev, soup, c16, smi):
+    """K4 and K5 against their plain versions, bit for bit; times and
+    bounds."""
+    from merian_quake_tpu_torch.accel import woop
+
+    acc_soup, o_t, d_t = soup
+    _, accel, _, pops = c16
+
+    errs = {"K4": [], "K5": []}
+
+    def same_bits(kernel, name, a, b):
+        torch.cuda.synchronize()
+        bad = a.view(torch.int32) != b.view(torch.int32)
+        differ = int(bad.sum())
+        # |kernel - plain| where the bits differ (inf where only one is inf)
+        gap = torch.where(bad, (a.double() - b.double()).abs().nan_to_num(float("inf")), 0.0)
+        errs[kernel].append(float(gap.max()))
+        log(f"phase 12 {name}: {a.numel()} values, differ={differ}, max |kernel - plain| "
+            f"{errs[kernel][-1]}")
+        if differ:
+            raise AssertionError(f"{name}: kernel and plain version differ on {differ} values")
+
+    n = o_t.shape[0]
+    full = lambda v, k: torch.full((k,), v, device=dev)
+    inputs = [("random soup", acc_soup, o_t, d_t, full(0.0, n), full(60.0, n))]
+    for name in ("primary", "bounce", "bounce_target"):
+        inputs.append((f"city1600 {name} {SUBSET}", accel, *_sub(pops[name])))
+    inputs.append((f"city1600 bounce_target {W * H}", accel, *pops["bounce_target"]))
+    for name, acc, o, d, t_min, t_max in inputs:
+        rays, _, lo, hi = woop.k1_inputs(acc, o, d, t_min, t_max)
+        same_bits("K4", f"{name} K4", woop.target_keys(rays, acc.cluster_lo, acc.cluster_hi),
+                  woop.target_keys_reference(rays, acc.cluster_lo, acc.cluster_hi))
+        boxes = {"clusters": (acc.cluster_lo, acc.cluster_hi, lo, hi),
+                 "nodes8": (*woop.node_bounds(acc.cluster_lo, acc.cluster_hi, 8),
+                            *woop.node_bounds(lo, hi, 8))}
+        for bname, (jlo, jhi, wlo, whi) in boxes.items():
+            same_bits("K5", f"{name} K5 {bname} JAX mode", woop.te_union(rays, jlo, jhi),
+                      woop.te_union_reference(rays, jlo, jhi))
+            same_bits("K5", f"{name} K5 {bname} walker mode", woop.te_union(rays, wlo, whi, slack=True),
+                      woop.te_union_reference(rays, wlo, whi, slack=True))
+
+    # times on the whole populations as the frames launch them: K4 on the
+    # bounce rays in pixel order, K5 (walker mode) on the target-sorted ones
+    nf = W * H
+    rays_b = woop.k1_inputs(accel, *pops["bounce"])[0]
+    rays_t, _, lo, hi = woop.k1_inputs(accel, *pops["bounce_target"])
+    nc = accel.cluster_lo.shape[0]
+    nlo, nhi = woop.node_bounds(lo, hi, 8)
+    out = {"max_abs_err": {k: max(v) for k, v in errs.items()}}
+    k4 = timed_turns(lambda: woop.target_keys_reference(rays_b, accel.cluster_lo, accel.cluster_hi),
+                     lambda: woop.target_keys(rays_b, accel.cluster_lo, accel.cluster_hi), 10)
+    out["K4"] = (*k4, *bound_ms(OPS_SLAB * nf * nc, nf * 32 + nf * 4 + nc * 24))
+    for bname, (blo, bhi) in (("clusters", (lo, hi)), ("nodes8", (nlo, nhi))):
+        m = blo.shape[0]
+        k5 = timed_turns(lambda: woop.te_union_reference(rays_t, blo, bhi, slack=True),
+                         lambda: woop.te_union(rays_t, blo, bhi, slack=True), 10)
+        out[f"K5 {bname}"] = (*k5, *bound_ms(OPS_SLAB * nf * m, nf * 32 + (nf // 128) * m * 4
+                                             + m * 24))
+    for name, (ms, plain, bnd, by) in ((k, v) for k, v in out.items() if k != "max_abs_err"):
+        log(f"phase 12 timing {name} on {nf} bounce rays [{smi}]: kernel {ms:.3f} ms, plain "
+            f"{plain:.1f} ms; bound {bnd:.4f} ms ({by})")
+    return out
+
+
+def phase13(dev, soup, c16, smi):
+    """The walker against its plain versions, bit for bit (nearest) and on
+    every ray (any-hit), in every mode; its counts; times against K1/K2."""
+    from merian_quake_tpu_torch.accel import woop
+
+    acc_soup, o_t, d_t = soup
+    _, accel, _, pops = c16
+    S = woop.TraceSchedule
+    modes = [S(), S(compact=32), S(node_clusters=8), S(node_clusters=8, compact=32),
+             S(node_clusters=16), S(node_clusters=16, compact=32)]
+    tag = lambda s, nc=252: f"P={woop.schedule_nodes(s, nc)} compact={s.compact}"
+    n = o_t.shape[0]
+    full = lambda v, k: torch.full((k,), v, device=dev)
+    errs = []
+    nearest = [("random soup", acc_soup, (o_t, d_t, full(0.0, n), full(60.0, n)))]
+    nearest += [(f"city1600 {k} {SUBSET}", accel, _sub(pops[k])) for k in ("primary", "bounce_target")]
+    nearest += [(f"city1600 {k} {W * H}", accel, pops[k]) for k in ("primary", "bounce_target")]
+    for name, acc, pop in nearest:
+        args = woop.k1_inputs(acc, *pop)
+        plain = woop.intersect_woop_reference(args[0], args[1])
+        for s in modes:
+            errs.append(check_exact(13, f"{name} walker {tag(s, acc.cluster_lo.shape[0])}",
+                                    woop._walk(*args, s), plain))
+    anyhit = [("random soup", acc_soup, (o_t, d_t, full(60.0, n))),
+              (f"city1600 shade {SUBSET}", accel, _sub(pops["shade"])),
+              (f"city1600 shade {W * H}", accel, pops["shade"])]
+    for name, acc, (o, d, t_max) in anyhit:
+        rays, proxy, shadow = woop.k2_inputs(acc, o, d, torch.full_like(t_max, 1e-3), t_max)
+        plain = woop.intersect_woop_any_reference(rays, shadow[0])
+        pre = None if proxy is None else woop.woop_any(rays, *proxy)
+        for s in (S(), S(node_clusters=8), S(node_clusters=16)):
+            label = f"{name} walker any-hit {tag(s, acc.cluster_lo.shape[0])}"
+            errs.append(check_k2(label, woop._walk(rays, *shadow, s, anyhit=True), plain,
+                                 phase=13))
+            if pre is not None:
+                errs.append(check_k2(f"{label} after proxy",
+                                     woop._walk(rays, *shadow, s, anyhit=True, occluded_in=pre),
+                                     plain, phase=13))
+
+    # counts and times on the whole populations, against K1 / K2 on the
+    # same rays (the walk with its list: K5, the row sort, the walker)
+    out = {}
+    nf = W * H
+    for pname, s in (("bounce_target", S()), ("bounce_target", S(node_clusters=8)),
+                     ("bounce_target", S(node_clusters=8, compact=32)),
+                     ("primary", S(node_clusters=8, compact=32))):
+        rays, w, lo, hi = args = woop.k1_inputs(accel, *pops[pname])
+        P = max(s.node_clusters, 1)
+        blo, bhi = woop.node_bounds(lo, hi, P) if P > 1 else (lo, hi)
+        lst = woop.visit_list(rays, blo, bhi)
+        kw = dict(node_lo=blo, node_hi=bhi, nodes=P) if P > 1 else {}
+        counts = torch.zeros((nf // 128, 3), dtype=torch.int64, device=dev)
+        woop.woop_list(rays, w, lo, hi, *lst, compact=s.compact, counts=counts, **kw)
+        pairs, visits, cvisits = (int(x) for x in counts.sum(0))
+        if s.compact and not cvisits:
+            raise AssertionError(f"{pname} {tag(s)}: no compacted visit")
+        k1_counts = torch.zeros(nf // 128, dtype=torch.int64, device=dev)
+        woop.woop_nearest(*args, counts=k1_counts)
+        walk = lambda: woop.woop_list(rays, w, lo, hi, *lst, compact=s.compact, **kw)
+        full_walk = lambda: woop._walk(*args, s)
+        k1 = lambda: woop.woop_nearest(*args)
+        a1, b1, c1, c2, b2, a2 = (cuda_time(walk, 10), cuda_time(full_walk, 10), cuda_time(k1, 10),
+                                  cuda_time(k1, 10), cuda_time(full_walk, 10), cuda_time(walk, 10))
+        nb, m = nf // 128, blo.shape[0]
+        bnd, by = bound_ms(pairs * OPS_NEAREST, nf * 32 + nf * 8 + nb * m * 8
+                           + (w.shape[0] // 3) * 48 + m * 24)
+        out[f"{pname} {tag(s)}"] = {"ms": (a1 + a2) / 2, "with_list_ms": (b1 + b2) / 2,
+                                    "k1_ms": (c1 + c2) / 2, "bound_ms": bnd, "bound_by": by,
+                                    "pairs": pairs, "visits": visits, "cvisits": cvisits}
+        log(f"phase 13 timing {pname} {nf} rays {tag(s)} [{smi}]: walker {a1:.3f} / {a2:.3f} ms, "
+            f"with its list (K5 + sort + walker) {b1:.3f} / {b2:.3f} ms, K1 {c1:.3f} / {c2:.3f} "
+            f"ms; pairs tested {pairs} (K1 {int(k1_counts.sum())}), tile visits {visits}, "
+            f"compacted {cvisits} ({cvisits / max(visits, 1):.4f}); bound {bnd:.4f} ms ({by})")
+    # any-hit: the shadow sweep after the proxy, walker P = 8 against K2
+    rays, proxy, shadow = woop.k2_inputs(accel, *pops["shade"][:2], full(1e-3, nf),
+                                         pops["shade"][2])
+    pre = woop.woop_any(rays, *proxy)
+    s = S(node_clusters=8)
+    walk = lambda: woop._walk(rays, *shadow, s, anyhit=True, occluded_in=pre)
+    k2 = lambda: woop.woop_any(rays, *shadow, pre)
+    a1, c1, c2, a2 = cuda_time(walk, 10), cuda_time(k2, 10), cuda_time(k2, 10), cuda_time(walk, 10)
+    nlo, nhi = woop.node_bounds(shadow[1], shadow[2], 8)
+    counts = torch.zeros((nf // 128, 3), dtype=torch.int64, device=dev)
+    woop.woop_list(rays, *shadow, *woop.visit_list(rays, nlo, nhi), node_lo=nlo, node_hi=nhi,
+                   nodes=8, anyhit=True, occluded_in=pre, counts=counts)
+    pairs = int(counts[:, 0].sum())
+    bnd, by = bound_ms(pairs * OPS_ANY, nf * 34 + (shadow[0].shape[0] // 3) * 48)
+    out["shade P=8 any"] = {"with_list_ms": (a1 + a2) / 2, "k2_ms": (c1 + c2) / 2,
+                            "bound_ms": bnd, "bound_by": by, "pairs": pairs}
+    log(f"phase 13 timing shade {nf} rays any-hit P=8 after proxy [{smi}]: with its list "
+        f"{a1:.3f} / {a2:.3f} ms, K2 {c1:.3f} / {c2:.3f} ms; pairs tested {pairs}; bound "
+        f"{bnd:.4f} ms ({by})")
+    # the plain versions' time, on the subset
+    args = woop.k1_inputs(accel, *_sub(pops["bounce_target"]))
+    p1 = cuda_time(lambda: woop.intersect_woop_reference(args[0], args[1]), 1)
+    out["plain_ms_subset"] = p1
+    out["max_abs_err"] = max(errs)
+    log(f"phase 13 plain version on {SUBSET} target-sorted bounce rays: {p1:.1f} ms")
+    return out
+
+
+def phase14(dev, c16, smi):
+    """6 frames at 1080p on city(1600, 7) for each schedule and for the
+    default routes, with exact launch counts a frame; the LDR images
+    against the default routes'."""
+    from merian_quake_tpu_torch.accel import woop
+    from merian_quake_tpu_torch.render.restir import ReSTIRConfig
+    from merian_quake_tpu_torch.renderer import init_state, render_frame
+
+    bundle, accel, config, _ = c16
+    S = woop.TraceSchedule
+    runs = [
+        ("pt_1600", "pt", None, {"woop_nearest": 5}),
+        ("restir_1600", "restir", None, {"woop_nearest": 2, "woop_any": 2}),
+        ("pt_1600_target", "pt", S(target_key=True),
+         {"woop_nearest": 1, "target_keys": 4, "te_union": 4, "woop_list": 4}),
+        ("pt_1600_nodes_compact", "pt", S(True, 8, 32),
+         {"target_keys": 4, "te_union": 5, "woop_list": 5, "woop_list_nodes": 5,
+          "woop_list_compact": 5}),
+        ("restir_1600_nodes", "restir", S(node_clusters=8),
+         {"woop_any": 1, "te_union": 3, "woop_list": 3, "woop_list_nodes": 3, "woop_list_any": 1}),
+    ]
+    per_path, ldr, timing = {}, {}, {}
+    for path, integrator, sched, expect in runs:
+        cfg = config._replace(integrator=integrator)
+        rcfg = ReSTIRConfig() if integrator == "restir" else None
+        state = init_state(cfg, rcfg, device=dev)
+        reset_launches()
+        frame_ms = []
+        for i in range(6):
+            before = launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, out = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=i), cfg,
+                                      state, rcfg, schedule=sched)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            got = {k: v - before[k] for k, v in launches().items()}
+            if got != {**{k: 0 for k in got}, **expect}:
+                raise AssertionError(f"{path} frame {i}: launched {got}, expected {expect}")
+        per_path[path] = launches()
+        for name, x in (("ldr", out["ldr"]), ("hdr", out["hdr"]),
+                        ("accum_irradiance", state.accum_irradiance)):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"{path} {name} is not finite")
+        if tuple(out["ldr"].shape) != (H, W, 3) or float(out["ldr"].std()) <= 0.0:
+            raise AssertionError(f"{path} ldr has the wrong shape or is constant")
+        ldr[path] = out["ldr"]
+        steady = float(np.mean(frame_ms[2:]))
+        timing[path] = (frame_ms[0], steady)
+        same = ""
+        if sched is not None:
+            ref = ldr[f"{integrator}_1600"]
+            diff = (out["ldr"] - ref).abs()
+            share = float((diff.amax(-1) <= PIX_TOL).float().mean())
+            mean = float(diff.mean())
+            same = (f"; against schedule=None: bit-identical {bool(torch.equal(out['ldr'], ref))}, "
+                    f"pixels within {PIX_TOL} {share:.5f}, mean |d| {mean:.3e}")
+            if share < PIX_SHARE or mean >= MEAN_TOL:
+                raise AssertionError(f"{path}: LDR differs from the default routes'")
+        log(f"phase 14 {path} {W}x{H} schedule={tuple(sched) if sched else None} [{smi}]: "
+            f"launches {per_path[path]}; cold {frame_ms[0]:.1f} ms, steady {steady:.1f} ms/frame "
+            f"(frames {', '.join(f'{x:.1f}' for x in frame_ms)}){same}")
+    return per_path, timing
+
+
+def phase15(dev):
+    """2 PT and 2 ReSTIR frames of city(1600, 7) at 32×18 under
+    TraceSchedule(True, 8, 32): the CPU oracle against the card."""
+    from merian_quake_tpu_torch.accel import woop
+    from merian_quake_tpu_torch.models.procedural import city
+    from merian_quake_tpu_torch.models.types import RenderConfig
+    from merian_quake_tpu_torch.render.restir import ReSTIRConfig
+    from merian_quake_tpu_torch.renderer import render_sequence
+
+    bundle = city(**CITY1600, device="cpu")
+    sched = woop.TraceSchedule(True, 8, 32)
+    for name, cfg, rcfg in (
+        ("pt", RenderConfig(width=32, height=18, spp=SPP, max_path_length=MPL), None),
+        ("restir", RenderConfig(width=32, height=18, integrator="restir"), ReSTIRConfig()),
+    ):
+        _, out_cpu = render_sequence(bundle, cfg, frames=2, mcpg_config=rcfg, device="cpu",
+                                     schedule=sched)
+        before = launches()
+        _, out_gpu = render_sequence(bundle, cfg, frames=2, mcpg_config=rcfg, schedule=sched)
+        got = {k: v - before[k] for k, v in launches().items()}
+        if got["woop_nearest"] or not got["woop_list_nodes"] or (name == "pt") != bool(
+                got["target_keys"]):
+            raise AssertionError(f"city1600 {name} 32x18 under {sched} launched {got}")
+        diff = (out_cpu["ldr"] - out_gpu["ldr"].cpu()).abs()
+        share = float((diff.amax(-1) <= PIX_TOL).float().mean())
+        mean = float(diff.mean())
+        log(f"phase 15 city1600 {name} cpu vs cuda 32x18 x2 frames under {tuple(sched)}: "
+            f"launches {got}; pixels within {PIX_TOL} {share:.5f}, mean |d| {mean:.3e}, "
+            f"max |d| {float(diff.max()):.3e}")
+        if share < PIX_SHARE or mean >= MEAN_TOL:
+            raise AssertionError(f"city1600 {name}: CPU and card LDR images disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -771,7 +1125,7 @@ def main() -> int:
             ptxas[name] = " | ".join(line.strip() for line in f if "ptxas info" in line
                                      and ("Used" in line or "spill" in line))
     log(f"phase 1 device: {kind} x{count} [{smi}] torch {torch.__version__} "
-        f"cuda {torch.version.cuda}; K1 + K2 + K3 + K8 build {build_s:.2f} s; "
+        f"cuda {torch.version.cuda}; K1, K2, K3, K4 + K5, K6 + K7, K8 build {build_s:.2f} s; "
         + "; ".join(f"{k} ({ptxas[k]})" for k in kernels.KERNELS))
 
     # ---- phase 2: K1 vs plain version ----
@@ -905,8 +1259,15 @@ def main() -> int:
     map_paths = phase10(dev, m_bundle, m_accel, m_config, smi)
     phase11(dev)
 
+    # ---- phases 12-15: city(1600, 7), the trace schedules ----
+    c16 = city1600(dev)
+    k45 = phase12(dev, soup, c16, smi)
+    walk = phase13(dev, soup, c16, smi)
+    sched_paths, _ = phase14(dev, c16, smi)
+    phase15(dev)
+
     paths = {"pt": pt_city, "restir": restir_city, "dense_map": k8["launches"],
-             "pt_map": map_paths["pt"], "restir_map": map_paths["restir"]}
+             "pt_map": map_paths["pt"], "restir_map": map_paths["restir"], **sched_paths}
     by_path = lambda k: {p: v[k] for p, v in paths.items()}
     total = lambda k: sum(by_path(k).values())
     mix = lambda x, key: (x["primary"][key] + 4 * x["bounce"][key]) / 5  # 1 primary + 4 bounce traces
@@ -942,6 +1303,46 @@ def main() -> int:
         "max_abs_err": k8["max_abs_err"], "ms": k8["ms"], "plain_ms": k8["plain_ms"],
         "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"], "library_ms": None,
         "rays": SUBSET, "scene": "map",
+    }, {
+        "name": "target_keys", "route": "cuda", "source": K45_SOURCE,
+        "replaces": K4_REPLACES, "launches": total("target_keys"),
+        "launches_by_path": by_path("target_keys"), "max_abs_err": k45["max_abs_err"]["K4"],
+        "ms": k45["K4"][0], "plain_ms": k45["K4"][1], "bound_ms": k45["K4"][2],
+        "bound_by": k45["K4"][3], "library_ms": None, "rays": n_full, "scene": "city1600",
+    }, {
+        "name": "te_union", "route": "cuda", "source": K45_SOURCE,
+        "replaces": K5_REPLACES, "launches": total("te_union"),
+        "launches_by_path": by_path("te_union"), "max_abs_err": k45["max_abs_err"]["K5"],
+        "ms": k45["K5 clusters"][0], "plain_ms": k45["K5 clusters"][1],
+        "bound_ms": k45["K5 clusters"][2], "bound_by": k45["K5 clusters"][3], "library_ms": None,
+        "rays": n_full, "scene": "city1600", "nodes8_ms": k45["K5 nodes8"][0],
+        "nodes8_plain_ms": k45["K5 nodes8"][1], "nodes8_bound_ms": k45["K5 nodes8"][2],
+    }, {
+        "name": "woop_list (nodes)", "route": "cuda", "source": K67_SOURCE,
+        "replaces": K6_REPLACES, "launches": total("woop_list_nodes"),
+        "launches_by_path": by_path("woop_list_nodes"),
+        "list_walk_launches_by_path": {p: v["woop_list"] - v["woop_list_nodes"]
+                                       for p, v in paths.items()},
+        "max_abs_err": walk["max_abs_err"], "ms": walk["bounce_target P=8 compact=0"]["ms"],
+        "plain_ms": walk["plain_ms_subset"], "plain_rays": SUBSET,
+        "bound_ms": walk["bounce_target P=8 compact=0"]["bound_ms"],
+        "bound_by": walk["bounce_target P=8 compact=0"]["bound_by"], "library_ms": None,
+        "k1_ms": walk["bounce_target P=8 compact=0"]["k1_ms"],
+        "list_walk_ms": walk["bounce_target P=1 compact=0"]["ms"],
+        "list_walk_bound_ms": walk["bounce_target P=1 compact=0"]["bound_ms"],
+        "anyhit_with_list_ms": walk["shade P=8 any"]["with_list_ms"],
+        "anyhit_k2_ms": walk["shade P=8 any"]["k2_ms"], "rays": n_full, "scene": "city1600",
+    }, {
+        "name": "woop_list (compact)", "route": "cuda", "source": K67_SOURCE,
+        "replaces": K7_REPLACES, "launches": total("woop_list_compact"),
+        "launches_by_path": by_path("woop_list_compact"),
+        "max_abs_err": walk["max_abs_err"], "ms": walk["bounce_target P=8 compact=32"]["ms"],
+        "plain_ms": walk["plain_ms_subset"], "plain_rays": SUBSET,
+        "bound_ms": walk["bounce_target P=8 compact=32"]["bound_ms"],
+        "bound_by": walk["bounce_target P=8 compact=32"]["bound_by"], "library_ms": None,
+        "compacted_visit_share": walk["bounce_target P=8 compact=32"]["cvisits"]
+        / max(walk["bounce_target P=8 compact=32"]["visits"], 1),
+        "rays": n_full, "scene": "city1600",
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -10,7 +10,10 @@ Dispatch is by device and nothing else: CPU tensors run the chunked
 Möller–Trumbore oracle (what the JAX package runs on the CPU), CUDA
 tensors run the Woop kernels of accel/woop.py: K1 (csrc/woop_nearest.cu)
 and, for visibility, K2 (csrc/woop_any.cu), or K3 (csrc/woop_stream.cu)
-for tables of more than RESIDENT_MAX_TRIS triangles.
+for tables of more than RESIDENT_MAX_TRIS triangles, or, as a
+``schedule`` (woop.TraceSchedule) asks, K4 and K5 (csrc/woop_keys.cu)
+and the list walker (csrc/woop_list.cu). The oracle ignores ``schedule``,
+as it ignores ``sort_rays``.
 """
 from __future__ import annotations
 
@@ -40,18 +43,19 @@ class HitRecord(NamedTuple):
 
 
 def intersect(
-    accel: AccelScene, o, d, t_min, t_max, sort_rays: bool = False
+    accel: AccelScene, o, d, t_min, t_max, sort_rays: bool = False, schedule=None
 ) -> HitRecord:
     """Nearest front-facing candidate hit. o, d: f32[N, 3].
 
-    CUDA tensors go through K1 or K3 (``sort_rays`` bins incoherent
-    rays first); CPU tensors run the oracle, where ``sort_rays`` changes
-    nothing.
+    CUDA tensors go through ``woop.intersect_woop`` (K1, K3 or, as
+    ``schedule`` asks, the walker; ``sort_rays`` bins incoherent rays
+    first); CPU tensors run the oracle, where ``sort_rays`` and
+    ``schedule`` change nothing.
     """
     if o.is_cuda:
         from .woop import intersect_woop
 
-        return intersect_woop(accel, o, d, t_min, t_max, sort_rays=sort_rays)
+        return intersect_woop(accel, o, d, t_min, t_max, sort_rays=sort_rays, schedule=schedule)
     if o.device.type != "cpu":
         raise ValueError(f"intersect: unsupported device {o.device}")
     return _intersect_oracle(accel, o, d, t_min, t_max)
@@ -82,6 +86,7 @@ def trace_nearest(
     t_max,
     max_intersections: int = materials.MAX_INTERSECTIONS,
     sort_rays: bool = False,
+    schedule=None,
 ) -> HitRecord:
     """Nearest *accepted* hit: runs the alpha-test re-trace loop.
 
@@ -90,7 +95,7 @@ def trace_nearest(
     says no triangle can alpha-reject).
     """
     if tex is None:
-        return intersect(accel, o, d, t_min, t_max, sort_rays=sort_rays)
+        return intersect(accel, o, d, t_min, t_max, sort_rays=sort_rays, schedule=schedule)
     n = o.shape[0]
     cur_tmin = as_f32(t_min, o).expand(n)
     t_max = as_f32(t_max, o).expand(n)
@@ -104,7 +109,7 @@ def trace_nearest(
     for _ in range(max_intersections):
         if not bool(active.any()):
             break
-        hr = intersect(accel, o, d, cur_tmin, t_max, sort_rays=sort_rays)
+        hr = intersect(accel, o, d, cur_tmin, t_max, sort_rays=sort_rays, schedule=schedule)
         tri = torch.clamp_min(hr.tri, 0).long()
         needs = accel.needs_alpha[tri] & hr.hit
         uv = _hit_uv(accel, hr)
@@ -118,7 +123,7 @@ def trace_nearest(
 
 
 def trace_visibility(accel: AccelScene, tex, from_pos, to_pos, offset: float = 1e-3,
-                     sort_rays: bool = False) -> torch.Tensor:
+                     sort_rays: bool = False, schedule=None) -> torch.Tensor:
     """Visibility between points, bool[N]; sky hits count as visible
     (raytrace.glsl:122-145). The segment is traced over
     [offset, max(offset, dist − 2·offset)].
@@ -126,7 +131,8 @@ def trace_visibility(accel: AccelScene, tex, from_pos, to_pos, offset: float = 1
     CPU tensors run what the JAX package runs on the CPU: the nearest
     accepted hit on the full table (alpha loop when ``tex`` is given),
     visible when it misses or hits sky. CUDA tensors run K2 (K3 at map
-    scale) on the shadow table (after the proxy pre-pass, on K2), then,
+    scale, or the walker at a ``schedule``'s node level) on the shadow
+    table (after the proxy pre-pass, on K2), then,
     when ``tex`` is given and the scene has alpha-tested triangles, a
     nearest + alpha-loop trace (K1 or K3, by the table's size) on the
     alpha-only table. The two differ only where an
@@ -138,7 +144,7 @@ def trace_visibility(accel: AccelScene, tex, from_pos, to_pos, offset: float = 1
     d = wo / torch.clamp_min(dist, 1e-20)[..., None]
     t_max = torch.clamp_min(dist - 2.0 * offset, offset)
     if from_pos.is_cuda:
-        return _visible_anyhit(accel, tex, from_pos, d, offset, t_max, sort_rays)
+        return _visible_anyhit(accel, tex, from_pos, d, offset, t_max, sort_rays, schedule)
     if from_pos.device.type != "cpu":
         raise ValueError(f"trace_visibility: unsupported device {from_pos.device}")
     hr = trace_nearest(accel, tex, from_pos, d, offset, t_max)
@@ -146,19 +152,20 @@ def trace_visibility(accel: AccelScene, tex, from_pos, to_pos, offset: float = 1
     return ~hr.hit | sky
 
 
-def _visible_anyhit(accel: AccelScene, tex, o, d, offset, t_max, sort_rays=False):
-    """The card's visibility: K2 or K3 on the shadow table, then
+def _visible_anyhit(accel: AccelScene, tex, o, d, offset, t_max, sort_rays=False,
+                    schedule=None):
+    """The card's visibility: K2, K3 or the walker on the shadow table, then
     alpha-tested triangles resolved by a nearest + alpha-loop trace on
     the alpha-only table (the woop rows and AABBs swapped in; it goes
     through K1 or K3)."""
     from .woop import intersect_woop_any
 
-    vis = ~intersect_woop_any(accel, o, d, offset, t_max, sort_rays=sort_rays)
+    vis = ~intersect_woop_any(accel, o, d, offset, t_max, sort_rays=sort_rays, schedule=schedule)
     if tex is not None and accel.woop_w_alpha is not None:
         aacc = accel._replace(
             woop_w=accel.woop_w_alpha,
             cluster_lo=accel.cluster_lo_alpha,
             cluster_hi=accel.cluster_hi_alpha,
         )
-        vis &= ~trace_nearest(aacc, tex, o, d, offset, t_max).hit
+        vis &= ~trace_nearest(aacc, tex, o, d, offset, t_max, schedule=schedule).hit
     return vis

@@ -1,4 +1,4 @@
-"""Woop unit-triangle intersection: host precompute + the K1 and K2 kernels.
+"""Woop unit-triangle intersection: host precompute + the Woop kernels.
 
 Port of merian_quake_tpu/accel/woop.py for the nearest-hit and any-hit
 (visibility) paths. Each triangle stores the affine map
@@ -14,7 +14,8 @@ test on the transformed origin/direction is division-free.
 - ``intersect_woop_reference``: the plain PyTorch version (a dense
   sweep over every triangle, same epilogue and tie rule).
 - ``intersect_woop``: the HitRecord-level entry point: optional coherence
-  sort of bounce rays, packing, K1, un-sort, exact t/u/v recompute.
+  sort of bounce rays, packing, the sweep (K1, K3 or the walker),
+  un-sort, exact t/u/v recompute.
 - ``woop_any``: the wrapper of K2, ``csrc/woop_any.cu`` — the same TPU
   kernel with its any-hit epilogue (occlusion only), with
   ``intersect_woop_any_reference`` as its plain version and
@@ -26,20 +27,36 @@ test on the transformed origin/direction is division-free.
   for tables of any size, each ray block walking its own near-to-far
   cluster list with an exact horizon exit. Its plain versions are
   ``intersect_woop_reference`` and ``intersect_woop_any_reference``.
+- The trace schedules (:class:`TraceSchedule`, the JAX package's
+  ``MQ_TARGET_KEY``, ``MQ_NODE_CLUSTERS`` and ``MQ_WOOP_COMPACT``
+  switches): ``target_keys``, the wrapper of K4 (``csrc/woop_keys.cu``,
+  replacing ``_kernel_target_keys``), sorts bounce rays by the ids of
+  their three nearest clusters; ``te_union``, the wrapper of K5 (the same
+  source, replacing ``_kernel_te_union``), gives each ray block's exact
+  near-to-far visit list; ``woop_list``, the wrapper of the list walker
+  (``csrc/woop_list.cu``), walks it over clusters (K1's result), over
+  nodes of P clusters (K6, replacing ``_kernel_resident_nodes``) and with
+  compacted visits (K7, replacing ``_intersect_tile_compact``). Their
+  plain versions are ``target_keys_reference``, ``te_union_reference``
+  and, for the walker, ``intersect_woop_reference`` /
+  ``intersect_woop_any_reference``: a schedule changes which tiles a
+  block visits, never the hit.
 
 Routing by table size is the JAX package's default: a table of more
 than ``RESIDENT_MAX_TRIS`` triangles goes to K3, a smaller one to K1 or
-K2 (:func:`streamed`); the JAX package's ``resident=`` override is not
-carried over. The JAX package chains resident sweeps over parts of a
-large table (``_sweep_parts``) because a TPU core's VMEM holds 65,536
-triangles; K3 gives the same result in one launch, so that is not
-carried over, nor are the other TPU schedule knobs (visit groups, sub-gates,
-compaction, fine tables, target keys, node levels): they change which
-tiles a TPU block visits, never the hit.
+K2 (:func:`streamed`), or to the walker as the schedule says; the JAX
+package's ``resident=`` override is not carried over. The JAX package
+chains resident sweeps over parts of a large table (``_sweep_parts``)
+because a TPU core's VMEM holds 65,536 triangles; K3 gives the same
+result in one launch, so that is not carried over, nor are the TPU's
+other schedule knobs (visit groups, sub-gates, fine tables, the
+conservative bundle cull ``_cull_t_enter``, whose list K5's exact one is
+a subset of): they change which tiles a TPU block visits, never the hit.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -55,6 +72,31 @@ RAY_BLOCK = 128
 RESIDENT_MAX_TRIS = 65536
 # K3's largest cluster count: its visit-list sort key holds a 14-bit id
 MAX_STREAM_CLUSTERS = 1 << 14
+# K4's largest cluster count: its key holds three 8-bit ids (the JAX
+# package's rule, woop.py:1653 there)
+MAX_KEY_CLUSTERS = 256
+
+
+class TraceSchedule(NamedTuple):
+    """How the sweeps over a table of up to RESIDENT_MAX_TRIS triangles
+    visit its clusters: the JAX package's ``MQ_TARGET_KEY``,
+    ``MQ_NODE_CLUSTERS`` and ``MQ_WOOP_COMPACT`` switches (woop.py:1584-1597,
+    :1649-1655 there), taken as an argument. None of them changes a hit.
+
+    - ``target_key``: sorted (bounce) rays are sorted by K4's key (the ids
+      of each ray's three nearest clusters) when the table has at most
+      MAX_KEY_CLUSTERS clusters, and walk K5's list (P = 1).
+    - ``node_clusters`` = P > 1 (dividing 128): nearest-hit and any-hit
+      sweeps walk a list of nodes of P consecutive clusters (K6) when the
+      table has more than P clusters.
+    - ``compact`` > 0: nearest-hit walks test a tile that 1..compact rays
+      reach on those rays alone (K7).
+    A table routed to K3 ignores the schedule, as in the JAX package.
+    """
+
+    target_key: bool = False
+    node_clusters: int = 0
+    compact: int = 0
 
 
 def build_woop(
@@ -179,6 +221,11 @@ def _pad_bounds(lo, hi):
     return lo - (lo.abs() * 1e-5 + 1e-3), hi + (hi.abs() * 1e-5 + 1e-3)
 
 
+def _max_pairs(t):
+    """Elements of a plain version's (rays × work) temporaries per chunk."""
+    return 1 << 26 if t.is_cuda else 1 << 24
+
+
 def intersect_woop_reference(rays: torch.Tensor, w: torch.Tensor):
     """Plain PyTorch version of K1: dense Woop sweep over every triangle.
 
@@ -187,7 +234,7 @@ def intersect_woop_reference(rays: torch.Tensor, w: torch.Tensor):
     rule as the kernel; chunked over rays so that each (rays × T)
     temporary holds 2^24 elements on the CPU, 2^26 on a card.
     """
-    max_pairs = 1 << 26 if rays.is_cuda else 1 << 24
+    max_pairs = _max_pairs(rays)
     n = rays.shape[1]
     T = w.shape[0] // 3
     C = CLUSTER_SIZE
@@ -242,7 +289,7 @@ def intersect_woop_any_reference(rays: torch.Tensor, w: torch.Tensor, occluded_i
     a warm start from an earlier sweep. Arithmetic in the kernel's order;
     chunked over rays like :func:`intersect_woop_reference`.
     """
-    max_pairs = 1 << 26 if rays.is_cuda else 1 << 24
+    max_pairs = _max_pairs(rays)
     n = rays.shape[1]
     T = w.shape[0] // 3
     C = CLUSTER_SIZE
@@ -281,19 +328,31 @@ def intersect_woop_any_reference(rays: torch.Tensor, w: torch.Tensor, occluded_i
     return out
 
 
-def _kernel_lib(name, entry=None):
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# the arguments of K1's, K2's and K3's entry points: (rays, n_pad, w, lo,
+# hi, nc, block, out0, out1, counts, stream)
+_WOOP_ARGS = (_P, _I64, _P, _P, _P, _INT, _INT, _P, _P, _P, _P)
+
+
+def _kernel_lib(name, entry=None, argtypes=_WOOP_ARGS):
     """The C entry point ``entry`` (default ``mq_<name>``) of
-    ``csrc/<name>.cu``. Every one takes (rays, n_pad, w, lo, hi, nc,
-    block, out0, out1, counts, stream)."""
+    ``csrc/<name>.cu``, taking ``argtypes`` and returning a CUDA error."""
     from ..kernels import load_library
 
     fn = getattr(load_library(name), entry or f"mq_{name}")
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_int64, p, p, p, ctypes.c_int, ctypes.c_int,
-                       p, p, p, p]
+        fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return fn
+
+
+def _call(fn, device, *args):
+    """Call a kernel's C entry point on ``device``'s current stream (the
+    last argument); raise on a refused launch."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {err}")
 
 
 def _launch(name, rays, w, cluster_lo, cluster_hi, out0, out1, counts, entry=None):
@@ -307,15 +366,9 @@ def _launch(name, rays, w, cluster_lo, cluster_hi, out0, out1, counts, entry=Non
         _check("counts", counts, torch.int64, (n_pad // RAY_BLOCK,), rays.device)
         counts.zero_()
         cptr = counts.data_ptr()
-    fn = _kernel_lib(name, entry)
-    with torch.cuda.device(rays.device):
-        stream = torch.cuda.current_stream(rays.device).cuda_stream
-        err = fn(
-            rays.data_ptr(), n_pad, w.data_ptr(), cluster_lo.data_ptr(), cluster_hi.data_ptr(),
-            cluster_lo.shape[0], RAY_BLOCK, out0, out1, cptr, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{entry or name} kernel launch failed: CUDA error {err}")
+    _call(_kernel_lib(name, entry), rays.device, rays.data_ptr(), n_pad, w.data_ptr(),
+          cluster_lo.data_ptr(), cluster_hi.data_ptr(), cluster_lo.shape[0], RAY_BLOCK, out0,
+          out1, cptr)
 
 
 def _refuse_counts_on_cpu(counts):
@@ -334,20 +387,24 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _check_k_inputs(rays, w, cluster_lo, cluster_hi):
-    """Validate the arguments K1 and K2 share; returns n_pad."""
-    dev = rays.device
+def _check_rays(rays):
+    """Validate packed rays f32[8, n_pad]; returns n_pad."""
     n_pad = rays.shape[1] if rays.dim() == 2 else -1
-    T = w.shape[0] // 3
-    nc = T // CLUSTER_SIZE
     if n_pad <= 0 or n_pad % RAY_BLOCK:
         raise ValueError(f"{n_pad} rays: must be a positive multiple of {RAY_BLOCK}")
-    _check("rays", rays, torch.float32, (8, n_pad), dev)
-    _check("w", w, torch.float32, (3 * nc * CLUSTER_SIZE, 8), dev)
-    _check("cluster_lo", cluster_lo, torch.float32, (nc, 3), dev)
-    _check("cluster_hi", cluster_hi, torch.float32, (nc, 3), dev)
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
+    _check("rays", rays, torch.float32, (8, n_pad), rays.device)
+    if rays.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {rays.device}")
+    return n_pad
+
+
+def _check_k_inputs(rays, w, cluster_lo, cluster_hi):
+    """Validate the arguments the Woop sweeps share; returns n_pad."""
+    n_pad = _check_rays(rays)
+    nc = w.shape[0] // 3 // CLUSTER_SIZE
+    _check("w", w, torch.float32, (3 * nc * CLUSTER_SIZE, 8), rays.device)
+    _check("cluster_lo", cluster_lo, torch.float32, (nc, 3), rays.device)
+    _check("cluster_hi", cluster_hi, torch.float32, (nc, 3), rays.device)
     return n_pad
 
 
@@ -458,6 +515,290 @@ def streamed(w) -> bool:
     return w.shape[0] // 3 > RESIDENT_MAX_TRIS
 
 
+# ---------------------------------------------------------------- schedules
+
+
+def list_slack(lim):
+    """The walk's slack on a limit, (lim + |lim|·1e-4) + 1e-3 with each
+    step rounded: csrc/woop_common.cuh's ``list_slack`` bit for bit
+    (K1's ``with_slack`` uses an FMA, which PyTorch cannot repeat)."""
+    return (lim + lim.abs() * 1e-4) + 1e-3
+
+
+def _slab_entry(o, inv, lim, lo, hi):
+    """The slab of the JAX package's ``_slab_te_lanes`` (woop.py:852-874
+    there) on broadcast shapes: o, inv (..., 1, 3), lim (..., 1), lo/hi
+    (M, 3) → (reach, te) (..., M); te = tn + 0 where reached, else +inf.
+    min/max propagate NaN, as jnp.minimum/maximum and the kernels do."""
+    t1 = (lo - o) * inv
+    t2 = (hi - o) * inv
+    tn = torch.zeros_like(t1[..., 0])
+    tf = lim.expand_as(tn)
+    for k in range(3):
+        tn = torch.maximum(tn, torch.minimum(t1[..., k], t2[..., k]))
+        tf = torch.minimum(tf, torch.maximum(t1[..., k], t2[..., k]))
+    reach = tn <= tf
+    return reach, torch.where(reach, tn + 0.0, torch.inf)
+
+
+def _ray_slab_args(rays, s, e):
+    """Origins and safe inverse directions (R, 1, 3) of rays [s, e)."""
+    d = rays[3:6, s:e].T
+    tiny = torch.where(d >= 0.0, 1e-20, -1e-20).to(d.dtype)
+    inv = 1.0 / torch.where(d.abs() < 1e-20, tiny, d)
+    return rays[0:3, s:e].T[:, None, :], inv[:, None, :]
+
+
+def target_keys_reference(rays, lo, hi):
+    """Plain PyTorch version of K4: i32[n] c1 << 22 | c2 << 14 | c3 << 6,
+    the ids of each ray's three least slab entries (limit: its t_max,
+    rays row 7) over the boxes lo/hi f32[nc, 3], 0xFF where it reaches
+    fewer. A stable sort by entry keeps the lowest ids on equal entries,
+    as the JAX kernel's strict ``<`` insertion over ascending ids does."""
+    n = rays.shape[1]
+    nc = lo.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=rays.device)
+    step = max(1, _max_pairs(rays) // max(nc, 1))
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        o, inv = _ray_slab_args(rays, s, e)
+        te = _slab_entry(o, inv, rays[7, s:e][:, None], lo, hi)[1]
+        if nc < 3:
+            te = torch.cat([te, te.new_full((e - s, 3 - nc), torch.inf)], 1)
+        ts, ids = torch.sort(te, dim=1, stable=True)
+        ids = torch.where(ts[:, :3] < torch.inf, ids[:, :3], 0xFF)
+        out[s:e] = ((ids[:, 0] << 22) | (ids[:, 1] << 14) | (ids[:, 2] << 6)).to(torch.int32)
+    return out
+
+
+def _check_boxes(name, lo, hi, device):
+    m = lo.shape[0] if lo.dim() == 2 else -1
+    _check(f"{name}_lo", lo, torch.float32, (m, 3), device)
+    _check(f"{name}_hi", hi, torch.float32, (m, 3), device)
+    return m
+
+
+_KEYS_ARGS = (_P, _I64, _P, _P, _INT, _P, _P)
+_UNION_ARGS = (_P, _I64, _P, _P, _INT, _INT, _P, _P)
+
+
+def target_keys(rays, lo, hi):
+    """K4: each ray's target key (see :func:`target_keys_reference`),
+    i32[n_pad]. rays f32[8, n_pad] (n_pad a multiple of RAY_BLOCK); lo/hi
+    f32[nc, 3], nc ≤ MAX_KEY_CLUSTERS, the accel's cluster AABBs as they
+    are. On CUDA tensors this launches csrc/woop_keys.cu and counts the
+    launch in ``target_keys.launches``; on CPU tensors it runs the plain
+    version."""
+    n_pad = _check_rays(rays)
+    nc = _check_boxes("cluster", lo, hi, rays.device)
+    if nc > MAX_KEY_CLUSTERS:
+        raise ValueError(f"target_keys: {nc} clusters, at most {MAX_KEY_CLUSTERS}")
+    if rays.device.type == "cpu":
+        return target_keys_reference(rays, lo, hi)
+    out = torch.empty(n_pad, dtype=torch.int32, device=rays.device)
+    _call(_kernel_lib("woop_keys", "mq_target_keys", _KEYS_ARGS), rays.device, rays.data_ptr(),
+          n_pad, lo.data_ptr(), hi.data_ptr(), nc, out.data_ptr())
+    target_keys.launches += 1
+    return out
+
+
+target_keys.launches = 0
+
+
+def te_union_reference(rays, lo, hi, slack=False):
+    """Plain PyTorch version of K5: f32[n_pad / RAY_BLOCK, m], per block
+    of RAY_BLOCK rays and per box the least slab entry over the block's
+    rays, +inf where none reaches it. ``slack`` False is the JAX function
+    (limit: each ray's t_max); True is the walker's list (limit:
+    list_slack(t_max); empty boxes, lo > hi, never listed)."""
+    n_pad = rays.shape[1]
+    nb, m = n_pad // RAY_BLOCK, lo.shape[0]
+    lim = list_slack(rays[7]) if slack else rays[7]
+    out = torch.empty((nb, m), dtype=torch.float32, device=rays.device)
+    step = max(1, _max_pairs(rays) // (RAY_BLOCK * max(m, 1)))
+    for b0 in range(0, nb, step):
+        b1 = min(nb, b0 + step)
+        s, e = b0 * RAY_BLOCK, b1 * RAY_BLOCK
+        o, inv = _ray_slab_args(rays, s, e)
+        te = _slab_entry(o, inv, lim[s:e][:, None], lo, hi)[1]
+        out[b0:b1] = te.reshape(b1 - b0, RAY_BLOCK, m).amin(1)
+    if slack:
+        out[:, (lo > hi).any(-1)] = torch.inf
+    return out
+
+
+def te_union(rays, lo, hi, slack=False):
+    """K5: the per-block union entry (see :func:`te_union_reference`),
+    f32[n_pad / RAY_BLOCK, m] for m boxes lo/hi f32[m, 3] (clusters or
+    node boxes). On CUDA tensors this launches csrc/woop_keys.cu and
+    counts the launch in ``te_union.launches``; on CPU tensors it runs
+    the plain version."""
+    n_pad = _check_rays(rays)
+    m = _check_boxes("box", lo, hi, rays.device)
+    if m <= 0:
+        raise ValueError("te_union: no boxes")
+    if rays.device.type == "cpu":
+        return te_union_reference(rays, lo, hi, slack)
+    out = torch.empty((n_pad // RAY_BLOCK, m), dtype=torch.float32, device=rays.device)
+    _call(_kernel_lib("woop_keys", "mq_te_union", _UNION_ARGS), rays.device, rays.data_ptr(),
+          n_pad, lo.data_ptr(), hi.data_ptr(), m, int(slack), out.data_ptr())
+    te_union.launches += 1
+    return out
+
+
+te_union.launches = 0
+
+
+def node_bounds(lo, hi, nodes):
+    """The boxes of nodes of ``nodes`` consecutive clusters, f32[nn, 3]
+    each: the min/max of the members' boxes (which does not round, so a
+    node contains its members exactly); a partial last node is filled
+    with empty boxes (3e37 > -3e37), as the JAX package fills it
+    (woop.py:1148-1164 there)."""
+    nc = lo.shape[0]
+    nn = -(-nc // nodes)
+    pad = nn * nodes - nc
+    if pad:
+        lo = torch.cat([lo, lo.new_full((pad, 3), 3e37)])
+        hi = torch.cat([hi, hi.new_full((pad, 3), -3e37)])
+    return (lo.reshape(nn, nodes, 3).amin(1).contiguous(),
+            hi.reshape(nn, nodes, 3).amax(1).contiguous())
+
+
+def visit_list(rays, lo, hi):
+    """Each block's near-to-far visit list over boxes lo/hi: K5 in its
+    walker mode, then each row sorted (in torch, as the JAX package sorts
+    it in XLA, woop.py:1251-1257 there) → (te_s f32[nb, m], order
+    i32[nb, m])."""
+    te_s, order = torch.sort(te_union(rays, lo, hi, slack=True), dim=1, stable=True)
+    return te_s.contiguous(), order.to(torch.int32).contiguous()
+
+
+_LIST_ARGS = (_P, _I64, _P, _P, _P, _INT, _P, _P, _INT, _P, _P, _INT, _INT, _INT, _P, _P, _P,
+              _P, _P, _P)
+
+
+def woop_list(rays, w, cluster_lo, cluster_hi, te_s, order, *, node_lo=None, node_hi=None,
+              nodes=1, compact=0, anyhit=False, occluded_in=None, counts=None):
+    """The list walker: K1's result (``anyhit=False``: (t f32[n_pad], tri
+    i32[n_pad])) or K2's (occluded bool[n_pad], warm-started by
+    ``occluded_in``), each ray block walking its visit list ``te_s`` /
+    ``order`` f32/i32[nb, m] (:func:`visit_list`) near to far with an
+    exact horizon exit.
+
+    ``nodes`` = 1: the list is over the clusters (m = nc); ``nodes`` = P
+    > 1 (K6): over nodes of P clusters (m = ceil(nc / P)) whose boxes
+    ``node_lo``/``node_hi`` f32[m, 3] come from :func:`node_bounds` on the
+    same padded cluster bounds. ``compact`` > 0 (K7, nearest only): a
+    tile that 1..compact rays reach is tested on those rays alone.
+    Other arguments as :func:`woop_nearest`'s; ``counts`` (None or an
+    int64[n_pad / RAY_BLOCK, 3] CUDA tensor, zeroed here) gets per CTA
+    the pairs tested, the tile visits and the compacted visits.
+
+    On CUDA tensors this launches csrc/woop_list.cu and counts the launch
+    in ``woop_list.launches`` (and in ``node_launches``,
+    ``compact_launches``, ``anyhit_launches`` as it is such a walk); on
+    CPU tensors it runs :func:`intersect_woop_reference` or
+    :func:`intersect_woop_any_reference`: the walk changes the schedule,
+    never the result.
+    """
+    n_pad = _check_k_inputs(rays, w, cluster_lo, cluster_hi)
+    dev = rays.device
+    nc, nb = cluster_lo.shape[0], n_pad // RAY_BLOCK
+    if nodes < 1 or compact < 0 or (anyhit and compact):
+        raise ValueError(f"woop_list: nodes={nodes}, compact={compact}, anyhit={anyhit}")
+    m = -(-nc // nodes)
+    _check("te_s", te_s, torch.float32, (nb, m), dev)
+    _check("order", order, torch.int32, (nb, m), dev)
+    if nodes > 1:
+        if node_lo is None or node_hi is None:
+            raise ValueError("woop_list: nodes > 1 needs node_lo and node_hi")
+        _check("node_lo", node_lo, torch.float32, (m, 3), dev)
+        _check("node_hi", node_hi, torch.float32, (m, 3), dev)
+    if occluded_in is not None:
+        if not anyhit:
+            raise ValueError("woop_list: occluded_in needs anyhit=True")
+        _check("occluded_in", occluded_in, torch.bool, (n_pad,), dev)
+    if dev.type == "cpu":
+        _refuse_counts_on_cpu(counts)
+        if anyhit:
+            return intersect_woop_any_reference(rays, w, occluded_in)
+        return intersect_woop_reference(rays, w)
+    cptr = None
+    if counts is not None:
+        _check("counts", counts, torch.int64, (nb, 3), dev)
+        counts.zero_()
+        cptr = counts.data_ptr()
+    ptr = lambda x: None if x is None else x.data_ptr()
+    if anyhit:
+        out = torch.empty(n_pad, dtype=torch.bool, device=dev)
+        outs = (None, None, out.data_ptr())
+    else:
+        out = (torch.empty(n_pad, dtype=torch.float32, device=dev),
+               torch.empty(n_pad, dtype=torch.int32, device=dev))
+        outs = (out[0].data_ptr(), out[1].data_ptr(), None)
+    _call(_kernel_lib("woop_list", "mq_woop_list", _LIST_ARGS), dev, rays.data_ptr(), n_pad,
+          w.data_ptr(), cluster_lo.data_ptr(), cluster_hi.data_ptr(), nc, te_s.data_ptr(),
+          order.data_ptr(), m, ptr(node_lo if nodes > 1 else None),
+          ptr(node_hi if nodes > 1 else None), nodes, compact, int(anyhit), ptr(occluded_in),
+          *outs, cptr)
+    woop_list.launches += 1
+    woop_list.node_launches += nodes > 1
+    woop_list.compact_launches += compact > 0
+    woop_list.anyhit_launches += bool(anyhit)
+    return out
+
+
+woop_list.launches = woop_list.node_launches = 0
+woop_list.compact_launches = woop_list.anyhit_launches = 0
+
+
+def check_schedule(schedule) -> TraceSchedule:
+    """``schedule`` (a TraceSchedule, a tuple of its fields, or None for
+    the default routes) checked: node_clusters must divide 128, as the
+    JAX package asserts (woop.py:1151 there)."""
+    s = TraceSchedule() if schedule is None else TraceSchedule(*schedule)
+    if s.node_clusters < 0 or s.compact < 0:
+        raise ValueError(f"{s}: node_clusters and compact must be >= 0")
+    if s.node_clusters > 1 and 128 % s.node_clusters:
+        raise ValueError(f"{s}: node_clusters must divide 128")
+    return s
+
+
+def schedule_nodes(schedule: TraceSchedule, nc: int) -> int:
+    """The node level P a walk over ``nc`` clusters takes under
+    ``schedule``: its node_clusters when that is above 1 and below nc
+    (the JAX package's rule, woop.py:1135-1136 there), else 1 (flat)."""
+    p = schedule.node_clusters
+    return p if 1 < p < nc else 1
+
+
+def target_sort_key(accel, o, d, t_max_b):
+    """The target-key schedule's sort key (int64, u32 values): K4's key on
+    the accel's cluster AABBs with limit t_max, the origin Morton code's
+    top 6 bits, and dead rays (t_max ≤ 0) in bit 30, as the JAX package
+    composes it (woop.py:1672-1685 there)."""
+    n = o.shape[0]
+    rays = _pack_rays(o, d, torch.zeros_like(t_max_b), t_max_b, RAY_BLOCK)
+    key = target_keys(rays, accel.cluster_lo, accel.cluster_hi)[:n].long()
+    morton6 = (_sort_keys(accel, o, d) & 0xFFFFFF) >> 18
+    return key | morton6 | ((t_max_b <= 0.0).long() << 30)
+
+
+def _walk(rays, w, lo, hi, schedule, anyhit=False, occluded_in=None):
+    """K5's visit list and the walker over the padded cluster bounds
+    lo/hi, at node level when the schedule's node level applies."""
+    P = schedule_nodes(schedule, lo.shape[0])
+    compact = 0 if anyhit else schedule.compact
+    if P > 1:
+        nlo, nhi = node_bounds(lo, hi, P)
+        return woop_list(rays, w, lo, hi, *visit_list(rays, nlo, nhi), node_lo=nlo,
+                         node_hi=nhi, nodes=P, compact=compact, anyhit=anyhit,
+                         occluded_in=occluded_in)
+    return woop_list(rays, w, lo, hi, *visit_list(rays, lo, hi), compact=compact,
+                     anyhit=anyhit, occluded_in=occluded_in)
+
+
 def sort_perm(accel, o, d, t_max_b):
     """Coherence order for bounce rays (stable sort by ``_sort_keys``;
     dead rays, t_max ≤ 0, go to trailing blocks)."""
@@ -486,7 +827,7 @@ def k2_inputs(accel, o, d, t_min_b, t_max_b):
     return rays, proxy, (w, *pad(accel.cluster_lo, accel.cluster_hi))
 
 
-def intersect_woop_any(accel, o, d, t_min, t_max, sort_rays: bool = False):
+def intersect_woop_any(accel, o, d, t_min, t_max, sort_rays: bool = False, schedule=None):
     """Occlusion-only visibility sweep: bool[n] ``occluded``.
 
     Uses the shadow table (sky and alpha-tested triangles zeroed; the
@@ -494,45 +835,72 @@ def intersect_woop_any(accel, o, d, t_min, t_max, sort_rays: bool = False):
     sweep over it runs first and its result warm-starts the shadow
     sweep: proxy triangles are genuine occluders, so this changes no
     result, only how many rays the second sweep still tests. The shadow
-    sweep goes to K2 or K3 as :func:`streamed` says. ``sort_rays`` bins
-    the rays as :func:`intersect_woop` does.
+    sweep goes to K3 as :func:`streamed` says, else to the walker at node
+    level when ``schedule`` (a :class:`TraceSchedule`) has a node level
+    that applies (K5's list, then K6), else to K2; the proxy pre-pass
+    stays on K2, as in the JAX package (woop.py:1839-1868 there).
+    ``sort_rays`` bins the rays as :func:`intersect_woop` does without a
+    target key.
     """
+    sched = check_schedule(schedule)
     n = o.shape[0]
     t_min_b = as_f32(t_min, o).expand(n).contiguous()
     t_max_b = as_f32(t_max, o).expand(n).contiguous()
     if sort_rays and n >= RAY_BLOCK:
         perm = sort_perm(accel, o, d, t_max_b)
-        occ = intersect_woop_any(accel, o[perm], d[perm], t_min_b[perm], t_max_b[perm])
+        occ = intersect_woop_any(accel, o[perm], d[perm], t_min_b[perm], t_max_b[perm],
+                                 schedule=sched)
         return torch.empty_like(occ).index_copy_(0, perm, occ)
     rays, proxy, shadow = k2_inputs(accel, o, d, t_min_b, t_max_b)
     occ = None if proxy is None else woop_any(rays, *proxy)
     if streamed(shadow[0]):
         return woop_stream(rays, *shadow, anyhit=True, occluded_in=occ)[:n]
+    if schedule_nodes(sched, shadow[1].shape[0]) > 1:
+        return _walk(rays, *shadow, sched, anyhit=True, occluded_in=occ)[:n]
     return woop_any(rays, *shadow, occ)[:n]
 
 
-def intersect_woop(accel, o, d, t_min, t_max, sort_rays: bool = False):
-    """HitRecord-level nearest-hit trace through K1 or K3 (as
-    :func:`streamed` says for ``accel.woop_w``).
+def intersect_woop(accel, o, d, t_min, t_max, sort_rays: bool = False, schedule=None):
+    """HitRecord-level nearest-hit trace through K1, K3 or the walker.
 
-    ``sort_rays`` bins incoherent (bounce) rays by direction octant,
-    dominant axis and origin Morton code (dead rays, t_max ≤ 0, go to
-    trailing blocks) so that each ray block has a tight bundle; the
-    results are scattered back to the caller's order.
+    ``sort_rays`` bins incoherent (bounce) rays so that each ray block has
+    a tight bundle, by direction octant, dominant axis and origin Morton
+    code (dead rays, t_max ≤ 0, go to trailing blocks), or by
+    :func:`target_sort_key` when ``schedule.target_key`` applies (at most
+    MAX_KEY_CLUSTERS clusters, a resident table); the results are
+    scattered back to the caller's order. A table of more than
+    RESIDENT_MAX_TRIS triangles goes to K3 whatever ``schedule`` says; a
+    smaller one walks K5's list (:func:`woop_list`) when the rays are
+    target-sorted, when the schedule's node level applies or when it
+    compacts, and goes to K1 otherwise.
     """
     from .intersect import HitRecord
 
+    sched = check_schedule(schedule)
     n = o.shape[0]
     t_min_b = as_f32(t_min, o).expand(n).contiguous()
     t_max_b = as_f32(t_max, o).expand(n).contiguous()
+    resident = not streamed(accel.woop_w)
+    nc = accel.cluster_lo.shape[0]
+    walk = resident and (schedule_nodes(sched, nc) > 1 or sched.compact > 0)
+    perm = None
     if sort_rays and n >= RAY_BLOCK:
-        perm = sort_perm(accel, o, d, t_max_b)
-        hr = intersect_woop(accel, o[perm], d[perm], t_min_b[perm], t_max_b[perm])
-        back = lambda x: torch.empty_like(x).index_copy_(0, perm, x)
-        return HitRecord(*[back(x) for x in hr])
+        if sched.target_key and resident and nc <= MAX_KEY_CLUSTERS:
+            perm = torch.sort(target_sort_key(accel, o, d, t_max_b), stable=True).indices
+            walk = True
+        else:
+            perm = sort_perm(accel, o, d, t_max_b)
+        o, d, t_min_b, t_max_b = o[perm], d[perm], t_min_b[perm], t_max_b[perm]
     args = k1_inputs(accel, o, d, t_min_b, t_max_b)
-    kernel = woop_stream if streamed(accel.woop_w) else woop_nearest
-    t, tri = kernel(*args)
+    if not resident:
+        t, tri = woop_stream(*args)
+    elif walk:
+        t, tri = _walk(*args, sched)
+    else:
+        t, tri = woop_nearest(*args)
     t, tri = t[:n], tri[:n]
     t, u, v = _recompute_tuv(accel, o, d, t, tri)
-    return HitRecord(t=t, tri=tri, u=u, v=v)
+    hr = HitRecord(t=t, tri=tri, u=u, v=v)
+    if perm is None:
+        return hr
+    return HitRecord(*[torch.empty_like(x).index_copy_(0, perm, x) for x in hr])

@@ -42,33 +42,19 @@
 //     once and read by every thread as broadcasts.
 // Warp-level early exit and a tighter hierarchy are left for later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "woop_common.cuh"
 
 namespace {
 
-constexpr int kCluster = 64;
 constexpr int kMaxBlock = 256;
 
-__device__ __forceinline__ float with_slack(float lim) {
-  return fmaf(fabsf(lim), 1e-4f, lim) + 1e-3f;
-}
-
-// ((x·r.x + y·r.y) + z·r.z) + r.w, each step rounded (plain-version order)
-__device__ __forceinline__ float affine(float4 r, float x, float y, float z) {
-  return __fadd_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(x, r.x), __fmul_rn(y, r.y)), __fmul_rn(z, r.z)),
-      r.w);
-}
-
-__device__ __forceinline__ float linear(float4 r, float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, r.x), __fmul_rn(y, r.y)), __fmul_rn(z, r.z));
-}
-
-__device__ __forceinline__ float safe_inv(float d) {
-  const float tiny = d >= 0.0f ? 1e-20f : -1e-20f;
-  return 1.0f / (fabsf(d) < 1e-20f ? tiny : d);
-}
+// the gate, its slack, the pair test and the safe inverse (woop_common.cuh)
+using mq::any_pair;
+using mq::gate;
+using mq::kCluster;
+using mq::load_box;
+using mq::safe_inv;
+using mq::with_slack;
 
 // kCount: add up the (ray, triangle) pairs tested into counts[CTA]; the
 // frame path launches the kCount = false instance, which has no counter.
@@ -85,11 +71,11 @@ woop_any_kernel(const float* __restrict__ rays, int64_t n_pad,
   unsigned long long pairs = 0;  // kCount only
 
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const float ox = rays[i], oy = rays[n_pad + i], oz = rays[2 * n_pad + i];
+  const float4 o = make_float4(rays[i], rays[n_pad + i], rays[2 * n_pad + i], 0.0f);
   const float dx = rays[3 * n_pad + i], dy = rays[4 * n_pad + i],
               dz = rays[5 * n_pad + i];
   const float t_min = rays[6 * n_pad + i], t_max = rays[7 * n_pad + i];
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  const float4 inv = make_float4(safe_inv(dx), safe_inv(dy), safe_inv(dz), 0.0f);
   const float lim = with_slack(t_max);
 
   bool occ = occ_in != nullptr && occ_in[i] != 0;
@@ -98,26 +84,8 @@ woop_any_kernel(const float* __restrict__ rays, int64_t n_pad,
   if (!occ) atomicAdd(&live, 1);
 
   for (int c = 0; c < nc; ++c) {
-    bool reach = false;
-    if (!occ) {
-      float tn = 0.0f, tf = lim;
-      {
-        const float t1 = (lo[3 * c + 0] - ox) * ix, t2 = (hi[3 * c + 0] - ox) * ix;
-        tn = fmaxf(tn, fminf(t1, t2));
-        tf = fminf(tf, fmaxf(t1, t2));
-      }
-      {
-        const float t1 = (lo[3 * c + 1] - oy) * iy, t2 = (hi[3 * c + 1] - oy) * iy;
-        tn = fmaxf(tn, fminf(t1, t2));
-        tf = fminf(tf, fmaxf(t1, t2));
-      }
-      {
-        const float t1 = (lo[3 * c + 2] - oz) * iz, t2 = (hi[3 * c + 2] - oz) * iz;
-        tn = fmaxf(tn, fminf(t1, t2));
-        tf = fminf(tf, fmaxf(t1, t2));
-      }
-      reach = tn <= tf;
-    }
+    float tn;
+    const bool reach = !occ && gate(load_box(lo, hi, c), o, inv, lim, &tn);
     // This barrier publishes `live` (changed only after the staging
     // barrier below) and keeps the previous tile alive until all are done.
     const int any = __syncthreads_or(reach);
@@ -132,24 +100,8 @@ woop_any_kernel(const float* __restrict__ rays, int64_t n_pad,
     if (reach) {
       for (int k = 0; k < kCluster; ++k) {
         if (kCount) ++pairs;
-        const float4 r0 = tile[k];
-        const float4 r1 = tile[kCluster + k];
-        const float4 r2 = tile[2 * kCluster + k];
-        const float u0 = affine(r0, ox, oy, oz);
-        const float v0 = affine(r1, ox, oy, oz);
-        const float z0 = affine(r2, ox, oy, oz);
-        const float du = linear(r0, dx, dy, dz);
-        const float dv = linear(r1, dx, dy, dz);
-        const float dzz = linear(r2, dx, dy, dz);
-        const float z0n = -z0;
-        const float U = __fsub_rn(__fmul_rn(u0, dzz), __fmul_rn(z0, du));
-        const float V = __fsub_rn(__fmul_rn(v0, dzz), __fmul_rn(z0, dv));
-        const bool hit = (U >= 0.0f) & (V >= 0.0f) &
-                         (__fsub_rn(__fsub_rn(dzz, U), V) >= 0.0f) &
-                         (__fsub_rn(dzz, 1e-12f) >= 0.0f) &
-                         (__fsub_rn(z0n, __fmul_rn(t_min, dzz)) >= 0.0f) &
-                         (__fsub_rn(__fmul_rn(t_max, dzz), z0n) >= 0.0f);
-        if (hit) {
+        if (any_pair(tile[k], tile[kCluster + k], tile[2 * kCluster + k], o.x, o.y, o.z, dx,
+                     dy, dz, t_min, t_max)) {
           occ = true;
           atomicSub(&live, 1);
           break;

@@ -1,0 +1,184 @@
+// Device helpers shared by the Woop kernels: K1-K3 (their gate, its slack
+// and the pair tests), K4 and K5 (csrc/woop_keys.cu) and the list walker
+// K6/K7 (csrc/woop_list.cu). Every pair test of every kernel is one of the
+// two functions below, so the bit-exact contract with the plain versions
+// lives in one place. The union that builds a walk's list and
+// the walk's per-ray gate call the same slab function here, so a box the
+// gate could pass is always listed. kernels.py hashes this header into the
+// name of every library, so an edit rebuilds them all.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace mq {
+
+constexpr int kCluster = 64;
+constexpr int kTile = 3 * kCluster;  // float4 rows of one cluster
+constexpr int kBlock = 128;          // rays per CTA, one thread each
+constexpr int kWarps = kBlock / 32;
+constexpr float kBig = 3e38f;
+
+// jnp.minimum / jnp.maximum: a NaN operand gives NaN (fminf and fmaxf
+// would drop it; only a ray with a NaN origin or direction tells them apart)
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float safe_inv(float d) {
+  const float tiny = d >= 0.0f ? 1e-20f : -1e-20f;
+  return 1.0f / (fabsf(d) < 1e-20f ? tiny : d);
+}
+
+// K1-K3's slack on a gate's limit (every gate in those kernels uses it)
+__device__ __forceinline__ float with_slack(float lim) {
+  return fmaf(fabsf(lim), 1e-4f, lim) + 1e-3f;
+}
+
+// The walk's slack on a limit: (lim + |lim|·1e-4) + 1e-3, each step rounded
+// on its own (no FMA, unlike K1's with_slack), so the plain PyTorch version
+// (woop.list_slack) computes it bit for bit. Monotone in lim.
+__device__ __forceinline__ float list_slack(float lim) {
+  return __fadd_rn(__fadd_rn(lim, __fmul_rn(fabsf(lim), 1e-4f)), 1e-3f);
+}
+
+struct Ray {
+  float ox, oy, oz, ix, iy, iz;  // origin, 1 / direction (safe_inv)
+};
+
+struct Box {
+  float lx, ly, lz, hx, hy, hz;
+};
+
+__device__ __forceinline__ Box load_box(const float* lo, const float* hi, int c) {
+  return {lo[3 * c], lo[3 * c + 1], lo[3 * c + 2], hi[3 * c], hi[3 * c + 1], hi[3 * c + 2]};
+}
+
+__device__ __forceinline__ bool empty_box(const Box& b) {
+  return b.lx > b.hx || b.ly > b.hy || b.lz > b.hz;
+}
+
+// The slab of the JAX package's _slab_te_lanes (woop.py:852-874): from
+// tn = 0, tf = lim, per axis t1 = (lo - o)·inv, t2 = (hi - o)·inv (each
+// rounded), tn = max(tn, min(t1, t2)), tf = min(tf, max(t1, t2)), NaN
+// propagating. Returns whether tn <= tf; *te gets tn + 0 (a zero entry is
+// +0, whatever the sign the min/max tree left on it) or +inf.
+// 12 FP32 subtracts and multiplies and 12 min/max: 24 FP32 operations.
+__device__ __forceinline__ bool slab(const Box& b, const Ray& r, float lim, float* te) {
+  float tn = 0.0f, tf = lim;
+  {
+    const float t1 = __fmul_rn(__fsub_rn(b.lx, r.ox), r.ix);
+    const float t2 = __fmul_rn(__fsub_rn(b.hx, r.ox), r.ix);
+    tn = nan_max(tn, nan_min(t1, t2));
+    tf = nan_min(tf, nan_max(t1, t2));
+  }
+  {
+    const float t1 = __fmul_rn(__fsub_rn(b.ly, r.oy), r.iy);
+    const float t2 = __fmul_rn(__fsub_rn(b.hy, r.oy), r.iy);
+    tn = nan_max(tn, nan_min(t1, t2));
+    tf = nan_min(tf, nan_max(t1, t2));
+  }
+  {
+    const float t1 = __fmul_rn(__fsub_rn(b.lz, r.oz), r.iz);
+    const float t2 = __fmul_rn(__fsub_rn(b.hz, r.oz), r.iz);
+    tn = nan_max(tn, nan_min(t1, t2));
+    tf = nan_min(tf, nan_max(t1, t2));
+  }
+  const bool reach = tn <= tf;
+  *te = reach ? __fadd_rn(tn, 0.0f) : INFINITY;
+  return reach;
+}
+
+// K1-K3's per-ray gate: does the ray (origin o, inverse direction i) reach
+// box b within [0, lim]? *tn gets its entry parameter. It is slab's
+// arithmetic with fminf/fmaxf, which drop a NaN where slab propagates it: a
+// ray with a NaN origin or direction passes this gate, and then its pair
+// tests reject every triangle (a NaN compares false), so the rule changes
+// which clusters are visited, never a result. K3 builds its visit list with
+// this gate too, so its list and its walk agree as the walker's do on slab.
+__device__ __forceinline__ bool gate(const Box& b, float4 o, float4 i, float lim, float* tn) {
+  float n = 0.0f, f = lim;
+  {
+    const float t1 = __fmul_rn(__fsub_rn(b.lx, o.x), i.x);
+    const float t2 = __fmul_rn(__fsub_rn(b.hx, o.x), i.x);
+    n = fmaxf(n, fminf(t1, t2));
+    f = fminf(f, fmaxf(t1, t2));
+  }
+  {
+    const float t1 = __fmul_rn(__fsub_rn(b.ly, o.y), i.y);
+    const float t2 = __fmul_rn(__fsub_rn(b.hy, o.y), i.y);
+    n = fmaxf(n, fminf(t1, t2));
+    f = fminf(f, fmaxf(t1, t2));
+  }
+  {
+    const float t1 = __fmul_rn(__fsub_rn(b.lz, o.z), i.z);
+    const float t2 = __fmul_rn(__fsub_rn(b.hz, o.z), i.z);
+    n = fmaxf(n, fminf(t1, t2));
+    f = fminf(f, fmaxf(t1, t2));
+  }
+  *tn = n;
+  return n <= f;
+}
+
+// ((x·r.x + y·r.y) + z·r.z) + r.w, each step rounded (plain-version order)
+__device__ __forceinline__ float affine(float4 r, float x, float y, float z) {
+  return __fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(x, r.x), __fmul_rn(y, r.y)), __fmul_rn(z, r.z)),
+      r.w);
+}
+
+__device__ __forceinline__ float linear(float4 r, float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, r.x), __fmul_rn(y, r.y)), __fmul_rn(z, r.z));
+}
+
+// The nearest-hit test of one (ray, triangle) pair, which K1, K3 and the
+// walker call (csrc/woop_nearest.cu states it); *t gets -z0 / dz when it
+// hits.
+__device__ __forceinline__ bool nearest_pair(float4 r0, float4 r1, float4 r2, float ox, float oy,
+                                             float oz, float dx, float dy, float dz, float t_min,
+                                             float t_max, float* t) {
+  const float u0 = affine(r0, ox, oy, oz);
+  const float v0 = affine(r1, ox, oy, oz);
+  const float z0 = affine(r2, ox, oy, oz);
+  const float du = linear(r0, dx, dy, dz);
+  const float dv = linear(r1, dx, dy, dz);
+  const float dzz = linear(r2, dx, dy, dz);
+  const float z0n = -z0;
+  const float U = __fsub_rn(__fmul_rn(u0, dzz), __fmul_rn(z0, du));
+  const float V = __fsub_rn(__fmul_rn(v0, dzz), __fmul_rn(z0, dv));
+  const bool ok = (dzz > 1e-12f) & (U >= 0.0f) & (V >= 0.0f) & (__fadd_rn(U, V) <= dzz) &
+                  (z0n > __fmul_rn(t_min, dzz)) & (z0n <= __fmul_rn(t_max, dzz));
+  if (ok) *t = __fdiv_rn(z0n, dzz);
+  return ok;
+}
+
+// The any-hit test of one pair, which K2, K3 and the walker call
+// (csrc/woop_any.cu states it): every term >= 0, so a NaN term rejects its
+// pair.
+__device__ __forceinline__ bool any_pair(float4 r0, float4 r1, float4 r2, float ox, float oy,
+                                         float oz, float dx, float dy, float dz, float t_min,
+                                         float t_max) {
+  const float u0 = affine(r0, ox, oy, oz);
+  const float v0 = affine(r1, ox, oy, oz);
+  const float z0 = affine(r2, ox, oy, oz);
+  const float du = linear(r0, dx, dy, dz);
+  const float dv = linear(r1, dx, dy, dz);
+  const float dzz = linear(r2, dx, dy, dz);
+  const float z0n = -z0;
+  const float U = __fsub_rn(__fmul_rn(u0, dzz), __fmul_rn(z0, du));
+  const float V = __fsub_rn(__fmul_rn(v0, dzz), __fmul_rn(z0, dv));
+  return (U >= 0.0f) & (V >= 0.0f) & (__fsub_rn(__fsub_rn(dzz, U), V) >= 0.0f) &
+         (__fsub_rn(dzz, 1e-12f) >= 0.0f) & (__fsub_rn(z0n, __fmul_rn(t_min, dzz)) >= 0.0f) &
+         (__fsub_rn(__fmul_rn(t_max, dzz), z0n) >= 0.0f);
+}
+
+}  // namespace mq

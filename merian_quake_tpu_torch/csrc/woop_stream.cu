@@ -57,7 +57,7 @@
 //  4. Any-hit: occluded rays stop testing (a thread leaves a tile at its
 //     first hit) and stop raising the horizon; once every ray of the CTA
 //     is occluded the horizon is -inf and the walk stops, uniformly.
-// The union and the gate call the same slab function with explicitly
+// The union and the gate call the same function (mq::gate) with explicitly
 // rounded operations, so a cluster the gate could pass is always listed.
 //
 // What bounds it on this card: FP32 arithmetic of the pairs tested (42
@@ -71,80 +71,31 @@
 // of each reached node and a sort per CTA. Warp-level traversal, TMA and
 // persistent CTAs are later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "woop_common.cuh"
 
 namespace {
 
-constexpr int kCluster = 64;
-constexpr int kTile = 3 * kCluster;  // float4 rows staged per cluster
-constexpr int kBlock = 128;          // rays per CTA, one thread each
-constexpr int kWarps = kBlock / 32;
 constexpr int kSlots = 4;            // ring slots of 3 KB
 constexpr int kNode = 32;            // clusters per node of the cull
 constexpr int kIdBits = 14;
 constexpr int kMaxClusters = 1 << kIdBits;  // 16,384 (1,048,576 triangles)
-constexpr float kBig = 3e38f;
 static_assert(kSlots == 4, "wait_pending handles up to 3 groups in flight");
 
-__device__ __forceinline__ float with_slack(float lim) {
-  return fmaf(fabsf(lim), 1e-4f, lim) + 1e-3f;
-}
-
-// ((x·r.x + y·r.y) + z·r.z) + r.w, each step rounded (plain-version order)
-__device__ __forceinline__ float affine(float4 r, float x, float y, float z) {
-  return __fadd_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(x, r.x), __fmul_rn(y, r.y)), __fmul_rn(z, r.z)),
-      r.w);
-}
-
-__device__ __forceinline__ float linear(float4 r, float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, r.x), __fmul_rn(y, r.y)), __fmul_rn(z, r.z));
-}
-
-__device__ __forceinline__ float safe_inv(float d) {
-  const float tiny = d >= 0.0f ? 1e-20f : -1e-20f;
-  return 1.0f / (fabsf(d) < 1e-20f ? tiny : d);
-}
-
-struct Box {
-  float lx, ly, lz, hx, hy, hz;
-};
-
-__device__ __forceinline__ Box load_box(const float* lo, const float* hi, int c) {
-  return {lo[3 * c], lo[3 * c + 1], lo[3 * c + 2], hi[3 * c], hi[3 * c + 1], hi[3 * c + 2]};
-}
-
-__device__ __forceinline__ bool empty_box(const Box& b) {
-  return b.lx > b.hx || b.ly > b.hy || b.lz > b.hz;
-}
-
-// K1's slab gate: does the ray (origin o, inverse direction i) reach box b
-// within [0, lim]? *tn gets its entry parameter.
-__device__ __forceinline__ bool slab(const Box& b, float4 o, float4 i, float lim, float* tn) {
-  float n = 0.0f, f = lim;
-  {
-    const float t1 = __fmul_rn(__fsub_rn(b.lx, o.x), i.x);
-    const float t2 = __fmul_rn(__fsub_rn(b.hx, o.x), i.x);
-    n = fmaxf(n, fminf(t1, t2));
-    f = fminf(f, fmaxf(t1, t2));
-  }
-  {
-    const float t1 = __fmul_rn(__fsub_rn(b.ly, o.y), i.y);
-    const float t2 = __fmul_rn(__fsub_rn(b.hy, o.y), i.y);
-    n = fmaxf(n, fminf(t1, t2));
-    f = fminf(f, fmaxf(t1, t2));
-  }
-  {
-    const float t1 = __fmul_rn(__fsub_rn(b.lz, o.z), i.z);
-    const float t2 = __fmul_rn(__fsub_rn(b.hz, o.z), i.z);
-    n = fmaxf(n, fminf(t1, t2));
-    f = fminf(f, fmaxf(t1, t2));
-  }
-  *tn = n;
-  return n <= f;
-}
+// the gate, its slack, the pair tests, boxes and the safe inverse
+// (woop_common.cuh); K3's list and walk both test boxes with K1's gate
+using mq::any_pair;
+using mq::Box;
+using mq::empty_box;
+using mq::gate;
+using mq::kBig;
+using mq::kBlock;
+using mq::kCluster;
+using mq::kTile;
+using mq::kWarps;
+using mq::load_box;
+using mq::nearest_pair;
+using mq::safe_inv;
+using mq::with_slack;
 
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
@@ -241,7 +192,7 @@ woop_stream_kernel(const float* __restrict__ rays, int64_t n_pad,
         for (int r = 0; r < kBlock && !reached; ++r) {
           const float4 ro = ray_o[r];
           float tn;
-          reached = slab(b, ro, ray_i[r], ro.w, &tn);
+          reached = gate(b, ro, ray_i[r], ro.w, &tn);
         }
       }
       if (reached) node_list[atomicAdd(&n_nodes, 1)] = nd;
@@ -258,7 +209,7 @@ woop_stream_kernel(const float* __restrict__ rays, int64_t n_pad,
       for (int r = 0; r < kBlock; ++r) {
         const float4 ro = ray_o[r];
         float tn;
-        if (slab(cb, ro, ray_i[r], ro.w, &tn)) {
+        if (gate(cb, ro, ray_i[r], ro.w, &tn)) {
           reached = true;
           te = fminf(te, tn);
         }
@@ -304,28 +255,12 @@ woop_stream_kernel(const float* __restrict__ rays, int64_t n_pad,
       const int c = slot_cid[s];
       const float4* tile = ring + s * kTile;
       float tn;
-      if (slab(load_box(lo, hi, c), o, inv, limit(), &tn)) {
+      if (gate(load_box(lo, hi, c), o, inv, limit(), &tn)) {
         if (kAny) {
           for (int k = 0; k < kCluster; ++k) {
-            const float4 r0 = tile[k];
-            const float4 r1 = tile[kCluster + k];
-            const float4 r2 = tile[2 * kCluster + k];
-            const float u0 = affine(r0, o.x, o.y, o.z);
-            const float v0 = affine(r1, o.x, o.y, o.z);
-            const float z0 = affine(r2, o.x, o.y, o.z);
-            const float du = linear(r0, dx, dy, dz);
-            const float dv = linear(r1, dx, dy, dz);
-            const float dzz = linear(r2, dx, dy, dz);
-            const float z0n = -z0;
-            const float U = __fsub_rn(__fmul_rn(u0, dzz), __fmul_rn(z0, du));
-            const float V = __fsub_rn(__fmul_rn(v0, dzz), __fmul_rn(z0, dv));
             if (kCount) ++pairs;
-            const bool hit = (U >= 0.0f) & (V >= 0.0f) &
-                             (__fsub_rn(__fsub_rn(dzz, U), V) >= 0.0f) &
-                             (__fsub_rn(dzz, 1e-12f) >= 0.0f) &
-                             (__fsub_rn(z0n, __fmul_rn(t_min, dzz)) >= 0.0f) &
-                             (__fsub_rn(__fmul_rn(t_max, dzz), z0n) >= 0.0f);
-            if (hit) {
+            if (any_pair(tile[k], tile[kCluster + k], tile[2 * kCluster + k], o.x, o.y, o.z, dx,
+                         dy, dz, t_min, t_max)) {
               occ = true;
               break;
             }
@@ -334,24 +269,9 @@ woop_stream_kernel(const float* __restrict__ rays, int64_t n_pad,
           if (kCount) pairs += kCluster;
 #pragma unroll 4
           for (int k = 0; k < kCluster; ++k) {
-            const float4 r0 = tile[k];
-            const float4 r1 = tile[kCluster + k];
-            const float4 r2 = tile[2 * kCluster + k];
-            const float u0 = affine(r0, o.x, o.y, o.z);
-            const float v0 = affine(r1, o.x, o.y, o.z);
-            const float z0 = affine(r2, o.x, o.y, o.z);
-            const float du = linear(r0, dx, dy, dz);
-            const float dv = linear(r1, dx, dy, dz);
-            const float dzz = linear(r2, dx, dy, dz);
-            const float z0n = -z0;
-            const float U = __fsub_rn(__fmul_rn(u0, dzz), __fmul_rn(z0, du));
-            const float V = __fsub_rn(__fmul_rn(v0, dzz), __fmul_rn(z0, dv));
-            const bool ok = (dzz > 1e-12f) & (U >= 0.0f) & (V >= 0.0f) &
-                            (__fadd_rn(U, V) <= dzz) &
-                            (z0n > __fmul_rn(t_min, dzz)) &
-                            (z0n <= __fmul_rn(t_max, dzz));
-            if (ok) {
-              const float t = __fdiv_rn(z0n, dzz);
+            float t;
+            if (nearest_pair(tile[k], tile[kCluster + k], tile[2 * kCluster + k], o.x, o.y, o.z,
+                             dx, dy, dz, t_min, t_max, &t)) {
               const int tri = c * kCluster + k;
               if (t < best || (t == best && tri < best_tri)) {
                 best = t;
@@ -371,7 +291,7 @@ woop_stream_kernel(const float* __restrict__ rays, int64_t n_pad,
       if (__uint_as_float((key >> kIdBits) << 13) > horizon) break;
       const int c = (int)(key & (kMaxClusters - 1));
       float tn;
-      const bool reach = slab(load_box(lo, hi, c), o, inv, limit(), &tn);
+      const bool reach = gate(load_box(lo, hi, c), o, inv, limit(), &tn);
       if (!__syncthreads_or(reach)) continue;
       if (issued - computed == kSlots) compute();
       issue(c);

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` is a plain-C-interface source compiled by
 ``nvcc`` for ``sm_90a`` into a shared library and bound with ``ctypes``.
 The library is built at first use, from the sources in this checkout
 only, into ``_build/`` beside this file (listed in .gitignore). Its file
-name carries a hash of the source, so an edited source is rebuilt and a
-stale library is never loaded. Nothing is built or loaded on import.
+name carries a hash of the source and of every header under ``csrc/``
+(``*.cuh``, which the sources include), so an edited source or header is
+rebuilt and a stale library is never loaded. Nothing is built or loaded
+on import.
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import os
 import shutil
 import subprocess
 
-# every kernel source under csrc/: K1, K2, K3 and K8
-KERNELS = ("woop_nearest", "woop_any", "woop_stream", "mt_dense")
+# every kernel source under csrc/: K1, K2, K3, K4 + K5 (woop_keys), the
+# list walker K6 + K7 (woop_list) and K8
+KERNELS = ("woop_nearest", "woop_any", "woop_stream", "woop_keys", "woop_list", "mt_dense")
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -39,10 +42,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC_DIR, f), "rb") as src:
+            h.update(src.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build_libraries(*names: str) -> None:

@@ -42,8 +42,10 @@ def render_gbuffer(
     atlas: TextureAtlas,
     uniforms: Uniforms,
     config: RenderConfig,
+    schedule=None,
 ) -> GBufferOutput:
-    """First hits of the camera rays of the whole image."""
+    """First hits of the camera rays of the whole image (``schedule``: the
+    card's trace schedule, accel.woop.TraceSchedule)."""
     W, H = config.width, config.height
     dev = accel.woop_w.device
     pxi, pyi = layout.gen_pixels(W, H, device=dev)
@@ -58,7 +60,7 @@ def render_gbuffer(
     pixel_cone = 2.0 * uniforms.fov_tan_half / W
     res = trace_ray(
         accel, atlas, uniforms, pos, wi, bilinear=config.bilinear,
-        pixel_cone=pixel_cone, features=config.features,
+        pixel_cone=pixel_cone, features=config.features, schedule=schedule,
     )
     hit = res.hit
     ones = torch.ones((n, 1), device=dev)

@@ -35,10 +35,12 @@ def render_pt(
     uniforms: Uniforms,
     config: RenderConfig,
     gbuf: GBufferOutput,
+    schedule=None,
 ) -> torch.Tensor:
     """Returns the irradiance image f32[H, W, 4] (rgb, second moment).
 
-    RNG streams are seeded with the pixel coordinates.
+    RNG streams are seeded with the pixel coordinates. ``schedule``: the
+    card's trace schedule (accel.woop.TraceSchedule).
     """
     W, H = config.width, config.height
     n = W * H
@@ -72,7 +74,7 @@ def render_pt(
             res = trace_ray(
                 accel, atlas, uniforms, origin, wo,
                 bilinear=config.bilinear, features=config.features,
-                sort_rays=True, active=active,
+                sort_rays=True, active=active, schedule=schedule,
             )
 
             micro = bsdf.eval_times_cos(cur.wi, wo, cur.normal, alpha)

@@ -115,9 +115,11 @@ def render_restir(
     rcfg: ReSTIRConfig,
     rstate: ReSTIRState,
     gbuf: GBufferOutput,
+    schedule=None,
 ):
     """ReSTIR DI over the whole frame. Returns (irradiance f32[H, W, 4],
-    the new ReSTIRState)."""
+    the new ReSTIRState). ``schedule``: the card's trace schedule
+    (accel.woop.TraceSchedule), for every trace and visibility sweep."""
     W, H = config.width, config.height
     n = W * H
     dev = accel.woop_w.device
@@ -142,7 +144,7 @@ def render_restir(
         origin = surf.pos - surf.wi * 1e-3
         res = trace_ray(
             accel, atlas, uniforms, origin, wo,
-            bilinear=config.bilinear, features=config.features,
+            bilinear=config.bilinear, features=config.features, schedule=schedule,
         )
         nh = res.hit
         d2 = torch.clamp_min(torch.square(nh.pos - surf.pos).sum(-1), 1e-12)
@@ -201,7 +203,7 @@ def render_restir(
             combined.y_pos, combined.y_normal, combined.y_radiance, prev_surf
         )
         if rcfg.temporal_bias_correction == 2:
-            vis = trace_visibility(accel, tex, surf.pos, combined.y_pos)
+            vis = trace_visibility(accel, tex, surf.pos, combined.y_pos, schedule=schedule)
             temporal_p = torch.where(vis, temporal_p, 0.0)
         temporal_p = torch.where(tvalid, temporal_p, 0.0)
         pi = torch.where(sel_prev, temporal_p, pi)
@@ -246,7 +248,7 @@ def render_restir(
             nb_surf = Hit(*[x.index_select(0, nidx) for x in surf])
             sp = target_pdf(r.y_pos, r.y_normal, r.y_radiance, nb_surf)
             if rcfg.spatial_bias_correction == 2:
-                vis = trace_visibility(accel, tex, nb_surf.pos, r.y_pos)
+                vis = trace_visibility(accel, tex, nb_surf.pos, r.y_pos, schedule=schedule)
                 sp = torch.where(vis, sp, 0.0)
             sp = torch.where(nvalid, sp, 0.0)
             pi = torch.where(sel_idx == i, sp, pi)
@@ -261,7 +263,7 @@ def render_restir(
     if rcfg.visibility_shade:
         # the reference's shade-time shadow ray (restir_di.comp), an
         # occlusion-only sweep (K2) on the card
-        vis = trace_visibility(accel, tex, surf.pos, r.y_pos)
+        vis = trace_visibility(accel, tex, surf.pos, r.y_pos, schedule=schedule)
         occluded = yvalid & ~vis
         r = rsv.discard(r, occluded)
         yvalid = yvalid & ~occluded

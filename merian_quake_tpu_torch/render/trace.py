@@ -154,6 +154,7 @@ def trace_ray(
     sort_rays: bool = False,
     features: SceneFeatures = ALL_FEATURES,
     active=None,
+    schedule=None,
 ) -> TraceResult:
     """Trace from ``pos`` along ``wi`` and shade the hit.
 
@@ -161,11 +162,13 @@ def trace_ray(
     always correct). ``pixel_cone`` (tan of the per-pixel angular
     radius) enables ray-cone mip selection on the albedo/emission
     fetches. ``active`` (bool[N] or None): dead rays trace with
-    t_max = -1 and uniformly miss.
+    t_max = -1 and uniformly miss. ``schedule``: the card's trace schedule
+    (accel.woop.TraceSchedule; None: the default routes).
     """
     alpha_tex = atlas if features.has_alpha_tris else None
     t_max = T_MAX if active is None else torch.where(active, T_MAX, -1.0)
-    hr = trace_nearest(accel, alpha_tex, pos, wi, 0.0, t_max, sort_rays=sort_rays)
+    hr = trace_nearest(accel, alpha_tex, pos, wi, 0.0, t_max, sort_rays=sort_rays,
+                       schedule=schedule)
     n = pos.shape[0]
     tri = torch.clamp_min(hr.tri, 0).long()
     t_hit = torch.where(hr.hit, hr.t, T_MAX)

@@ -5,7 +5,10 @@ ReSTIR DI (``restir``) frames without denoise. PyTorch runs eagerly, so
 ``render_frame`` is ``frame_core`` over the whole image; the state is
 updated out of place, like the JAX package's. The integrator's config
 goes under the JAX package's keyword ``mcpg_config`` (a ReSTIRConfig
-for ``restir``), so that call sites map one to one.
+for ``restir``), so that call sites map one to one. ``schedule`` (an
+accel.woop.TraceSchedule; None: the default routes) chooses the card's
+trace schedule, which the JAX package takes from process environment
+switches; it changes no hit, and the CPU oracle ignores it.
 """
 from __future__ import annotations
 
@@ -75,21 +78,22 @@ def frame_core(
     config: RenderConfig,
     state: FrameState,
     mcpg_config=None,
+    schedule=None,
 ):
     """One frame. Returns (new_state, outputs) with outputs
     {"hdr", "ldr", "irradiance", "gbuffer"}."""
     _check_supported(config)
-    gbuf = render_gbuffer(accel, atlas, uniforms, config)
+    gbuf = render_gbuffer(accel, atlas, uniforms, config, schedule)
     new_restir = state.restir
     if config.integrator == "restir":
         from .render.restir import ReSTIRConfig, render_restir
 
         irr, new_restir = render_restir(
             accel, atlas, uniforms, config, mcpg_config or ReSTIRConfig(),
-            state.restir, gbuf,
+            state.restir, gbuf, schedule,
         )
     else:
-        irr = render_pt(accel, atlas, uniforms, config, gbuf)
+        irr = render_pt(accel, atlas, uniforms, config, gbuf, schedule)
     it = state.iteration
     new_state = FrameState(
         accum_irradiance=accumulate(state.accum_irradiance, irr, it),
@@ -119,14 +123,16 @@ def render_frame(
     config: RenderConfig,
     state: FrameState,
     mcpg_config=None,
+    schedule=None,
 ):
     """One full frame on one device. Returns (new_state, outputs)."""
-    return frame_core(accel, atlas, uniforms, config, state, mcpg_config=mcpg_config)
+    return frame_core(accel, atlas, uniforms, config, state, mcpg_config=mcpg_config,
+                      schedule=schedule)
 
 
 def render_sequence(
     bundle: SceneBundle, config: RenderConfig, frames: int = 1, mcpg_config=None,
-    device="cuda",
+    device="cuda", schedule=None,
 ):
     """Render ``frames`` frames of a static scene on ``device``,
     returning the final (state, outputs)."""
@@ -142,6 +148,6 @@ def render_sequence(
     for i in range(frames):
         uniforms = uniforms._replace(frame=i)
         state, outputs = render_frame(
-            accel, bundle.atlas, uniforms, config, state, mcpg_config
+            accel, bundle.atlas, uniforms, config, state, mcpg_config, schedule
         )
     return state, outputs

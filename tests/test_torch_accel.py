@@ -673,8 +673,9 @@ def test_trace_visibility_outdoor_court(rng, monkeypatch):
     np.testing.assert_array_equal(ours[clear], ref[clear])
     assert clear.mean() > 0.99 and ours.any() and (~ours).any()
     # the card's composition, with plain versions of K1 and K2
-    monkeypatch.setattr(intersect_mod, "intersect", lambda acc, o, d, t0, t1, sort_rays=False:
-                        woop.intersect_woop(acc, o, d, t0, t1))
+    monkeypatch.setattr(intersect_mod, "intersect",
+                        lambda acc, o, d, t0, t1, sort_rays=False, schedule=None:
+                        woop.intersect_woop(acc, o, d, t0, t1, schedule=schedule))
     card = _np(intersect_mod._visible_anyhit(ta, atlas, at, d, 1e-3, t_max))
     np.testing.assert_array_equal(card[clear], ours[clear])
     assert ta.woop_w_alpha is not None

@@ -1,7 +1,9 @@
 """The port must run where JAX is not installed (the GPU machine has
 none): in a subprocess that blocks ``jax`` before anything is imported,
-build cornell_box and render one 32×16 path-traced frame and one 32×16
-ReSTIR frame on the CPU, and import ``interop``. And the port's entry
+build cornell_box and render one 32×16 path-traced frame, one 32×16
+ReSTIR frame and one path-traced frame under a trace schedule on the
+CPU, trace it under the schedule through ``woop.intersect_woop``'s glue,
+and import ``interop``. And the port's entry
 points run on the card unless the caller asks for the CPU: without a
 CUDA device, a call without ``device=`` raises."""
 import os
@@ -27,6 +29,14 @@ assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["hdr"]).all()
 state, out = render_sequence(cornell_box(device="cpu"), RenderConfig(width=32, height=16, integrator="restir"), frames=1, device="cpu")
 assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["hdr"]).all())
 assert state.restir.reservoirs.M.shape == (32 * 16,)
+from merian_quake_tpu_torch.accel import build_accel, woop
+sched = woop.TraceSchedule(True, 8, 32)
+state, out = render_sequence(cornell_box(device="cpu"), RenderConfig(width=32, height=16, spp=1), frames=1, device="cpu", schedule=sched)
+assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["hdr"]).all())
+acc = build_accel(cornell_box(device="cpu").scene)
+o, d = torch.zeros((256, 3)) + 0.5, torch.nn.functional.normalize(torch.rand((256, 3)) - 0.5, dim=-1)
+hr = woop.intersect_woop(acc, o, d, 0.0, 1e4, sort_rays=True, schedule=sched)
+assert torch.equal(hr.tri, woop.intersect_woop(acc, o, d, 0.0, 1e4).tri)
 import merian_quake_tpu_torch.interop
 loaded = [m for m, mod in sys.modules.items() if mod is not None]
 assert not [m for m in loaded if m in ("jax", "merian_quake_tpu") or m.startswith(("jax.", "merian_quake_tpu."))]
