@@ -19,15 +19,21 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
 ``accel.dense.intersect_dense``). Phases, one line each or more:
 
 1. device: the card's name and power limit (nvidia-smi), and the time to
-   build the four kernels with nvcc for sm_90a (all started together),
-   with each kernel's ptxas line;
+   build the six kernel sources with nvcc for sm_90a (all started
+   together), with each kernel's ptxas lines;
 2. K1 against its plain PyTorch version on the card, bit for bit: a
-   random soup with half misses; 65,536-ray subsets of city's 1080p
-   primary rays and of one sorted bounce population (t_min = 0 and
-   1e-3); then the whole 2,073,600-ray primary and bounce populations
-   (t_min = 0 and 1e-3), as the frame launches K1 on them, with both
-   timed by CUDA events in turns at t_min = 0, and K1's bound from its
-   count of the pairs it tested;
+   random soup with half misses, the same with one or two live rays a
+   warp (every tile visit compacted) and a hand-laid table with exact
+   ties between the triangles a compacted visit compares; 65,536-ray
+   subsets of city's 1080p primary rays and of one sorted bounce
+   population (t_min = 0 and 1e-3); then the whole 2,073,600-ray primary
+   and bounce populations (t_min = 0 and 1e-3), as the frame launches K1
+   on them, with both timed by CUDA events in turns at t_min = 0, K1's
+   bound from its count of the pairs it tested, where its cycles go (the
+   profile instance: list, the gates that look for the next tile, a
+   tile's issue and second gate, tile waits, pair loops), its lane use
+   and the CTAs that fit an SM, beside the first design's recorded
+   readings;
 3. the slice: 6 frames on the card, K1 launched exactly 5 times a frame,
    finite outputs, cold and steady ms/frame and Mrays/s;
 4. the same frames at 64×36 on the CPU (Möller–Trumbore oracle) and on
@@ -49,15 +55,16 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
    all three visibility call sites launch K2): the LDR images agree
    within the slice test's tolerance;
 8. K3 against its plain versions on the card, bit for bit: a random soup
-   (nearest and any-hit); 65,536-ray subsets of the map's 1080p primary,
+   (nearest and any-hit), also with sparse warps, and the tie table;
+   65,536-ray subsets of the map's 1080p primary,
    sorted bounce (t_min 0 and 1e-3) and shade-pass shadow rays (with and
    without the proxy pre-pass's warm start); then K3 against K1/K2 called
    directly on the same table on the whole 2,073,600-ray populations;
    K2's proxy pre-pass on the map (4,096 triangles, as the map ReSTIR
    frame launches it) against its plain version on the subset and the
    whole population; K3, K1/K2 and the plain version timed with CUDA
-   events in turns, and the bound from K3's own count of the pairs it
-   tested;
+   events in turns, the bound from K3's own count of the pairs it
+   tested, and its split by phase, lane use and CTAs an SM as in phase 2;
 9. K8 against the oracle (``accel.intersect._intersect_oracle``) on CUDA
    tensors: the random soup and a 65,536-ray map subset, driven through
    ``intersect_dense`` (the dense path); K8 against K3 there; times;
@@ -130,6 +137,22 @@ K5_REPLACES = "merian_quake_tpu/accel/woop.py:914"
 K67_SOURCE = "merian_quake_tpu_torch/csrc/woop_list.cu"
 K6_REPLACES = "merian_quake_tpu/accel/woop.py:488"
 K7_REPLACES = "merian_quake_tpu/accel/woop.py:627"
+# The first designs of K1 and K3 (one CTA of 128 rays walking the clusters
+# behind CTA barriers), as read on an NVIDIA H100 80GB HBM3 at 700.00 W with
+# scripts/split_trace_kernels.py on those kernels (PERF.md section 6 has the
+# table): ms a 2,073,600-ray launch, CTAs an SM, and per population the
+# shares of the cycles (list, gates and barriers of skipped entries, of
+# visited entries, tile waits, pair loops) and the lane use. Printed beside
+# this run's readings.
+FIRST_DESIGN = {
+    "K1": {"ms": {"primary": 3.018, "bounce": 3.239}, "ctas_per_sm": 12, "split": {
+        "primary": (0.0, 0.4225, 0.0927, 0.0199, 0.4645, 0.9902),
+        "bounce": (0.0, 0.5022, 0.1363, 0.0204, 0.3407, 0.6729)}},
+    "K3": {"ms": {"primary": 6.247, "bounce": 8.932, "shadow": 5.951}, "ctas_per_sm": 4, "split": {
+        "primary": (0.4107, 0.0024, 0.1092, 0.0209, 0.4511, 0.9552),
+        "bounce": (0.2607, 0.0470, 0.3298, 0.0183, 0.3390, 0.5534),
+        "shadow": (0.3770, 0.0010, 0.1780, 0.0459, 0.3832, 0.6300)}},
+}
 # city with 1,600 buildings: 16,128 triangles in 252 clusters, so the
 # target key (at most 256 clusters) applies; default city() has 260
 CITY1600 = {"n_buildings": 1600, "seed": 7}
@@ -205,6 +228,76 @@ def woop_work(kernel, args, any_ops=False, **kw):
     warm = n if kw.get("occluded_in") is not None else 0
     nbytes = n * 32 + out + warm + (w.shape[0] // 3) * 48 + lo.shape[0] * 24
     return float(counts.sum()) * (OPS_ANY if any_ops else OPS_NEAREST), nbytes
+
+
+def sparse_warps(t_max):
+    """``t_max`` with all but one or two rays of each warp of 32 dead
+    (t_max = -1): lane 5 stays, and lane 20 in every other warp. A tile
+    visit then has 1-2 reaching lanes, so K1's and K3's compacted visit
+    (triangle per lane) tests every tile."""
+    lane = torch.arange(t_max.shape[0], device=t_max.device)
+    keep = (lane % 32 == 5) | ((lane % 64) == 32 + 20)
+    return torch.where(keep, t_max, torch.full_like(t_max, -1.0))
+
+
+def tie_table(dev, seed=7, n_rays=2048):
+    """A hand-laid Woop table (no median split, so the layout is as
+    written) of 4 clusters with exact ties, and sparse rays aimed at it:
+    (rays, w, lo, hi) as ``woop.k1_inputs`` gives them. Cluster 0 holds 32
+    triangles twice (triangle l + 32 is triangle l: the two a lane tests in
+    a compacted visit), cluster 1 each triangle twice in a row (2j + 1 is
+    2j: ties across lanes), clusters 2-3 are plain. The rays go from
+    random origins to the triangles' centroids, one or two live a warp
+    (:func:`sparse_warps`). The lowest index must win every tie."""
+    from merian_quake_tpu_torch.accel import woop
+    from merian_quake_tpu_torch.accel.build import cluster_aabbs
+
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-30, 30, (256, 1, 3))
+    tri = (c + rng.uniform(-12, 12, (256, 3, 3))).astype(np.float32)
+    tri[32:64] = tri[0:32]
+    tri[65:128:2] = tri[64:128:2]
+    v0, v1, v2 = tri[:, 0], tri[:, 1], tri[:, 2]
+    w, cand = woop.build_woop(v0, v1, v2, np.ones(256, bool))
+    lo, hi = cluster_aabbs(v0, v1, v2, cand)
+    to = tri.mean(1)[rng.integers(0, 128, n_rays)]
+    o = rng.uniform(-80, 80, (n_rays, 3)).astype(np.float32)
+    d = to - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    t_max = sparse_warps(torch.full((n_rays,), 1e4, device=dev))
+    rays = woop._pack_rays(t(o), t(d), torch.zeros(n_rays, device=dev), t_max, woop.RAY_BLOCK)
+    return rays, woop.pack_table(t(w)), *woop.padded_bounds(t(lo), t(hi))
+
+
+def trace_split(phase, name, kernel, args, smi, first_design=None, **kw):
+    """Launch K1's or K3's profile instance once and print where its
+    cycles go (shares of the cycles summed over all warps, woop.PROF_FIELDS),
+    the pairs it tested, the warp-issued pairs and the lane use = pairs / 32
+    / warp-issued pairs, beside the first design's recorded shares and lane
+    use when given. Returns that record."""
+    from merian_quake_tpu_torch.accel import woop
+
+    n = args[0].shape[1]
+    prof = torch.zeros((n // 128, 8), dtype=torch.int64, device=args[0].device)
+    kernel(*args, counts=prof, **kw)
+    torch.cuda.synchronize()
+    rec = dict(zip(woop.PROF_FIELDS, (int(x) for x in prof.sum(0))))
+    total = max(rec["total"], 1)
+    rec["lane_use"] = rec["pairs"] / 32 / max(rec["warp_pairs"], 1)
+    rec["shares"] = {k: rec[k] / total for k in woop.PROF_FIELDS[:5]}
+    shares = ", ".join(f"{k} {v:.4f}" for k, v in rec["shares"].items())
+    first = ""
+    if first_design is not None:
+        names = ("list", "gates + barriers of skipped entries", "of visited entries", "wait",
+                 "pairs_cycles")
+        first = ("; the first design: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in zip(names, first_design[:5]))
+            + f", lane use {first_design[5]:.4f}")
+    log(f"phase {phase} split {name} [{smi}]: cycles {rec['total']} over all warps ({shares} of "
+        f"them); pairs tested {rec['pairs']}, warp-issued pairs {rec['warp_pairs']}, lane use "
+        f"{rec['lane_use']:.4f}{first}")
+    return rec
 
 
 def cuda_time(fn, reps: int) -> float:
@@ -545,6 +638,16 @@ def phase8(dev, soup, bundle, accel, config, smi):
     errs.append(check_k2("random soup K3 any-hit vs plain",
                          woop.woop_stream(rays, *shadow, anyhit=True),
                          woop.intersect_woop_any_reference(rays, shadow[0]), phase=8))
+    # the compacted visit, hard: one or two live rays a warp; exact ties
+    for name, args in (
+        ("random soup sparse warps", woop.k1_inputs(acc_soup, o_t, d_t, full(0.0, n),
+                                                    sparse_warps(full(1e4, n)))),
+        ("tie table sparse warps", tie_table(dev)),
+    ):
+        errs.append(check_exact(8, f"{name} K3 vs plain", woop.woop_stream(*args),
+                                woop.intersect_woop_reference(args[0], args[1])))
+        errs.append(check_k2(f"{name} K3 any-hit vs plain", woop.woop_stream(*args, anyhit=True),
+                             woop.intersect_woop_any_reference(args[0], args[1]), phase=8))
 
     n_full = W * H
     po, pd = primary_rays(bundle, accel, dev)
@@ -635,14 +738,25 @@ def phase8(dev, soup, bundle, accel, config, smi):
         else:
             ops, nbytes = woop_work(woop.woop_stream, pops[name])
         bnd, by = bound_ms(ops, nbytes)
+        if name == "shadow":
+            split = trace_split(8, "map shadow K3 any-hit after proxy", woop.woop_stream,
+                                (rays_f, *shadow_f), smi, FIRST_DESIGN["K3"]["split"][name],
+                                anyhit=True, occluded_in=pre_f)
+        else:
+            split = trace_split(8, f"map {name} K3", woop.woop_stream, pops[name], smi,
+                                FIRST_DESIGN["K3"]["split"][name])
         out[name] = {"ms": (a1 + a2) / 2, "other_ms": (b1 + b2) / 2, "plain_ms": (p1 + p2) / 2,
-                     "subset_ms": (s1 + s2) / 2, "bound_ms": bnd, "bound_by": by}
+                     "subset_ms": (s1 + s2) / 2, "bound_ms": bnd, "bound_by": by,
+                     "lane_use": split["lane_use"], "shares": split["shares"]}
         log(f"phase 8 timing map {name} [{smi}]: K3 {a1:.3f} / {a2:.3f} ms, "
             f"{'K2' if name == 'shadow' else 'K1'} {b1:.3f} / {b2:.3f} ms on {n_full} rays; "
             f"on {SUBSET} rays plain {p1:.1f} / {p2:.1f} ms, K3 {s1:.3f} / {s2:.3f} ms; "
             f"bound {bnd:.4f} ms ({by}; {ops / (OPS_ANY if name == 'shadow' else OPS_NEAREST):.4g} "
-            f"pairs tested)")
+            f"pairs tested); the first design's K3 {FIRST_DESIGN['K3']['ms'][name]:.3f} ms")
     out["max_abs_err"] = max(errs)
+    out["ctas_per_sm"] = woop.ctas_per_sm("woop_stream", accel.cluster_lo.shape[0])
+    log(f"phase 8 K3 on the map ({accel.cluster_lo.shape[0]} clusters): {out['ctas_per_sm']} CTAs "
+        f"of 128 threads an SM (the first design: {FIRST_DESIGN['K3']['ctas_per_sm']})")
     return out, (po, pd)
 
 
@@ -1149,6 +1263,14 @@ def main() -> int:
     max_abs = [compare_k1(
         "random soup", woop.k1_inputs(acc_soup, o_t, d_t, full(0.0, n), full(1e4, n)), woop
     )]
+    # the compacted visit, hard: one or two live rays a warp; exact ties
+    max_abs.append(compare_k1("random soup sparse warps", woop.k1_inputs(
+        acc_soup, o_t, d_t, full(0.0, n), sparse_warps(full(1e4, n))), woop))
+    ties = tie_table(dev)
+    max_abs.append(compare_k1("tie table sparse warps", ties, woop))
+    tie_hits = woop.woop_nearest(*ties)[1]
+    if not bool(((tie_hits >= 0) & (tie_hits < 128)).any()):
+        raise AssertionError("the tie table: no nearest hit lies on a duplicated triangle")
 
     bundle = city(device=dev)
     accel = build_accel(bundle.scene, bundle.atlas)
@@ -1171,7 +1293,7 @@ def main() -> int:
 
     # full 1080p populations: K1 and the plain version timed in turns;
     # the warm-up outputs are held against each other
-    timings = {}
+    timings, k1_split = {}, {}
     for name, args in (
         ("primary", woop.k1_inputs(accel, po, pd, full(0.0, n_full), full(1e4, n_full))),
         ("bounce", woop.k1_inputs(accel, bo, bd, full(0.0, n_full), bt)),
@@ -1193,7 +1315,13 @@ def main() -> int:
         log(f"phase 2 timing {name} {n_full} rays [{smi}]: K1 {k_1:.3f} / {k_2:.3f} ms, "
             f"plain {r1:.1f} / {r2:.1f} ms; bound {timings[name][2]:.4f} ms "
             f"({timings[name][3]}; {ops / OPS_NEAREST:.4g} pairs tested); K3 forced "
-            f"{s_1:.3f} / {s_2:.3f} ms against K1 {c_1:.3f} / {c_2:.3f} ms")
+            f"{s_1:.3f} / {s_2:.3f} ms against K1 {c_1:.3f} / {c_2:.3f} ms; the first design's "
+            f"K1 {FIRST_DESIGN['K1']['ms'][name]:.3f} ms")
+        k1_split[name] = trace_split(2, f"city {name} K1", woop.woop_nearest, args, smi,
+                                     FIRST_DESIGN["K1"]["split"][name])
+    k1_ctas = woop.ctas_per_sm("woop_nearest", accel.cluster_lo.shape[0])
+    log(f"phase 2 K1 on city ({accel.cluster_lo.shape[0]} clusters): {k1_ctas} CTAs of 128 "
+        f"threads an SM (the first design: {FIRST_DESIGN['K1']['ctas_per_sm']})")
     max_abs.append(compare_k1(f"city bounce {n_full} t_min=0.001", woop.k1_inputs(
         accel, bo, bd, full(1e-3, n_full), bt), woop))
 
@@ -1279,6 +1407,8 @@ def main() -> int:
         "max_abs_err": max(max_abs), "ms": mix(city_t, "ms"), "plain_ms": mix(city_t, "plain_ms"),
         "bound_ms": mix(city_t, "bound_ms"), "bound_by": city_t["bounce"]["bound_by"],
         "library_ms": None, "rays": n_full, "scene": "city",
+        "ctas_per_sm": k1_ctas, "lane_use": {k: v["lane_use"] for k, v in k1_split.items()},
+        "cycle_shares": {k: v["shares"] for k, v in k1_split.items()},
     }, {
         "name": "woop_any", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": total("woop_any"),
@@ -1295,7 +1425,9 @@ def main() -> int:
         "bound_ms": mix(k3, "bound_ms"), "bound_by": k3["bounce"]["bound_by"], "library_ms": None,
         "rays": n_full, "plain_rays": SUBSET, "ms_plain_rays": mix(k3, "subset_ms"),
         "scene": "map", "shadow_ms": k3["shadow"]["ms"],
-        "shadow_bound_ms": k3["shadow"]["bound_ms"],
+        "shadow_bound_ms": k3["shadow"]["bound_ms"], "ctas_per_sm": k3["ctas_per_sm"],
+        "lane_use": {k: k3[k]["lane_use"] for k in ("primary", "bounce", "shadow")},
+        "cycle_shares": {k: k3[k]["shares"] for k in ("primary", "bounce", "shadow")},
     }, {
         "name": "mt_dense", "route": "cuda", "source": K8_SOURCE,
         "replaces": K8_REPLACES, "launches": total("mt_dense"),

@@ -27,7 +27,7 @@ import torch
 
 from ..models import materials
 from ..models.types import CLUSTER_SIZE, Scene, SceneFeatures, TextureAtlas
-from .woop import bake_candidacy, build_woop
+from .woop import bake_candidacy, build_woop, pack_table
 
 
 class AccelScene(NamedTuple):
@@ -193,9 +193,12 @@ def build_accel(
 
     vmask = valid[:, None]
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    woop_w_dev = dev(woop_w)
+    # every Woop table gets its packed rows (K1's and K3's bulk copies) here,
+    # once, where it is placed on the device
+    table = lambda k, a: pack_table(dev(a)) if k.startswith("woop_w") else dev(a)
+    woop_w_dev = pack_table(dev(woop_w))
     extra = {
-        k: (woop_w_dev if a is woop_w else None if a is None else dev(a))
+        k: (woop_w_dev if a is woop_w else None if a is None else table(k, a))
         for k, a in anyhit.items()
     }
     return AccelScene(

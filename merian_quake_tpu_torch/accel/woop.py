@@ -10,7 +10,12 @@ test on the transformed origin/direction is division-free.
 - ``woop_nearest``: the wrapper of K1, ``csrc/woop_nearest.cu`` — the
   hand-written Hopper kernel that replaces the TPU kernel
   ``_kernel_resident`` + ``_intersect_tile``. A CUDA tensor launches the
-  kernel; a CPU tensor runs the plain version.
+  kernel; a CPU tensor runs the plain version. K1 and K3 are two
+  instances of one walk (``csrc/woop_walk.cuh``: a warp of rays walks
+  nodes, sub-nodes and clusters alone and fetches tiles by bulk copies);
+  they read the table's packed rows (``pack_table``, made once where
+  ``build_accel`` places a table) and boxes computed once a table
+  (``walk_boxes``).
 - ``intersect_woop_reference``: the plain PyTorch version (a dense
   sweep over every triangle, same epilogue and tie rule).
 - ``intersect_woop``: the HitRecord-level entry point: optional coherence
@@ -24,8 +29,8 @@ test on the transformed origin/direction is division-free.
 - ``woop_stream``: the wrapper of K3, ``csrc/woop_stream.cu`` — the
   hand-written Hopper kernel that replaces the TPU's streamed-table
   kernel ``_kernel_stream``: the nearest-hit or any-hit result of K1/K2
-  for tables of any size, each ray block walking its own near-to-far
-  cluster list with an exact horizon exit. Its plain versions are
+  for tables of any size, each warp of rays walking its own near-to-far
+  node list with an exact horizon exit. Its plain versions are
   ``intersect_woop_reference`` and ``intersect_woop_any_reference``.
 - The trace schedules (:class:`TraceSchedule`, the JAX package's
   ``MQ_TARGET_KEY``, ``MQ_NODE_CLUSTERS`` and ``MQ_WOOP_COMPACT``
@@ -70,7 +75,7 @@ RAY_BLOCK = 128
 # tables above this many triangles go to K3 (the JAX package's VMEM
 # budget, woop.py:54 there; not a crossover measured on a GPU)
 RESIDENT_MAX_TRIS = 65536
-# K3's largest cluster count: its visit-list sort key holds a 14-bit id
+# K3's largest cluster count: its visit-list key holds a 14-bit id
 MAX_STREAM_CLUSTERS = 1 << 14
 # K4's largest cluster count: its key holds three 8-bit ids (the JAX
 # package's rule, woop.py:1653 there)
@@ -144,6 +149,64 @@ def bake_candidacy(w: np.ndarray, cand: np.ndarray) -> np.ndarray:
         np.asarray(cand, bool).reshape(t // c, 1, c), (t // c, 3, c)
     ).reshape(3 * t)
     return np.where(mask[:, None], w, 0.0).astype(np.float32)
+
+
+def pack_table(w: torch.Tensor) -> torch.Tensor:
+    """Attach to the table ``w`` f32[3T, 8] its packed rows ``w.rows4``
+    f32[3T, 4] (columns 0-3; columns 4-7 are zero by contract), made once
+    where the table is placed on its device: a cluster's tile is then 3,072
+    contiguous bytes, which K1 and K3 fetch with one bulk copy. Returns
+    ``w``. A copy or a view of ``w`` does not carry it."""
+    w.rows4 = w[:, :4].contiguous()
+    return w
+
+
+def packed_rows(w: torch.Tensor) -> torch.Tensor:
+    """The packed rows :func:`pack_table` attached to ``w``; raises on a
+    table without them (nothing packs per call)."""
+    rows4 = getattr(w, "rows4", None)
+    if rows4 is None:
+        raise ValueError("this Woop table has no packed rows: build it with build_accel, or "
+                         "call woop.pack_table(w) once where it is placed on the device")
+    _check("w.rows4", rows4, torch.float32, (w.shape[0], 4), w.device)
+    return rows4
+
+
+def _cached(owner, key, partner, make):
+    """``make()``, computed once and kept on the tensor ``owner`` under
+    ``key`` for as long as ``partner`` is the same tensor."""
+    cache = owner.__dict__.setdefault("_mq_cache", {})
+    hit = cache.get(key)
+    if hit is None or hit[0] is not partner:
+        hit = cache[key] = (partner, make())
+    return hit[1]
+
+
+def padded_bounds(lo, hi):
+    """:func:`_pad_bounds` of a table's cluster AABBs, contiguous, computed
+    once a table (kept on ``lo``), so that every trace hands the kernels
+    the same two tensors and what is derived from them is cached too."""
+    return _cached(lo, "padded", hi,
+                   lambda: tuple(x.contiguous() for x in _pad_bounds(lo, hi)))
+
+
+def walk_boxes(lo, hi, nodes: int, sub: int) -> torch.Tensor:
+    """The boxes K1's and K3's walks read, f32[nn + ns + nc, 8]: the boxes
+    of nodes of ``nodes`` consecutive clusters (nn = ceil(nc / nodes);
+    :func:`node_bounds` of the padded cluster bounds lo/hi f32[nc, 3]),
+    then, when ``sub`` < ``nodes``, of sub-nodes of ``sub`` clusters (ns =
+    ceil(nc / sub), else 0), then the cluster boxes, each (lo.xyz, empty
+    flag, hi.xyz, 0); the flag is 1 for an empty box (lo > hi on some
+    axis: no gate may pass it), else 0. Ray-independent, so computed once
+    a table and kept on ``lo``."""
+    def make():
+        levels = [node_bounds(lo, hi, nodes)] + ([node_bounds(lo, hi, sub)] if sub < nodes else [])
+        blo = torch.cat([x[0] for x in levels] + [lo])
+        bhi = torch.cat([x[1] for x in levels] + [hi])
+        empty = (blo > bhi).any(-1, keepdim=True).to(lo.dtype)
+        return torch.cat([blo, empty, bhi, torch.zeros_like(empty)], dim=1).contiguous()
+
+    return _cached(lo, ("boxes", nodes, sub), hi, make)
 
 
 def _sort_keys(accel, o, d):
@@ -329,8 +392,8 @@ def intersect_woop_any_reference(rays: torch.Tensor, w: torch.Tensor, occluded_i
 
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# the arguments of K1's, K2's and K3's entry points: (rays, n_pad, w, lo,
-# hi, nc, block, out0, out1, counts, stream)
+# the arguments of K2's entry point: (rays, n_pad, w, lo, hi, nc, block,
+# out0, out1, counts, stream)
 _WOOP_ARGS = (_P, _I64, _P, _P, _P, _INT, _INT, _P, _P, _P, _P)
 
 
@@ -356,7 +419,7 @@ def _call(fn, device, *args):
 
 
 def _launch(name, rays, w, cluster_lo, cluster_hi, out0, out1, counts, entry=None):
-    """Launch a Woop kernel on the current stream; raise on a refused
+    """Launch K2 on the current stream; raise on a refused
     launch. ``counts`` is None (the frame path: the kernel is built
     without its counter) or an int64[n_pad / RAY_BLOCK] CUDA tensor that
     gets the (ray, triangle) pairs each CTA tested (zeroed here)."""
@@ -369,6 +432,65 @@ def _launch(name, rays, w, cluster_lo, cluster_hi, out0, out1, counts, entry=Non
     _call(_kernel_lib(name, entry), rays.device, rays.data_ptr(), n_pad, w.data_ptr(),
           cluster_lo.data_ptr(), cluster_hi.data_ptr(), cluster_lo.shape[0], RAY_BLOCK, out0,
           out1, cptr)
+
+
+# the columns of K1's and K3's profile (``counts=`` int64[n_pad / RAY_BLOCK,
+# 8]): cycles (clock64, summed over a CTA's warps) in the node list, in the
+# gates that look for the next tile (nodes, sub-nodes, clusters), in issuing
+# a tile and gating it again at its test, in tile waits, in pair loops and
+# in the whole kernel; the (ray, triangle) pairs tested; and the warp-issued
+# pairs (warp iterations of a pair loop: 64 a ray-per-lane visit, 2k one
+# compacted on k rays)
+PROF_FIELDS = ("list", "search", "visit", "wait", "pairs_cycles", "total", "pairs",
+               "warp_pairs")
+
+
+def ctas_per_sm(name, nc):
+    """CTAs of kernel ``name`` (``woop_nearest`` or ``woop_stream``, the
+    frame instance) that fit one SM for a table of ``nc`` clusters
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    return _kernel_lib(name, f"mq_{name}_ctas_per_sm", (_INT,))(nc)
+
+
+def node_sizes(name):
+    """(clusters a node, clusters a sub-node) of kernel ``name``'s walk
+    (``woop_nearest`` or ``woop_stream``): compile-time constants of
+    csrc/woop_walk.cuh, read from the built library."""
+    return tuple(_kernel_lib(name, f"mq_{name}_{level}", ())() for level in ("node", "sub"))
+
+
+# the arguments of K1's and K3's entry points: (rays, n_pad, rows4, boxes,
+# nc, block, out0, out1, prof, stream)
+_WALK_ARGS = (_P, _I64, _P, _P, _INT, _INT, _P, _P, _P, _P)
+
+
+def _launch_walk(name, rays, w, cluster_lo, cluster_hi, out0, out1, counts, entry=None):
+    """Launch K1 or K3 (the walk of csrc/woop_walk.cuh) on the current
+    stream, with the table's packed rows and its cached boxes, packed for
+    the library's :func:`node_sizes`; raise on a refused launch or a table
+    without packed rows.
+    ``counts`` is None (the frame path: the instance without the profile),
+    an int64[n_pad / RAY_BLOCK] CUDA tensor that gets the (ray, triangle)
+    pairs each CTA tested, or an int64[n_pad / RAY_BLOCK, 8] one that gets
+    the whole profile (PROF_FIELDS)."""
+    n_pad, nb = rays.shape[1], rays.shape[1] // RAY_BLOCK
+    rows4 = packed_rows(w)
+    if rows4.data_ptr() % 16:
+        raise ValueError(f"{name}: the packed rows must be 16-byte aligned (bulk copies)")
+    boxes = walk_boxes(cluster_lo, cluster_hi, *node_sizes(name))
+    prof = None
+    if counts is not None:
+        if counts.dim() == 2:
+            _check("counts", counts, torch.int64, (nb, len(PROF_FIELDS)), rays.device)
+            prof = counts.zero_()
+        else:
+            _check("counts", counts, torch.int64, (nb,), rays.device)
+            prof = torch.zeros((nb, len(PROF_FIELDS)), dtype=torch.int64, device=rays.device)
+    _call(_kernel_lib(name, entry, _WALK_ARGS), rays.device, rays.data_ptr(), n_pad,
+          rows4.data_ptr(), boxes.data_ptr(), cluster_lo.shape[0], RAY_BLOCK, out0, out1,
+          None if prof is None else prof.data_ptr())
+    if prof is not None and counts.dim() == 1:
+        counts.copy_(prof[:, PROF_FIELDS.index("pairs")])
 
 
 def _refuse_counts_on_cpu(counts):
@@ -413,11 +535,13 @@ def woop_nearest(rays, w, cluster_lo, cluster_hi, counts=None):
     tri i32[n_pad]); t = BIG and tri = -1 on a miss.
 
     rays f32[8, n_pad] (o.xyz, d.xyz, t_min, t_max), n_pad a multiple of
-    RAY_BLOCK; w f32[3T, 8]; cluster_lo/hi f32[nc, 3], the AABBs of the
-    per-ray gate. On CUDA tensors this launches csrc/woop_nearest.cu and
-    counts the launch in ``woop_nearest.launches``; on CPU tensors it
-    runs :func:`intersect_woop_reference`. ``counts``: see
-    :func:`_launch` (None on the frame path).
+    RAY_BLOCK; w f32[3T, 8], with its packed rows (:func:`pack_table`)
+    when on a card; cluster_lo/hi f32[nc, 3], the padded AABBs the gates
+    test (:func:`padded_bounds`; the node boxes come from them, once). On
+    CUDA tensors this launches csrc/woop_nearest.cu and counts the launch
+    in ``woop_nearest.launches``; on CPU tensors it runs
+    :func:`intersect_woop_reference`. ``counts``: see :func:`_launch_walk`
+    (None on the frame path).
     """
     n_pad = _check_k_inputs(rays, w, cluster_lo, cluster_hi)
     if rays.device.type == "cpu":
@@ -425,8 +549,8 @@ def woop_nearest(rays, w, cluster_lo, cluster_hi, counts=None):
         return intersect_woop_reference(rays, w)
     out_t = torch.empty(n_pad, dtype=torch.float32, device=rays.device)
     out_tri = torch.empty(n_pad, dtype=torch.int32, device=rays.device)
-    _launch("woop_nearest", rays, w, cluster_lo, cluster_hi, out_t.data_ptr(),
-            out_tri.data_ptr(), counts)
+    _launch_walk("woop_nearest", rays, w, cluster_lo, cluster_hi,
+                 out_t.data_ptr(), out_tri.data_ptr(), counts)
     woop_nearest.launches += 1
     return out_t, out_tri
 
@@ -487,19 +611,17 @@ def woop_stream(rays, w, cluster_lo, cluster_hi, *, anyhit=False, occluded_in=No
         if anyhit:
             return intersect_woop_any_reference(rays, w, occluded_in)
         return intersect_woop_reference(rays, w)
-    if w.data_ptr() % 16:
-        raise ValueError("woop_stream: w must be 16-byte aligned (cp.async)")
     if anyhit:
         out = torch.empty(n_pad, dtype=torch.bool, device=rays.device)
         occ_ptr = None if occluded_in is None else occluded_in.data_ptr()
-        _launch("woop_stream", rays, w, cluster_lo, cluster_hi, occ_ptr, out.data_ptr(),
-                counts, entry="mq_woop_stream_any")
+        _launch_walk("woop_stream", rays, w, cluster_lo, cluster_hi, occ_ptr,
+                     out.data_ptr(), counts, entry="mq_woop_stream_any")
         woop_stream.anyhit_launches += 1
     else:
         out_t = torch.empty(n_pad, dtype=torch.float32, device=rays.device)
         out_tri = torch.empty(n_pad, dtype=torch.int32, device=rays.device)
-        _launch("woop_stream", rays, w, cluster_lo, cluster_hi, out_t.data_ptr(),
-                out_tri.data_ptr(), counts)
+        _launch_walk("woop_stream", rays, w, cluster_lo, cluster_hi,
+                     out_t.data_ptr(), out_tri.data_ptr(), counts)
         out = (out_t, out_tri)
     woop_stream.launches += 1
     return out
@@ -808,10 +930,10 @@ def sort_perm(accel, o, d, t_max_b):
 
 def k1_inputs(accel, o, d, t_min_b, t_max_b):
     """Arguments of :func:`woop_nearest` for rays in the given order:
-    packed rays, the Woop table and the padded cluster bounds."""
+    packed rays, the Woop table and the padded cluster bounds (the same
+    two tensors every call: :func:`padded_bounds`)."""
     rays = _pack_rays(o, d, t_min_b, t_max_b, RAY_BLOCK)
-    lo, hi = _pad_bounds(accel.cluster_lo, accel.cluster_hi)
-    return rays, accel.woop_w, lo.contiguous(), hi.contiguous()
+    return rays, accel.woop_w, *padded_bounds(accel.cluster_lo, accel.cluster_hi)
 
 
 def k2_inputs(accel, o, d, t_min_b, t_max_b):
@@ -819,12 +941,12 @@ def k2_inputs(accel, o, d, t_min_b, t_max_b):
     rays, then (table, padded bounds) for the proxy pre-pass (None when
     the scene has no proxy table) and for the shadow sweep."""
     rays = _pack_rays(o, d, t_min_b, t_max_b, RAY_BLOCK)
-    pad = lambda lo, hi: tuple(x.contiguous() for x in _pad_bounds(lo, hi))
     proxy = None
     if accel.woop_w_proxy is not None:
-        proxy = (accel.woop_w_proxy, *pad(accel.cluster_lo_proxy, accel.cluster_hi_proxy))
+        proxy = (accel.woop_w_proxy,
+                 *padded_bounds(accel.cluster_lo_proxy, accel.cluster_hi_proxy))
     w = accel.woop_w if accel.woop_w_shadow is None else accel.woop_w_shadow
-    return rays, proxy, (w, *pad(accel.cluster_lo, accel.cluster_hi))
+    return rays, proxy, (w, *padded_bounds(accel.cluster_lo, accel.cluster_hi))
 
 
 def intersect_woop_any(accel, o, d, t_min, t_max, sort_rays: bool = False, schedule=None):

@@ -8,7 +8,12 @@ DIR is another checkout of the repo, for example the parent commit
 unpacked with ``git archive``. The kernel sources of both checkouts are
 built with nvcc for sm_90a into this checkout's ``_build/`` (a library's
 name carries a hash of its sources, so the two builds never collide) and
-launched through this checkout's wrappers on the same inputs: city's
+launched on the same inputs. A checkout whose K1 and K3 are the walk of
+``csrc/woop_walk.cuh`` is launched through this checkout's wrappers (which
+read the node sizes from each library); an older one (a
+CTA of 128 rays walking the clusters, entry points that take ``woop_w``
+and the cluster bounds) through this script's own calls with that
+argument list. The inputs: city's
 (16,640 triangles) 1080p primary rays and sorted first-bounce rays (K1,
 and K3 forced on the same table), and the ReSTIR shade pass's shadow rays
 (K2 on the shadow table warm-started by the proxy pre-pass, as the frame
@@ -41,10 +46,29 @@ from merian_quake_tpu_torch.models.types import RenderConfig  # noqa: E402
 SOURCES = ("woop_nearest", "woop_any", "woop_stream")
 
 
-def use(csrc: str) -> None:
-    """Have every wrapper launch the kernels built from ``csrc``."""
+def use(csrc: str) -> bool:
+    """Have every wrapper launch the kernels built from ``csrc``; returns
+    whether its K1 and K3 are the walk (else the older argument list)."""
     kernels.CSRC_DIR = csrc
     kernels.load_library.cache_clear()
+    return os.path.exists(os.path.join(csrc, "woop_walk.cuh"))
+
+
+def older(name, rays, w, lo, hi, occ=None, anyhit=False):
+    """K1 or K3 of a checkout from before the walk: (rays, n_pad, woop_w,
+    lo, hi, nc, block, out0, out1, counts, stream)."""
+    n, dev = rays.shape[1], rays.device
+    if anyhit:
+        out = torch.empty(n, dtype=torch.bool, device=dev)
+        outs = (None if occ is None else occ.data_ptr(), out.data_ptr())
+    else:
+        out = (torch.empty(n, dtype=torch.float32, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev))
+        outs = (out[0].data_ptr(), out[1].data_ptr())
+    entry = "mq_woop_stream_any" if anyhit else None
+    woop._call(woop._kernel_lib(name, entry, woop._WOOP_ARGS), dev, rays.data_ptr(), n,
+               w.data_ptr(), lo.data_ptr(), hi.data_ptr(), lo.shape[0], woop.RAY_BLOCK, *outs, None)
+    return out
 
 
 def same(name, a, b) -> None:
@@ -57,7 +81,8 @@ def same(name, a, b) -> None:
 
 
 def cases(dev, scene_kw, with_k1_k2):
-    """(name, fn) pairs on one scene's 1080p rays."""
+    """(name, fn) pairs on one scene's 1080p rays; fn(walk) launches the
+    kernel of the checkout in use (``walk``: what :func:`use` returned)."""
     bundle = city(**scene_kw, device=dev)
     accel = build_accel(bundle.scene, bundle.atlas)
     feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
@@ -75,15 +100,16 @@ def cases(dev, scene_kw, with_k1_k2):
     rays, proxy, shadow = woop.k2_inputs(accel, so, sd, full(1e-3), st)
     pre = woop.woop_any(rays, *proxy)
     tag = "map" if scene_kw else "city"
+    k1 = lambda a: lambda walk: woop.woop_nearest(*a) if walk else older("woop_nearest", *a)
+    k3 = lambda a: lambda walk: woop.woop_stream(*a) if walk else older("woop_stream", *a)
     out = []
     if with_k1_k2:
-        out += [(f"{tag} K1 primary", lambda: woop.woop_nearest(*prim)),
-                (f"{tag} K1 bounce", lambda: woop.woop_nearest(*boun)),
-                (f"{tag} K2 shadow after proxy", lambda: woop.woop_any(rays, *shadow, pre))]
-    out += [(f"{tag} K3 primary", lambda: woop.woop_stream(*prim)),
-            (f"{tag} K3 bounce", lambda: woop.woop_stream(*boun)),
+        out += [(f"{tag} K1 primary", k1(prim)), (f"{tag} K1 bounce", k1(boun)),
+                (f"{tag} K2 shadow after proxy", lambda walk: woop.woop_any(rays, *shadow, pre))]
+    out += [(f"{tag} K3 primary", k3(prim)), (f"{tag} K3 bounce", k3(boun)),
             (f"{tag} K3 shadow after proxy",
-             lambda: woop.woop_stream(rays, *shadow, anyhit=True, occluded_in=pre))]
+             lambda walk: woop.woop_stream(rays, *shadow, anyhit=True, occluded_in=pre) if walk
+             else older("woop_stream", rays, *shadow, occ=pre, anyhit=True))]
     return out
 
 
@@ -111,15 +137,13 @@ def main() -> int:
     if args.map:
         runs += cases(dev, chip_smoke.MAP, False)
     for name, fn in runs:
-        use(parent)
-        base = fn()
-        use(change)
-        same(name, fn(), base)
+        base = fn(use(parent))
+        same(name, fn(use(change)), base)
         times = []
         for csrc in (parent, change, change, parent):
-            use(csrc)
-            fn()
-            times.append(chip_smoke.cuda_time(fn, args.reps))
+            walk = use(csrc)
+            fn(walk)
+            times.append(chip_smoke.cuda_time(lambda: fn(walk), args.reps))
         p = (times[0] + times[3]) / 2
         c = (times[1] + times[2]) / 2
         print(f"{name} [{smi}]: parent {times[0]:.4f} / {times[3]:.4f} ms, change "

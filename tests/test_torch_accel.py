@@ -8,10 +8,12 @@ to f32). Hits: triangle ids are equal wherever the nearest t is unique,
 and t agrees as in tests/test_accel.py (rtol 1e-4, atol 1e-3): XLA fuses
 multiply-adds on the CPU and PyTorch does not.
 
-The CUDA kernels cannot run here; their traversal schedules (every
-cluster in index order behind a per-ray AABB gate with a slack limit;
-for K2 also occluded rays dropping out and a warm start) are modelled
-in torch below and must give exactly the dense plain versions' results.
+The CUDA kernels cannot run here; their traversal schedules (K1: the
+walk of csrc/woop_walk.cuh in node order, modelled in
+tests/torch_walk_model.py; K2: every cluster in index order behind a
+per-ray AABB gate with a slack limit, occluded rays dropping out and a
+warm start) are modelled in torch and must give exactly the dense plain
+versions' results, and mutants of K1's model must not.
 The kernels are compared with the plain versions on the card by the
 ``cuda``-marked tests and by chip_smoke.py.
 
@@ -42,6 +44,7 @@ from merian_quake_tpu_torch.accel import build_accel, intersect, trace_nearest, 
 from merian_quake_tpu_torch.accel.intersect import trace_visibility
 from merian_quake_tpu_torch.models import procedural
 from merian_quake_tpu_torch.models.types import build_scene_from_soup
+from torch_walk_model import NODE, model_walk, sparse_warps, tie_table
 
 # the module (the package's ``intersect`` attribute is the function)
 intersect_mod = importlib.import_module("merian_quake_tpu_torch.accel.intersect")
@@ -227,57 +230,16 @@ def test_trace_nearest_alpha_grate():
 # ------------------------------------------------------------------ K1
 
 
-def _model_k1(rays, w, lo, hi):
-    """torch model of csrc/woop_nearest.cu's schedule, one lane per ray:
-    per ray block, visit every cluster in index order; skip a cluster for
-    rays whose slab gate with the slack limit fails; commit the
-    lexicographic (t, tri) minimum. Arithmetic in the plain version's
-    order, so the result must be bit-equal."""
-    nc = lo.shape[0]
-    blk = woop.RAY_BLOCK
-    nb = rays.shape[1] // blk
-    r = rays.reshape(8, nb, blk)
-    o, d, t_min, t_max = r[0:3], r[3:6], r[6], r[7]
-    inv = 1.0 / torch.where(d.abs() < 1e-20, torch.where(d >= 0, 1e-20, -1e-20), d)
-    rows = w.reshape(nc, 3, 64, 8)[..., :4]
-    ids = torch.arange(64, dtype=torch.int32)
-    best = torch.full((nb, blk), woop.BIG)
-    best_tri = torch.full((nb, blk), -1, dtype=torch.int32)
-    for ci in range(nc):
-        lim = torch.minimum(best, t_max)
-        lim = lim + lim.abs() * 1e-4 + 1e-3
-        c = torch.full((nb,), ci)
-        tn, tf = torch.zeros_like(lim), lim
-        for k in range(3):
-            t1 = (lo[c, k][:, None] - o[k]) * inv[k]
-            t2 = (hi[c, k][:, None] - o[k]) * inv[k]
-            tn = torch.maximum(tn, torch.minimum(t1, t2))
-            tf = torch.minimum(tf, torch.maximum(t1, t2))
-        reach = tn <= tf
-        a = rows[c][:, :, None]  # (nb, 3, 1, 64, 4)
-
-        def img(x, i, aff):
-            p = (x[0][..., None] * a[:, i, :, :, 0] + x[1][..., None] * a[:, i, :, :, 1]
-                 + x[2][..., None] * a[:, i, :, :, 2])
-            return p + a[:, i, :, :, 3] if aff else p
-
-        u0, v0, z0 = (img(o, i, True) for i in range(3))
-        du, dv, dz = (img(d, i, False) for i in range(3))
-        z0n = -z0
-        U = u0 * dz - z0 * du
-        V = v0 * dz - z0 * dv
-        front = dz > 1e-12
-        ok = (front & (U >= 0) & (V >= 0) & (U + V <= dz)
-              & (z0n > t_min[..., None] * dz) & (z0n <= t_max[..., None] * dz)
-              & reach[..., None])
-        t = torch.where(ok, z0n / torch.where(front, dz, 1.0), woop.BIG)
-        ct = t.amin(-1)
-        ck = torch.where(t == ct[..., None], ids, 64).amin(-1)
-        ctri = (c[:, None] * 64 + ck).to(torch.int32)
-        better = (ct < best) | ((ct == best) & (ctri < best_tri) & (ct < woop.BIG))
-        best = torch.where(better, ct, best)
-        best_tri = torch.where(better, ctri, best_tri)
-    return best.reshape(-1), best_tri.reshape(-1)
+def _model_k1(rays, w, lo, hi, mutant=None):
+    """torch model of csrc/woop_nearest.cu's schedule (the walk of
+    csrc/woop_walk.cuh in node order, tests/torch_walk_model.py): a warp
+    of 32 rays at a time gates the node boxes, the sub-node boxes of
+    reached nodes and the members of reached sub-nodes; a reached cluster
+    is fetched at once and the tile before it tested then; a tile few
+    lanes reach is tested triangle per lane with the (t, index) winner.
+    Arithmetic in the plain version's order, so the result must be
+    bit-equal."""
+    return model_walk(rays, w, lo, hi, NODE, listed=False, mutant=mutant)
 
 
 def _bounce_population(bundle, accel, width=48, height=32):
@@ -296,8 +258,12 @@ def _bounce_population(bundle, accel, width=48, height=32):
     return cur.pos - cur.wi * 1e-3, wo, torch.where(live, 1e4, -1.0)
 
 
-@pytest.mark.parametrize("population", ["soup", "primary", "bounce", "bounce_tmin"])
-def test_k1_schedule_matches_plain_version(rng, population):
+def _k1_population(rng, population):
+    """(rays, w, lo, hi) of one K1 test population. ``sparse``: city's
+    primary rays with one or two live rays a warp (every tile visit is
+    compacted); ``ties``: the hand-laid table with duplicated triangles."""
+    if population == "ties":
+        return tie_table("cpu")
     if population == "soup":
         v0, v1, v2 = _random_soup(rng)
         acc = build_accel(build_scene_from_soup(v0, v1, v2, device="cpu"))
@@ -306,23 +272,104 @@ def test_k1_schedule_matches_plain_version(rng, population):
     else:
         bundle = procedural.city(device="cpu")
         acc = build_accel(bundle.scene, bundle.atlas)
-        if population == "primary":
+        if population in ("primary", "sparse"):
             o, d = _city_primary(bundle, 48, 32)
             t_max = torch.full((o.shape[0],), 1e4)
+            if population == "sparse":
+                t_max = sparse_warps(t_max)
         else:
             o, d, t_max = _bounce_population(bundle, acc)
             perm = woop.sort_perm(acc, o, d, t_max)
             o, d, t_max = o[perm], d[perm], t_max[perm]
         t_min = torch.full((o.shape[0],), 1e-3 if population == "bounce_tmin" else 0.0)
-    args = woop.k1_inputs(acc, o.contiguous(), d.contiguous(), t_min, t_max.contiguous())
+    return woop.k1_inputs(acc, o.contiguous(), d.contiguous(), t_min, t_max.contiguous())
+
+
+@pytest.mark.parametrize("population", ["soup", "primary", "bounce", "bounce_tmin", "sparse",
+                                        "ties"])
+def test_k1_schedule_matches_plain_version(rng, population):
+    args = _k1_population(rng, population)
     t_ref, tri_ref = woop.intersect_woop_reference(args[0], args[1])
     t_mod, tri_mod = _model_k1(*args)
     assert (tri_ref >= 0).sum() > 0
+    if population == "ties":  # some nearest hits lie on a duplicated triangle
+        assert ((tri_ref >= 0) & (tri_ref < 128)).sum() > 0
     torch.testing.assert_close(tri_mod, tri_ref, rtol=0, atol=0)
     torch.testing.assert_close(t_mod, t_ref, rtol=0, atol=0)
     # the CPU wrapper is the plain version
     t_w, tri_w = woop.woop_nearest(*args)
     torch.testing.assert_close(tri_w, tri_ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mutant,population", [
+    ("early_exit", "soup"), ("early_exit", "bounce"), ("compact_drops_last", "sparse"),
+    ("compact_drops_last", "bounce"), ("winner_ignores_index", "ties"),
+])
+def test_k1_schedule_mutants_fail(rng, mutant, population):
+    """Each mutant of the walk gives another result than the plain
+    version: one that never walks the last node, a compacted visit that
+    leaves out its last reaching ray, a compacted winner that takes the
+    highest index among equal t."""
+    args = _k1_population(rng, population)
+    _, tri_ref = woop.intersect_woop_reference(args[0], args[1])
+    _, tri_mod = _model_k1(*args, mutant=mutant)
+    assert int((tri_mod != tri_ref).sum()) > 0
+
+
+@pytest.mark.parametrize("name", ["city", "court"])
+def test_packed_tables_and_cached_boxes(name):
+    """Every Woop table build_accel places carries its packed rows
+    (f32[3T, 4] = columns 0-3; columns 4-7 are zero), the padded bounds
+    and the walk's boxes are computed once a table, and a table without
+    packed rows is refused."""
+    if name == "city":  # full, shadow (sky zeroed) and proxy tables
+        ta = build_accel(*procedural.city(device="cpu")[:2])
+        tables = [ta.woop_w, ta.woop_w_shadow, ta.woop_w_proxy]
+        assert ta.woop_w_shadow is not ta.woop_w
+    else:  # full, shadow and alpha-only tables
+        jb = j_procedural.outdoor_court()
+        ta = build_accel(interop.scene_from_numpy(jb.scene, device="cpu"),
+                         interop.atlas_from_numpy(jb.atlas, device="cpu"))
+        tables = [ta.woop_w, ta.woop_w_shadow, ta.woop_w_alpha]
+    for w in tables:
+        assert w is not None
+        rows4 = woop.packed_rows(w)
+        assert rows4.shape == (w.shape[0], 4) and rows4.is_contiguous()
+        torch.testing.assert_close(rows4, w[:, :4], rtol=0, atol=0)
+        assert not bool(w[:, 4:].any())
+    with pytest.raises(ValueError, match="packed rows"):
+        woop.packed_rows(ta.woop_w.clone())
+    # the bounds and boxes: the same tensors every call, per (node, sub-node) size
+    lo, hi = woop.padded_bounds(ta.cluster_lo, ta.cluster_hi)
+    assert woop.padded_bounds(ta.cluster_lo, ta.cluster_hi)[0] is lo
+    assert woop.k1_inputs(ta, torch.zeros(128, 3), torch.ones(128, 3), torch.zeros(128),
+                          torch.ones(128))[2] is lo
+    want_lo, want_hi = woop._pad_bounds(ta.cluster_lo, ta.cluster_hi)
+    torch.testing.assert_close(lo, want_lo, rtol=0, atol=0)
+    torch.testing.assert_close(hi, want_hi, rtol=0, atol=0)
+    nc = lo.shape[0]
+    for P, S in (NODE, (32, 8), (8, 8)):
+        boxes = woop.walk_boxes(lo, hi, P, S)
+        assert woop.walk_boxes(lo, hi, P, S) is boxes
+        nn, ns = -(-nc // P), (-(-nc // S) if S < P else 0)
+        assert boxes.shape == (nn + ns + nc, 8) and boxes.is_contiguous()
+        nlo, nhi = woop.node_bounds(lo, hi, P)
+        torch.testing.assert_close(boxes[:nn, 0:3], nlo, rtol=0, atol=0)
+        torch.testing.assert_close(boxes[:nn, 4:7], nhi, rtol=0, atol=0)
+        if ns:
+            slo, shi = woop.node_bounds(lo, hi, S)
+            torch.testing.assert_close(boxes[nn:nn + ns, 0:3], slo, rtol=0, atol=0)
+            torch.testing.assert_close(boxes[nn:nn + ns, 4:7], shi, rtol=0, atol=0)
+        torch.testing.assert_close(boxes[nn + ns:nn + ns + nc, 0:3], lo, rtol=0, atol=0)
+        torch.testing.assert_close(boxes[nn + ns:nn + ns + nc, 4:7], hi, rtol=0, atol=0)
+        # a node box holds its members: min/max of them, no rounding
+        member = boxes[nn + ns:][: P * (nc // P)].reshape(nc // P, P, 8)
+        assert bool((boxes[: nc // P, None, 0:3] <= member[..., 0:3]).all())
+        torch.testing.assert_close(boxes[:, 3], (boxes[:, 0:3] > boxes[:, 4:7]).any(-1).float(),
+                                   rtol=0, atol=0)
+        assert not bool(boxes[:, 7].any())
+    # other bounds get boxes of their own
+    assert woop.walk_boxes(lo.clone(), hi, *NODE) is not woop.walk_boxes(lo, hi, *NODE)
 
 
 def test_woop_nearest_rejects_bad_inputs(rng):

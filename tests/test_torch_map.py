@@ -13,10 +13,11 @@ threshold, so routing by size is tested without forcing it.
   and ``t`` within tests/test_accel.py's tolerance (rtol 1e-4, atol 1e-3:
   XLA fuses multiply-adds on the CPU and PyTorch does not); occlusion
   equal outside the t_max boundary band, as in tests/test_torch_accel.py.
-- K3's schedule (per-block visit list from union entries, near-to-far
-  walk, horizon exit with limits lagging by the ring depth, dead and
-  occluded rays) is modelled in torch below and must give exactly the
-  plain versions' results.
+- K3's schedule (per-warp node list from the least entries, near-to-far
+  walk through nodes, sub-nodes and clusters, horizon exit with limits
+  lagging by one tile, compacted visits, dead and occluded rays) is
+  modelled in torch (tests/torch_walk_model.py) and must give exactly the
+  plain versions' results; mutants of the model must not.
 - K8's plain version (the port's CPU oracle arithmetic) against the JAX
   K8 in interpret mode: ``tri`` equal, t/u/v within rtol 1e-5.
 - One map-scale frame, PT and ReSTIR, at 32×18, port against the JAX
@@ -49,6 +50,7 @@ from merian_quake_tpu_torch.models.procedural import city
 from merian_quake_tpu_torch.models.types import RenderConfig, build_scene_from_soup
 from merian_quake_tpu_torch.render.restir import ReSTIRConfig
 from merian_quake_tpu_torch.renderer import render_sequence
+from torch_walk_model import NODE, model_walk, sparse_warps, tie_table
 
 # the module (the package's ``intersect`` attribute is the function)
 intersect_mod = importlib.import_module("merian_quake_tpu_torch.accel.intersect")
@@ -213,134 +215,26 @@ def test_map_tables_match_jax_and_route_to_stream(map_scene, monkeypatch):
 # ------------------------------------------------------------------ K3 schedule
 
 
-def _slab(lo, hi, o, inv, lim):
-    """K3's slab gate on broadcast shapes: lo/hi (..., 3), o/inv (..., 3),
-    lim (...) → (reach, entry)."""
-    t1 = (lo - o) * inv
-    t2 = (hi - o) * inv
-    tn = torch.clamp_min(torch.minimum(t1, t2).amax(-1), 0.0)
-    tf = torch.minimum(lim, torch.maximum(t1, t2).amin(-1))
-    return tn <= tf, tn
-
-
-def _slack(x):
-    return x + x.abs() * 1e-4 + 1e-3
-
-
-def _model_k3(rays, w, lo, hi, anyhit=False, occluded_in=None, slots=4):
-    """torch model of csrc/woop_stream.cu's schedule, one lane per ray,
-    every block stepping through its own walk at once:
-    1. visit list: per block and cluster the least slab entry over the
-       rays that reach its AABB within slack(t_max) (occluded rays take
-       no part), empty boxes never listed, sorted by the kernel's key
-       (te bits >> 13, cluster id);
-    2. walk: stop at the first entry whose rounded-down te exceeds the
-       horizon (the largest gate limit over the block); gate each entry
-       with the current limits and skip it when no ray reaches it;
-    3. ring: a passing entry is issued into one of ``slots`` slots and
-       tested only when the ring is full or the walk has ended, so the
-       horizon and the issue-time limits lag by up to ``slots`` tiles; at
-       test time each ray gates again with its current limit.
+def _model_k3(rays, w, lo, hi, anyhit=False, occluded_in=None, mutant=None):
+    """torch model of csrc/woop_stream.cu's schedule (the walk of
+    csrc/woop_walk.cuh along each warp's node list,
+    tests/torch_walk_model.py), a warp of 32 rays at a time:
+    1. node list: per node the least slab entry over the lanes that reach
+       its box within slack(t_max) (occluded rays take no part), empty
+       boxes never listed, ordered by the kernel's key (te bits >> 13,
+       node id);
+    2. walk: stop at the first node whose rounded-down te exceeds the
+       horizon (the largest gate limit over the warp, refreshed once a
+       node); gate the node again with the current limits, then its
+       sub-nodes and their member clusters;
+    3. ring: a reached cluster is fetched at once and the tile fetched
+       before it tested only then, so the limits a gate sees lag by one
+       tile; at test time each lane gates again with its current limit; a
+       tile few lanes reach is tested triangle per lane.
     Returns the nearest (t, tri) or the occlusion, like the plain
     versions."""
-    nc = lo.shape[0]
-    blk = woop.RAY_BLOCK
-    nb = rays.shape[1] // blk
-    r = rays.reshape(8, nb, blk)
-    o, d, t_min, t_max = r[0:3].permute(1, 2, 0), r[3:6].permute(1, 2, 0), r[6], r[7]
-    inv = 1.0 / torch.where(d.abs() < 1e-20, torch.where(d >= 0, 1e-20, -1e-20), d)
-    rows = w.reshape(nc, 3, 64, 8)[..., :4]
-    ids = torch.arange(64, dtype=torch.int32)
-    bidx = torch.arange(nb)
-    best = torch.full((nb, blk), woop.BIG)
-    best_tri = torch.full((nb, blk), -1, dtype=torch.int32)
-    occ = torch.zeros((nb, blk), dtype=torch.bool)
-    if occluded_in is not None:
-        occ = occluded_in.reshape(nb, blk).clone()
-
-    def limit():
-        if anyhit:
-            return torch.where(occ, -torch.inf, _slack(t_max))
-        return _slack(torch.minimum(best, t_max))
-
-    # 1. the visit list
-    empty = (lo > hi).any(-1)
-    reach, tn = _slab(lo[None, None], hi[None, None], o[:, :, None], inv[:, :, None],
-                      limit()[:, :, None])
-    listed = reach.any(1) & ~empty  # (nb, nc)
-    te = torch.where(reach, tn, torch.inf).amin(1)
-    key = (te.view(torch.int32).long() >> 13 << 14) | torch.arange(nc)
-    key = torch.sort(torch.where(listed, key, 1 << 40), dim=1).values
-    length = listed.sum(1)
-    teq = ((key >> 14) << 13).clamp_max(0x7F800000).to(torch.int32).view(torch.float32)
-    cid = (key & ((1 << 14) - 1)).clamp_max(nc - 1)
-
-    def gate(c):  # (nb,) cluster ids → (nb, blk) reach with current limits
-        return _slab(lo[c][:, None], hi[c][:, None], o, inv, limit())[0]
-
-    def test_tile(mask, c):
-        nonlocal best, best_tri, occ
-        reach = gate(c) & mask[:, None]
-        a = rows[c][:, :, None]  # (nb, 3, 1, 64, 4)
-        x0, x1 = o.permute(2, 0, 1), d.permute(2, 0, 1)
-
-        def img(x, i, aff):
-            p = (x[0][..., None] * a[:, i, :, :, 0] + x[1][..., None] * a[:, i, :, :, 1]
-                 + x[2][..., None] * a[:, i, :, :, 2])
-            return p + a[:, i, :, :, 3] if aff else p
-
-        u0, v0, z0 = (img(x0, i, True) for i in range(3))
-        du, dv, dz = (img(x1, i, False) for i in range(3))
-        z0n = -z0
-        U = u0 * dz - z0 * du
-        V = v0 * dz - z0 * dv
-        if anyhit:
-            hit = ((U >= 0) & (V >= 0) & (dz - U - V >= 0) & (dz - 1e-12 >= 0)
-                   & (z0n - t_min[..., None] * dz >= 0) & (t_max[..., None] * dz - z0n >= 0))
-            occ = occ | (reach & hit.any(-1))
-            return
-        front = dz > 1e-12
-        ok = (front & (U >= 0) & (V >= 0) & (U + V <= dz)
-              & (z0n > t_min[..., None] * dz) & (z0n <= t_max[..., None] * dz) & reach[..., None])
-        t = torch.where(ok, z0n / torch.where(front, dz, 1.0), woop.BIG)
-        ct = t.amin(-1)
-        ck = torch.where(t == ct[..., None], ids, 64).amin(-1)
-        ctri = (c[:, None] * 64 + ck).to(torch.int32)
-        better = (ct < best) | ((ct == best) & (ctri < best_tri) & (ct < woop.BIG))
-        best = torch.where(better, ct, best)
-        best_tri = torch.where(better, ctri, best_tri)
-
-    ring = torch.zeros((nb, slots), dtype=torch.long)
-    issued = torch.zeros(nb, dtype=torch.long)
-    computed = torch.zeros(nb, dtype=torch.long)
-    j = torch.zeros(nb, dtype=torch.long)
-    horizon = limit().amax(1)
-    live = horizon >= 0.0  # every ray dead or occluded: nothing to walk
-
-    def compute(mask):
-        nonlocal computed, horizon
-        test_tile(mask, ring[bidx, computed % slots])
-        computed = computed + mask
-        horizon = torch.where(mask, limit().amax(1), horizon)
-
-    # 2-3. the walk: one entry (or one drained tile) per block and step
-    while True:
-        jj = j.clamp_max(nc - 1)
-        live = live & (j < length) & (teq[bidx, jj] <= horizon)
-        draining = ~live & (computed < issued)
-        if not bool(live.any() or draining.any()):
-            break
-        c = cid[bidx, jj]
-        passing = live & (gate(c) & live[:, None]).any(1)
-        full = passing & (issued - computed == slots)
-        if bool((full | draining).any()):
-            compute(full | draining)
-        ring[bidx, issued % slots] = torch.where(passing, c, ring[bidx, issued % slots])
-        issued = issued + passing
-        j = j + live
-    if anyhit:
-        return occ.reshape(-1)
-    return best.reshape(-1), best_tri.reshape(-1)
+    return model_walk(rays, w, lo, hi, NODE, listed=True, anyhit=anyhit,
+                      occluded_in=occluded_in, mutant=mutant)
 
 
 def _city_primary(bundle, width, height):
@@ -373,7 +267,11 @@ def _bounce(bundle, accel, width, height):
 
 
 def _population(name, rng, map_scene):
-    """(accel, o, d, t_min, t_max) of one test population."""
+    """(accel, o, d, t_min, t_max) of one test population. ``*_sparse``:
+    one or two live rays a warp (every tile visit is compacted)."""
+    if name.endswith("_sparse"):
+        acc, o, d, t_min, t_max = _population(name[: -len("_sparse")], rng, map_scene)
+        return acc, o, d, t_min, sparse_warps(t_max)
     if name == "soup":
         v0, v1, v2 = _soup(rng, 512)
         acc = build_accel(build_scene_from_soup(v0, v1, v2, device="cpu"))
@@ -399,18 +297,28 @@ def _population(name, rng, map_scene):
     return acc, pos, wo / dist[:, None], 1e-3, torch.clamp_min(dist - 2e-3, 1e-3)
 
 
-@pytest.mark.parametrize("name,anyhit", [
-    ("soup", False), ("soup", True), ("city_primary", False), ("city_bounce", False),
-    ("city_shadow", True), ("map_primary", False), ("map_bounce", False),
-    ("map_bounce", True), ("map_shadow", True),
-])
-def test_k3_schedule_matches_plain_version(rng, map_scene, name, anyhit):
+def _k3_inputs(name, rng, map_scene):
+    """(n, nearest-hit args, (rays, proxy, shadow)) of one population;
+    ``ties``: the hand-laid table with duplicated triangles (no accel: its
+    rays come packed, and it has neither proxy nor shadow table)."""
+    if name == "ties":
+        args = tie_table("cpu")
+        return args[0].shape[1], args, (args[0], None, args[1:])
     acc, o, d, t_min, t_max = _population(name, rng, map_scene)
     n = o.shape[0]
     t_min = torch.full((n,), t_min) if isinstance(t_min, float) else t_min
-    rays, proxy, shadow = woop.k2_inputs(acc, o, d, t_min, t_max)
+    return n, woop.k1_inputs(acc, o, d, t_min, t_max), woop.k2_inputs(acc, o, d, t_min, t_max)
+
+
+@pytest.mark.parametrize("name,anyhit", [
+    ("soup", False), ("soup", True), ("city_primary", False), ("city_bounce", False),
+    ("city_shadow", True), ("map_primary", False), ("map_bounce", False),
+    ("map_bounce", True), ("map_shadow", True), ("map_primary_sparse", False),
+    ("map_shadow_sparse", True), ("ties", False), ("ties", True),
+])
+def test_k3_schedule_matches_plain_version(rng, map_scene, name, anyhit):
+    n, args, (rays, proxy, shadow) = _k3_inputs(name, rng, map_scene)
     if not anyhit:
-        args = woop.k1_inputs(acc, o, d, t_min, t_max)
         t_ref, tri_ref = woop.intersect_woop_reference(args[0], args[1])
         t_mod, tri_mod = _model_k3(*args)
         assert (tri_ref >= 0).any()
@@ -431,6 +339,27 @@ def test_k3_schedule_matches_plain_version(rng, map_scene, name, anyhit):
                                    dense_occ, rtol=0, atol=0)
         torch.testing.assert_close(woop.woop_stream(rays, *shadow, anyhit=True, occluded_in=pre),
                                    dense_occ, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mutant,name,anyhit", [
+    ("early_exit", "map_primary", False), ("early_exit", "city_shadow", True),
+    ("compact_drops_last", "map_primary_sparse", False),
+    ("compact_drops_last", "map_shadow_sparse", True),
+    ("winner_ignores_index", "ties", False),
+])
+def test_k3_schedule_mutants_fail(rng, map_scene, mutant, name, anyhit):
+    """Each mutant of the walk gives another result than the plain
+    version: an exit one node early, a compacted visit that leaves out its
+    last reaching ray, a compacted winner that takes the highest index
+    among equal t."""
+    n, args, (rays, proxy, shadow) = _k3_inputs(name, rng, map_scene)
+    if anyhit:
+        ref = woop.intersect_woop_any_reference(rays, shadow[0])
+        out = _model_k3(rays, *shadow, anyhit=True, mutant=mutant)
+    else:
+        ref = woop.intersect_woop_reference(args[0], args[1])[1]
+        out = _model_k3(*args, mutant=mutant)[1]
+    assert int((out != ref).sum()) > 0
 
 
 def test_woop_stream_rejects_bad_inputs(rng):
