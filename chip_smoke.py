@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives merian_quake_tpu_torch's two paths at 1920×1080 — the
+Drives merian_quake_tpu_torch's three paths at 1920×1080 — the guided
+(MCPG) frame (2 spp, max path length 3, ``MCPGConfig()``), the
 path-traced frame (2 spp, max path length 3) and the ReSTIR DI frame
 (``ReSTIRConfig()``) — on the first CUDA device, on the procedural
 ``city`` (16,640 triangles), on the map scene ``city(n_buildings=
@@ -25,10 +26,11 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
    random soup with half misses, the same with one or two live rays a
    warp (every tile visit compacted) and a hand-laid table with exact
    ties between the triangles a compacted visit compares; 65,536-ray
-   subsets of city's 1080p primary rays and of one sorted bounce
-   population (t_min = 0 and 1e-3); then the whole 2,073,600-ray primary
-   and bounce populations (t_min = 0 and 1e-3), as the frame launches K1
-   on them, with both timed by CUDA events in turns at t_min = 0, K1's
+   subsets of city's 1080p primary rays, of one bounce population as it
+   lies (what a frame launches K1 on) and of the same sorted for
+   coherence (t_min = 0 and 1e-3); then the whole 2,073,600-ray primary,
+   sorted bounce (t_min = 0 and 1e-3) and unsorted bounce populations,
+   with each timed by CUDA events in turns at t_min = 0, K1's
    bound from its count of the pairs it tested, where its cycles go (the
    profile instance: list, the gates that look for the next tile, a
    tile's issue and second gate, tile waits, pair loops), its lane use
@@ -56,7 +58,7 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
    within the slice test's tolerance;
 8. K3 against its plain versions on the card, bit for bit: a random soup
    (nearest and any-hit), also with sparse warps, and the tie table;
-   65,536-ray subsets of the map's 1080p primary,
+   65,536-ray subsets of the map's 1080p primary, bounce as it lies,
    sorted bounce (t_min 0 and 1e-3) and shade-pass shadow rays (with and
    without the proxy pre-pass's warm start); then K3 against K1/K2 called
    directly on the same table on the whole 2,073,600-ray populations;
@@ -100,11 +102,34 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     tolerance); cold and steady ms/frame;
 15. 2 PT and 2 ReSTIR frames of city(1600) at 32×18 on the CPU (oracle)
     and on the card under ``TraceSchedule(True, 8, 32)``: the LDR images
-    agree within the slice test's tolerance.
+    agree within the slice test's tolerance;
+16. city MCPG at 1080p: 16 frames from an empty state, exactly 3 K1
+    launches a frame (1 primary of 2,073,600 rays, 2 bounce segments of
+    4,147,200) and no other kernel; finite images, accumulators, chain
+    states and light cache; the states with sum_w > 0 and
+    ``lc_updates_applied`` rise from 0, printed per frame; cold ms and the
+    mean of frames 12-15 with Mrays/s; one more frame under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host read in a steady
+    frame); the bounce coherence sort A/B on 8 further frames; 6 frames
+    each of city(1600) with the default routes and under
+    ``TraceSchedule(True, 8, 32)`` (2 K4 + 3 K5 + 3 compacting node walks);
+17. map MCPG at 1080p: 9 frames, exactly 3 K3 launches a frame and no K1,
+    the same checks, the mean of frames 6-8;
+18. K1 (city) and K3 (map) on the 4,147,200 rays of one guided bounce
+    segment of a warmed frame (vMF lobes aimed at lights): bit for bit
+    against the plain version on a 65,536-ray subset and against the
+    other route, forced, on the whole population; time in turns, pairs
+    tested, bound, lane use;
+19. MCPG at 64×36 on the CPU (oracle) and on the card: frame 0 within
+    the slice test's tolerance; after 4 frames the LDR mean difference,
+    the live chain states and the touched light-cache cells within
+    pinned bounds; then 64 accumulated frames of ``mcpg`` and of ``pt``
+    on the card agree in mean irradiance (guiding is unbiased).
 
-Each path (PT city, ReSTIR city, dense map, PT map, ReSTIR map and the
-five city(1600) frame runs of phase 14) is driven with every launch
-count set to 0 just before it and read just after. The line before the
+Each path (PT city, ReSTIR city, dense map, PT map, ReSTIR map, the five
+city(1600) frame runs of phase 14, MCPG city, MCPG map and the two
+city(1600) MCPG runs of phase 16) is driven with every launch count set
+to 0 just before it and read just after. The line before the
 last is the kernels' JSON record (with each kernel's launches by path
 and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its FP32 operations over the card's issue rate
@@ -158,6 +183,7 @@ FIRST_DESIGN = {
 CITY1600 = {"n_buildings": 1600, "seed": 7}
 W, H, SPP, MPL = 1920, 1080, 2, 3
 SUBSET = 65536
+K3_POPS = ("primary", "bounce", "bounce_unsorted", "shadow")
 MAP = {"n_buildings": 28000, "seed": 11}  # bench.py's map row: 281,536 triangles
 # the bound: H100 SXM data-sheet rates (FP32 outside the tensor cores, HBM3).
 # 67 TFLOP/s counts an FMA as two operations; the kernels round every
@@ -298,6 +324,12 @@ def trace_split(phase, name, kernel, args, smi, first_design=None, **kw):
         f"them); pairs tested {rec['pairs']}, warp-issued pairs {rec['warp_pairs']}, lane use "
         f"{rec['lane_use']:.4f}{first}")
     return rec
+
+
+def first_design_ms(kernel, name) -> str:
+    """The first design's recorded time on a population, where it has one."""
+    ms = FIRST_DESIGN[kernel]["ms"].get(name)
+    return "" if ms is None else f"; the first design's {kernel} {ms:.3f} ms"
 
 
 def cuda_time(fn, reps: int) -> float:
@@ -651,15 +683,16 @@ def phase8(dev, soup, bundle, accel, config, smi):
 
     n_full = W * H
     po, pd = primary_rays(bundle, accel, dev)
-    bo, bd, bt = bounce_rays(bundle, accel, config, dev)
-    perm = woop.sort_perm(accel, bo, bd, bt)
-    bo, bd, bt = bo[perm].contiguous(), bd[perm].contiguous(), bt[perm].contiguous()
+    ubo, ubd, ubt = bounce_rays(bundle, accel, config, dev)  # as a frame traces them
+    perm = woop.sort_perm(accel, ubo, ubd, ubt)
+    bo, bd, bt = ubo[perm].contiguous(), ubd[perm].contiguous(), ubt[perm].contiguous()
     so, sd, st = shade_rays(bundle, accel, config, dev)
     mid = slice(n_full // 2, n_full // 2 + SUBSET)
     sub = lambda x: x[mid].contiguous()
     subsets = {
         "primary": woop.k1_inputs(accel, sub(po), sub(pd), full(0.0, SUBSET), full(1e4, SUBSET)),
         "bounce": woop.k1_inputs(accel, sub(bo), sub(bd), full(0.0, SUBSET), sub(bt)),
+        "bounce_unsorted": woop.k1_inputs(accel, sub(ubo), sub(ubd), full(0.0, SUBSET), sub(ubt)),
     }
     for name, args in subsets.items():
         errs.append(check_exact(8, f"map {name} {SUBSET} t_min=0.0 K3 vs plain",
@@ -684,6 +717,7 @@ def phase8(dev, soup, bundle, accel, config, smi):
     pops = {
         "primary": woop.k1_inputs(accel, po, pd, full(0.0, n_full), full(1e4, n_full)),
         "bounce": woop.k1_inputs(accel, bo, bd, full(0.0, n_full), bt),
+        "bounce_unsorted": woop.k1_inputs(accel, ubo, ubd, full(0.0, n_full), ubt),
     }
     for name, args in pops.items():
         errs.append(check_exact(8, f"map {name} {n_full} t_min=0.0 K3 vs K1",
@@ -714,6 +748,8 @@ def phase8(dev, soup, bundle, accel, config, smi):
                     lambda: woop.woop_nearest(*pops["primary"])),
         "bounce": (lambda: woop.woop_stream(*pops["bounce"]),
                    lambda: woop.woop_nearest(*pops["bounce"])),
+        "bounce_unsorted": (lambda: woop.woop_stream(*pops["bounce_unsorted"]),
+                            lambda: woop.woop_nearest(*pops["bounce_unsorted"])),
         "shadow": (lambda: woop.woop_stream(rays_f, *shadow_f, anyhit=True, occluded_in=pre_f),
                    lambda: woop.woop_any(rays_f, *shadow_f, pre_f)),
     }
@@ -723,11 +759,13 @@ def phase8(dev, soup, bundle, accel, config, smi):
                     lambda: woop.woop_stream(*subsets["primary"])),
         "bounce": (lambda: woop.intersect_woop_reference(*subsets["bounce"][:2]),
                    lambda: woop.woop_stream(*subsets["bounce"])),
+        "bounce_unsorted": (lambda: woop.intersect_woop_reference(*subsets["bounce_unsorted"][:2]),
+                            lambda: woop.woop_stream(*subsets["bounce_unsorted"])),
         "shadow": (lambda: woop.intersect_woop_any_reference(rays_s, shadow_s[0], pre_s),
                    lambda: woop.woop_stream(rays_s, *shadow_s, anyhit=True, occluded_in=pre_s)),
     }
     out = {}
-    for name in ("primary", "bounce", "shadow"):
+    for name in ("primary", "bounce", "bounce_unsorted", "shadow"):
         k3, other = kern[name]
         a1, b1, b2, a2 = cuda_time(k3, 5), cuda_time(other, 5), cuda_time(other, 5), cuda_time(k3, 5)
         ref, k3s = plain[name]
@@ -744,7 +782,7 @@ def phase8(dev, soup, bundle, accel, config, smi):
                                 anyhit=True, occluded_in=pre_f)
         else:
             split = trace_split(8, f"map {name} K3", woop.woop_stream, pops[name], smi,
-                                FIRST_DESIGN["K3"]["split"][name])
+                                FIRST_DESIGN["K3"]["split"].get(name))
         out[name] = {"ms": (a1 + a2) / 2, "other_ms": (b1 + b2) / 2, "plain_ms": (p1 + p2) / 2,
                      "subset_ms": (s1 + s2) / 2, "bound_ms": bnd, "bound_by": by,
                      "lane_use": split["lane_use"], "shares": split["shares"]}
@@ -752,7 +790,7 @@ def phase8(dev, soup, bundle, accel, config, smi):
             f"{'K2' if name == 'shadow' else 'K1'} {b1:.3f} / {b2:.3f} ms on {n_full} rays; "
             f"on {SUBSET} rays plain {p1:.1f} / {p2:.1f} ms, K3 {s1:.3f} / {s2:.3f} ms; "
             f"bound {bnd:.4f} ms ({by}; {ops / (OPS_ANY if name == 'shadow' else OPS_NEAREST):.4g} "
-            f"pairs tested); the first design's K3 {FIRST_DESIGN['K3']['ms'][name]:.3f} ms")
+            f"pairs tested)" + first_design_ms("K3", name))
     out["max_abs_err"] = max(errs)
     out["ctas_per_sm"] = woop.ctas_per_sm("woop_stream", accel.cluster_lo.shape[0])
     log(f"phase 8 K3 on the map ({accel.cluster_lo.shape[0]} clusters): {out['ctas_per_sm']} CTAs "
@@ -1207,6 +1245,278 @@ def phase15(dev):
             raise AssertionError(f"city1600 {name}: CPU and card LDR images disagree")
 
 
+def mcpg_scene_config(config):
+    """A scene's 1080p config as the MCPG frame's, and ``MCPGConfig()``."""
+    from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+
+    return config._replace(integrator="mcpg"), MCPGConfig()
+
+
+def check_mcpg_finite(path, state, out):
+    for name, x in (("ldr", out["ldr"]), ("hdr", out["hdr"]), ("irradiance", out["irradiance"]),
+                    ("accum_irradiance", state.accum_irradiance),
+                    ("accum_direct", state.accum_direct), ("accum_albedo", state.accum_albedo),
+                    ("mc.f", state.mcpg.mc.f), ("lc.irr", state.mcpg.lc.irr)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{path} {name} is not finite")
+    if tuple(out["ldr"].shape) != (H, W, 3) or float(out["ldr"].std()) <= 0.0:
+        raise AssertionError(f"{path} ldr has the wrong shape or is constant")
+
+
+def mcpg_frames(phase, path, dev, bundle, accel, config, mcfg, frames, window, expect, smi,
+                schedule=None):
+    """``frames`` MCPG frames at 1080p with the launch counts set to 0
+    just before and read just after, each frame's launches held to
+    ``expect`` exactly. Prints, per frame, ms, the
+    count of chain states with sum_w > 0 and ``lc_updates_applied`` (read
+    outside the timed region). Returns (state, out, the path's launches,
+    frame ms)."""
+    from merian_quake_tpu_torch.renderer import init_state, render_frame
+
+    state = init_state(config, mcfg, device=dev)
+    reset_launches()
+    frame_ms, live, applied = [], [], []
+    for i in range(frames):
+        before = launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=i), config,
+                                  state, mcfg, schedule=schedule)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v - before[k] for k, v in launches().items()}
+        if got != {**{k: 0 for k in got}, **expect}:
+            raise AssertionError(f"{path} frame {i}: launched {got}, expected {expect}")
+        live.append(int((state.mcpg.mc.sum_w > 0).sum()))
+        applied.append(int(state.mcpg.lc_updates_applied))
+    counts = launches()
+    check_mcpg_finite(path, state, out)
+    lo, hi = window
+    steady = float(np.mean(frame_ms[lo:hi]))
+    rays = W * H * (1 + SPP * (MPL - 1))
+    log(f"phase {phase} {path} {W}x{H} spp {SPP} mpl {MPL} "
+        f"schedule={tuple(schedule) if schedule else None} [{smi}]: launches "
+        f"{ {k: v for k, v in counts.items() if v} }; cold {frame_ms[0]:.1f} ms, mean of frames "
+        f"{lo}-{hi - 1} {steady:.1f} ms/frame, {rays / steady / 1e3:.2f} "
+        f"Mrays/s (frames {', '.join(f'{x:.1f}' for x in frame_ms)}); states with sum_w > 0 per "
+        f"frame {live}; lc_updates_applied per frame {applied}; ldr mean "
+        f"{float(out['ldr'].mean()):.4f}")
+    return state, out, counts, frame_ms, (live, applied)
+
+
+def guided_population(bundle, accel, config, mcfg, state, frame):
+    """One more MCPG frame with the surface pass's traces recorded: returns
+    (the new state, [(origin, direction, t_max) of each bounce segment])
+    — the rays as the frame hands them to K1 or K3 (dead lanes t_max -1)."""
+    from merian_quake_tpu_torch.render.mcpg import surface
+    from merian_quake_tpu_torch.render.trace import T_MAX
+    from merian_quake_tpu_torch.renderer import render_frame
+
+    plain, seen = surface.trace_ray, []
+
+    def record(acc, atlas, uniforms, pos, wi, *a, active=None, **k):
+        seen.append((pos.contiguous(), wi.contiguous(),
+                     torch.where(active, T_MAX, -1.0).contiguous()))
+        return plain(acc, atlas, uniforms, pos, wi, *a, active=active, **k)
+
+    surface.trace_ray = record
+    try:
+        state, _ = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=frame), config,
+                                state, mcfg)
+    finally:
+        surface.trace_ray = plain
+    if len(seen) != MPL - 1 or seen[0][0].shape[0] != SPP * W * H:
+        raise AssertionError("the surface pass traced other populations than spp·W·H a segment")
+    return state, seen
+
+
+def phase16(dev, bundle, accel, config, c16, smi):
+    """City MCPG at 1080p: 16 frames from an empty state, no host read in
+    a steady frame, the sorted-bounce A/B, the guided ray population, and
+    one reading under a trace schedule on city(1600)."""
+    from merian_quake_tpu_torch.accel import woop
+    from merian_quake_tpu_torch.render.mcpg import surface
+    from merian_quake_tpu_torch.renderer import render_frame
+
+    config, mcfg = mcpg_scene_config(config)
+    state, out, counts, frame_ms, (live, applied) = mcpg_frames(
+        16, "mcpg city", dev, bundle, accel, config, mcfg, 16, (12, 16), {"woop_nearest": 3}, smi)
+    if counts != {**{k: 0 for k in counts}, "woop_nearest": 48}:
+        raise AssertionError(f"the city MCPG frames launched {counts}, expected K1 alone, 48 times")
+    if not (live[0] > 0 and live[-1] > live[0] and applied[0] > 0
+            and all(b > a for a, b in zip(applied, applied[1:]))):
+        raise AssertionError(f"guiding does not learn: states {live}, light cache {applied}")
+
+    # a steady default frame reads no device value from the host: any
+    # synchronizing call raises under this mode
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, out = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=16), config,
+                                  state, mcfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("phase 16 mcpg city frame 16 under torch.cuda.set_sync_debug_mode('error'): no "
+        "synchronizing call")
+
+    state, pops = guided_population(bundle, accel, config, mcfg, state, 17)
+
+    # the bounce coherence sort on the guided frame: as they lie, sorted,
+    # sorted, as they lie; one frame a turn, 2 turns each
+    plain = surface.trace_ray
+    ab = {"none": [], "sort": []}
+    try:
+        for i, label in enumerate(("none", "sort", "sort", "none", "none", "sort", "sort", "none")):
+            surface.trace_ray = plain if label == "none" else (
+                lambda *a, **k: plain(*a, **{**k, "sort_rays": True}))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, out = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=18 + i),
+                                      config, state, mcfg)
+            torch.cuda.synchronize()
+            ab[label].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        surface.trace_ray = plain
+    check_mcpg_finite("mcpg city after the A/B", state, out)
+    log(f"phase 16 mcpg city bounce sort A/B [{smi}]: as they lie "
+        f"{' / '.join(f'{x:.1f}' for x in ab['none'])} ms/frame, sorted "
+        f"{' / '.join(f'{x:.1f}' for x in ab['sort'])} ms/frame (frames 18-25, host clock)")
+
+    # one reading under a trace schedule, on city(1600): default routes
+    # against TraceSchedule(True, 8, 32) (the two bounce segments sorted by
+    # the target key; K5's list and the compacting node walk for all three)
+    b16, a16, c16cfg, _ = c16
+    cfg16, _ = mcpg_scene_config(c16cfg)
+    sched_paths = {}
+    for path, sched, expect in (
+        ("mcpg_1600", None, {"woop_nearest": 3}),
+        ("mcpg_1600_nodes_compact", woop.TraceSchedule(True, 8, 32),
+         {"target_keys": 2, "te_union": 3, "woop_list": 3, "woop_list_nodes": 3,
+          "woop_list_compact": 3}),
+    ):
+        _, _, sched_paths[path], _, _ = mcpg_frames(
+            16, path, dev, b16, a16, cfg16, mcfg, 6, (2, 6), expect, smi, schedule=sched)
+    return counts, sched_paths, pops, {"ms": float(np.mean(frame_ms[12:16])), "cold": frame_ms[0]}
+
+
+def phase17(dev, bundle, accel, config, smi):
+    """Map MCPG at 1080p: 9 frames, exactly 3 K3 launches a frame and no
+    K1; then the guided ray population of frame 9."""
+    cfg, mcfg = mcpg_scene_config(config)
+    state, _, counts, frame_ms, (live, applied) = mcpg_frames(
+        17, "mcpg map", dev, bundle, accel, cfg, mcfg, 9, (6, 9), {"woop_stream": 3}, smi)
+    if counts != {**{k: 0 for k in counts}, "woop_stream": 27}:
+        raise AssertionError(f"the map MCPG frames launched {counts}, expected K3 alone, 27 times")
+    if not (live[-1] > live[0] > 0 and applied[-1] > applied[0] > 0):
+        raise AssertionError(f"guiding does not learn on the map: {live}, {applied}")
+    _, pops = guided_population(bundle, accel, cfg, mcfg, state, 9)
+    return counts, pops, {"ms": float(np.mean(frame_ms[6:9])), "cold": frame_ms[0]}
+
+
+def phase18(dev, name, accel, pop, kernel, other, smi):
+    """K1 (city) or K3 (map) on one MCPG bounce segment's rays: against
+    its plain version on a 65,536-ray subset and against the other
+    route, forced, on the whole population, bit for bit; time in turns,
+    pairs tested, bound and lane use."""
+    from merian_quake_tpu_torch.accel import woop
+
+    o, d, t_max = pop
+    n = o.shape[0]
+    kname = "K1" if kernel is woop.woop_nearest else "K3"
+    oname = "K3" if kernel is woop.woop_nearest else "K1"
+    mid = slice(n // 2, n // 2 + SUBSET)
+    sub = woop.k1_inputs(accel, o[mid].contiguous(), d[mid].contiguous(),
+                         torch.zeros(SUBSET, device=dev), t_max[mid].contiguous())
+    errs = [check_exact(18, f"{name} mcpg bounce {SUBSET} {kname} vs plain", kernel(*sub),
+                        woop.intersect_woop_reference(sub[0], sub[1]))]
+    args = woop.k1_inputs(accel, o, d, torch.zeros(n, device=dev), t_max)
+    if args[0].shape[1] % 128:
+        raise AssertionError("the packed ray count is not a multiple of 128")
+    errs.append(check_exact(18, f"{name} mcpg bounce {n} {kname} vs {oname} forced",
+                            kernel(*args), other(*args)))
+    k, f = (lambda: kernel(*args)), (lambda: other(*args))
+    k_1, f_1, f_2, k_2 = cuda_time(k, 10), cuda_time(f, 10), cuda_time(f, 10), cuda_time(k, 10)
+    p_1 = cuda_time(lambda: woop.intersect_woop_reference(sub[0], sub[1]), 1)
+    s_1 = cuda_time(lambda: kernel(*sub), 10)
+    ops, nbytes = woop_work(kernel, args)
+    bnd, by = bound_ms(ops, nbytes)
+    split = trace_split(18, f"{name} mcpg bounce {kname}", kernel, args, smi)
+    live = float((t_max > 0).float().mean())
+    log(f"phase 18 timing {name} mcpg bounce {n} rays (live {live:.4f}) [{smi}]: {kname} "
+        f"{k_1:.3f} / {k_2:.3f} ms, {oname} forced {f_1:.3f} / {f_2:.3f} ms; on {SUBSET} rays "
+        f"plain {p_1:.1f} ms, {kname} {s_1:.3f} ms; bound {bnd:.4f} ms ({by}; "
+        f"{ops / OPS_NEAREST:.4g} pairs tested); lane use {split['lane_use']:.4f}")
+    return {"ms": (k_1 + k_2) / 2, "other_ms": (f_1 + f_2) / 2, "plain_ms_subset": p_1,
+            "ms_subset": s_1, "bound_ms": bnd, "bound_by": by, "lane_use": split["lane_use"],
+            "rays": n, "live": live, "max_abs_err": max(errs)}
+
+
+# phase 19's bounds, read on an NVIDIA H100 80GB HBM3 (700 W) against its
+# host's CPU, the same in three runs: after 4 frames at 64x36 the LDR
+# images' mean |d| read 1.037e-5, the states with sum_w > 0 16,643 (CPU)
+# and 16,644 (card), the touched light-cache cells 11,736 on both. Pinned
+# with at most twice that room (two of a count that read equal or one apart).
+MCPG_LDR_MEAN_4 = 2e-5
+MCPG_COUNT_ABS = 2
+# 64 accumulated frames of mcpg and of pt, mean irradiance on the pixels
+# the image uses: both estimate the same integral (read 0.0043 apart)
+ESTIMATOR_REL = 0.01
+
+
+def phase19(dev):
+    """MCPG at 64×36 on city: the CPU oracle against the card (frame 0
+    inside PT's tolerance; after 4 frames the LDR, the live chain states
+    and the touched light-cache cells inside pinned bounds), and the
+    estimator against PT's on the card after 64 accumulated frames."""
+    from merian_quake_tpu_torch.models.procedural import city
+    from merian_quake_tpu_torch.models.types import RenderConfig
+    from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+    from merian_quake_tpu_torch.renderer import render_sequence
+
+    small = RenderConfig(width=64, height=36, spp=SPP, max_path_length=MPL, integrator="mcpg")
+    mcfg = MCPGConfig()
+    for frames in (1, 4):
+        k1 = launches()["woop_nearest"]
+        sc, oc = render_sequence(city(device="cpu"), small, frames=frames, mcpg_config=mcfg,
+                                 device="cpu")
+        if launches()["woop_nearest"] != k1:
+            raise AssertionError("the CPU MCPG frames launched K1")
+        sg, og = render_sequence(city(device="cpu"), small, frames=frames, mcpg_config=mcfg)
+        if launches()["woop_nearest"] != k1 + 3 * frames or og["ldr"].device != dev:
+            raise AssertionError("the card's MCPG frames did not launch K1 3 times a frame")
+        diff = (oc["ldr"] - og["ldr"].cpu()).abs()
+        share = float((diff.amax(-1) <= PIX_TOL).float().mean())
+        mean = float(diff.mean())
+        counts = {
+            "states": (int((sc.mcpg.mc.sum_w > 0).sum()), int((sg.mcpg.mc.sum_w > 0).sum())),
+            "lc cells": (int((sc.mcpg.lc.N > 0).sum()), int((sg.mcpg.lc.N > 0).sum())),
+        }
+        same_i = float((sc.mcpg.mc.i == sg.mcpg.mc.i.cpu()).all(-1).float().mean())
+        log(f"phase 19 mcpg cpu vs cuda 64x36 x{frames} frames: pixels within {PIX_TOL} "
+            f"{share:.5f}, mean |d| {mean:.3e}, max |d| {float(diff.max()):.3e}; (cpu, card) "
+            f"{counts}; mc.i rows equal {same_i:.6f}")
+        if share < PIX_SHARE or mean >= (MEAN_TOL if frames == 1 else MCPG_LDR_MEAN_4):
+            raise AssertionError(f"MCPG x{frames}: CPU and card LDR images disagree")
+        for what, (a, b) in counts.items():
+            if a <= 0 or abs(a - b) > MCPG_COUNT_ABS:
+                raise AssertionError(f"MCPG x{frames}: {what} differ, cpu {a} card {b}")
+
+    means = {}
+    for integrator in ("mcpg", "pt"):
+        cfg = small._replace(integrator=integrator)
+        st, _ = render_sequence(city(device="cpu"), cfg, frames=64,
+                                mcpg_config=mcfg if integrator == "mcpg" else None)
+        used = st.accum_albedo[..., :3].amax(-1) > 0
+        means[integrator] = float(st.accum_irradiance[..., :3][used].mean())
+    rel = abs(means["mcpg"] - means["pt"]) / means["pt"]
+    log(f"phase 19 estimator 64x36 x64 accumulated frames on the card: mean irradiance on the "
+        f"pixels the image uses mcpg {means['mcpg']:.5f}, pt {means['pt']:.5f}, relative "
+        f"difference {rel:.4f} (bound {ESTIMATOR_REL})")
+    if rel > ESTIMATOR_REL:
+        raise AssertionError("the guided estimator and the path tracer's disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1278,9 +1588,9 @@ def main() -> int:
     config = RenderConfig(width=W, height=H, spp=SPP, max_path_length=MPL, features=feats)
     n_full = W * H
     po, pd = primary_rays(bundle, accel, dev)
-    bo, bd, bt = bounce_rays(bundle, accel, config, dev)
-    perm = woop.sort_perm(accel, bo, bd, bt)
-    bo, bd, bt = bo[perm].contiguous(), bd[perm].contiguous(), bt[perm].contiguous()
+    ubo, ubd, ubt = bounce_rays(bundle, accel, config, dev)  # as a frame traces them
+    perm = woop.sort_perm(accel, ubo, ubd, ubt)
+    bo, bd, bt = ubo[perm].contiguous(), ubd[perm].contiguous(), ubt[perm].contiguous()
     mid = slice(n_full // 2, n_full // 2 + SUBSET)
     max_abs.append(compare_k1("city primary 65536", woop.k1_inputs(
         accel, po[mid].contiguous(), pd[mid].contiguous(), full(0.0, SUBSET), full(1e4, SUBSET)
@@ -1290,6 +1600,10 @@ def main() -> int:
             accel, bo[mid].contiguous(), bd[mid].contiguous(), full(t_min, SUBSET),
             bt[mid].contiguous(),
         ), woop))
+    max_abs.append(compare_k1("city bounce unsorted 65536 t_min=0.0", woop.k1_inputs(
+        accel, ubo[mid].contiguous(), ubd[mid].contiguous(), full(0.0, SUBSET),
+        ubt[mid].contiguous(),
+    ), woop))
 
     # full 1080p populations: K1 and the plain version timed in turns;
     # the warm-up outputs are held against each other
@@ -1297,6 +1611,7 @@ def main() -> int:
     for name, args in (
         ("primary", woop.k1_inputs(accel, po, pd, full(0.0, n_full), full(1e4, n_full))),
         ("bounce", woop.k1_inputs(accel, bo, bd, full(0.0, n_full), bt)),
+        ("bounce_unsorted", woop.k1_inputs(accel, ubo, ubd, full(0.0, n_full), ubt)),
     ):
         ref = lambda: woop.intersect_woop_reference(args[0], args[1])
         k1 = lambda: woop.woop_nearest(*args)
@@ -1315,10 +1630,10 @@ def main() -> int:
         log(f"phase 2 timing {name} {n_full} rays [{smi}]: K1 {k_1:.3f} / {k_2:.3f} ms, "
             f"plain {r1:.1f} / {r2:.1f} ms; bound {timings[name][2]:.4f} ms "
             f"({timings[name][3]}; {ops / OPS_NEAREST:.4g} pairs tested); K3 forced "
-            f"{s_1:.3f} / {s_2:.3f} ms against K1 {c_1:.3f} / {c_2:.3f} ms; the first design's "
-            f"K1 {FIRST_DESIGN['K1']['ms'][name]:.3f} ms")
+            f"{s_1:.3f} / {s_2:.3f} ms against K1 {c_1:.3f} / {c_2:.3f} ms"
+            + first_design_ms("K1", name))
         k1_split[name] = trace_split(2, f"city {name} K1", woop.woop_nearest, args, smi,
-                                     FIRST_DESIGN["K1"]["split"][name])
+                                     FIRST_DESIGN["K1"]["split"].get(name))
     k1_ctas = woop.ctas_per_sm("woop_nearest", accel.cluster_lo.shape[0])
     log(f"phase 2 K1 on city ({accel.cluster_lo.shape[0]} clusters): {k1_ctas} CTAs of 128 "
         f"threads an SM (the first design: {FIRST_DESIGN['K1']['ctas_per_sm']})")
@@ -1394,21 +1709,34 @@ def main() -> int:
     sched_paths, _ = phase14(dev, c16, smi)
     phase15(dev)
 
+    # ---- phases 16-19: the MCPG surface frame ----
+    mcpg_city, mcpg_sched, city_pops, mcpg_city_t = phase16(dev, bundle, accel, config, c16, smi)
+    mcpg_map, map_pops, mcpg_map_t = phase17(dev, m_bundle, m_accel, m_config, smi)
+    g1 = phase18(dev, "city", accel, city_pops[0], woop.woop_nearest, woop.woop_stream, smi)
+    g3 = phase18(dev, "map", m_accel, map_pops[0], woop.woop_stream, woop.woop_nearest, smi)
+    phase19(dev)
+
     paths = {"pt": pt_city, "restir": restir_city, "dense_map": k8["launches"],
-             "pt_map": map_paths["pt"], "restir_map": map_paths["restir"], **sched_paths}
+             "pt_map": map_paths["pt"], "restir_map": map_paths["restir"], **sched_paths,
+             "mcpg": mcpg_city, "mcpg_map": mcpg_map, **mcpg_sched}
     by_path = lambda k: {p: v[k] for p, v in paths.items()}
     total = lambda k: sum(by_path(k).values())
-    mix = lambda x, key: (x["primary"][key] + 4 * x["bounce"][key]) / 5  # 1 primary + 4 bounce traces
+    # a PT frame's 1 primary + 4 bounce traces, the bounce rays as they lie
+    mix = lambda x, key: (x["primary"][key] + 4 * x["bounce_unsorted"][key]) / 5
     city_t = {k: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), v)) for k, v in timings.items()}
     print(json.dumps({"kernels": [{
         "name": "woop_nearest", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": total("woop_nearest"),
         "launches_by_path": by_path("woop_nearest"),
-        "max_abs_err": max(max_abs), "ms": mix(city_t, "ms"), "plain_ms": mix(city_t, "plain_ms"),
-        "bound_ms": mix(city_t, "bound_ms"), "bound_by": city_t["bounce"]["bound_by"],
+        "max_abs_err": max(max_abs + [g1["max_abs_err"]]), "ms": mix(city_t, "ms"),
+        "plain_ms": mix(city_t, "plain_ms"),
+        "bound_ms": mix(city_t, "bound_ms"), "bound_by": city_t["bounce_unsorted"]["bound_by"],
         "library_ms": None, "rays": n_full, "scene": "city",
         "ctas_per_sm": k1_ctas, "lane_use": {k: v["lane_use"] for k, v in k1_split.items()},
         "cycle_shares": {k: v["shares"] for k, v in k1_split.items()},
+        "sorted_bounce_ms": city_t["bounce"]["ms"],
+        "sorted_bounce_bound_ms": city_t["bounce"]["bound_ms"],
+        "mcpg_bounce": g1, "mcpg_frame_ms": mcpg_city_t["ms"], "mcpg_frame_cold_ms": mcpg_city_t["cold"],
     }, {
         "name": "woop_any", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": total("woop_any"),
@@ -1421,13 +1749,16 @@ def main() -> int:
         "replaces": K3_REPLACES, "launches": total("woop_stream"),
         "launches_by_path": by_path("woop_stream"),
         "anyhit_launches_by_path": by_path("woop_stream_any"),
-        "max_abs_err": k3["max_abs_err"], "ms": mix(k3, "ms"), "plain_ms": mix(k3, "plain_ms"),
-        "bound_ms": mix(k3, "bound_ms"), "bound_by": k3["bounce"]["bound_by"], "library_ms": None,
+        "max_abs_err": max(k3["max_abs_err"], g3["max_abs_err"]), "ms": mix(k3, "ms"),
+        "plain_ms": mix(k3, "plain_ms"),
+        "bound_ms": mix(k3, "bound_ms"), "bound_by": k3["bounce_unsorted"]["bound_by"], "library_ms": None,
         "rays": n_full, "plain_rays": SUBSET, "ms_plain_rays": mix(k3, "subset_ms"),
         "scene": "map", "shadow_ms": k3["shadow"]["ms"],
         "shadow_bound_ms": k3["shadow"]["bound_ms"], "ctas_per_sm": k3["ctas_per_sm"],
-        "lane_use": {k: k3[k]["lane_use"] for k in ("primary", "bounce", "shadow")},
-        "cycle_shares": {k: k3[k]["shares"] for k in ("primary", "bounce", "shadow")},
+        "lane_use": {k: k3[k]["lane_use"] for k in K3_POPS},
+        "cycle_shares": {k: k3[k]["shares"] for k in K3_POPS},
+        "sorted_bounce_ms": k3["bounce"]["ms"], "sorted_bounce_bound_ms": k3["bounce"]["bound_ms"],
+        "mcpg_bounce": g3, "mcpg_frame_ms": mcpg_map_t["ms"], "mcpg_frame_cold_ms": mcpg_map_t["cold"],
     }, {
         "name": "mt_dense", "route": "cuda", "source": K8_SOURCE,
         "replaces": K8_REPLACES, "launches": total("mt_dense"),

@@ -75,16 +75,52 @@ def restir_state_from_numpy(state, device="cuda"):
     )
 
 
+def mcpg_state_from_numpy(state, device="cuda"):
+    """The guiding state carried across frames: both chain tables, the
+    light cache (its 16-bit hash as int32) and the two counters (0-d
+    int64)."""
+    from .render.mcpg.config import LightCache, MCPGState, MCStates
+
+    return MCPGState(
+        mc=MCStates(f=tensor(state.mc.f, device), i=tensor(state.mc.i, device)),
+        lc=LightCache(
+            hash=tensor(state.lc.hash, device).to(torch.int32),
+            irr=tensor(state.lc.irr, device),
+            N=tensor(state.lc.N, device),
+        ),
+        lc_updates_applied=tensor(state.lc_updates_applied, device),
+        lc_updates_merged=tensor(state.lc_updates_merged, device),
+    )
+
+
+def surface_result_from_numpy(result, device="cuda"):
+    """A guided surface pass's result with its queues, so that a replay
+    takes the JAX package's own emission."""
+    from .render.mcpg.surface import LCQueue, SurfaceResult, UpdateQueue, ZeroQueue
+
+    opt = lambda x: None if x is None else tensor(x, device)
+    return SurfaceResult(
+        irradiance=tensor(result.irradiance, device),
+        updates=UpdateQueue(data=tensor(result.updates.data, device)),
+        lc_samples=LCQueue(*[tensor(getattr(result.lc_samples, f), device) for f in LCQueue._fields]),
+        zeros=ZeroQueue(*[tensor(getattr(result.zeros, f), device) for f in ZeroQueue._fields]),
+        live_in=opt(getattr(result, "live_in", None)),
+        gidx=opt(getattr(result, "gidx", None)),
+    )
+
+
 def frame_state_from_numpy(state, device="cuda"):
     """The accumulators, the frame count and, where present, the ReSTIR
-    state of a frame state."""
+    and the MCPG state of a frame state."""
     from .renderer import FrameState
 
     restir = getattr(state, "restir", None)
+    mcpg = getattr(state, "mcpg", None)
     return FrameState(
         accum_irradiance=tensor(state.accum_irradiance, device),
         accum_direct=tensor(state.accum_direct, device),
         accum_albedo=tensor(state.accum_albedo, device),
         iteration=int(np.asarray(state.iteration)),
         restir=None if restir is None else restir_state_from_numpy(restir, device),
+        mcpg=None if mcpg is None else mcpg_state_from_numpy(mcpg, device),
     )

@@ -22,6 +22,13 @@ from .hit import Hit, decompress_hit
 from .trace import trace_ray
 
 
+def sorts_bounce_rays(schedule) -> bool:
+    """Bounce rays are traced as they lie: on the card a coherence sort
+    costs more than it saves. A trace schedule with a target key
+    (accel.woop.TraceSchedule) is a sort by that key, and asks for it."""
+    return schedule is not None and bool(schedule.target_key)
+
+
 def _where_hit(mask, a: Hit, b: Hit) -> Hit:
     m3 = mask[..., None]
     return Hit(
@@ -69,12 +76,14 @@ def render_pt(
             active = ~done & ~below
             wo_p = bsdf.pdf(cur.wi, wo, cur.normal, alpha)
 
-            # trace next segment (origin pulled back, mcpg.comp:144)
+            # trace next segment (origin pulled back, mcpg.comp:144); the
+            # rays go as they lie unless the schedule sorts them by its
+            # target key
             origin = cur.pos - cur.wi * 1e-3
             res = trace_ray(
                 accel, atlas, uniforms, origin, wo,
                 bilinear=config.bilinear, features=config.features,
-                sort_rays=True, active=active, schedule=schedule,
+                sort_rays=sorts_bounce_rays(schedule), active=active, schedule=schedule,
             )
 
             micro = bsdf.eval_times_cos(cur.wi, wo, cur.normal, alpha)

@@ -1,11 +1,13 @@
 """The frame: gbuffer → integrator → accumulate → exposure → tonemap.
 
-Port of merian_quake_tpu/renderer.py for the path-traced (``pt``) and
-ReSTIR DI (``restir``) frames without denoise. PyTorch runs eagerly, so
+Port of merian_quake_tpu/renderer.py for the path-traced (``pt``), the
+ReSTIR DI (``restir``) and the guided (``mcpg``, surface only) frames
+without denoise. PyTorch runs eagerly, so
 ``render_frame`` is ``frame_core`` over the whole image; the state is
 updated out of place, like the JAX package's. The integrator's config
-goes under the JAX package's keyword ``mcpg_config`` (a ReSTIRConfig
-for ``restir``), so that call sites map one to one. ``schedule`` (an
+goes under the JAX package's keyword ``mcpg_config`` (an MCPGConfig for
+``mcpg``, a ReSTIRConfig for ``restir``), so that call sites map one to
+one. ``schedule`` (an
 accel.woop.TraceSchedule; None: the default routes) chooses the card's
 trace schedule, which the JAX package takes from process environment
 switches; it changes no hit, and the CPU oracle ignores it.
@@ -27,10 +29,9 @@ from .render.pt import render_pt
 
 # ROADMAP.md "Modules to port" items for the paths not ported yet
 _NOT_PORTED = {
-    "mcpg": "ROADMAP.md item 5 (MCPG surface path)",
-    "ssmm": "ROADMAP.md item 11 (ReSTIR and SSMM)",
+    "ssmm": "ROADMAP.md item 5 (SSMM)",
 }
-_PORTED = ("pt", "restir")
+_PORTED = ("pt", "restir", "mcpg")
 
 
 class FrameState(NamedTuple):
@@ -41,13 +42,19 @@ class FrameState(NamedTuple):
     accum_albedo: torch.Tensor  # f32[H, W, 4]
     iteration: int
     restir: object = None  # ReSTIRState when integrator == "restir"
+    mcpg: object = None  # MCPGState when integrator == "mcpg"
 
 
-def _check_supported(config: RenderConfig) -> None:
+def _check_supported(config: RenderConfig, mcpg_config=None) -> None:
     if config.denoise:
         raise NotImplementedError(
-            "denoise=True is not ported yet: ROADMAP.md item 9 "
+            "denoise=True is not ported yet: ROADMAP.md item 4 "
             "(denoise and beauty chain)"
+        )
+    if config.integrator == "mcpg" and getattr(mcpg_config, "volume", None) is not None:
+        raise NotImplementedError(
+            "MCPGConfig.volume is not ported yet: ROADMAP.md item 3 "
+            "(volume and production config)"
         )
     if config.integrator not in _PORTED:
         raise NotImplementedError(
@@ -57,18 +64,65 @@ def _check_supported(config: RenderConfig) -> None:
 
 
 def init_state(config: RenderConfig, mcpg_config=None, device="cuda") -> FrameState:
-    _check_supported(config)
+    _check_supported(config, mcpg_config)
     H, W = config.height, config.width
     z = lambda: torch.zeros((H, W, 4), device=device)
     restir = None
+    mcpg = None
     if config.integrator == "restir":
         from .render.restir import init_restir_state
 
         restir = init_restir_state(W, H, device=device)
+    elif config.integrator == "mcpg":
+        from .render.mcpg import MCPGConfig, init_mcpg_state
+
+        mcpg = init_mcpg_state(mcpg_config or MCPGConfig(), device=device)
     return FrameState(
         accum_irradiance=z(), accum_direct=z(), accum_albedo=z(), iteration=0,
-        restir=restir,
+        restir=restir, mcpg=mcpg,
     )
+
+
+def _render_mcpg(accel, atlas, uniforms, config, mcfg, mstate, gbuf, schedule, _surf=None):
+    """The guided surface pass and the replay of its queues into the
+    guiding state. Returns (irradiance image, new MCPGState). ``_surf``:
+    a SurfaceResult to replay instead of rendering one (tests)."""
+    from .render.mcpg.surface import _seg_budgets, render_mcpg_surface
+    from .render.mcpg.updates import apply_updates_compact, compact_queues, queue_gidx
+
+    res = (
+        _surf if _surf is not None
+        else render_mcpg_surface(accel, atlas, uniforms, config, mcfg, mstate, gbuf, schedule)
+    )
+    W, H = config.width, config.height
+    spp = max(config.spp, 1)
+    gidx = (
+        res.gidx if res.gidx is not None
+        else queue_gidx(
+            res.updates.data.shape[0], spp * max(config.max_path_length - 1, 1),
+            W, H, 0, H, device=res.updates.data.device,
+        )
+    )
+    # live-lane compaction makes each segment's queue rows past its
+    # static budget DEAD padding (surface pads the compacted emissions
+    # back to ns rows): slice them off here so that compact_queues sorts
+    # Σbudgets rows instead of segments·ns. In overflow frames the
+    # full-width fallback can emit beyond the budget; those rows drop —
+    # render output stays exact, guiding just learns from fewer samples
+    # that frame.
+    segs_n = max(config.max_path_length - 1, 0)
+    ns_q = W * H * spp
+    buds = _seg_budgets(mcfg, segs_n, ns_q)
+    if any(b < ns_q for b in buds) and res.gidx is not None:
+        sl = lambda x: torch.cat([x[s * ns_q : s * ns_q + b] for s, b in enumerate(buds)])
+        res = res._replace(
+            updates=type(res.updates)(*[sl(x) for x in res.updates]),
+            lc_samples=type(res.lc_samples)(*[sl(x) for x in res.lc_samples]),
+            zeros=type(res.zeros)(*[sl(x) for x in res.zeros]),
+        )
+        gidx = sl(gidx)
+    cq = compact_queues(res, mcfg, gidx, gidx)
+    return res.irradiance, apply_updates_compact(config.seed, mstate, cq, uniforms, mcfg)
 
 
 def frame_core(
@@ -79,13 +133,22 @@ def frame_core(
     state: FrameState,
     mcpg_config=None,
     schedule=None,
+    _surf=None,
 ):
     """One frame. Returns (new_state, outputs) with outputs
     {"hdr", "ldr", "irradiance", "gbuffer"}."""
-    _check_supported(config)
+    _check_supported(config, mcpg_config)
     gbuf = render_gbuffer(accel, atlas, uniforms, config, schedule)
     new_restir = state.restir
-    if config.integrator == "restir":
+    new_mcpg = state.mcpg
+    if config.integrator == "mcpg":
+        from .render.mcpg import MCPGConfig
+
+        irr, new_mcpg = _render_mcpg(
+            accel, atlas, uniforms, config, mcpg_config or MCPGConfig(), state.mcpg,
+            gbuf, schedule, _surf,
+        )
+    elif config.integrator == "restir":
         from .render.restir import ReSTIRConfig, render_restir
 
         irr, new_restir = render_restir(
@@ -101,6 +164,7 @@ def frame_core(
         accum_albedo=accumulate(state.accum_albedo, gbuf.albedo, it),
         iteration=it + 1,
         restir=new_restir,
+        mcpg=new_mcpg,
     )
     beauty_hdr = (
         new_state.accum_irradiance[..., :3]
@@ -136,7 +200,7 @@ def render_sequence(
 ):
     """Render ``frames`` frames of a static scene on ``device``,
     returning the final (state, outputs)."""
-    _check_supported(config)
+    _check_supported(config, mcpg_config)
     bundle = SceneBundle(*[x.to(device) for x in bundle])
     accel = build_accel(bundle.scene, bundle.atlas, device=device)
     config = config._replace(

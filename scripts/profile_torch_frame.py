@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's 1080p frame.
 
-    python3 scripts/profile_torch_frame.py [--integrator pt|restir] [--frames 2] [--out profiling]
+    python3 scripts/profile_torch_frame.py [--integrator pt|restir|mcpg] [--frames 2] [--out profiling]
         [--n-buildings N --seed S]
 
 Needs one CUDA device. On procedural ``city`` (its defaults: 16,640
 triangles; ``--n-buildings 28000 --seed 11`` is the map scene, 281,536
 triangles, traced by K3) at 1920×1080 with chip_smoke.py's
 configurations (``pt``: 2 spp, max path length 3; ``restir``:
-``ReSTIRConfig()``) it measures:
+``ReSTIRConfig()``; ``mcpg``: 2 spp, max path length 3, ``MCPGConfig()``,
+12 warm-up frames so that the chains have learned) it measures:
 
 1. host ms per stage of a steady frame (gbuffer, the integrator, and the
    rest of the frame = accumulate, exposure, tonemap), each stage ended
    by a device sync inside one frame; for ``restir`` also the share of
    its traces (``trace_ray`` of the generate pass, ``trace_visibility``
-   of the shade pass);
+   of the shade pass); for ``mcpg`` the stages are gbuffer, surface,
+   compact_queues, apply_updates_compact and the rest;
 2. a ``torch.profiler`` trace of ``--frames`` steady frames: device time
    against the host clock (the device's busy share), and device time by
    op, the trace kernels (``woop_nearest_kernel``, ``woop_stream_kernel``
@@ -23,9 +25,10 @@ configurations (``pt``: 2 spp, max path length 3; ``restir``:
    sort_rays=True)``: key, sort, gathers, scatter back) against none, on
    one 2,073,600-ray bounce population: the whole trace and its kernel
    alone (K1, or K3 above 65,536 triangles),
-   timed with CUDA events in turns (sort, none, none, sort); then the
-   whole frame with each, in the same turns, 5 steady frames a turn
-   (``pt`` only).
+   timed with CUDA events in turns (sort, none, none, sort) (``pt``
+   only); then the whole frame with the integrator's bounce traces
+   sorted and as they lie (the frame's own way), in the same turns, 5
+   steady frames a turn (``pt`` and ``mcpg``).
 
 Prints one line per measurement and the card's name and power limit;
 the full op table goes to ``<out>/profile_frame_<integrator>[_<n>].txt``
@@ -51,7 +54,11 @@ from merian_quake_tpu_torch.accel.build import scene_features  # noqa: E402
 from merian_quake_tpu_torch.models.procedural import city  # noqa: E402
 from merian_quake_tpu_torch.models.types import RenderConfig  # noqa: E402
 from merian_quake_tpu_torch import renderer  # noqa: E402
+from merian_quake_tpu_torch.render import pt as pt_mod  # noqa: E402
 from merian_quake_tpu_torch.render import restir as restir_pkg  # noqa: E402
+from merian_quake_tpu_torch.render.mcpg import MCPGConfig  # noqa: E402
+from merian_quake_tpu_torch.render.mcpg import surface as surface_mod  # noqa: E402
+from merian_quake_tpu_torch.render.mcpg import updates as updates_mod  # noqa: E402
 from merian_quake_tpu_torch.render.restir import restir as restir_mod  # noqa: E402
 from merian_quake_tpu_torch.renderer import init_state, render_frame  # noqa: E402
 
@@ -68,7 +75,7 @@ def host_ms(fn):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--integrator", choices=("pt", "restir"), default="pt")
+    ap.add_argument("--integrator", choices=("pt", "restir", "mcpg"), default="pt")
     ap.add_argument("--frames", type=int, default=2, help="frames in the profile")
     ap.add_argument("--out", default=os.path.join(ROOT, "profiling"),
                     help="directory for profile_frame_<integrator>.txt")
@@ -96,7 +103,7 @@ def main() -> int:
     feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
     config = RenderConfig(width=W, height=H, spp=SPP, max_path_length=MPL, features=feats,
                           integrator=args.integrator)
-    rcfg = restir_pkg.ReSTIRConfig() if args.integrator == "restir" else None
+    rcfg = {"restir": restir_pkg.ReSTIRConfig(), "mcpg": MCPGConfig()}.get(args.integrator)
     state = init_state(config, rcfg, device=dev)
     u = bundle.uniforms
     frame = 0
@@ -106,7 +113,8 @@ def main() -> int:
         state, _ = render_frame(accel, bundle.atlas, u._replace(frame=frame), config, state, rcfg)
         frame += 1
 
-    for _ in range(2):  # warm up: kernel build, allocator, first launches
+    # warm up: kernel build, allocator, first launches; the chains' learning
+    for _ in range(12 if args.integrator == "mcpg" else 2):
         step()
 
     # ---- 1: host ms per stage ----
@@ -116,6 +124,10 @@ def main() -> int:
     inner = {}
     if args.integrator == "pt":
         top["pt"] = (renderer, "render_pt")
+    elif args.integrator == "mcpg":
+        top.update({"surface": (surface_mod, "render_mcpg_surface"),
+                    "compact_queues": (updates_mod, "compact_queues"),
+                    "apply_updates_compact": (updates_mod, "apply_updates_compact")})
     else:
         top["restir"] = (restir_pkg, "render_restir")
         inner = {"restir trace_ray": (restir_mod, "trace_ray"),
@@ -178,10 +190,37 @@ def main() -> int:
         f.write(f"{smi}\n")
         f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=80))
 
-    if args.integrator != "pt":
+    if args.integrator == "restir":
         return 0
 
     # ---- 3: bounce sort vs none ----
+    if args.integrator == "pt":
+        sort_one_trace(bundle, accel, config, dev, kernel, smi)
+
+    # the whole frame: the integrator's bounce traces sorted, and as they lie
+    frames_ms = {}
+    mod = pt_mod if args.integrator == "pt" else surface_mod
+    plain_trace = mod.trace_ray
+    try:
+        for label in ("sort", "none", "none", "sort"):
+            if label == "sort":
+                mod.trace_ray = lambda *a, **k: plain_trace(*a, **{**k, "sort_rays": True})
+            else:
+                mod.trace_ray = plain_trace
+            step()
+            ms = [host_ms(step)[1] for _ in range(5)]
+            frames_ms.setdefault(label, []).append(float(np.mean(ms)))
+    finally:
+        mod.trace_ray = plain_trace
+    print(f"sort frame {args.integrator} [{smi}]: " + "; ".join(
+        f"{k} {'/'.join(f'{x:.2f}' for x in v)} ms/frame" for k, v in frames_ms.items())
+        + " (host clock, mean of 5 steady frames per turn)", flush=True)
+    return 0
+
+
+def sort_one_trace(bundle, accel, config, dev, kernel, smi):
+    """One 2,073,600-ray bounce population traced with the coherence sort
+    and without: the same hits, the whole trace and its kernel timed."""
     bo, bd, bt = chip_smoke.bounce_rays(bundle, accel, config, dev)
     perm = woop.sort_perm(accel, bo, bd, bt)
     trace = lambda s: woop.intersect_woop(accel, bo, bd, 0.0, bt, sort_rays=s)
@@ -201,24 +240,6 @@ def main() -> int:
         f"{k}: trace {'/'.join(f'{a:.3f}' for a, _ in v)} ms, "
         f"{kernel.__name__} {'/'.join(f'{b:.3f}' for _, b in v)} ms" for k, v in times.items()),
         flush=True)
-
-    frames_ms = {}
-    sorted_trace = woop.intersect_woop
-    try:
-        for label in ("sort", "none", "none", "sort"):
-            if label == "sort":
-                woop.intersect_woop = sorted_trace
-            else:
-                woop.intersect_woop = lambda *a, sort_rays=False, **k: sorted_trace(*a, **k)
-            step()
-            ms = [host_ms(step)[1] for _ in range(5)]
-            frames_ms.setdefault(label, []).append(float(np.mean(ms)))
-    finally:
-        woop.intersect_woop = sorted_trace
-    print(f"sort frame [{smi}]: " + "; ".join(
-        f"{k} {'/'.join(f'{x:.2f}' for x in v)} ms/frame" for k, v in frames_ms.items())
-        + " (host clock, mean of 5 steady frames per turn)", flush=True)
-    return 0
 
 
 if __name__ == "__main__":

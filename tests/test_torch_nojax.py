@@ -1,8 +1,8 @@
 """The port must run where JAX is not installed (the GPU machine has
 none): in a subprocess that blocks ``jax`` before anything is imported,
 build cornell_box and render one 32×16 path-traced frame, one 32×16
-ReSTIR frame and one path-traced frame under a trace schedule on the
-CPU, trace it under the schedule through ``woop.intersect_woop``'s glue,
+ReSTIR frame, two 32×16 guided (MCPG) frames and one path-traced frame
+under a trace schedule on the CPU, trace it under the schedule through ``woop.intersect_woop``'s glue,
 and import ``interop``. And the port's entry
 points run on the card unless the caller asks for the CPU: without a
 CUDA device, a call without ``device=`` raises."""
@@ -29,6 +29,10 @@ assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["hdr"]).all()
 state, out = render_sequence(cornell_box(device="cpu"), RenderConfig(width=32, height=16, integrator="restir"), frames=1, device="cpu")
 assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["hdr"]).all())
 assert state.restir.reservoirs.M.shape == (32 * 16,)
+from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+state, out = render_sequence(cornell_box(device="cpu"), RenderConfig(width=32, height=16, integrator="mcpg"), frames=2, mcpg_config=MCPGConfig(), device="cpu")
+assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["hdr"]).all())
+assert int((state.mcpg.mc.sum_w > 0).sum()) > 0 and int(state.mcpg.lc_updates_applied) > 0
 from merian_quake_tpu_torch.accel import build_accel, woop
 sched = woop.TraceSchedule(True, 8, 32)
 state, out = render_sequence(cornell_box(device="cpu"), RenderConfig(width=32, height=16, spp=1), frames=1, device="cpu", schedule=sched)

@@ -35,6 +35,7 @@ from merian_quake_tpu.models.types import RenderConfig as JConfig
 from merian_quake_tpu.renderer import render_sequence as j_render_sequence
 from merian_quake_tpu_torch.models.procedural import city
 from merian_quake_tpu_torch.models.types import RenderConfig
+from merian_quake_tpu_torch.render.mcpg import MCPGConfig
 from merian_quake_tpu_torch.renderer import init_state, render_sequence
 
 # The suite runs several test processes side by side on a few cores;
@@ -90,9 +91,13 @@ def test_accumulated_irradiance_matches_jax(frames):
     _agree(t_state.accum_irradiance, j_state.accum_irradiance, 0.89, 4e-3, ~used)
 
 
-@pytest.mark.parametrize("config", [
-    RenderConfig(integrator="mcpg"), RenderConfig(integrator="ssmm"), RenderConfig(denoise=True),
+@pytest.mark.parametrize("config, integrator_config", [
+    (RenderConfig(integrator="mcpg"), MCPGConfig(volume=object())),
+    (RenderConfig(integrator="ssmm"), None),
+    (RenderConfig(denoise=True), None),
 ])
-def test_unported_paths_raise(config):
+def test_unported_paths_raise(config, integrator_config):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item \d"):
+        init_state(config, integrator_config, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_state(config, device="cpu")
+        render_sequence(None, config, mcpg_config=integrator_config, device="cpu")
