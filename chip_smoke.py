@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Drives merian_quake_tpu_torch's three paths at 1920×1080 — the guided
-(MCPG) frame (2 spp, max path length 3, ``MCPGConfig()``), the
+(MCPG) frame (2 spp, max path length 3, ``MCPGConfig()``; with the
+volume pass, ``VolumeConfig()`` and ``production_config()``), the
 path-traced frame (2 spp, max path length 3) and the ReSTIR DI frame
 (``ReSTIRConfig()``) — on the first CUDA device, on the procedural
 ``city`` (16,640 triangles), on the map scene ``city(n_buildings=
-28000, seed=11)`` (281,536 triangles) and, under the trace schedules
-(``woop.TraceSchedule``), on ``city(n_buildings=1600)`` (16,128
-triangles in 252 clusters, so that the target key applies), after
+28000, seed=11)`` (281,536 triangles), on ``outdoor_court`` (two
+alpha-tested grates; fogged for the volume pass) and, under the trace
+schedules (``woop.TraceSchedule``), on ``city(n_buildings=1600)``
+(16,128 triangles in 252 clusters, so that the target key applies), after
 building and checking their hand-written kernels: K1
 (csrc/woop_nearest.cu, nearest hit), K2 (csrc/woop_any.cu, any hit), K3
 (csrc/woop_stream.cu, both for tables above 65,536 triangles), K4 and K5
@@ -67,6 +69,7 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
    whole population; K3, K1/K2 and the plain version timed with CUDA
    events in turns, the bound from K3's own count of the pairs it
    tested, and its split by phase, lane use and CTAs an SM as in phase 2;
+   K3 any-hit on the whole table on a 65,536-ray map primary subset;
 9. K8 against the oracle (``accel.intersect._intersect_oracle``) on CUDA
    tensors: the random soup and a 65,536-ray map subset, driven through
    ``intersect_dense`` (the dense path); K8 against K3 there; times;
@@ -124,12 +127,31 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     the slice test's tolerance; after 4 frames the LDR mean difference,
     the live chain states and the touched light-cache cells within
     pinned bounds; then 64 accumulated frames of ``mcpg`` and of ``pt``
-    on the card agree in mean irradiance (guiding is unbiased).
+    on the card agree in mean irradiance (guiding is unbiased);
+20. the court at 1080p: 6 PT, 6 ReSTIR and 6 MCPG frames; every frame's
+    K1 launches equal its ``intersect`` calls (each alpha re-trace round
+    is one; K2 on ReSTIR's visibility), the alpha loops' rounds and host
+    reads counted and timed (CUDA events and the host clock around each
+    loop), one more frame's synchronizing calls counted
+    (``set_sync_debug_mode("warn")``); 64×36 CPU against card;
+21. the fogged court (``fog_mu_t`` 0.002), MCPG + ``VolumeConfig()``, at
+    1080p: 9 frames as phase 20's, cold and frames 6-8 with Mrays/s
+    counting the volume rays, the distance-MC states with sum_w > 0 per
+    frame; K1 on the volume pass's 2,073,600 scatter rays as phase 18
+    holds K1 on the guided rays; 4 frames at 64×36 on the CPU against the
+    card within tests/test_torch_volume_slice.py's bounds;
+22. ``production_config()`` on city at 1080p: two settle frames, then 9
+    from an empty state with exactly 3 + volume_spp K1 launches a frame,
+    the cold frame and frames 6-8 (bench.py's window), peak device
+    memory, one ``pack_states_draw`` of the 33.6M-row table, and a
+    steady frame under ``torch.cuda.set_sync_debug_mode("error")``.
 
 Each path (PT city, ReSTIR city, dense map, PT map, ReSTIR map, the five
-city(1600) frame runs of phase 14, MCPG city, MCPG map and the two
-city(1600) MCPG runs of phase 16) is driven with every launch count set
-to 0 just before it and read just after. The line before the
+city(1600) frame runs of phase 14, MCPG city, MCPG map, the two
+city(1600) MCPG runs of phase 16, court PT, ReSTIR and MCPG, the fogged
+court's MCPG + volume and production city) is driven with every launch
+count set to 0 just before it and read just after. The whole run's
+seconds are printed before the kernels' line. The line before the
 last is the kernels' JSON record (with each kernel's launches by path
 and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its FP32 operations over the card's issue rate
@@ -712,6 +734,11 @@ def phase8(dev, soup, bundle, accel, config, smi):
                          woop.woop_stream(rays, *shadow, anyhit=True, occluded_in=pre), plain,
                          phase=8))
     subsets["shadow"] = (rays, shadow, pre)
+    # any-hit on the whole table (no shadow table): the map's primary rays
+    args = woop.k1_inputs(accel, sub(po), sub(pd), full(1e-3, SUBSET), full(1e4, SUBSET))
+    errs.append(check_k2(f"map primary {SUBSET} t_min=0.001 K3 any-hit vs plain",
+                         woop.woop_stream(*args, anyhit=True),
+                         woop.intersect_woop_any_reference(args[0], args[1]), phase=8))
 
     # the whole populations: K3 against K1/K2 on the same table
     pops = {
@@ -1264,10 +1291,10 @@ def check_mcpg_finite(path, state, out):
 
 
 def mcpg_frames(phase, path, dev, bundle, accel, config, mcfg, frames, window, expect, smi,
-                schedule=None):
+                schedule=None, rays=W * H * (1 + SPP * (MPL - 1))):
     """``frames`` MCPG frames at 1080p with the launch counts set to 0
     just before and read just after, each frame's launches held to
-    ``expect`` exactly. Prints, per frame, ms, the
+    ``expect`` exactly; ``rays`` a frame for the rate. Prints, per frame, ms, the
     count of chain states with sum_w > 0 and ``lc_updates_applied`` (read
     outside the timed region). Returns (state, out, the path's launches,
     frame ms)."""
@@ -1293,7 +1320,6 @@ def mcpg_frames(phase, path, dev, bundle, accel, config, mcfg, frames, window, e
     check_mcpg_finite(path, state, out)
     lo, hi = window
     steady = float(np.mean(frame_ms[lo:hi]))
-    rays = W * H * (1 + SPP * (MPL - 1))
     log(f"phase {phase} {path} {W}x{H} spp {SPP} mpl {MPL} "
         f"schedule={tuple(schedule) if schedule else None} [{smi}]: launches "
         f"{ {k: v for k, v in counts.items() if v} }; cold {frame_ms[0]:.1f} ms, mean of frames "
@@ -1414,11 +1440,12 @@ def phase17(dev, bundle, accel, config, smi):
     return counts, pops, {"ms": float(np.mean(frame_ms[6:9])), "cold": frame_ms[0]}
 
 
-def phase18(dev, name, accel, pop, kernel, other, smi):
-    """K1 (city) or K3 (map) on one MCPG bounce segment's rays: against
-    its plain version on a 65,536-ray subset and against the other
-    route, forced, on the whole population, bit for bit; time in turns,
-    pairs tested, bound and lane use."""
+def phase18(dev, name, accel, pop, kernel, other, smi, what="mcpg bounce", phase=18):
+    """K1 (city) or K3 (map) on one MCPG bounce segment's rays (or on
+    another population ``what``): against its plain version on a
+    65,536-ray subset and against the other route, forced, on the whole
+    population, bit for bit; time in turns, pairs tested, bound and lane
+    use."""
     from merian_quake_tpu_torch.accel import woop
 
     o, d, t_max = pop
@@ -1428,12 +1455,12 @@ def phase18(dev, name, accel, pop, kernel, other, smi):
     mid = slice(n // 2, n // 2 + SUBSET)
     sub = woop.k1_inputs(accel, o[mid].contiguous(), d[mid].contiguous(),
                          torch.zeros(SUBSET, device=dev), t_max[mid].contiguous())
-    errs = [check_exact(18, f"{name} mcpg bounce {SUBSET} {kname} vs plain", kernel(*sub),
+    errs = [check_exact(phase, f"{name} {what} {SUBSET} {kname} vs plain", kernel(*sub),
                         woop.intersect_woop_reference(sub[0], sub[1]))]
     args = woop.k1_inputs(accel, o, d, torch.zeros(n, device=dev), t_max)
     if args[0].shape[1] % 128:
         raise AssertionError("the packed ray count is not a multiple of 128")
-    errs.append(check_exact(18, f"{name} mcpg bounce {n} {kname} vs {oname} forced",
+    errs.append(check_exact(phase, f"{name} {what} {n} {kname} vs {oname} forced",
                             kernel(*args), other(*args)))
     k, f = (lambda: kernel(*args)), (lambda: other(*args))
     k_1, f_1, f_2, k_2 = cuda_time(k, 10), cuda_time(f, 10), cuda_time(f, 10), cuda_time(k, 10)
@@ -1441,9 +1468,9 @@ def phase18(dev, name, accel, pop, kernel, other, smi):
     s_1 = cuda_time(lambda: kernel(*sub), 10)
     ops, nbytes = woop_work(kernel, args)
     bnd, by = bound_ms(ops, nbytes)
-    split = trace_split(18, f"{name} mcpg bounce {kname}", kernel, args, smi)
+    split = trace_split(phase, f"{name} {what} {kname}", kernel, args, smi)
     live = float((t_max > 0).float().mean())
-    log(f"phase 18 timing {name} mcpg bounce {n} rays (live {live:.4f}) [{smi}]: {kname} "
+    log(f"phase {phase} timing {name} {what} {n} rays (live {live:.4f}) [{smi}]: {kname} "
         f"{k_1:.3f} / {k_2:.3f} ms, {oname} forced {f_1:.3f} / {f_2:.3f} ms; on {SUBSET} rays "
         f"plain {p_1:.1f} ms, {kname} {s_1:.3f} ms; bound {bnd:.4f} ms ({by}; "
         f"{ops / OPS_NEAREST:.4g} pairs tested); lane use {split['lane_use']:.4f}")
@@ -1517,9 +1544,363 @@ def phase19(dev):
         raise AssertionError("the guided estimator and the path tracer's disagree")
 
 
+# the fogged court's extinction: optically thin over the court's depth
+# (the camera sees 100-900 units of fog), so the medium scatters visibly
+FOG_MU_T = 0.002
+# the fogged court's CPU-vs-card bounds at 64x36 after 4 frames: those of
+# tests/test_torch_volume_slice.py, read from the JAX package's own
+# jitted-vs-op-by-op spread (the image border's history validity is an
+# ulp's decision under a still camera)
+VOLUME_LDR = (0.94, 2.55e-3)
+VOLUME_IMAGE = (0.995, 1e-5)
+# the court's CPU-vs-card LDR bound: tests/test_torch_scenes.py's against
+# the JAX package's jitted run, read from its own jitted-vs-op-by-op
+# spread (98.48%, 3.10e-4): the grates' alpha test and the water's
+# warped texels turn on the hit's barycentrics, which the Woop test and
+# the oracle's Möller-Trumbore round apart
+COURT_LDR = (0.98, 3.9e-4)
+
+
+class AlphaLoop:
+    """Counts and times ``trace_nearest``'s alpha re-trace loop on the card:
+    while installed, every ``intersect`` call (one K1 or K3 launch on the
+    card) and every ``trace_nearest`` call given a texture atlas (the
+    loop) is counted; each loop reads one device value a round on the
+    host (``bool(active.any())``), so its host reads are its rounds plus
+    one where it stopped early. CUDA events and the host clock around
+    each loop give its device and host time."""
+
+    def __init__(self):
+        import importlib
+
+        # the modules (accel/__init__ binds the name ``intersect`` to a function)
+        imod = importlib.import_module("merian_quake_tpu_torch.accel.intersect")
+        tmod = importlib.import_module("merian_quake_tpu_torch.render.trace")
+        self.mods = (imod, tmod)
+        self.plain_intersect, self.plain_nearest = imod.intersect, imod.trace_nearest
+        self.reset()
+
+    def reset(self):
+        self.intersects = self.loops = self.rounds = self.reads = 0
+        self.events, self.host_s = [], 0.0
+
+    def _intersect(self, *a, **k):
+        self.intersects += 1
+        return self.plain_intersect(*a, **k)
+
+    def _nearest(self, accel, tex, *a, **k):
+        if tex is None:
+            return self.plain_nearest(accel, tex, *a, **k)
+        from merian_quake_tpu_torch.models import materials
+
+        n0 = self.intersects
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        out = self.plain_nearest(accel, tex, *a, **k)
+        e1.record()
+        self.host_s += time.perf_counter() - t0
+        self.events.append((e0, e1))
+        rounds = self.intersects - n0
+        self.loops += 1
+        self.rounds += rounds
+        self.reads += rounds + (rounds < materials.MAX_INTERSECTIONS)
+        return out
+
+    def __enter__(self):
+        imod, tmod = self.mods
+        imod.intersect, imod.trace_nearest, tmod.trace_nearest = (
+            self._intersect, self._nearest, self._nearest)
+        return self
+
+    def __exit__(self, *exc):
+        imod, tmod = self.mods
+        imod.intersect, imod.trace_nearest, tmod.trace_nearest = (
+            self.plain_intersect, self.plain_nearest, self.plain_nearest)
+
+    def device_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def count_syncs(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")`` and
+    return (its result, the synchronizing calls it made)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def court(dev, fog=0.0):
+    """The outdoor court (two alpha-tested grates, sky, sun, water; fog
+    ``fog``), its accel and its 1080p config."""
+    from merian_quake_tpu_torch.accel import build_accel
+    from merian_quake_tpu_torch.accel.build import scene_features
+    from merian_quake_tpu_torch.models.procedural import outdoor_court
+    from merian_quake_tpu_torch.models.types import RenderConfig
+
+    bundle = outdoor_court(fog, device=dev)
+    accel = build_accel(bundle.scene, bundle.atlas)
+    feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
+    if not feats.has_alpha_tris or accel.woop_w_alpha is None:
+        raise AssertionError("the court has no alpha-tested triangles")
+    return bundle, accel, RenderConfig(width=W, height=H, spp=SPP, max_path_length=MPL,
+                                       features=feats)
+
+
+def court_frames(phase, path, dev, bundle, accel, config, mcfg, frames, window, rays, smi):
+    """``frames`` frames of a court path at 1080p with the launch counts set
+    to 0 just before and read just after; every frame's K1 launches equal
+    its ``intersect`` calls (the alpha loop's rounds among them) and it
+    launches nothing else but K2 on ReSTIR's visibility; then one more
+    frame whose synchronizing calls are counted against the alpha loop's
+    host reads. Returns (state, out, the path's launches, {"ms", "cold",
+    the per-frame loop numbers})."""
+    from merian_quake_tpu_torch.renderer import init_state, render_frame
+
+    state = init_state(config, mcfg, device=dev)
+    probe = AlphaLoop()
+    reset_launches()
+    frame_ms, per = [], []
+    with probe:
+        for i in range(frames + 1):
+            before = launches()
+            probe.reset()
+            step = lambda: render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=i),
+                                        config, state, mcfg)
+            if i == frames:  # the extra frame: its synchronizing calls
+                (state, out), syncs = count_syncs(step)
+                loop_dev = probe.device_ms()
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, out = step()
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+            got = {k: v - before[k] for k, v in launches().items()}
+            k2 = got.pop("woop_any")
+            if (got["woop_nearest"] != probe.intersects or any(v for k, v in got.items()
+                                                               if k != "woop_nearest")
+                    or (k2 > 0) != (config.integrator == "restir") or probe.rounds <= probe.loops):
+                raise AssertionError(f"{path} frame {i}: launched {got} and K2 {k2} for "
+                                     f"{probe.intersects} intersect calls, {probe.loops} alpha "
+                                     f"loops of {probe.rounds} rounds")
+            if i < frames:
+                per.append((got["woop_nearest"], k2, probe.loops, probe.rounds, probe.reads,
+                            probe.host_s * 1e3, probe.device_ms()))
+    counts = launches()
+    for name, x in (("ldr", out["ldr"]), ("hdr", out["hdr"]),
+                    ("accum_irradiance", state.accum_irradiance)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{path} {name} is not finite")
+    if tuple(out["ldr"].shape) != (H, W, 3) or float(out["ldr"].std()) <= 0.0:
+        raise AssertionError(f"{path} ldr has the wrong shape or is constant")
+    if syncs < probe.reads:
+        raise AssertionError(f"{path}: {syncs} synchronizing calls, fewer than the alpha "
+                             f"loop's {probe.reads} host reads")
+    lo, hi = window
+    steady = float(np.mean(frame_ms[lo:hi]))
+    k1, k2, loops, rounds, reads, host_ms, dev_ms = (float(np.mean(c)) for c in zip(*per[lo:hi]))
+    log(f"phase {phase} {path} {W}x{H} spp {SPP} mpl {MPL} [{smi}]: launches "
+        f"{ {k: v for k, v in counts.items() if v} }; cold {frame_ms[0]:.1f} ms, mean of frames "
+        f"{lo}-{hi - 1} {steady:.1f} ms/frame, {rays / steady / 1e3:.2f} Mrays/s (frames "
+        f"{', '.join(f'{x:.1f}' for x in frame_ms)}); a frame (mean of the same): K1 {k1:.1f}, "
+        f"K2 {k2:.1f}, alpha loops {loops:.1f} of {rounds:.1f} rounds, {reads:.1f} host reads, "
+        f"the loops {host_ms:.2f} ms on the host clock and {dev_ms:.2f} ms between their CUDA "
+        f"events; frame {frames}: {syncs} synchronizing calls, the loops' reads {probe.reads} "
+        f"(loops {loop_dev:.2f} ms on the device); ldr mean {float(out['ldr'].mean()):.4f}")
+    return state, out, counts, {"ms": steady, "cold": frame_ms[0], "k1_per_frame": k1,
+                                "alpha_loops": loops, "alpha_rounds": rounds,
+                                "host_reads": reads, "loop_host_ms": host_ms,
+                                "loop_device_ms": dev_ms, "syncs": syncs}
+
+
+def cpu_vs_card(phase, name, bundle_fn, config, mcfg, frames, bounds):
+    """``frames`` frames at 64x36 on the CPU (oracle) and on the card:
+    each output of ``bounds`` ({key: (share within 1e-3, mean |d|)})
+    within its bound."""
+    from merian_quake_tpu_torch.renderer import render_sequence
+
+    k1 = launches()["woop_nearest"]
+    _, oc = render_sequence(bundle_fn(), config, frames=frames, mcpg_config=mcfg, device="cpu")
+    _, og = render_sequence(bundle_fn(), config, frames=frames, mcpg_config=mcfg)
+    if launches()["woop_nearest"] == k1 or og["ldr"].device.type != "cuda":
+        raise AssertionError(f"{name}: the card's frames did not launch K1")
+    for key, (share_min, mean_max) in bounds.items():
+        diff = (oc[key] - og[key].cpu()).abs()
+        share = float((diff.amax(-1) <= PIX_TOL).float().mean())
+        mean = float(diff.mean())
+        log(f"phase {phase} {name} cpu vs cuda 64x36 x{frames} frames {key}: pixels within "
+            f"{PIX_TOL} {share:.5f} (bound {share_min}), mean |d| {mean:.3e} (bound {mean_max}), "
+            f"max |d| {float(diff.max()):.3e}")
+        if share < share_min or mean >= mean_max:
+            raise AssertionError(f"{name} {key}: CPU and card images disagree")
+
+
+def phase20(dev, smi):
+    """The court at 1080p: PT, ReSTIR and MCPG frames with their alpha
+    loops counted; CPU against card at 64x36."""
+    from merian_quake_tpu_torch.models.procedural import outdoor_court
+    from merian_quake_tpu_torch.models.types import RenderConfig
+    from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+    from merian_quake_tpu_torch.render.restir import ReSTIRConfig
+
+    bundle, accel, config = court(dev)
+    rays = W * H * (1 + SPP * (MPL - 1))
+    paths, stats = {}, {}
+    for integrator, mcfg in (("pt", None), ("restir", ReSTIRConfig()), ("mcpg", MCPGConfig())):
+        _, _, paths[f"court_{integrator}"], stats[integrator] = court_frames(
+            20, f"court {integrator}", dev, bundle, accel, config._replace(integrator=integrator),
+            mcfg, 6, (2, 6), rays, smi)
+    small = RenderConfig(width=64, height=36, spp=SPP, max_path_length=MPL)
+    for integrator, mcfg in (("pt", None), ("restir", ReSTIRConfig()), ("mcpg", MCPGConfig())):
+        # MCPG: frame 0 (unguided), as phase 19 holds city's
+        cpu_vs_card(20, f"court {integrator}", lambda: outdoor_court(device="cpu"),
+                    small._replace(integrator=integrator), mcfg,
+                    1 if integrator == "mcpg" else 2, {"ldr": COURT_LDR})
+    return paths, stats
+
+
+def volume_population(bundle, accel, config, mcfg, state, frame):
+    """One more volume frame with the volume pass's traces recorded:
+    returns (the new state, [(origin, direction, t_max) of each volume
+    sample]) as the pass hands them to ``trace_ray`` (every ray live)."""
+    from merian_quake_tpu_torch.render.mcpg import volume
+    from merian_quake_tpu_torch.render.trace import T_MAX
+    from merian_quake_tpu_torch.renderer import render_frame
+
+    plain, seen = volume.trace_ray, []
+
+    def record(acc, atlas, uniforms, pos, wi, *a, **k):
+        seen.append((pos.contiguous(), wi.contiguous(), torch.full_like(pos[:, 0], T_MAX)))
+        return plain(acc, atlas, uniforms, pos, wi, *a, **k)
+
+    volume.trace_ray = record
+    try:
+        state, _ = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=frame), config,
+                                state, mcfg)
+    finally:
+        volume.trace_ray = plain
+    if len(seen) != mcfg.volume.volume_spp or seen[0][0].shape[0] != W * H:
+        raise AssertionError("the volume pass traced other populations than W·H a sample")
+    return state, seen
+
+
+def phase21(dev, smi):
+    """The fogged court, MCPG + VolumeConfig(), at 1080p: 9 frames, the
+    distance states learning; K1 on the volume pass's scatter rays; CPU
+    against card at 64x36 over 4 frames."""
+    from merian_quake_tpu_torch.accel import woop
+    from merian_quake_tpu_torch.models.procedural import outdoor_court
+    from merian_quake_tpu_torch.models.types import RenderConfig
+    from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+    from merian_quake_tpu_torch.render.mcpg.volume import VolumeConfig
+
+    bundle, accel, config = court(dev, FOG_MU_T)
+    config = config._replace(integrator="mcpg")
+    mcfg = MCPGConfig(volume=VolumeConfig())
+    rays = W * H * (1 + SPP * (MPL - 1) + mcfg.volume.volume_spp)
+    seen_live = []
+    from merian_quake_tpu_torch import renderer
+
+    plain_frame = renderer.render_frame
+
+    def frame_and_states(*a, **k):
+        out = plain_frame(*a, **k)
+        seen_live.append(out[0].volume.dist_mc.sum_w)
+        return out
+
+    renderer.render_frame = frame_and_states
+    try:
+        state, out, counts, stats = court_frames(21, "court fog mcpg + volume", dev, bundle, accel,
+                                                 config, mcfg, 9, (6, 9), rays, smi)
+    finally:
+        renderer.render_frame = plain_frame
+    live = [int((x > 0).sum()) for x in seen_live]
+    vol = out["volume"]
+    if not (bool(torch.isfinite(state.accum_volume).all()) and float(vol[..., :3].mean()) > 0.0):
+        raise AssertionError("the fogged court's volume image is not finite or is black")
+    if not (live[0] > 0 and live[-1] > live[0]):
+        raise AssertionError(f"the distance states do not learn: {live}")
+    log(f"phase 21 court fog (mu_t {FOG_MU_T}) distance-MC states with sum_w > 0 per frame {live} "
+        f"(of {state.volume.dist_mc.sum_w.numel()}); chain states with sum_w > 0 "
+        f"{int((state.mcpg.mc.sum_w > 0).sum())}; volume image mean "
+        f"{float(vol[..., :3].mean()):.5f}, accumulated {float(state.accum_volume[..., :3].mean()):.5f}")
+
+    _, pops = volume_population(bundle, accel, config, mcfg, state, 10)
+    g_vol = phase18(dev, "court fog", accel, pops[0], woop.woop_nearest, woop.woop_stream, smi,
+                    what="volume scatter", phase=21)
+
+    small = RenderConfig(width=64, height=36, spp=1, max_path_length=MPL, integrator="mcpg")
+    cpu_vs_card(21, "court fog mcpg + volume", lambda: outdoor_court(FOG_MU_T, device="cpu"),
+                small, mcfg, 4, {"ldr": VOLUME_LDR, "volume": VOLUME_IMAGE})
+    return counts, stats, g_vol
+
+
+def phase22(dev, bundle, accel, config, smi):
+    """``production_config()`` on city at 1080p: two settle frames, then 9
+    frames from an empty state (bench.py's window, frames 6-8), exactly 3
+    + volume_spp K1 launches a frame; peak device memory; one
+    ``pack_states_draw``; a steady frame with no synchronizing call."""
+    from merian_quake_tpu_torch.render.mcpg import grids
+    from merian_quake_tpu_torch.render.mcpg.config import production_config
+    from merian_quake_tpu_torch.renderer import init_state, render_frame
+
+    cfg, _ = mcpg_scene_config(config)
+    prod = production_config()
+    state = init_state(cfg, prod, device=dev)
+    for i in range(2):  # settle: the caching allocator's first frames
+        state, _ = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=1000 + i), cfg,
+                                state, prod)
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k1 = 3 + prod.volume.volume_spp
+    rays = W * H * (1 + SPP * (MPL - 1) + prod.volume.volume_spp)
+    state, out, counts, frame_ms, (live, applied) = mcpg_frames(
+        22, "production city", dev, bundle, accel, cfg, prod, 9, (6, 9), {"woop_nearest": k1}, smi,
+        rays=rays)
+    peak = torch.cuda.max_memory_allocated()
+    if counts != {**{k: 0 for k in counts}, "woop_nearest": 9 * k1}:
+        raise AssertionError(f"the production frames launched {counts}, expected K1 alone")
+    if not (live[-1] > live[0] > 0 and applied[-1] > applied[0] > 0):
+        raise AssertionError(f"production guiding does not learn: {live}, {applied}")
+    dist_live = int((state.volume.dist_mc.sum_w > 0).sum())
+    pack = cuda_time(lambda: grids.pack_states_draw(state.mcpg.mc, bundle.uniforms.cl_time), 5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, out = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=9), cfg,
+                                  state, prod)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check_mcpg_finite("production city", state, out)
+    steady = float(np.mean(frame_ms[6:9]))
+    log(f"phase 22 production city [{smi}]: {prod.mc_total_size} chain states, {prod.lc_size} "
+        f"light-cache cells, volume spp {prod.volume.volume_spp}; cold {frame_ms[0]:.1f} ms, "
+        f"frames 6-8 {steady:.1f} ms/frame = {rays / steady / 1e3:.2f} Mrays/s ({rays} rays a "
+        f"frame); peak device memory {peak / 2**30:.3f} GiB; one pack_states_draw {pack:.3f} ms "
+        f"(a {state.mcpg.mc.f.shape[0]} x 8 table); distance states with sum_w > 0 "
+        f"{dist_live} (city has no fog: mu_t = 0, nothing scatters); frame 9 under torch.cuda.set_sync_debug_mode('error'): no synchronizing "
+        f"call")
+    return counts, {"ms": steady, "cold": frame_ms[0], "peak_bytes": peak, "pack_ms": pack}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    run_t0 = time.perf_counter()
     from merian_quake_tpu_torch import kernels
     from merian_quake_tpu_torch.accel import build_accel, woop
     from merian_quake_tpu_torch.accel.build import scene_features
@@ -1716,9 +2097,16 @@ def main() -> int:
     g3 = phase18(dev, "map", m_accel, map_pops[0], woop.woop_stream, woop.woop_nearest, smi)
     phase19(dev)
 
+    # ---- phases 20-22: the court, the volume pass, the production config ----
+    court_paths, court_stats = phase20(dev, smi)
+    volume_path, volume_stats, g_vol = phase21(dev, smi)
+    prod_path, prod_stats = phase22(dev, bundle, accel, config, smi)
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - run_t0:.1f} s")
+
     paths = {"pt": pt_city, "restir": restir_city, "dense_map": k8["launches"],
              "pt_map": map_paths["pt"], "restir_map": map_paths["restir"], **sched_paths,
-             "mcpg": mcpg_city, "mcpg_map": mcpg_map, **mcpg_sched}
+             "mcpg": mcpg_city, "mcpg_map": mcpg_map, **mcpg_sched, **court_paths,
+             "mcpg_court_volume": volume_path, "mcpg_production": prod_path}
     by_path = lambda k: {p: v[k] for p, v in paths.items()}
     total = lambda k: sum(by_path(k).values())
     # a PT frame's 1 primary + 4 bounce traces, the bounce rays as they lie
@@ -1737,6 +2125,8 @@ def main() -> int:
         "sorted_bounce_ms": city_t["bounce"]["ms"],
         "sorted_bounce_bound_ms": city_t["bounce"]["bound_ms"],
         "mcpg_bounce": g1, "mcpg_frame_ms": mcpg_city_t["ms"], "mcpg_frame_cold_ms": mcpg_city_t["cold"],
+        "volume_scatter": g_vol, "court_alpha_loop": {**court_stats, "mcpg_volume": volume_stats},
+        "production_frame": prod_stats,
     }, {
         "name": "woop_any", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": total("woop_any"),

@@ -11,8 +11,9 @@ same outputs within a stated tolerance (tests/test_torch_*.py).
   any-hit kernels K1 and K2, the streamed-table kernel K3 for tables
   above 65,536 triangles, and the dense Möller–Trumbore sweep K8
 - ``ops``: math/sampling library as plain torch functions
-- ``render``: trace + shading, gbuffer, path tracer, ReSTIR DI
-- ``post``: accumulation and tonemapping
+- ``render``: trace + shading, gbuffer, path tracer, ReSTIR DI, MCPG
+  (surface and volume passes)
+- ``post``: accumulation (plain and reprojected) and tonemapping
 - ``renderer``: the frame loop
 - ``interop``: the JAX package's objects, as arrays, into these containers
 

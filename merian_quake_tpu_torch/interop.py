@@ -93,17 +93,31 @@ def mcpg_state_from_numpy(state, device="cuda"):
     )
 
 
+def volume_state_from_numpy(state, device="cuda"):
+    """The volume pass's state: the distance-MC grid and the expected
+    scatter depths."""
+    from .render.mcpg.volume import DistanceMC, VolumeState
+
+    return VolumeState(
+        dist_mc=DistanceMC(*[tensor(getattr(state.dist_mc, f), device) for f in DistanceMC._fields]),
+        volume_depth=tensor(state.volume_depth, device),
+        prev_volume_depth=tensor(state.prev_volume_depth, device),
+    )
+
+
 def surface_result_from_numpy(result, device="cuda"):
-    """A guided surface pass's result with its queues, so that a replay
-    takes the JAX package's own emission."""
-    from .render.mcpg.surface import LCQueue, SurfaceResult, UpdateQueue, ZeroQueue
+    """A guided surface (or volume) pass's result with its queues, so
+    that a replay takes the JAX package's own emission."""
+    from .render.mcpg.surface import DistQueue, LCQueue, SurfaceResult, UpdateQueue, ZeroQueue
 
     opt = lambda x: None if x is None else tensor(x, device)
+    dist = getattr(result, "dist", None)
     return SurfaceResult(
         irradiance=tensor(result.irradiance, device),
         updates=UpdateQueue(data=tensor(result.updates.data, device)),
         lc_samples=LCQueue(*[tensor(getattr(result.lc_samples, f), device) for f in LCQueue._fields]),
         zeros=ZeroQueue(*[tensor(getattr(result.zeros, f), device) for f in ZeroQueue._fields]),
+        dist=None if dist is None else DistQueue(data=tensor(dist.data, device)),
         live_in=opt(getattr(result, "live_in", None)),
         gidx=opt(getattr(result, "gidx", None)),
     )
@@ -111,11 +125,14 @@ def surface_result_from_numpy(result, device="cuda"):
 
 def frame_state_from_numpy(state, device="cuda"):
     """The accumulators, the frame count and, where present, the ReSTIR
-    and the MCPG state of a frame state."""
+    and the MCPG state and the volume's state and history of a frame
+    state."""
     from .renderer import FrameState
 
     restir = getattr(state, "restir", None)
     mcpg = getattr(state, "mcpg", None)
+    volume = getattr(state, "volume", None)
+    opt = lambda x: None if x is None else tensor(x, device)
     return FrameState(
         accum_irradiance=tensor(state.accum_irradiance, device),
         accum_direct=tensor(state.accum_direct, device),
@@ -123,4 +140,7 @@ def frame_state_from_numpy(state, device="cuda"):
         iteration=int(np.asarray(state.iteration)),
         restir=None if restir is None else restir_state_from_numpy(restir, device),
         mcpg=None if mcpg is None else mcpg_state_from_numpy(mcpg, device),
+        volume=None if volume is None else volume_state_from_numpy(volume, device),
+        accum_volume=opt(getattr(state, "accum_volume", None)),
+        accum_volume_len=opt(getattr(state, "accum_volume_len", None)),
     )

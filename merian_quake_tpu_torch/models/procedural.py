@@ -1,9 +1,11 @@
-"""Procedural test scenes: ``cornell_box`` and ``city``.
+"""Procedural test scenes.
 
-Port of the two scenes of merian_quake_tpu/models/procedural.py that the
-port's tests and ``chip_smoke.py`` render, with their texture helpers.
-The host build is numpy; the bundle's tensors land on ``device``. Units
-and axes follow Quake: 1 unit ≈ 1 inch, +z up.
+Port of merian_quake_tpu/models/procedural.py: a closed Cornell-style
+room, an outdoor court (sky, sun, water, an alpha-tested grate, optional
+fog), a guiding scene with its light behind a slot, the map-scale city
+and a furnace, with their texture helpers. The host build is numpy; the
+bundle's tensors land on ``device``. Units and axes follow Quake: 1 unit
+≈ 1 inch, +z up.
 """
 from __future__ import annotations
 
@@ -110,6 +112,16 @@ def _checker_tex(rgb_a, rgb_b, size=32, cells=4):
     return t
 
 
+def _grate_tex(size=32):
+    """Alpha-tested grate: opaque bars, transparent holes."""
+    t = np.zeros((size, size, 4), np.uint8)
+    t[..., :3] = 140
+    bars = (np.arange(size) % 8) < 3
+    opaque = bars[:, None] | bars[None, :]
+    t[..., 3] = np.where(opaque, 255, 0)
+    return t
+
+
 def _sky_tex(size=64, seed=7):
     """Quake-ish sky layer: dark blue-purple base with brighter cloud
     blotches (values stay low — the classic-sky shader boosts them with
@@ -187,6 +199,121 @@ def cornell_box(emission=16.0, device="cuda") -> SceneBundle:
     return SceneBundle(scene, atlas, uniforms)
 
 
+def outdoor_court(fog_mu_t=0.0, device="cuda") -> SceneBundle:
+    """Open court with sky walls/ceiling, sun, water pool, alpha grate.
+
+    Exercises: MAT_FLAGS_SKY + classic sky sampling + sun vMF glow,
+    water UV warp + roughness, alpha-tested transparency, fullbright
+    emission textures, optional fog.
+    """
+    textures = [
+        _const_tex((255, 255, 255), 1),  # 0 dummy
+        _checker_tex((170, 160, 150), (120, 110, 100)),  # 1 stone floor
+        _const_tex((150, 150, 155)),  # 2 walls
+        _grate_tex(),  # 3 alpha grate
+        _const_tex((40, 70, 160)),  # 4 water
+        _sky_tex(seed=3),  # 5 sky back layer
+        _sky_tex(seed=9),  # 6 sky front (alpha) layer
+        _const_tex((255, 240, 160)),  # 7 fullbright lamp texture
+    ]
+    b = _SoupBuilder()
+    X, Y, Z = 1024.0, 768.0, 320.0
+    SKY = materials.MAT_FLAGS_SKY
+    b.quad((0, 0, 0), (X, 0, 0), (0, Y, 0), uv_scale=(8, 6), texnum=1)  # floor
+    b.quad((0, 0, Z), (0, Y, 0), (X, 0, 0), texnum=5, flags=SKY)  # sky ceiling
+    b.quad((X, 0, 0), (0, 0, Z), (0, Y, 0), uv_scale=(8, 3), texnum=2)  # far wall
+    b.quad((0, 0, 0), (0, Y, 0), (0, 0, Z), texnum=5, flags=SKY)  # near: sky
+    b.quad((0, Y, 0), (X, 0, 0), (0, 0, Z), uv_scale=(8, 3), texnum=2)  # left
+    b.quad((0, 0, 0), (0, 0, Z), (X, 0, 0), texnum=5, flags=SKY)  # right: sky
+
+    # water pool (warped UVs, roughness 0.4)
+    b.quad(
+        (300, 200, 8), (320, 0, 0), (0, 240, 0),
+        uv_scale=(4, 3), texnum=4, flags=materials.MAT_FLAGS_WATER,
+    )
+    # two alpha-tested grates (one-sided, facing -x toward the camera)
+    b.quad((640, 100, 0), (0, 0, 160), (0, 200, 0), uv_scale=(4, 3), texnum=3)
+    b.quad((700, 100, 0), (0, 0, 160), (0, 200, 0), uv_scale=(4, 3), texnum=3)
+    # fullbright lamp strip on the far wall
+    b.quad((X - 1, 300, 200), (0, 0, 40), (0, 168, 0), texnum=7, fb=7)
+
+    scene = b.build(device)
+    atlas = pack_textures(textures, device=device)
+    uniforms = default_uniforms(
+        cam_x=(80.0, 384.0, 140.0),
+        cam_w=(1.0, 0.0, 0.0),
+        cam_u=(0.0, 0.0, 1.0),
+        fov_deg=100.0,
+        mu_t=fog_mu_t,
+        mu_s=(fog_mu_t * 0.7,) * 3,
+        sun_w=(0.5, 0.2, 0.84),
+        sun_color=(9.0, 8.0, 6.5),
+        sky_classic=(5, 6),
+        device=device,
+    )
+    return SceneBundle(scene, atlas, uniforms)
+
+
+def alcove(emission=200.0, device="cuda") -> SceneBundle:
+    """Hard guiding scene: the only light sits in a side pocket behind a
+    narrow slot — BSDF sampling rarely finds it, path guiding should.
+
+    Main room x∈[0,512]; pocket x∈[512,640] behind the x=512 wall with a
+    slot opening y∈[224,288], z∈[64,192].
+    """
+    textures = [
+        _const_tex((255, 255, 255), 1),  # 0 dummy
+        _const_tex((190, 190, 190)),  # 1 walls
+        _checker_tex((180, 180, 180), (90, 90, 90)),  # 2 floor
+    ]
+    b = _SoupBuilder()
+    X, Y, Z = 512.0, 512.0, 256.0
+    PX = 640.0  # pocket far x
+    sy0, sy1, sz0, sz1 = 224.0, 288.0, 64.0, 192.0
+    uv = (4.0, 4.0)
+    b.quad((0, 0, 0), (X, 0, 0), (0, Y, 0), uv_scale=uv, texnum=2)  # floor
+    b.quad((0, 0, Z), (0, Y, 0), (X, 0, 0), uv_scale=uv, texnum=1)  # ceiling
+    b.quad((0, 0, 0), (0, Y, 0), (0, 0, Z), uv_scale=uv, texnum=1)  # near +x
+    b.quad((0, Y, 0), (X, 0, 0), (0, 0, Z), uv_scale=uv, texnum=1)  # left -y
+    b.quad((0, 0, 0), (0, 0, Z), (X, 0, 0), uv_scale=uv, texnum=1)  # right +y
+
+    # x=512 wall facing -x with slot hole (4 quads around the slot)
+    def wallx(y0, y1, z0, z1):
+        if y1 > y0 and z1 > z0:
+            b.quad((X, y0, z0), (0, 0, z1 - z0), (0, y1 - y0, 0), texnum=1)
+
+    wallx(0.0, sy0, 0.0, Z)
+    wallx(sy1, Y, 0.0, Z)
+    wallx(sy0, sy1, 0.0, sz0)
+    wallx(sy0, sy1, sz1, Z)
+    # pocket interior (faces point into the pocket)
+    b.quad((X, sy0, sz0), (0, sy1 - sy0, 0), (PX - X, 0, 0), texnum=1)  # floor
+    b.quad((X, sy0, sz1), (PX - X, 0, 0), (0, sy1 - sy0, 0), texnum=1)  # ceiling
+    b.quad((PX, sy0, sz0), (0, 0, sz1 - sz0), (0, sy1 - sy0, 0), texnum=1)  # back
+    b.quad((X, sy0, sz0), (PX - X, 0, 0), (0, 0, sz1 - sz0), texnum=1)  # side -y
+    b.quad((X, sy1, sz0), (0, 0, sz1 - sz0), (PX - X, 0, 0), texnum=1)  # side +y
+    # bright light panel on the pocket back wall
+    e = float(emission)
+    b.quad(
+        (PX - 1, sy0 + 8, sz0 + 8),
+        (0, 0, sz1 - sz0 - 16),
+        (0, sy1 - sy0 - 16, 0),
+        flags=materials.MAT_FLAGS_SOLID,
+        solid_albedo=(0.8, 0.8, 0.8),
+        solid_emission=(e, e, e),
+    )
+    scene = b.build(device)
+    atlas = pack_textures(textures, device=device)
+    uniforms = default_uniforms(
+        cam_x=(60.0, 256.0, 128.0),
+        cam_w=(1.0, 0.0, 0.0),
+        cam_u=(0.0, 0.0, 1.0),
+        fov_deg=90.0,
+        device=device,
+    )
+    return SceneBundle(scene, atlas, uniforms)
+
+
 def city(n_buildings=1650, seed=7, device="cuda") -> SceneBundle:
     """Map-scale stress scene (~17k triangles): a court of box buildings
     under a sunlit sky with scattered emissive panels. Stands in for a
@@ -243,7 +370,42 @@ def city(n_buildings=1650, seed=7, device="cuda") -> SceneBundle:
     return SceneBundle(scene, atlas, uniforms)
 
 
-SCENES = {"box": cornell_box, "city": city}
+def furnace(albedo=0.5, emission=1.0, device="cuda") -> SceneBundle:
+    """Closed cube, every face uniformly emissive with constant albedo.
+
+    Energy-conservation test scene: with the reference integrator's
+    break-on-emission rule every path has exactly one bounce, so pixel
+    irradiance must equal emission × ∫ bsdf·cos dω (≈ 1 without albedo)
+    — an analytic check on BSDF energy + integrator weighting.
+    """
+    b = _SoupBuilder()
+    S = 256.0
+    kw = dict(
+        flags=materials.MAT_FLAGS_SOLID,
+        solid_albedo=(albedo,) * 3,
+        solid_emission=(emission,) * 3,
+    )
+    b.quad((0, 0, 0), (S, 0, 0), (0, S, 0), **kw)  # floor +z
+    b.quad((0, 0, S), (0, S, 0), (S, 0, 0), **kw)  # ceiling -z
+    b.quad((S, 0, 0), (0, 0, S), (0, S, 0), **kw)  # far -x
+    b.quad((0, 0, 0), (0, S, 0), (0, 0, S), **kw)  # near +x
+    b.quad((0, S, 0), (S, 0, 0), (0, 0, S), **kw)  # left -y
+    b.quad((0, 0, 0), (0, 0, S), (S, 0, 0), **kw)  # right +y
+    scene = b.build(device)
+    atlas = pack_textures([_const_tex((255, 255, 255), 1)], device=device)
+    uniforms = default_uniforms(
+        cam_x=(40.0, 128.0, 128.0), cam_w=(1.0, 0.0, 0.0), fov_deg=90.0, device=device
+    )
+    return SceneBundle(scene, atlas, uniforms)
+
+
+SCENES = {
+    "box": cornell_box,
+    "court": outdoor_court,
+    "furnace": furnace,
+    "alcove": alcove,
+    "city": city,
+}
 
 
 def get_scene(name: str, **kw) -> SceneBundle:

@@ -1,8 +1,7 @@
 """MCPG configuration and persistent device state.
 
 Port of merian_quake_tpu/render/mcpg/config.py: the same fields and
-defaults. The production-scale preset belongs to the volume pass and
-comes with it.
+defaults, and the production-scale preset.
 
 u32 values: chain ids and verification hashes ride in the int32 columns
 of ``MCStates.i`` by their bits (ids ≥ 2^31 are negative there) and are
@@ -92,6 +91,45 @@ class MCPGConfig(NamedTuple):
     @property
     def mc_total_size(self) -> int:
         return self.mc_adaptive_size + self.mc_static_size
+
+
+def production_config():
+    """Production-scale preset mirroring the reference's default MCPG
+    node properties: 33.6M chain states + 4M light cache, 2 spp volume
+    single scattering with distance guiding p=0.9 and 7 µm Draine
+    particles, exponential adaptive grid with power √3 / 1 step per
+    unit, BSDF prob 0.1."""
+    from .volume import VolumeConfig
+
+    return MCPGConfig(
+        mc_adaptive_size=32_777_259,
+        mc_static_size=800_009,
+        lc_size=4_000_037,
+        mc_samples=5,
+        mc_samples_adaptive_prob=0.7,
+        surf_bsdf_p=0.1,
+        dir_guide_prior=0.3,
+        mc_adaptive_tan_alpha_half=0.002,
+        mc_adaptive_min_width=0.01,
+        mc_adaptive_power=1.7320508,
+        mc_adaptive_steps_per_unit=1.0,
+        lc_tan_alpha_half=0.005,
+        lc_min_width=0.01,
+        lc_power=2.0,
+        lc_steps_per_unit=6.0,
+        mc_static_width=25.3,
+        volume=VolumeConfig(
+            volume_spp=2,
+            volume_phase_p=0.1,
+            dist_guide_p=0.9,
+            distance_mc_samples=3,
+            distance_grid_width=25,
+            distance_state_count=10,
+            volume_use_light_cache=True,
+            particle_size_um=7.0,
+            forward_project=True,
+        ),
+    )
 
 
 class MCStates(NamedTuple):

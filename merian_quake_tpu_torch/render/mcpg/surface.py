@@ -114,11 +114,33 @@ class ZeroQueue(NamedTuple):
     mask: torch.Tensor
 
 
+class DistQueue(NamedTuple):
+    """Distance-MC state writes from the volume pass, deferred to the
+    replay (columns [sw, m0, m1, N, flat]: f32 by their bits in i32
+    lanes; dropped rows carry the sentinel flat index). Later volume spp
+    samples read the frame-start states, not same-frame writes."""
+
+    data: torch.Tensor  # i32[M, 5]
+
+    @classmethod
+    def build(cls, sw, m0, m1, n_chain, flat, mask, sentinel):
+        return cls(
+            data=torch.stack(
+                [
+                    _f2i(sw), _f2i(m0), _f2i(m1), n_chain.to(torch.int32),
+                    torch.where(mask, flat, sentinel).to(torch.int32),
+                ],
+                dim=-1,
+            )
+        )
+
+
 class SurfaceResult(NamedTuple):
     irradiance: torch.Tensor  # f32[H, W, 4]
     updates: UpdateQueue
     lc_samples: LCQueue
     zeros: ZeroQueue
+    dist: DistQueue | None = None  # volume pass only
     # i32[segments] count of lanes still alive ENTERING each bounce
     # segment (out of spp·W·H): drives the live-lane compaction budget
     # choice. None on results built by hand.
@@ -153,6 +175,12 @@ def _seg_budgets(mcfg: MCPGConfig, segs_n: int, ns: int) -> list[int]:
     return out
 
 
+def pack_tables(mstate: MCPGState, uniforms: Uniforms):
+    """The frame's packed draw table and light-cache table, which the
+    surface and the volume pass both read."""
+    return grids.pack_states_draw(mstate.mc, uniforms.cl_time), _pack_lc(mstate.lc)
+
+
 def _select_state(mask, a: grids.StateSample, b: grids.StateSample):
     pick = lambda x, y: torch.where(mask[..., None] if x.dim() > mask.dim() else mask, x, y)
     return grids.StateSample(*[pick(x, y) for x, y in zip(a, b)])
@@ -167,7 +195,11 @@ def render_mcpg_surface(
     mstate: MCPGState,
     gbuf: GBufferOutput,
     schedule=None,
+    packed=None,
 ) -> SurfaceResult:
+    """``packed``: the frame's (``grids.pack_states_draw``, ``_pack_lc``)
+    tables when the caller shares them with the volume pass; built here
+    otherwise."""
     W, H = config.width, config.height
     n = W * H
     K = mcfg.mc_samples
@@ -192,9 +224,8 @@ def render_mcpg_surface(
     first_spp = samp == 0
     # one (S, 8) packed draw table (temporal reprojection pre-applied
     # table-side): each of the K×segments state draws pays a single
-    # 8-column gather
-    mc_packed = grids.pack_states_draw(mc, uniforms.cl_time)
-    lc_packed = _pack_lc(lc)  # one row-gather per lc_get, not three
+    # 8-column gather; one row-gather per lc_get, not three
+    mc_packed, lc_packed = packed if packed is not None else pack_tables(mstate, uniforms)
 
     first_hit = Hit(*[tile(x) for x in decompress_hit(gbuf.hits)])
     pixel_live = (first_hit.albedo >= 1e-7).any(-1)

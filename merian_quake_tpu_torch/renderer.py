@@ -1,8 +1,9 @@
 """The frame: gbuffer → integrator → accumulate → exposure → tonemap.
 
 Port of merian_quake_tpu/renderer.py for the path-traced (``pt``), the
-ReSTIR DI (``restir``) and the guided (``mcpg``, surface only) frames
-without denoise. PyTorch runs eagerly, so
+ReSTIR DI (``restir``) and the guided (``mcpg``, with the volume pass
+when ``MCPGConfig.volume`` is set) frames without denoise. PyTorch runs
+eagerly, so
 ``render_frame`` is ``frame_core`` over the whole image; the state is
 updated out of place, like the JAX package's. The integrator's config
 goes under the JAX package's keyword ``mcpg_config`` (an MCPGConfig for
@@ -22,14 +23,14 @@ from .accel.build import AccelScene, build_accel, scene_features
 from .models.procedural import SceneBundle
 from .models.types import RenderConfig, TextureAtlas, Uniforms
 from .ops import color as color_ops
-from .post.accumulate import accumulate
+from .post.accumulate import accumulate, accumulate_reprojected
 from .post.tonemap import tonemap_reinhard_extended
 from .render.gbuffer import render_gbuffer
 from .render.pt import render_pt
 
 # ROADMAP.md "Modules to port" items for the paths not ported yet
 _NOT_PORTED = {
-    "ssmm": "ROADMAP.md item 5 (SSMM)",
+    "ssmm": "ROADMAP.md item 2 (SSMM)",
 }
 _PORTED = ("pt", "restir", "mcpg")
 
@@ -43,18 +44,16 @@ class FrameState(NamedTuple):
     iteration: int
     restir: object = None  # ReSTIRState when integrator == "restir"
     mcpg: object = None  # MCPGState when integrator == "mcpg"
+    volume: object = None  # VolumeState when MCPGConfig.volume is set
+    accum_volume: object = None  # f32[H, W, 4] accumulated volume radiance
+    accum_volume_len: object = None  # f32[H, W] volume accum history length
 
 
 def _check_supported(config: RenderConfig, mcpg_config=None) -> None:
     if config.denoise:
         raise NotImplementedError(
-            "denoise=True is not ported yet: ROADMAP.md item 4 "
-            "(denoise and beauty chain)"
-        )
-    if config.integrator == "mcpg" and getattr(mcpg_config, "volume", None) is not None:
-        raise NotImplementedError(
-            "MCPGConfig.volume is not ported yet: ROADMAP.md item 3 "
-            "(volume and production config)"
+            "denoise=True is not ported yet: ROADMAP.md item 1 "
+            "(denoise and beauty chain, with the volume's own SVGF)"
         )
     if config.integrator not in _PORTED:
         raise NotImplementedError(
@@ -67,8 +66,7 @@ def init_state(config: RenderConfig, mcpg_config=None, device="cuda") -> FrameSt
     _check_supported(config, mcpg_config)
     H, W = config.height, config.width
     z = lambda: torch.zeros((H, W, 4), device=device)
-    restir = None
-    mcpg = None
+    restir = mcpg = volume = accum_volume = accum_volume_len = None
     if config.integrator == "restir":
         from .render.restir import init_restir_state
 
@@ -76,32 +74,48 @@ def init_state(config: RenderConfig, mcpg_config=None, device="cuda") -> FrameSt
     elif config.integrator == "mcpg":
         from .render.mcpg import MCPGConfig, init_mcpg_state
 
-        mcpg = init_mcpg_state(mcpg_config or MCPGConfig(), device=device)
+        mcfg = mcpg_config or MCPGConfig()
+        mcpg = init_mcpg_state(mcfg, device=device)
+        if mcfg.volume is not None:
+            from .render.mcpg.volume import init_volume_state
+
+            volume = init_volume_state(config, mcfg.volume, device=device)
+            accum_volume = z()
+            accum_volume_len = torch.zeros((H, W), device=device)
     return FrameState(
         accum_irradiance=z(), accum_direct=z(), accum_albedo=z(), iteration=0,
-        restir=restir, mcpg=mcpg,
+        restir=restir, mcpg=mcpg, volume=volume, accum_volume=accum_volume,
+        accum_volume_len=accum_volume_len,
     )
 
 
-def _render_mcpg(accel, atlas, uniforms, config, mcfg, mstate, gbuf, schedule, _surf=None):
-    """The guided surface pass and the replay of its queues into the
-    guiding state. Returns (irradiance image, new MCPGState). ``_surf``:
-    a SurfaceResult to replay instead of rendering one (tests)."""
-    from .render.mcpg.surface import _seg_budgets, render_mcpg_surface
+def _render_mcpg(accel, atlas, uniforms, config, mcfg, state, gbuf, schedule, _surf=None):
+    """The guided surface pass, the volume pass when ``mcfg.volume`` is
+    set, and the replay of their queues into the guiding state. Returns
+    (irradiance image, new MCPGState, the volume's (new VolumeState,
+    accumulated image, its history length, this frame's image, motion
+    vectors) or None). ``_surf``: a SurfaceResult to replay instead of
+    rendering one (tests)."""
+    from .render.mcpg.surface import (
+        SurfaceResult, _seg_budgets, pack_tables, render_mcpg_surface,
+    )
     from .render.mcpg.updates import apply_updates_compact, compact_queues, queue_gidx
 
+    # both passes read the same packed tables: build them once
+    packed = pack_tables(state.mcpg, uniforms)
     res = (
         _surf if _surf is not None
-        else render_mcpg_surface(accel, atlas, uniforms, config, mcfg, mstate, gbuf, schedule)
+        else render_mcpg_surface(
+            accel, atlas, uniforms, config, mcfg, state.mcpg, gbuf, schedule, packed=packed
+        )
     )
     W, H = config.width, config.height
     spp = max(config.spp, 1)
+    surf_groups = spp * max(config.max_path_length - 1, 1)
+    dev = res.updates.data.device
     gidx = (
         res.gidx if res.gidx is not None
-        else queue_gidx(
-            res.updates.data.shape[0], spp * max(config.max_path_length - 1, 1),
-            W, H, 0, H, device=res.updates.data.device,
-        )
+        else queue_gidx(res.updates.data.shape[0], surf_groups, W, H, 0, H, device=dev)
     )
     # live-lane compaction makes each segment's queue rows past its
     # static budget DEAD padding (surface pads the compacted emissions
@@ -121,8 +135,38 @@ def _render_mcpg(accel, atlas, uniforms, config, mcfg, mstate, gbuf, schedule, _
             zeros=type(res.zeros)(*[sl(x) for x in res.zeros]),
         )
         gidx = sl(gidx)
+    vol = None
+    if mcfg.volume is not None:
+        from .render.mcpg.volume import apply_dist_updates, compact_dist, render_volume
+
+        vol_img, vol_mv, new_volume, vres = render_volume(
+            accel, atlas, uniforms, config, mcfg, mcfg.volume, state.mcpg, state.volume, gbuf,
+            schedule, packed=packed,
+        )
+        # the volume's rows follow the surface's in the global row order
+        gidx_vol = queue_gidx(
+            vres.updates.data.shape[0], max(mcfg.volume.volume_spp, 1), W, H, 0, H, device=dev
+        )
+        gidx = torch.cat([gidx, gidx_vol + surf_groups * H * W])
+        cat = lambda a, b: type(a)(*[torch.cat([x, y]) for x, y in zip(a, b)])
+        res = SurfaceResult(
+            irradiance=res.irradiance,
+            updates=cat(res.updates, vres.updates),
+            lc_samples=cat(res.lc_samples, vres.lc_samples),
+            zeros=cat(res.zeros, vres.zeros),
+        )
+        dmc = state.volume.dist_mc
+        dq = compact_dist(vres.dist, dmc.sum_w.numel(), gidx_vol)
+        new_volume = new_volume._replace(dist_mc=apply_dist_updates(dmc, dq))
+        # the volume history is reprojected along the volume motion
+        # vectors: under camera motion it tracks the fog instead of
+        # ghosting
+        acc, acc_len = accumulate_reprojected(
+            state.accum_volume, state.accum_volume_len, vol_img, vol_mv
+        )
+        vol = (new_volume, acc, acc_len, vol_img, vol_mv)
     cq = compact_queues(res, mcfg, gidx, gidx)
-    return res.irradiance, apply_updates_compact(config.seed, mstate, cq, uniforms, mcfg)
+    return res.irradiance, apply_updates_compact(config.seed, state.mcpg, cq, uniforms, mcfg), vol
 
 
 def frame_core(
@@ -136,17 +180,19 @@ def frame_core(
     _surf=None,
 ):
     """One frame. Returns (new_state, outputs) with outputs
-    {"hdr", "ldr", "irradiance", "gbuffer"}."""
+    {"hdr", "ldr", "irradiance", "gbuffer"}, and "volume" and
+    "volume_mv" when the volume pass runs."""
     _check_supported(config, mcpg_config)
     gbuf = render_gbuffer(accel, atlas, uniforms, config, schedule)
     new_restir = state.restir
     new_mcpg = state.mcpg
+    vol = None
     if config.integrator == "mcpg":
         from .render.mcpg import MCPGConfig
 
-        irr, new_mcpg = _render_mcpg(
-            accel, atlas, uniforms, config, mcpg_config or MCPGConfig(), state.mcpg,
-            gbuf, schedule, _surf,
+        irr, new_mcpg, vol = _render_mcpg(
+            accel, atlas, uniforms, config, mcpg_config or MCPGConfig(), state, gbuf,
+            schedule, _surf,
         )
     elif config.integrator == "restir":
         from .render.restir import ReSTIRConfig, render_restir
@@ -166,17 +212,25 @@ def frame_core(
         restir=new_restir,
         mcpg=new_mcpg,
     )
+    if vol is not None:
+        new_state = new_state._replace(
+            volume=vol[0], accum_volume=vol[1], accum_volume_len=vol[2]
+        )
     beauty_hdr = (
         new_state.accum_irradiance[..., :3]
         * torch.clamp_min(new_state.accum_albedo[..., :3], 0.0)
         + new_state.accum_direct[..., :3]
     )
+    if vol is not None:
+        beauty_hdr = beauty_hdr + new_state.accum_volume[..., :3]
     # auto exposure (key / log-average luminance, merian Exposure node)
     lum = color_ops.yuv_luminance(beauty_hdr)
     log_mean = torch.log(lum + 1e-4).mean()
     scale = 0.18 / torch.clamp_min(torch.exp(log_mean), 1e-4)
     ldr = tonemap_reinhard_extended(beauty_hdr * scale)
     outputs = {"hdr": beauty_hdr, "ldr": ldr, "irradiance": irr, "gbuffer": gbuf}
+    if vol is not None:
+        outputs["volume"], outputs["volume_mv"] = vol[3], vol[4]
     return new_state, outputs
 
 

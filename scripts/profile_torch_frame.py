@@ -2,21 +2,26 @@
 """Where the time goes in the PyTorch port's 1080p frame.
 
     python3 scripts/profile_torch_frame.py [--integrator pt|restir|mcpg] [--frames 2] [--out profiling]
-        [--n-buildings N --seed S]
+        [--n-buildings N --seed S] [--scene court [--fog MU]] [--production]
 
 Needs one CUDA device. On procedural ``city`` (its defaults: 16,640
 triangles; ``--n-buildings 28000 --seed 11`` is the map scene, 281,536
-triangles, traced by K3) at 1920×1080 with chip_smoke.py's
-configurations (``pt``: 2 spp, max path length 3; ``restir``:
-``ReSTIRConfig()``; ``mcpg``: 2 spp, max path length 3, ``MCPGConfig()``,
-12 warm-up frames so that the chains have learned) it measures:
+triangles, traced by K3) or ``--scene court`` (``outdoor_court``: 20
+triangles, two alpha-tested grates; ``--fog MU`` its fog's extinction) at
+1920×1080 with chip_smoke.py's configurations (``pt``: 2 spp, max path
+length 3; ``restir``: ``ReSTIRConfig()``; ``mcpg``: 2 spp, max path
+length 3, ``MCPGConfig()``, with ``VolumeConfig()`` when ``--fog`` is
+given, ``production_config()`` with ``--production``; 12 warm-up frames
+so that the chains have learned) it measures:
 
 1. host ms per stage of a steady frame (gbuffer, the integrator, and the
    rest of the frame = accumulate, exposure, tonemap), each stage ended
    by a device sync inside one frame; for ``restir`` also the share of
    its traces (``trace_ray`` of the generate pass, ``trace_visibility``
-   of the shade pass); for ``mcpg`` the stages are gbuffer, surface,
-   compact_queues, apply_updates_compact and the rest;
+   of the shade pass); for ``mcpg`` the stages are gbuffer,
+   pack_tables, surface, compact_queues, apply_updates_compact and the
+   rest, and with the volume pass volume, compact_dist and
+   apply_dist_updates;
 2. a ``torch.profiler`` trace of ``--frames`` steady frames: device time
    against the host clock (the device's busy share), and device time by
    op, the trace kernels (``woop_nearest_kernel``, ``woop_stream_kernel``
@@ -32,7 +37,8 @@ configurations (``pt``: 2 spp, max path length 3; ``restir``:
 
 Prints one line per measurement and the card's name and power limit;
 the full op table goes to ``<out>/profile_frame_<integrator>[_<n>].txt``
-(``_<n>`` with ``--n-buildings``).
+(``_<n>`` with ``--n-buildings``, ``_court``, ``_court_fog`` or
+``_production``).
 """
 from __future__ import annotations
 
@@ -51,14 +57,17 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (primary/bounce ray populations, cuda_time)
 from merian_quake_tpu_torch.accel import build_accel, woop  # noqa: E402
 from merian_quake_tpu_torch.accel.build import scene_features  # noqa: E402
-from merian_quake_tpu_torch.models.procedural import city  # noqa: E402
+from merian_quake_tpu_torch.models.procedural import city, outdoor_court  # noqa: E402
 from merian_quake_tpu_torch.models.types import RenderConfig  # noqa: E402
 from merian_quake_tpu_torch import renderer  # noqa: E402
 from merian_quake_tpu_torch.render import pt as pt_mod  # noqa: E402
 from merian_quake_tpu_torch.render import restir as restir_pkg  # noqa: E402
 from merian_quake_tpu_torch.render.mcpg import MCPGConfig  # noqa: E402
+from merian_quake_tpu_torch.render.mcpg.volume import VolumeConfig  # noqa: E402
 from merian_quake_tpu_torch.render.mcpg import surface as surface_mod  # noqa: E402
 from merian_quake_tpu_torch.render.mcpg import updates as updates_mod  # noqa: E402
+from merian_quake_tpu_torch.render.mcpg import volume as volume_mod  # noqa: E402
+from merian_quake_tpu_torch.render.mcpg.config import production_config  # noqa: E402
 from merian_quake_tpu_torch.render.restir import restir as restir_mod  # noqa: E402
 from merian_quake_tpu_torch.renderer import init_state, render_frame  # noqa: E402
 
@@ -82,7 +91,14 @@ def main() -> int:
     ap.add_argument("--n-buildings", type=int, default=None,
                     help="city's building count (default: its own; 28000 is the map scene)")
     ap.add_argument("--seed", type=int, default=None, help="city's seed (default: its own)")
+    ap.add_argument("--scene", choices=("city", "court"), default="city")
+    ap.add_argument("--fog", type=float, default=None,
+                    help="the court's fog extinction; with mcpg, the volume pass runs")
+    ap.add_argument("--production", action="store_true",
+                    help="mcpg with production_config() (33.6M chain states, 2 volume spp)")
     args = ap.parse_args()
+    if args.production:
+        args.integrator = "mcpg"
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_frame: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -94,16 +110,25 @@ def main() -> int:
 
     scene_kw = {k: v for k, v in (("n_buildings", args.n_buildings), ("seed", args.seed))
                 if v is not None}
-    bundle = city(**scene_kw, device=dev)
+    if args.scene == "court":
+        bundle = outdoor_court(args.fog or 0.0, device=dev)
+        scene_kw = {"fog_mu_t": args.fog or 0.0}
+    else:
+        bundle = city(**scene_kw, device=dev)
     accel = build_accel(bundle.scene, bundle.atlas)
     kernel = woop.woop_stream if woop.streamed(accel.woop_w) else woop.woop_nearest
-    print(f"scene city({scene_kw or 'defaults'}): {bundle.scene.num_tris} triangles, "
+    print(f"scene {args.scene}({scene_kw or 'defaults'}): {bundle.scene.num_tris} triangles, "
           f"traced by {kernel.__name__}", flush=True)
     tag = f"_{args.n_buildings}" if args.n_buildings is not None else ""
+    tag += "_court" if args.scene == "court" else ""
+    tag += "_fog" if args.fog else ""
+    tag += "_production" if args.production else ""
     feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
     config = RenderConfig(width=W, height=H, spp=SPP, max_path_length=MPL, features=feats,
                           integrator=args.integrator)
-    rcfg = {"restir": restir_pkg.ReSTIRConfig(), "mcpg": MCPGConfig()}.get(args.integrator)
+    mcfg = MCPGConfig(volume=VolumeConfig()) if args.fog else MCPGConfig()
+    mcfg = production_config() if args.production else mcfg
+    rcfg = {"restir": restir_pkg.ReSTIRConfig(), "mcpg": mcfg}.get(args.integrator)
     state = init_state(config, rcfg, device=dev)
     u = bundle.uniforms
     frame = 0
@@ -125,8 +150,13 @@ def main() -> int:
     if args.integrator == "pt":
         top["pt"] = (renderer, "render_pt")
     elif args.integrator == "mcpg":
-        top.update({"surface": (surface_mod, "render_mcpg_surface"),
-                    "compact_queues": (updates_mod, "compact_queues"),
+        top.update({"pack_tables": (surface_mod, "pack_tables"),
+                    "surface": (surface_mod, "render_mcpg_surface")})
+        if rcfg.volume is not None:
+            top.update({"volume": (volume_mod, "render_volume"),
+                        "compact_dist": (volume_mod, "compact_dist"),
+                        "apply_dist_updates": (volume_mod, "apply_dist_updates")})
+        top.update({"compact_queues": (updates_mod, "compact_queues"),
                     "apply_updates_compact": (updates_mod, "apply_updates_compact")})
     else:
         top["restir"] = (restir_pkg, "render_restir")

@@ -391,6 +391,10 @@ def test_woop_nearest_rejects_bad_inputs(rng):
 
 @pytest.mark.cuda
 def test_k1_kernel_matches_plain_version_on_card(rng):
+    """K1 against its plain version on city's primary rays, bit for bit.
+    The card's machine has no JAX, so this file cannot run there:
+    chip_smoke.py phase 2 makes the same comparison on a 65,536-ray
+    subset and on the whole 1080p primary population of city."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     dev = torch.device("cuda")
@@ -730,6 +734,10 @@ def test_trace_visibility_outdoor_court(rng, monkeypatch):
 
 @pytest.mark.cuda
 def test_k2_kernel_matches_plain_version_on_card():
+    """K2 against its plain version on city's shade-pass shadow rays (the
+    proxy pre-pass, then the shadow table warm-started by it). On the
+    card: chip_smoke.py phase 5 ("city shade ... proxy / shadow / shadow
+    after proxy", a 65,536-ray subset and the whole population)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     dev = torch.device("cuda")

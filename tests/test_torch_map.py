@@ -510,6 +510,10 @@ def _card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("anyhit", [False, True])
 def test_k3_kernel_matches_plain_version_on_card(map_scene, anyhit):
+    """K3 against its plain versions on the map's primary rays, nearest
+    and any-hit on the whole table. On the card: chip_smoke.py phase 8
+    ("map primary 65536 ... K3 vs plain" and "map primary 65536
+    t_min=0.001 K3 any-hit vs plain")."""
     dev = _card()
     tb = map_scene[2]
     acc = build_accel(tb.scene, tb.atlas, device=dev)
@@ -532,6 +536,9 @@ def test_k3_kernel_matches_plain_version_on_card(map_scene, anyhit):
 
 @pytest.mark.cuda
 def test_k8_kernel_matches_oracle_on_card(map_scene):
+    """K8 through ``intersect_dense`` against the oracle on the map's
+    primary rays. On the card: chip_smoke.py phase 9 (the random soup
+    and a 65,536-ray map subset)."""
     dev = _card()
     tb = map_scene[2]
     acc = build_accel(tb.scene, tb.atlas, device=dev)

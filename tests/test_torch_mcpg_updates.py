@@ -329,3 +329,55 @@ def test_frame_core_budget_queue_slice(warm, monkeypatch):
     assert torch.isfinite(state.mcpg.mc.f).all() and float(state.mcpg.mc.sum_w.max()) > 0.0
     assert torch.equal(state.mcpg.mc.i, base.mcpg.mc.i)
     assert torch.equal(state.mcpg.lc.N, base.mcpg.lc.N)
+
+
+# ---- the same two on the outdoor court (tests/test_mcpg.py:329, :380) ----
+
+
+def _court(w, h):
+    from merian_quake_tpu_torch.models.procedural import outdoor_court
+
+    tb = outdoor_court(device="cpu")
+    accel = build_accel(tb.scene, tb.atlas, device="cpu")
+    cfg = RenderConfig(width=w, height=h, spp=1, max_path_length=3, integrator="mcpg",
+                       features=scene_features(tb.scene, tb.uniforms, tb.atlas))
+    mcfg = MCPGConfig(mc_adaptive_size=1 << 12, mc_static_size=1 << 10, lc_size=1 << 10)
+    return tb, accel, cfg, mcfg
+
+
+def test_surface_live_compaction_exact_court(monkeypatch):
+    """The court at 112×64 from an empty state, as the JAX package's test:
+    both branches (compacted, and overflow → full width) give the
+    uncompacted image bit for bit and the same live counts."""
+    from merian_quake_tpu_torch.render.gbuffer import render_gbuffer
+
+    monkeypatch.setattr(t_surf, "COMPACT_MIN_NS", 0)
+    tb, accel, cfg, mcfg = _court(112, 64)
+    state = init_mcpg_state(mcfg, device="cpu")
+    gbuf = render_gbuffer(accel, tb.atlas, tb.uniforms, cfg)
+    run = lambda m: t_surf.render_mcpg_surface(accel, tb.atlas, tb.uniforms, cfg, m, state, gbuf)
+    base = run(mcfg)
+    live_frac = base.live_in.numpy() / (112 * 64)
+    assert live_frac[1] < 0.5  # bounce-1 deaths: compaction has room
+    # (1.0, 0.5): segment 1 runs compacted; (0.5, 0.14): both overflow
+    for buds in [(1.0, 0.5), (0.5, 0.14)]:
+        res = run(mcfg._replace(surf_live_budget=buds))
+        assert torch.equal(res.irradiance, base.irradiance), buds
+        assert torch.equal(res.live_in, base.live_in), buds
+
+
+def test_frame_core_budget_queue_slice_court(monkeypatch):
+    """frame_core on the court at 64×40 with budgets (1.0, 0.5): the dead
+    queue padding is sliced off, the frame is finite, guiding learns, and
+    the state equals the frame's without budgets."""
+    monkeypatch.setattr(t_surf, "COMPACT_MIN_NS", 0)
+    tb, accel, cfg, mcfg = _court(64, 40)
+    uni = tb.uniforms._replace(frame=3)
+    base, out0 = renderer.render_frame(accel, tb.atlas, uni, cfg,
+                                       renderer.init_state(cfg, mcfg, device="cpu"), mcfg)
+    mc2 = mcfg._replace(surf_live_budget=(1.0, 0.5))
+    state, out = renderer.render_frame(accel, tb.atlas, uni, cfg,
+                                       renderer.init_state(cfg, mc2, device="cpu"), mc2)
+    assert torch.isfinite(out["ldr"]).all() and torch.isfinite(state.mcpg.mc.f).all()
+    assert float(state.mcpg.mc.sum_w.max()) > 0.0  # the queue slice kept live rows
+    assert torch.equal(out["ldr"], out0["ldr"]) and torch.equal(state.mcpg.mc.i, base.mcpg.mc.i)

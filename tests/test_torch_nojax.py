@@ -1,9 +1,10 @@
 """The port must run where JAX is not installed (the GPU machine has
 none): in a subprocess that blocks ``jax`` before anything is imported,
 build cornell_box and render one 32×16 path-traced frame, one 32×16
-ReSTIR frame, two 32×16 guided (MCPG) frames and one path-traced frame
+ReSTIR frame, two 32×16 guided (MCPG) frames, two 32×16 MCPG frames
+with the volume pass on the fogged court and one path-traced frame
 under a trace schedule on the CPU, trace it under the schedule through ``woop.intersect_woop``'s glue,
-and import ``interop``. And the port's entry
+time two frames through ``bench_torch.phases`` and import ``interop``. And the port's entry
 points run on the card unless the caller asks for the CPU: without a
 CUDA device, a call without ``device=`` raises."""
 import os
@@ -33,6 +34,12 @@ from merian_quake_tpu_torch.render.mcpg import MCPGConfig
 state, out = render_sequence(cornell_box(device="cpu"), RenderConfig(width=32, height=16, integrator="mcpg"), frames=2, mcpg_config=MCPGConfig(), device="cpu")
 assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["hdr"]).all())
 assert int((state.mcpg.mc.sum_w > 0).sum()) > 0 and int(state.mcpg.lc_updates_applied) > 0
+from merian_quake_tpu_torch.models.procedural import outdoor_court
+from merian_quake_tpu_torch.render.mcpg.config import production_config
+from merian_quake_tpu_torch.render.mcpg.volume import VolumeConfig
+state, out = render_sequence(outdoor_court(0.002, device="cpu"), RenderConfig(width=32, height=16, integrator="mcpg"), frames=2, mcpg_config=MCPGConfig(volume=VolumeConfig()), device="cpu")
+assert out["volume"].shape == (16, 32, 4) and bool(torch.isfinite(out["hdr"]).all())
+assert float(state.accum_volume[..., :3].mean()) > 0 and production_config().volume.volume_spp == 2
 from merian_quake_tpu_torch.accel import build_accel, woop
 sched = woop.TraceSchedule(True, 8, 32)
 state, out = render_sequence(cornell_box(device="cpu"), RenderConfig(width=32, height=16, spp=1), frames=1, device="cpu", schedule=sched)
@@ -42,6 +49,10 @@ o, d = torch.zeros((256, 3)) + 0.5, torch.nn.functional.normalize(torch.rand((25
 hr = woop.intersect_woop(acc, o, d, 0.0, 1e4, sort_rays=True, schedule=sched)
 assert torch.equal(hr.tri, woop.intersect_woop(acc, o, d, 0.0, 1e4).tri)
 import merian_quake_tpu_torch.interop
+import bench_torch
+b = cornell_box(device="cpu")
+t, peak = bench_torch.phases(b, build_accel(b.scene, b.atlas), RenderConfig(width=16, height=8, integrator="mcpg"), MCPGConfig(), {"cold": 0, "warm": 1}, 1, "cpu")
+assert set(t) == {"cold", "warm"} and min(t.values()) > 0 and peak is None
 loaded = [m for m, mod in sys.modules.items() if mod is not None]
 assert not [m for m in loaded if m in ("jax", "merian_quake_tpu") or m.startswith(("jax.", "merian_quake_tpu."))]
 print("ok")
@@ -62,6 +73,10 @@ def test_port_runs_without_jax():
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the defaults run on it")
+    import bench_torch
+
+    with pytest.raises(SystemExit):  # a measurement without a card fails
+        bench_torch.main()
     # torch built for the CPU raises AssertionError, a CUDA build with no
     # device RuntimeError
     with pytest.raises((AssertionError, RuntimeError)):

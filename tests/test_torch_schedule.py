@@ -630,6 +630,10 @@ def test_scheduled_pt_frame_matches_jax(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nodes,compact", [(1, 0), (8, 32)])
 def test_list_kernels_match_plain_versions_on_card(city_1600, nodes, compact):
+    """K4, K5 and the walker (K6/K7) against their plain versions on
+    city(1600)'s primary rays. On the card: chip_smoke.py phase 12 (K4
+    and K5 on 65,536-ray subsets and the whole populations) and phase 13
+    (the walker in every mode, P = 1, 8 and 16, compact 0 and 32)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda")

@@ -36,6 +36,7 @@ from merian_quake_tpu.renderer import render_sequence as j_render_sequence
 from merian_quake_tpu_torch.models.procedural import city
 from merian_quake_tpu_torch.models.types import RenderConfig
 from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+from merian_quake_tpu_torch.render.mcpg.volume import VolumeConfig
 from merian_quake_tpu_torch.renderer import init_state, render_sequence
 
 # The suite runs several test processes side by side on a few cores;
@@ -92,7 +93,7 @@ def test_accumulated_irradiance_matches_jax(frames):
 
 
 @pytest.mark.parametrize("config, integrator_config", [
-    (RenderConfig(integrator="mcpg"), MCPGConfig(volume=object())),
+    (RenderConfig(integrator="mcpg", denoise=True), MCPGConfig(volume=VolumeConfig())),
     (RenderConfig(integrator="ssmm"), None),
     (RenderConfig(denoise=True), None),
 ])
