@@ -48,12 +48,19 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
    2,073,600-ray population of city's 1080p shade-pass shadow rays
    (gbuffer points to frame-0 reservoir samples) on the proxy table, on
    the shadow table, and on the shadow table warm-started by the proxy
-   pre-pass; K2 and the plain version timed with CUDA events in turns;
-   then ``trace_visibility`` on the card (K2 + the alpha table through
-   K1) against the CPU oracle on a small alpha-grate soup;
-6. the ReSTIR slice: 6 frames on the card, exactly 2 K1 and 2 K2
+   pre-pass; K2 on the shadow table (as the frames launch it) and the
+   plain version timed with CUDA events in turns, beside the first
+   design's recorded reading, the bound from K2's own count of the pairs
+   it tested, and its split by phase, lane use and CTAs an SM as in phase
+   2; F4: one visibility trace without the proxy pre-pass and with it, in
+   turns, equal on every ray; then ``trace_visibility`` on the card (K2 +
+   the alpha table through K1) against the CPU oracle on a small
+   alpha-grate soup;
+6. the ReSTIR slice: 6 frames on the card, exactly 2 K1 and 1 K2
    launches a frame, finite outputs and reservoirs, the largest
-   reservoir M above 1 by frame 6, cold and steady ms/frame;
+   reservoir M above 1 by frame 6, cold and steady ms/frame; F4 on
+   frames: 8 frames without the proxy pre-pass (the card's route) and 8
+   with it (``with_prepass``), in turns, the same images;
 7. 3 ReSTIR frames at 64×36 on the CPU (oracle) and on the card (K1 +
    K2), with defaults and with both bias corrections set to 2 (so that
    all three visibility call sites launch K2): the LDR images agree
@@ -66,16 +73,23 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
    directly on the same table on the whole 2,073,600-ray populations;
    K2's proxy pre-pass on the map (4,096 triangles, as the map ReSTIR
    frame launches it) against its plain version on the subset and the
-   whole population; K3, K1/K2 and the plain version timed with CUDA
+   whole population; F4 on the map: one visibility trace without the
+   pre-pass (K3 any-hit) and with it (K2 proxy + K3), in turns, equal on
+   every ray; K3, K1/K2 and the plain version timed with CUDA
    events in turns, the bound from K3's own count of the pairs it
    tested, and its split by phase, lane use and CTAs an SM as in phase 2;
    K3 any-hit on the whole table on a 65,536-ray map primary subset;
 9. K8 against the oracle (``accel.intersect._intersect_oracle``) on CUDA
-   tensors: the random soup and a 65,536-ray map subset, driven through
-   ``intersect_dense`` (the dense path); K8 against K3 there; times;
+   tensors, bit for bit in (t, tri, u, v): the random soup and a
+   65,536-ray map subset, driven through ``intersect_dense`` (the dense
+   path); K8 against K3 there; K8 and K3 timed in turns, beside the first
+   design's recorded reading, the bound of every pair's operations and
+   the bound of the operations these inputs need (K8's counts of the
+   pairs past each pre-test);
 10. 6 PT and 6 ReSTIR frames of the map at 1080p: exactly 5 K3 launches
-    and no K1 a PT frame, 2 K3 nearest + 1 K3 any-hit + 1 K2 (proxy)
-    and no K1 a ReSTIR frame; finite outputs, cold and steady ms/frame;
+    and no K1 a PT frame, 2 K3 nearest + 1 K3 any-hit and no K1 or K2 a
+    ReSTIR frame; finite outputs, cold and steady ms/frame; F4's ReSTIR
+    frames without and with the pre-pass, in turns;
 11. 2 PT and 2 ReSTIR frames of the map at 32×18 on the CPU (oracle) and
     on the card (K3 + K2; ``render_sequence`` called without ``device=``,
     whose default is the card): the LDR images agree within the slice test's
@@ -93,16 +107,19 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     pre-pass's warm start; the soup, the subsets and the whole
     populations; its counts (pairs tested, tile visits, compacted visits,
     which must be > 0 where it compacts) and its time against K1/K2 on
-    the same rays;
+    the same rays; F4 under ``TraceSchedule(node_clusters=8)``: one
+    visibility trace without and with the pre-pass, in turns, equal on
+    every ray;
 14. 6 frames at 1080p on city(1600) for each schedule and for the
     default routes (the yardstick), with exact launch counts a frame: PT
-    5 K1; ReSTIR 2 K1 + 2 K2; PT ``TraceSchedule(target_key=True)`` 1 K1,
+    5 K1; ReSTIR 2 K1 + 1 K2; PT ``TraceSchedule(target_key=True)`` 1 K1,
     4 K4, 4 K5, 4 walks (P = 1); PT ``TraceSchedule(True, 8, 32)`` 4 K4,
     5 K5, 5 walks at P = 8 with compaction, no K1; ReSTIR
-    ``TraceSchedule(node_clusters=8)`` 1 K2 (the proxy), 3 K5, 2 nearest
-    and 1 any-hit walks at P = 8, no K1; each schedule's LDR against the
+    ``TraceSchedule(node_clusters=8)`` 3 K5, 2 nearest and 1 any-hit walks
+    at P = 8, no K1 or K2; each schedule's LDR against the
     default routes' (bit-identical or not, and within the slice test's
-    tolerance); cold and steady ms/frame;
+    tolerance); cold and steady ms/frame; F4's frames of both ReSTIR runs
+    without and with the pre-pass, in turns;
 15. 2 PT and 2 ReSTIR frames of city(1600) at 32×18 on the CPU (oracle)
     and on the card under ``TraceSchedule(True, 8, 32)``: the LDR images
     agree within the slice test's tolerance;
@@ -163,6 +180,7 @@ once and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -199,6 +217,13 @@ FIRST_DESIGN = {
         "primary": (0.4107, 0.0024, 0.1092, 0.0209, 0.4511, 0.9552),
         "bounce": (0.2607, 0.0470, 0.3298, 0.0183, 0.3390, 0.5534),
         "shadow": (0.3770, 0.0010, 0.1780, 0.0459, 0.3832, 0.6300)}},
+    # one CTA of 128 rays, a thread a ray, every cluster behind a CTA barrier
+    # (PERF.md section 6): city's shade rays, proxy pre-pass + shadow sweep,
+    # then (scripts/ab_trace_kernels.py, in turns with this design) the
+    # shadow table, city's proxy table and the map's
+    "K2": {"ms": {"shade": 3.742, "shadow": 3.077, "proxy": 0.597, "map proxy": 0.890}},
+    # one ray a thread, no pre-test: 65,536 map rays x 281,536 triangles
+    "K8": {"ms": {"map primary": 61.59}},
 }
 # city with 1,600 buildings: 16,128 triangles in 252 clusters, so the
 # target key (at most 256 clusters) applies; default city() has 260
@@ -536,26 +561,40 @@ def phase5(dev, rng, acc_soup, bundle, accel, config, smi):
     if not (bool(plain.any()) and bool((~plain[:n_full]).any())):
         raise AssertionError("city shade rays: all occluded or none")
 
-    # one visibility trace's K2 work (proxy pre-pass + shadow sweep)
-    # against the plain version's, timed in turns
+    # the shadow sweep as the frames launch it (no pre-pass) against the
+    # plain version, in turns; the bound from K2's own count of the pairs
+    ops_s, bytes_s = woop_work(woop.woop_any, (rays, *shadow), True)
     ops_p, bytes_p = woop_work(woop.woop_any, (rays, *proxy), True)
-    ops_s, bytes_s = woop_work(woop.woop_any, (rays, *shadow), True, occluded_in=pre)
-    bound = bound_ms(ops_p, bytes_p)[0] + bound_ms(ops_s, bytes_s)[0]
-    kern = lambda: woop.woop_any(rays, *shadow, woop.woop_any(rays, *proxy))
-    ref = lambda: woop.intersect_woop_any_reference(
-        rays, shadow[0], woop.intersect_woop_any_reference(rays, proxy[0]))
-    shadow_only = lambda: woop.woop_any(rays, *shadow)
-    r1 = cuda_time(ref, 1)
-    k_1 = cuda_time(kern, 10)
-    s_1 = cuda_time(shadow_only, 10)
-    s_2 = cuda_time(shadow_only, 10)
-    k_2 = cuda_time(kern, 10)
-    r2 = cuda_time(ref, 1)
-    log(f"phase 5 timing shade {n_full} rays [{smi}]: K2 proxy + shadow {k_1:.3f} / {k_2:.3f} ms, "
-        f"K2 shadow alone {s_1:.3f} / {s_2:.3f} ms, plain {r1:.1f} / {r2:.1f} ms; "
-        f"occluded {float(plain[:n_full].float().mean()):.4f}, "
-        f"by the proxy {float(pre[:n_full].float().mean()):.4f}; bound {bound:.4f} ms "
-        f"({(ops_p + ops_s) / OPS_ANY:.4g} pairs tested)")
+    ops_w, bytes_w = woop_work(woop.woop_any, (rays, *shadow), True, occluded_in=pre)
+    bound, by = bound_ms(ops_s, bytes_s)
+    kern = lambda: woop.woop_any(rays, *shadow)
+    ref = lambda: woop.intersect_woop_any_reference(rays, shadow[0])
+    k_1, r1 = cuda_time(kern, 10), cuda_time(ref, 1)
+    r2, k_2 = cuda_time(ref, 1), cuda_time(kern, 10)
+    # F4: one visibility trace without and with the proxy pre-pass (K2 on
+    # the proxy table, then K2 on the shadow table warm-started by it)
+    with_pre = lambda: woop.woop_any(rays, *shadow, woop.woop_any(rays, *proxy))
+    a1, b1, b2, a2 = (cuda_time(kern, 10), cuda_time(with_pre, 10), cuda_time(with_pre, 10),
+                      cuda_time(kern, 10))
+    errs.append(check_k2(f"city shade {n_full} F4 without vs with the pre-pass", kern(),
+                         with_pre()))
+    prepass_bound = bound_ms(ops_p, bytes_p)[0] + bound_ms(ops_w, bytes_w)[0]
+    log(f"phase 5 timing shade {n_full} rays [{smi}]: K2 shadow {k_1:.3f} / {k_2:.3f} ms, plain "
+        f"{r1:.1f} / {r2:.1f} ms; bound {bound:.4f} ms ({by}; {ops_s / OPS_ANY:.4g} pairs tested); "
+        f"occluded {float(plain[:n_full].float().mean()):.4f}, by the proxy "
+        f"{float(pre[:n_full].float().mean()):.4f}; F4: without the pre-pass {a1:.3f} / {a2:.3f} "
+        f"ms, with it (K2 proxy + K2 shadow warm-started) {b1:.3f} / {b2:.3f} ms, bound with it "
+        f"{prepass_bound:.4f} ms ({(ops_p + ops_w) / OPS_ANY:.4g} pairs)"
+        + first_design_ms("K2", "shade") + " (proxy + shadow)")
+    split = {name: trace_split(5, f"city shade {n_full} K2 {name}", woop.woop_any, args, smi, **kw)
+             for name, args, kw in (("shadow", (rays, *shadow), {}), ("proxy", (rays, *proxy), {}),
+                                    ("shadow after proxy", (rays, *shadow), {"occluded_in": pre}))}
+    ctas = woop.ctas_per_sm("woop_any", shadow[1].shape[0])
+    pk = lambda: woop.woop_any(rays, *proxy)
+    p1, p2 = cuda_time(pk, 10), cuda_time(pk, 10)
+    log(f"phase 5 K2 on city's shadow table ({shadow[1].shape[0]} clusters): {ctas} CTAs of 128 "
+        f"threads an SM" + first_design_ms("K2", "shadow") + f"; on the proxy table {p1:.3f} / "
+        f"{p2:.3f} ms, bound {bound_ms(ops_p, bytes_p)[0]:.4f} ms" + first_design_ms("K2", "proxy"))
 
     # trace_visibility: the card (K2 + alpha table through K1) against the
     # CPU oracle, on an alpha-grate soup
@@ -578,11 +617,83 @@ def phase5(dev, rng, acc_soup, bundle, accel, config, smi):
     if agree < VIS_AGREE or bool(cpu.all()) or not bool(cpu.any()):
         raise AssertionError("trace_visibility: the card and the CPU oracle disagree")
     return {"ms": (k_1 + k_2) / 2, "plain_ms": (r1 + r2) / 2, "max_abs_err": max(errs),
-            "bound_ms": bound, "bound_by": bound_ms(ops_s, bytes_s)[1]}
+            "bound_ms": bound, "bound_by": by, "pairs": ops_s / OPS_ANY,
+            "f4_city": {"without_ms": (a1 + a2) / 2, "with_ms": (b1 + b2) / 2},
+            "lane_use": {k: v["lane_use"] for k, v in split.items()},
+            "cycle_shares": {k: v["shares"] for k, v in split.items()}, "ctas_per_sm": ctas}
+
+
+def with_prepass(accel, o, d, t_min, t_max, sort_rays=False, schedule=None):
+    """``woop.intersect_woop_any`` as the JAX package runs it (F4's other
+    way): K2 on the proxy table first, then the route's shadow sweep
+    warm-started by it. The visibility calls of a frame take no sort."""
+    from merian_quake_tpu_torch.accel import woop
+    from merian_quake_tpu_torch.ops.linalg import as_f32
+
+    if sort_rays:
+        raise AssertionError("with_prepass: no sorted visibility trace")
+    n = o.shape[0]
+    t_min_b = as_f32(t_min, o).expand(n).contiguous()
+    t_max_b = as_f32(t_max, o).expand(n).contiguous()
+    rays, proxy, shadow = woop.k2_inputs(accel, o, d, t_min_b, t_max_b)
+    pre = None if proxy is None else woop.woop_any(rays, *proxy)
+    return woop.sweep_any(rays, *shadow, schedule, pre)[:n]
+
+
+def restir_run(bundle, accel, cfg, dev, frames=6, schedule=None, prepass=False):
+    """``frames`` ReSTIR frames from a fresh state, the visibility traces as
+    the card's route runs them or, ``prepass``, with the proxy pre-pass
+    (:func:`with_prepass`); returns (ms a frame, each frame's ldr)."""
+    from merian_quake_tpu_torch.accel import woop
+    from merian_quake_tpu_torch.render.restir import ReSTIRConfig
+    from merian_quake_tpu_torch.renderer import init_state, render_frame
+
+    rcfg = ReSTIRConfig()
+    state = init_state(cfg, rcfg, device=dev)
+    route = woop.intersect_woop_any
+    woop.intersect_woop_any = with_prepass if prepass else route
+    try:
+        frame_ms, ldr = [], []
+        for i in range(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, out = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=i), cfg,
+                                      state, rcfg, schedule=schedule)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            ldr.append(out["ldr"])
+    finally:
+        woop.intersect_woop_any = route
+    return frame_ms, ldr
+
+
+def prepass_ab(phase, path, bundle, accel, cfg, dev, smi, schedule=None):
+    """F4 on frames: 8 ReSTIR frames without the proxy pre-pass (the
+    card's route) and with it, in turns (without, with, with, without,
+    twice); every frame's LDR the same both ways (the pre-pass changes no
+    ray). Returns {"without_ms", "with_ms"}: the means of frames 2-7."""
+    steady, first = {False: [], True: []}, {}
+    for prepass in (False, True, True, False) * 2:
+        frame_ms, ldr = restir_run(bundle, accel, cfg, dev, frames=8, schedule=schedule,
+                                   prepass=prepass)
+        steady[prepass].append(float(np.mean(frame_ms[2:])))
+        first.setdefault(prepass, ldr)
+    same = all(torch.equal(a, b) for a, b in zip(first[False], first[True]))
+    diff = (first[False][-1] - first[True][-1]).abs()
+    share = float((diff.amax(-1) <= PIX_TOL).float().mean())
+    log(f"phase {phase} F4 {path} {W}x{H} [{smi}]: steady ms/frame (frames 2-7) without the "
+        f"proxy pre-pass {' / '.join(f'{x:.2f}' for x in steady[False])} (mean "
+        f"{np.mean(steady[False]):.2f}), with it {' / '.join(f'{x:.2f}' for x in steady[True])} "
+        f"(mean {np.mean(steady[True]):.2f}); ldr bit-identical on every frame {same}, frame 7 "
+        f"pixels within {PIX_TOL} {share:.5f}")
+    if share < PIX_SHARE:
+        raise AssertionError(f"{path}: frames with and without the pre-pass differ")
+    return {"without_ms": float(np.mean(steady[False])), "with_ms": float(np.mean(steady[True]))}
 
 
 def phase6(dev, bundle, accel, feats, smi):
-    """6 ReSTIR frames at 1080p; returns the launches of each kernel."""
+    """6 ReSTIR frames at 1080p; returns the launches of each kernel; then
+    F4's frames with and without the proxy pre-pass."""
     from merian_quake_tpu_torch.accel import woop
     from merian_quake_tpu_torch.models.types import RenderConfig
     from merian_quake_tpu_torch.render.restir import ReSTIRConfig
@@ -602,8 +713,8 @@ def phase6(dev, bundle, accel, feats, smi):
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         got = (woop.woop_nearest.launches - before[0], woop.woop_any.launches - before[1])
-        if got != (2, 2):
-            raise AssertionError(f"ReSTIR frame {i}: (K1, K2) launched {got} times, expected (2, 2)")
+        if got != (2, 1):
+            raise AssertionError(f"ReSTIR frame {i}: (K1, K2) launched {got} times, expected (2, 1)")
     got = launches()
     if got["woop_stream"] or got["mt_dense"]:
         raise AssertionError(f"the city ReSTIR frames launched K3 or K8: {got}")
@@ -625,7 +736,7 @@ def phase6(dev, bundle, accel, feats, smi):
         f"ms/frame (frames {', '.join(f'{x:.1f}' for x in frame_ms)}); max M {m_max}; "
         f"valid reservoirs {float((res.y_flags & 1).float().mean()):.4f}; "
         f"ldr mean {float(out['ldr'].mean()):.4f}")
-    return got
+    return got, prepass_ab(6, "restir city", bundle, accel, config, dev, smi)
 
 
 def phase7(dev):
@@ -645,7 +756,7 @@ def phase7(dev):
         _, out_gpu = render_sequence(city(device="cpu"), small, frames=3, mcpg_config=rcfg,
                                      device=dev)
         k2 = woop.woop_any.launches - k2_before
-        expect = 3 * 2 * (3 if rcfg.temporal_bias_correction == 2 else 1)
+        expect = 3 * (3 if rcfg.temporal_bias_correction == 2 else 1)
         if k2 != expect:
             raise AssertionError(f"phase 7 {name}: K2 launched {k2} times, expected {expect}")
         diff = (out_cpu["ldr"] - out_gpu["ldr"].cpu()).abs()
@@ -766,6 +877,25 @@ def phase8(dev, soup, bundle, accel, config, smi):
         raise AssertionError("map shade rays: all occluded or none")
     log(f"phase 8 map shade {n_full}: occluded {float(occ[:n_full].float().mean()):.4f}, "
         f"by the proxy {float(pre_f[:n_full].float().mean()):.4f}")
+    # F4 on the map: one visibility trace without the proxy pre-pass (K3
+    # any-hit) and with it (K2 on the proxy table, then K3 warm-started)
+    without = lambda: woop.woop_stream(rays_f, *shadow_f, anyhit=True)
+    with_pre = lambda: woop.woop_stream(rays_f, *shadow_f, anyhit=True,
+                                        occluded_in=woop.woop_any(rays_f, *proxy_f))
+    errs.append(check_k2(f"map shade {n_full} F4 without vs with the pre-pass", without(),
+                         with_pre(), phase=8))
+    k2_pre = lambda: woop.woop_any(rays_f, *proxy_f)
+    a1, b1, b2, a2 = (cuda_time(without, 5), cuda_time(with_pre, 5), cuda_time(with_pre, 5),
+                      cuda_time(without, 5))
+    p1, p2 = cuda_time(k2_pre, 5), cuda_time(k2_pre, 5)
+    ops_p, bytes_p = woop_work(woop.woop_any, (rays_f, *proxy_f), True)
+    f4_map = {"without_ms": (a1 + a2) / 2, "with_ms": (b1 + b2) / 2, "k2_proxy_ms": (p1 + p2) / 2,
+              "k2_proxy_bound_ms": bound_ms(ops_p, bytes_p)[0]}
+    log(f"phase 8 F4 map shade {n_full} rays [{smi}]: without the proxy pre-pass (K3 any-hit) "
+        f"{a1:.3f} / {a2:.3f} ms, with it (K2 proxy + K3 warm-started) {b1:.3f} / {b2:.3f} ms; "
+        f"K2 on the proxy table ({proxy_f[1].shape[0]} clusters) {p1:.3f} / {p2:.3f} ms, bound "
+        f"{f4_map['k2_proxy_bound_ms']:.4f} ms ({ops_p / OPS_ANY:.4g} pairs tested)"
+        + first_design_ms("K2", "map proxy"))
 
     # times: K3 and K1/K2 on the whole populations in turns (K3, K1, K1,
     # K3; 5 launches a reading), then K3 and the plain version on the
@@ -819,6 +949,7 @@ def phase8(dev, soup, bundle, accel, config, smi):
             f"bound {bnd:.4f} ms ({by}; {ops / (OPS_ANY if name == 'shadow' else OPS_NEAREST):.4g} "
             f"pairs tested)" + first_design_ms("K3", name))
     out["max_abs_err"] = max(errs)
+    out["f4_map"] = f4_map
     out["ctas_per_sm"] = woop.ctas_per_sm("woop_stream", accel.cluster_lo.shape[0])
     log(f"phase 8 K3 on the map ({accel.cluster_lo.shape[0]} clusters): {out['ctas_per_sm']} CTAs "
         f"of 128 threads an SM (the first design: {FIRST_DESIGN['K3']['ctas_per_sm']})")
@@ -826,26 +957,21 @@ def phase8(dev, soup, bundle, accel, config, smi):
 
 
 def check_k8(name, kernel_out, oracle_out):
-    """K8's (t, tri, u, v) against the oracle's: tri equal on every ray;
-    t, u, v within 1e-5 relative (counted where not bit-equal)."""
+    """K8's (t, tri, u, v) against the oracle's: bit for bit on every ray.
+    Returns the largest |t difference| (0)."""
     torch.cuda.synchronize()
-    tri_differ = int((kernel_out[1] != oracle_out[1]).sum())
-    worst, bits = 0.0, []
-    for a, b in zip(kernel_out[0:1] + kernel_out[2:], oracle_out[0:1] + oracle_out[2:]):
-        rel = (a - b).abs() / torch.clamp_min(b.abs(), 1e-6)
-        worst = max(worst, float(rel.max()))
-        bits.append(int((a != b).sum()))
+    bits = [int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            for a, b in zip(kernel_out, oracle_out)]
     log(f"phase 9 {name}: rays={kernel_out[0].numel()} hits={int((oracle_out[1] >= 0).sum())} "
-        f"tri differ={tri_differ}; t, u, v not bit-equal on {bits[0]}, {bits[1]}, {bits[2]} "
-        f"rays, worst rel {worst:.3e}")
-    if tri_differ or worst > T_RTOL:
-        raise AssertionError(f"{name}: K8 and the oracle disagree")
+        f"t, tri, u, v not bit-equal on {bits[0]}, {bits[1]}, {bits[2]}, {bits[3]} rays")
+    if any(bits):
+        raise AssertionError(f"{name}: K8 and the oracle differ")
     return float((kernel_out[0] - oracle_out[0]).abs().max())
 
 
 def phase9(dev, soup, accel, po, pd, smi):
-    """K8 against the oracle on CUDA tensors and against K3; the dense
-    path's launches, times and bound."""
+    """K8 against the oracle on CUDA tensors, bit for bit, and against K3;
+    the dense path's launches, times in turns with K3, and the bounds."""
     from merian_quake_tpu_torch.accel import dense, woop
     from merian_quake_tpu_torch.accel.intersect import _intersect_oracle
 
@@ -855,6 +981,7 @@ def phase9(dev, soup, accel, po, pd, smi):
     n_full = W * H
     mid = slice(n_full // 2, n_full // 2 + SUBSET)
     o, d = po[mid].contiguous(), pd[mid].contiguous()
+    table = dense.scene_table(accel)  # once a scene, before the path
     reset_launches()
     hr = dense.intersect_dense(accel, o, d, 0.0, 1e4)  # the dense path
     got = launches()
@@ -867,8 +994,8 @@ def phase9(dev, soup, accel, po, pd, smi):
     torch.cuda.synchronize()
     p1 = start.elapsed_time(stop)
     errs.append(check_k8(f"map primary {SUBSET} K8 vs oracle", hr, ref))
-    t3, tri3 = woop.woop_stream(*woop.k1_inputs(accel, o, d, torch.zeros_like(o[:, 0]),
-                                                torch.full_like(o[:, 0], 1e4)))
+    k3_args = woop.k1_inputs(accel, o, d, torch.zeros_like(o[:, 0]), torch.full_like(o[:, 0], 1e4))
+    t3, tri3 = woop.woop_stream(*k3_args)
     t3, tri3 = t3[:SUBSET], tri3[:SUBSET]
     agree = (hr.t - t3).abs() <= T_RTOL * torch.clamp_min(t3.abs(), 1e-6)
     share = float(agree.float().mean())
@@ -878,15 +1005,31 @@ def phase9(dev, soup, accel, po, pd, smi):
     if share < 0.9999:
         raise AssertionError("K8 and K3 disagree on the map")
     rays = woop._pack_rays(o, d, torch.zeros_like(o[:, 0]), torch.full_like(o[:, 0], 1e4), 128)
-    tris = dense.pack_tris(accel.scene.v0, accel.scene.v1, accel.scene.v2, accel.candidate)
-    k8 = lambda: dense.mt_dense(rays, tris)
-    k_1, k_2 = cuda_time(k8, 3), cuda_time(k8, 3)
-    p2 = cuda_time(lambda: dense.intersect_dense_reference(rays, tris), 1)
-    T = tris.shape[1]
-    bnd, by = bound_ms(float(SUBSET) * T * OPS_MT, SUBSET * (32 + 16) + T * 40)
+    k8 = lambda: dense.mt_dense(rays, table)
+    k3 = lambda: woop.woop_stream(*k3_args)
+    k_1, c_1, c_2, k_2 = cuda_time(k8, 3), cuda_time(k3, 3), cuda_time(k3, 3), cuda_time(k8, 3)
+    p2 = cuda_time(lambda: dense.intersect_dense_reference(rays, table), 1)
+    T = table.shape[0]
+    # the bounds: every pair's 46 operations (no cull), and the operations
+    # these inputs need under the pre-tests (K8's counts: 14 a pair, 8 a
+    # pair past level 1, 19 past level 2, 5 past level 3)
+    counts = torch.zeros((SUBSET // 128, 3), dtype=torch.int64, device=dev)
+    dense.mt_dense(rays, table, counts=counts)
+    n1, n2, n3 = (int(x) for x in counts.sum(0))
+    pairs = float(SUBSET) * T
+    nbytes = SUBSET * (32 + 16) + T * 48
+    every, by_every = bound_ms(pairs * OPS_MT, nbytes)
+    need_ops = 14 * pairs + 8 * n1 + 19 * n2 + 5 * n3
+    bnd, by = bound_ms(need_ops, nbytes)
     log(f"phase 9 timing map primary {SUBSET} rays x {T} triangles [{smi}]: K8 {k_1:.3f} / "
-        f"{k_2:.3f} ms, plain {p1:.1f} / {p2:.1f} ms; bound {bnd:.4f} ms ({by})")
+        f"{k_2:.3f} ms, K3 on the same rays {c_1:.3f} / {c_2:.3f} ms, plain {p1:.1f} / {p2:.1f} "
+        f"ms; bound {every:.4f} ms ({by_every}, {OPS_MT} operations every pair), {bnd:.4f} ms "
+        f"({by}) from the operations these inputs need ({need_ops / pairs:.3f} a pair: pairs "
+        f"past pre-test level 1 {n1 / pairs:.4f}, level 2 {n2 / pairs:.4f}, level 3 "
+        f"{n3 / pairs:.4f})" + first_design_ms("K8", "map primary"))
     return {"ms": (k_1 + k_2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bnd, "bound_by": by,
+            "bound_every_pair_ms": every, "k3_ms": (c_1 + c_2) / 2,
+            "passed": {"level1": n1, "level2": n2, "level3": n3, "pairs": pairs},
             "max_abs_err": max(errs), "launches": got}
 
 
@@ -899,7 +1042,7 @@ def phase10(dev, bundle, accel, config, smi):
     per_path = {}
     for integrator, expect in (
         ("pt", {"woop_stream": 5}),
-        ("restir", {"woop_stream": 3, "woop_stream_any": 1, "woop_any": 1}),
+        ("restir", {"woop_stream": 3, "woop_stream_any": 1}),
     ):
         cfg = config._replace(integrator=integrator)
         rcfg = ReSTIRConfig() if integrator == "restir" else None
@@ -931,7 +1074,8 @@ def phase10(dev, bundle, accel, config, smi):
         log(f"phase 10 {integrator} map {W}x{H} [{smi}]: launches {per_path[integrator]}; cold "
             f"{frame_ms[0]:.1f} ms, steady {steady:.1f} ms/frame (frames "
             f"{', '.join(f'{x:.1f}' for x in frame_ms)}){rate}; ldr mean {float(out['ldr'].mean()):.4f}")
-    return per_path
+    f4 = prepass_ab(10, "restir map", bundle, accel, config._replace(integrator="restir"), dev, smi)
+    return per_path, f4
 
 
 def phase11(dev):
@@ -1146,25 +1290,33 @@ def phase13(dev, soup, c16, smi):
             f"with its list (K5 + sort + walker) {b1:.3f} / {b2:.3f} ms, K1 {c1:.3f} / {c2:.3f} "
             f"ms; pairs tested {pairs} (K1 {int(k1_counts.sum())}), tile visits {visits}, "
             f"compacted {cvisits} ({cvisits / max(visits, 1):.4f}); bound {bnd:.4f} ms ({by})")
-    # any-hit: the shadow sweep after the proxy, walker P = 8 against K2
+    # any-hit: the shadow sweep, walker P = 8 (with its list) against K2;
+    # F4 under the node schedule: without the proxy pre-pass and with it
+    # (K2 on the proxy table, then the walker warm-started), in turns
     rays, proxy, shadow = woop.k2_inputs(accel, *pops["shade"][:2], full(1e-3, nf),
                                          pops["shade"][2])
-    pre = woop.woop_any(rays, *proxy)
     s = S(node_clusters=8)
-    walk = lambda: woop._walk(rays, *shadow, s, anyhit=True, occluded_in=pre)
-    k2 = lambda: woop.woop_any(rays, *shadow, pre)
-    a1, c1, c2, a2 = cuda_time(walk, 10), cuda_time(k2, 10), cuda_time(k2, 10), cuda_time(walk, 10)
+    walk = lambda: woop._walk(rays, *shadow, s, anyhit=True)
+    with_pre = lambda: woop._walk(rays, *shadow, s, anyhit=True,
+                                  occluded_in=woop.woop_any(rays, *proxy))
+    k2 = lambda: woop.woop_any(rays, *shadow)
+    errs.append(check_k2(f"city1600 shade {nf} F4 walker P=8 without vs with the pre-pass",
+                         walk(), with_pre(), phase=13))
+    a1, b1, c1, c2, b2, a2 = (cuda_time(walk, 10), cuda_time(with_pre, 10), cuda_time(k2, 10),
+                              cuda_time(k2, 10), cuda_time(with_pre, 10), cuda_time(walk, 10))
     nlo, nhi = woop.node_bounds(shadow[1], shadow[2], 8)
     counts = torch.zeros((nf // 128, 3), dtype=torch.int64, device=dev)
     woop.woop_list(rays, *shadow, *woop.visit_list(rays, nlo, nhi), node_lo=nlo, node_hi=nhi,
-                   nodes=8, anyhit=True, occluded_in=pre, counts=counts)
+                   nodes=8, anyhit=True, counts=counts)
     pairs = int(counts[:, 0].sum())
-    bnd, by = bound_ms(pairs * OPS_ANY, nf * 34 + (shadow[0].shape[0] // 3) * 48)
+    bnd, by = bound_ms(pairs * OPS_ANY, nf * 33 + (shadow[0].shape[0] // 3) * 48)
     out["shade P=8 any"] = {"with_list_ms": (a1 + a2) / 2, "k2_ms": (c1 + c2) / 2,
-                            "bound_ms": bnd, "bound_by": by, "pairs": pairs}
-    log(f"phase 13 timing shade {nf} rays any-hit P=8 after proxy [{smi}]: with its list "
+                            "bound_ms": bnd, "bound_by": by, "pairs": pairs,
+                            "f4": {"without_ms": (a1 + a2) / 2, "with_ms": (b1 + b2) / 2}}
+    log(f"phase 13 timing shade {nf} rays any-hit P=8 [{smi}]: with its list "
         f"{a1:.3f} / {a2:.3f} ms, K2 {c1:.3f} / {c2:.3f} ms; pairs tested {pairs}; bound "
-        f"{bnd:.4f} ms ({by})")
+        f"{bnd:.4f} ms ({by}); F4: with the proxy pre-pass (K2 proxy + walker warm-started) "
+        f"{b1:.3f} / {b2:.3f} ms")
     # the plain versions' time, on the subset
     args = woop.k1_inputs(accel, *_sub(pops["bounce_target"]))
     p1 = cuda_time(lambda: woop.intersect_woop_reference(args[0], args[1]), 1)
@@ -1186,14 +1338,14 @@ def phase14(dev, c16, smi):
     S = woop.TraceSchedule
     runs = [
         ("pt_1600", "pt", None, {"woop_nearest": 5}),
-        ("restir_1600", "restir", None, {"woop_nearest": 2, "woop_any": 2}),
+        ("restir_1600", "restir", None, {"woop_nearest": 2, "woop_any": 1}),
         ("pt_1600_target", "pt", S(target_key=True),
          {"woop_nearest": 1, "target_keys": 4, "te_union": 4, "woop_list": 4}),
         ("pt_1600_nodes_compact", "pt", S(True, 8, 32),
          {"target_keys": 4, "te_union": 5, "woop_list": 5, "woop_list_nodes": 5,
           "woop_list_compact": 5}),
         ("restir_1600_nodes", "restir", S(node_clusters=8),
-         {"woop_any": 1, "te_union": 3, "woop_list": 3, "woop_list_nodes": 3, "woop_list_any": 1}),
+         {"te_union": 3, "woop_list": 3, "woop_list_nodes": 3, "woop_list_any": 1}),
     ]
     per_path, ldr, timing = {}, {}, {}
     for path, integrator, sched, expect in runs:
@@ -1236,7 +1388,10 @@ def phase14(dev, c16, smi):
         log(f"phase 14 {path} {W}x{H} schedule={tuple(sched) if sched else None} [{smi}]: "
             f"launches {per_path[path]}; cold {frame_ms[0]:.1f} ms, steady {steady:.1f} ms/frame "
             f"(frames {', '.join(f'{x:.1f}' for x in frame_ms)}){same}")
-    return per_path, timing
+    f4 = {path: prepass_ab(14, path, bundle, accel, config._replace(integrator="restir"), dev, smi,
+                           schedule=sched)
+          for path, integrator, sched, _ in runs if integrator == "restir"}
+    return per_path, timing, f4
 
 
 def phase15(dev):
@@ -1923,15 +2078,19 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build_libraries(*kernels.KERNELS)
     build_s = time.perf_counter() - t0
-    ptxas = {}
+    ptxas, spills = {}, {}
     for name in kernels.KERNELS:
         kernels.load_library(name)
         with open(kernels.library_path(name) + ".log") as f:
-            ptxas[name] = " | ".join(line.strip() for line in f if "ptxas info" in line
-                                     and ("Used" in line or "spill" in line))
+            lines = [line.strip() for line in f if "Used" in line or "spill" in line]
+        ptxas[name] = " | ".join(lines)
+        spills[name] = sum(int(x) for line in lines
+                           for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
+    if spills["mt_dense"]:
+        raise AssertionError(f"K8 spills registers: {ptxas['mt_dense']}")
     log(f"phase 1 device: {kind} x{count} [{smi}] torch {torch.__version__} "
         f"cuda {torch.version.cuda}; K1, K2, K3, K4 + K5, K6 + K7, K8 build {build_s:.2f} s; "
-        + "; ".join(f"{k} ({ptxas[k]})" for k in kernels.KERNELS))
+        f"spill bytes {spills}; " + "; ".join(f"{k} ({ptxas[k]})" for k in kernels.KERNELS))
 
     # ---- phase 2: K1 vs plain version ----
     rng = np.random.default_rng(1337)
@@ -2070,7 +2229,7 @@ def main() -> int:
     k2 = phase5(dev, rng, acc_soup, bundle, accel, config, smi)
 
     # ---- phase 6: the ReSTIR slice on the card ----
-    restir_city = phase6(dev, bundle, accel, feats, smi)
+    restir_city, f4_city_frames = phase6(dev, bundle, accel, feats, smi)
 
     # ---- phase 7: CPU oracle vs card K1 + K2, ReSTIR ----
     phase7(dev)
@@ -2080,14 +2239,14 @@ def main() -> int:
     m_bundle, m_accel, m_config = map_scene(dev)
     k3, (mpo, mpd) = phase8(dev, soup, m_bundle, m_accel, m_config, smi)
     k8 = phase9(dev, soup, m_accel, mpo, mpd, smi)
-    map_paths = phase10(dev, m_bundle, m_accel, m_config, smi)
+    map_paths, f4_map_frames = phase10(dev, m_bundle, m_accel, m_config, smi)
     phase11(dev)
 
     # ---- phases 12-15: city(1600, 7), the trace schedules ----
     c16 = city1600(dev)
     k45 = phase12(dev, soup, c16, smi)
     walk = phase13(dev, soup, c16, smi)
-    sched_paths, _ = phase14(dev, c16, smi)
+    sched_paths, _, f4_sched_frames = phase14(dev, c16, smi)
     phase15(dev)
 
     # ---- phases 16-19: the MCPG surface frame ----
@@ -2133,7 +2292,13 @@ def main() -> int:
         "launches_by_path": by_path("woop_any"),
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
-        "rays": n_full, "scene": "city",
+        "rays": n_full, "scene": "city", "table": "shadow", "pairs": k2["pairs"],
+        "ctas_per_sm": k2["ctas_per_sm"], "lane_use": k2["lane_use"],
+        "cycle_shares": k2["cycle_shares"],
+        "proxy_prepass": {"city_trace": k2["f4_city"], "map_trace": k3["f4_map"],
+                          "nodes_trace": walk["shade P=8 any"]["f4"],
+                          "city_restir_frame": f4_city_frames, "map_restir_frame": f4_map_frames,
+                          **{f"{p}_frame": v for p, v in f4_sched_frames.items()}},
     }, {
         "name": "woop_stream", "route": "cuda", "source": K3_SOURCE,
         "replaces": K3_REPLACES, "launches": total("woop_stream"),
@@ -2155,7 +2320,8 @@ def main() -> int:
         "launches_by_path": by_path("mt_dense"),
         "max_abs_err": k8["max_abs_err"], "ms": k8["ms"], "plain_ms": k8["plain_ms"],
         "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"], "library_ms": None,
-        "rays": SUBSET, "scene": "map",
+        "rays": SUBSET, "scene": "map", "bound_every_pair_ms": k8["bound_every_pair_ms"],
+        "k3_ms": k8["k3_ms"], "passed_pretests": k8["passed"],
     }, {
         "name": "target_keys", "route": "cuda", "source": K45_SOURCE,
         "replaces": K4_REPLACES, "launches": total("target_keys"),

@@ -10,7 +10,7 @@ test on the transformed origin/direction is division-free.
 - ``woop_nearest``: the wrapper of K1, ``csrc/woop_nearest.cu`` — the
   hand-written Hopper kernel that replaces the TPU kernel
   ``_kernel_resident`` + ``_intersect_tile``. A CUDA tensor launches the
-  kernel; a CPU tensor runs the plain version. K1 and K3 are two
+  kernel; a CPU tensor runs the plain version. K1, K2 and K3 are three
   instances of one walk (``csrc/woop_walk.cuh``: a warp of rays walks
   nodes, sub-nodes and clusters alone and fetches tiles by bulk copies);
   they read the table's packed rows (``pack_table``, made once where
@@ -22,10 +22,10 @@ test on the transformed origin/direction is division-free.
   sort of bounce rays, packing, the sweep (K1, K3 or the walker),
   un-sort, exact t/u/v recompute.
 - ``woop_any``: the wrapper of K2, ``csrc/woop_any.cu`` — the same TPU
-  kernel with its any-hit epilogue (occlusion only), with
-  ``intersect_woop_any_reference`` as its plain version and
-  ``intersect_woop_any`` (shadow table, proxy pre-pass) as its entry
-  point.
+  kernel with its any-hit epilogue (occlusion only), the walk's any-hit
+  instance in K1's node order, with ``intersect_woop_any_reference`` as
+  its plain version and ``intersect_woop_any`` (the shadow table) as its
+  entry point.
 - ``woop_stream``: the wrapper of K3, ``csrc/woop_stream.cu`` — the
   hand-written Hopper kernel that replaces the TPU's streamed-table
   kernel ``_kernel_stream``: the nearest-hit or any-hit result of K1/K2
@@ -155,7 +155,7 @@ def pack_table(w: torch.Tensor) -> torch.Tensor:
     """Attach to the table ``w`` f32[3T, 8] its packed rows ``w.rows4``
     f32[3T, 4] (columns 0-3; columns 4-7 are zero by contract), made once
     where the table is placed on its device: a cluster's tile is then 3,072
-    contiguous bytes, which K1 and K3 fetch with one bulk copy. Returns
+    contiguous bytes, which K1, K2 and K3 fetch with one bulk copy. Returns
     ``w``. A copy or a view of ``w`` does not carry it."""
     w.rows4 = w[:, :4].contiguous()
     return w
@@ -191,7 +191,7 @@ def padded_bounds(lo, hi):
 
 
 def walk_boxes(lo, hi, nodes: int, sub: int) -> torch.Tensor:
-    """The boxes K1's and K3's walks read, f32[nn + ns + nc, 8]: the boxes
+    """The boxes K1's, K2's and K3's walks read, f32[nn + ns + nc, 8]: the boxes
     of nodes of ``nodes`` consecutive clusters (nn = ceil(nc / nodes);
     :func:`node_bounds` of the padded cluster bounds lo/hi f32[nc, 3]),
     then, when ``sub`` < ``nodes``, of sub-nodes of ``sub`` clusters (ns =
@@ -392,12 +392,9 @@ def intersect_woop_any_reference(rays: torch.Tensor, w: torch.Tensor, occluded_i
 
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# the arguments of K2's entry point: (rays, n_pad, w, lo, hi, nc, block,
-# out0, out1, counts, stream)
-_WOOP_ARGS = (_P, _I64, _P, _P, _P, _INT, _INT, _P, _P, _P, _P)
 
 
-def _kernel_lib(name, entry=None, argtypes=_WOOP_ARGS):
+def _kernel_lib(name, entry, argtypes):
     """The C entry point ``entry`` (default ``mq_<name>``) of
     ``csrc/<name>.cu``, taking ``argtypes`` and returning a CUDA error."""
     from ..kernels import load_library
@@ -418,24 +415,8 @@ def _call(fn, device, *args):
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {err}")
 
 
-def _launch(name, rays, w, cluster_lo, cluster_hi, out0, out1, counts, entry=None):
-    """Launch K2 on the current stream; raise on a refused
-    launch. ``counts`` is None (the frame path: the kernel is built
-    without its counter) or an int64[n_pad / RAY_BLOCK] CUDA tensor that
-    gets the (ray, triangle) pairs each CTA tested (zeroed here)."""
-    n_pad = rays.shape[1]
-    cptr = None
-    if counts is not None:
-        _check("counts", counts, torch.int64, (n_pad // RAY_BLOCK,), rays.device)
-        counts.zero_()
-        cptr = counts.data_ptr()
-    _call(_kernel_lib(name, entry), rays.device, rays.data_ptr(), n_pad, w.data_ptr(),
-          cluster_lo.data_ptr(), cluster_hi.data_ptr(), cluster_lo.shape[0], RAY_BLOCK, out0,
-          out1, cptr)
-
-
-# the columns of K1's and K3's profile (``counts=`` int64[n_pad / RAY_BLOCK,
-# 8]): cycles (clock64, summed over a CTA's warps) in the node list, in the
+# the columns of K1's, K2's and K3's profile (``counts=`` int64[n_pad /
+# RAY_BLOCK, 8]): cycles (clock64, summed over a CTA's warps) in the node list, in the
 # gates that look for the next tile (nodes, sub-nodes, clusters), in issuing
 # a tile and gating it again at its test, in tile waits, in pair loops and
 # in the whole kernel; the (ray, triangle) pairs tested; and the warp-issued
@@ -446,26 +427,27 @@ PROF_FIELDS = ("list", "search", "visit", "wait", "pairs_cycles", "total", "pair
 
 
 def ctas_per_sm(name, nc):
-    """CTAs of kernel ``name`` (``woop_nearest`` or ``woop_stream``, the
-    frame instance) that fit one SM for a table of ``nc`` clusters
+    """CTAs of kernel ``name`` (``woop_nearest``, ``woop_any`` or
+    ``woop_stream``, the frame instance) that fit one SM for a table of ``nc`` clusters
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     return _kernel_lib(name, f"mq_{name}_ctas_per_sm", (_INT,))(nc)
 
 
 def node_sizes(name):
     """(clusters a node, clusters a sub-node) of kernel ``name``'s walk
-    (``woop_nearest`` or ``woop_stream``): compile-time constants of
+    (``woop_nearest``, ``woop_any`` or ``woop_stream``): compile-time constants of
     csrc/woop_walk.cuh, read from the built library."""
     return tuple(_kernel_lib(name, f"mq_{name}_{level}", ())() for level in ("node", "sub"))
 
 
-# the arguments of K1's and K3's entry points: (rays, n_pad, rows4, boxes,
-# nc, block, out0, out1, prof, stream)
+# the arguments of the walk's entry points: (rays, n_pad, rows4, boxes, nc,
+# block, out0, out1, prof, stream); the any-hit ones (K2, K3's any-hit
+# form) take (occ_in, out) as (out0, out1)
 _WALK_ARGS = (_P, _I64, _P, _P, _INT, _INT, _P, _P, _P, _P)
 
 
 def _launch_walk(name, rays, w, cluster_lo, cluster_hi, out0, out1, counts, entry=None):
-    """Launch K1 or K3 (the walk of csrc/woop_walk.cuh) on the current
+    """Launch K1, K2 or K3 (the walk of csrc/woop_walk.cuh) on the current
     stream, with the table's packed rows and its cached boxes, packed for
     the library's :func:`node_sizes`; raise on a refused launch or a table
     without packed rows.
@@ -562,10 +544,12 @@ def woop_any(rays, w, cluster_lo, cluster_hi, occluded_in=None, counts=None):
     """K2: is each ray occluded? Returns bool[n_pad].
 
     Arguments as :func:`woop_nearest`'s (``w`` is the shadow, proxy or
-    full table); ``occluded_in`` (bool[n_pad] or None) marks rays already
-    known to be occluded. On CUDA tensors this launches
-    csrc/woop_any.cu and counts the launch in ``woop_any.launches``; on
-    CPU tensors it runs :func:`intersect_woop_any_reference`.
+    full table, with its packed rows on a card); ``occluded_in``
+    (bool[n_pad] or None) marks rays already known to be occluded. On
+    CUDA tensors this launches csrc/woop_any.cu (the any-hit instance of
+    the walk) and counts the launch in ``woop_any.launches``; on CPU
+    tensors it runs :func:`intersect_woop_any_reference`. ``counts``: see
+    :func:`_launch_walk`.
     """
     n_pad = _check_k_inputs(rays, w, cluster_lo, cluster_hi)
     if occluded_in is not None:
@@ -575,7 +559,7 @@ def woop_any(rays, w, cluster_lo, cluster_hi, occluded_in=None, counts=None):
         return intersect_woop_any_reference(rays, w, occluded_in)
     out = torch.empty(n_pad, dtype=torch.bool, device=rays.device)
     occ_ptr = None if occluded_in is None else occluded_in.data_ptr()
-    _launch("woop_any", rays, w, cluster_lo, cluster_hi, occ_ptr, out.data_ptr(), counts)
+    _launch_walk("woop_any", rays, w, cluster_lo, cluster_hi, occ_ptr, out.data_ptr(), counts)
     woop_any.launches += 1
     return out
 
@@ -938,8 +922,9 @@ def k1_inputs(accel, o, d, t_min_b, t_max_b):
 
 def k2_inputs(accel, o, d, t_min_b, t_max_b):
     """Arguments of :func:`woop_any` for rays in the given order: packed
-    rays, then (table, padded bounds) for the proxy pre-pass (None when
-    the scene has no proxy table) and for the shadow sweep."""
+    rays, then (table, padded bounds) for the JAX package's proxy
+    pre-pass (None when the scene has no proxy table; the frames do not
+    run it, see :func:`intersect_woop_any`) and for the shadow sweep."""
     rays = _pack_rays(o, d, t_min_b, t_max_b, RAY_BLOCK)
     proxy = None
     if accel.woop_w_proxy is not None:
@@ -949,20 +934,31 @@ def k2_inputs(accel, o, d, t_min_b, t_max_b):
     return rays, proxy, (w, *padded_bounds(accel.cluster_lo, accel.cluster_hi))
 
 
+def sweep_any(rays, w, cluster_lo, cluster_hi, schedule=None, occluded_in=None):
+    """The occlusion sweep over one table as the routes send it: K3 when
+    :func:`streamed` says so, else the walker at node level when
+    ``schedule`` has a node level that applies (K5's list, then K6), else
+    K2; ``occluded_in`` warm-starts it. Arguments as :func:`woop_any`'s."""
+    sched = check_schedule(schedule)
+    if streamed(w):
+        return woop_stream(rays, w, cluster_lo, cluster_hi, anyhit=True, occluded_in=occluded_in)
+    if schedule_nodes(sched, cluster_lo.shape[0]) > 1:
+        return _walk(rays, w, cluster_lo, cluster_hi, sched, anyhit=True, occluded_in=occluded_in)
+    return woop_any(rays, w, cluster_lo, cluster_hi, occluded_in)
+
+
 def intersect_woop_any(accel, o, d, t_min, t_max, sort_rays: bool = False, schedule=None):
     """Occlusion-only visibility sweep: bool[n] ``occluded``.
 
-    Uses the shadow table (sky and alpha-tested triangles zeroed; the
-    full table when absent). When the scene has a proxy table, a K2
-    sweep over it runs first and its result warm-starts the shadow
-    sweep: proxy triangles are genuine occluders, so this changes no
-    result, only how many rays the second sweep still tests. The shadow
-    sweep goes to K3 as :func:`streamed` says, else to the walker at node
-    level when ``schedule`` (a :class:`TraceSchedule`) has a node level
-    that applies (K5's list, then K6), else to K2; the proxy pre-pass
-    stays on K2, as in the JAX package (woop.py:1839-1868 there).
-    ``sort_rays`` bins the rays as :func:`intersect_woop` does without a
-    target key.
+    One :func:`sweep_any` over the shadow table (sky and alpha-tested
+    triangles zeroed; the full table when absent). The JAX package runs a
+    K2 sweep over the proxy table first and warm-starts the shadow sweep
+    with it (woop.py:1838-1848 there); that changes no result (proxy
+    triangles are shadow candidates, built from the same vertices), and
+    on an H100 it cost more than it saved on every route (PERF.md, section 6),
+    so it is not run here. The proxy table is still built (equal to the
+    JAX package's). ``sort_rays`` bins the rays as :func:`intersect_woop`
+    does without a target key.
     """
     sched = check_schedule(schedule)
     n = o.shape[0]
@@ -973,13 +969,8 @@ def intersect_woop_any(accel, o, d, t_min, t_max, sort_rays: bool = False, sched
         occ = intersect_woop_any(accel, o[perm], d[perm], t_min_b[perm], t_max_b[perm],
                                  schedule=sched)
         return torch.empty_like(occ).index_copy_(0, perm, occ)
-    rays, proxy, shadow = k2_inputs(accel, o, d, t_min_b, t_max_b)
-    occ = None if proxy is None else woop_any(rays, *proxy)
-    if streamed(shadow[0]):
-        return woop_stream(rays, *shadow, anyhit=True, occluded_in=occ)[:n]
-    if schedule_nodes(sched, shadow[1].shape[0]) > 1:
-        return _walk(rays, *shadow, sched, anyhit=True, occluded_in=occ)[:n]
-    return woop_any(rays, *shadow, occ)[:n]
+    rays, _, shadow = k2_inputs(accel, o, d, t_min_b, t_max_b)
+    return sweep_any(rays, *shadow, sched)[:n]
 
 
 def intersect_woop(accel, o, d, t_min, t_max, sort_rays: bool = False, schedule=None):

@@ -1,6 +1,7 @@
 // Device helpers shared by the Woop kernels: K1-K3 (their gate, its slack
 // and the pair tests), K4 and K5 (csrc/woop_keys.cu) and the list walker
-// K6/K7 (csrc/woop_list.cu). Every pair test of every kernel is one of the
+// K6/K7 (csrc/woop_list.cu); the mbarrier and bulk-copy helpers and the
+// ordered float key also serve K8 (csrc/mt_dense.cu). Every pair test of every kernel is one of the
 // two functions below, so the bit-exact contract with the plain versions
 // lives in one place. The union that builds a walk's list and
 // the walk's per-ray gate call the same slab function here, so a box the
@@ -179,6 +180,60 @@ __device__ __forceinline__ bool any_pair(float4 r0, float4 r1, float4 r2, float 
   return (U >= 0.0f) & (V >= 0.0f) & (__fsub_rn(__fsub_rn(dzz, U), V) >= 0.0f) &
          (__fsub_rn(dzz, 1e-12f) >= 0.0f) & (__fsub_rn(z0n, __fmul_rn(t_min, dzz)) >= 0.0f) &
          (__fsub_rn(__fmul_rn(t_max, dzz), z0n) >= 0.0f);
+}
+
+// ---- asynchronous copies (the walk's tile ring, K8's) and ordered keys ----
+
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals)
+               : "memory");
+}
+
+// one arrival that also announces `bytes` of copies to come
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from 16-byte-aligned global memory to shared
+// memory, completion counted on `bar`
+__device__ __forceinline__ void bulk_copy(void* smem_dst, const void* gmem_src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(smem_dst)),
+      "l"(gmem_src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// order-preserving unsigned image of a float (a < b <=> key(a) < key(b));
+// -0 and +0 share one
+__device__ __forceinline__ unsigned float_key(float t) {
+  const unsigned u = __float_as_uint(__fadd_rn(t, 0.0f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
 }  // namespace mq

@@ -1,5 +1,5 @@
-// The walk that K1 (csrc/woop_nearest.cu) and K3 (csrc/woop_stream.cu) share
-// on Hopper: each warp of 32 consecutive rays walks the table alone, through
+// The walk that K1 (csrc/woop_nearest.cu), K2 (csrc/woop_any.cu) and K3
+// (csrc/woop_stream.cu) share on Hopper: each warp of 32 consecutive rays walks the table alone, through
 // nodes of P consecutive clusters and sub-nodes of S, and tests the tiles its
 // own lanes reach, which arrive by bulk copies into a ring of its own.
 //
@@ -38,7 +38,9 @@
 //     later, and an entry beyond every lane's limit fails every gate.
 //  2. Gates. A lane gates a box with its current limit (nearest:
 //     with_slack(min(best, t_max)); any-hit: with_slack(t_max), -inf once
-//     occluded); a vote says whether any lane reaches it. K1 gates its nodes
+//     occluded, so a warp whose live lanes are all occluded reaches no box
+//     and issues no tile: its walk ends); a vote says whether any lane
+//     reaches it. K1 gates its nodes
 //     32 at a time, K3 the listed node again (the list saw the starting
 //     limits); a reached node's P / S sub-nodes are gated, then a reached
 //     sub-node's S clusters. Gates go in batches of kBatch that share one
@@ -80,8 +82,8 @@
 
 namespace mq {
 
-// clusters a node and clusters a sub-node of K1's and K3's instances (equal:
-// no level of sub-nodes), chosen by measurement on an H100; the wrappers read
+// clusters a node and clusters a sub-node of K1's, K2's and K3's instances
+// (equal: no level of sub-nodes), chosen by measurement on an H100; the wrappers read
 // them through each library's mq_*_node / mq_*_sub and pack `boxes` for them
 constexpr int kNode = 64;
 constexpr int kSub = 8;
@@ -91,58 +93,7 @@ constexpr int kCompactMax = 24;    // reaching lanes up to which a visit is comp
 constexpr int kIdBits = 14;
 constexpr int kMaxClusters = 1 << kIdBits;  // 16,384 (1,048,576 triangles)
 constexpr int kMinCtas = 8;        // CTAs an SM the register budget allows
-constexpr unsigned kFull = 0xffffffffu;
 static_assert((kRing & (kRing - 1)) == 0, "slots are picked by a mask");
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, int arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals)
-               : "memory");
-}
-
-// one arrival that also announces `bytes` of copies to come
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  const unsigned addr = smem_addr(bar);
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// `bytes` (a multiple of 16) from 16-byte-aligned global memory to shared
-// memory, completion counted on `bar`
-__device__ __forceinline__ void bulk_copy(void* smem_dst, const void* gmem_src, unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(smem_dst)),
-      "l"(gmem_src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// order-preserving unsigned image of a float (a < b <=> key(a) < key(b));
-// -0 and +0 share one
-__device__ __forceinline__ unsigned float_key(float t) {
-  const unsigned u = __float_as_uint(__fadd_rn(t, 0.0f));
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
 
 constexpr int kBatch = 4;  // boxes gated together before their votes
 
@@ -325,11 +276,13 @@ woop_walk_kernel(const float* __restrict__ rays, int64_t n_pad, const float4* __
   };
 
   // the S clusters of sub-node sb: each one some lane reaches is fetched,
-  // and the tile fetched before it is tested
+  // and the tile fetched before it is tested; any-hit: none once every
+  // live lane is occluded (the gates saw older limits)
   auto visit_members = [&](int sb) {
     unsigned bits = reached(cl0 + sb * S, S, cl0 + nc);
     lap(t_skip);
     for (; bits; bits &= bits - 1) {
+      if (kAny && !__any_sync(kFull, limit() >= 0.0f)) break;
       const int c = sb * S + __ffs(bits) - 1;
       issue(c);
       lap(t_gate);

@@ -1,28 +1,33 @@
 #!/usr/bin/env python3
-"""K1, K2 and K3 of this checkout against the same kernels of another
+"""K1, K2, K3 and K8 of this checkout against the same kernels of another
 checkout, on one GPU: equal results, and their times in turns.
 
-    python3 scripts/ab_trace_kernels.py --parent DIR [--map] [--reps 10]
+    python3 scripts/ab_trace_kernels.py --parent DIR [--map] [--reps 10] [--only K2,K8]
 
 DIR is another checkout of the repo, for example the parent commit
-unpacked with ``git archive``. The kernel sources of both checkouts are
-built with nvcc for sm_90a into this checkout's ``_build/`` (a library's
-name carries a hash of its sources, so the two builds never collide) and
-launched on the same inputs. A checkout whose K1 and K3 are the walk of
-``csrc/woop_walk.cuh`` is launched through this checkout's wrappers (which
-read the node sizes from each library); an older one (a
-CTA of 128 rays walking the clusters, entry points that take ``woop_w``
-and the cluster bounds) through this script's own calls with that
-argument list. The inputs: city's
-(16,640 triangles) 1080p primary rays and sorted first-bounce rays (K1,
-and K3 forced on the same table), and the ReSTIR shade pass's shadow rays
-(K2 on the shadow table warm-started by the proxy pre-pass, as the frame
-launches it, and K3's any-hit form). With ``--map`` the map scene
-(``city(28000, 11)``, 281,536 triangles) adds its primary, bounce and
-shadow rays through K3. Each kernel's output must equal the other
-checkout's bit for bit. Times are CUDA-event means over ``--reps``
-launches, taken in the turns parent, change, change, parent. Prints one
-line a measurement with the card's name and power limit.
+unpacked with ``git archive``, or a copy of this one whose ``csrc/`` holds
+other constants or another walk order (a variant). The kernel sources of
+both checkouts are built with nvcc for sm_90a into this checkout's
+``_build/`` (a library's name carries a hash of its sources, so the two
+builds never collide) and launched on the same inputs. A kernel that is
+an instance of the walk of ``csrc/woop_walk.cuh`` is launched through
+this checkout's wrappers (which read the node sizes from each library);
+an older one (a CTA of 128 rays walking the clusters, entry points that
+take ``woop_w`` and the cluster bounds) through this script's own calls
+with that argument list; K8 likewise (the first design takes the
+f32[16, T] triangle rows, this one ``dense.mt_table``'s f32[T, 12]). The
+inputs: city's (16,640 triangles) 1080p primary rays and sorted
+first-bounce rays (K1, and K3 forced on the same table), and the ReSTIR
+shade pass's shadow rays (K2 on the proxy table, on the shadow table, and
+on the shadow table warm-started by the proxy pre-pass; K3's any-hit
+form); the court's shade rays (K2 on its shadow table). With ``--map``
+the map scene (``city(28000, 11)``, 281,536 triangles) adds its primary,
+bounce and shadow rays through K3, its proxy pre-pass through K2, and K8
+on 65,536 of its primary rays (those chip_smoke.py phase 9 takes). Each
+kernel's output must equal the other checkout's bit for bit. Times are
+CUDA-event means over ``--reps`` launches (K8: 3), taken in the turns
+parent, change, change, parent. Prints one line a measurement with the
+card's name and power limit.
 """
 from __future__ import annotations
 
@@ -38,25 +43,36 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (ray populations, cuda_time)
 from merian_quake_tpu_torch import kernels  # noqa: E402
-from merian_quake_tpu_torch.accel import build_accel, woop  # noqa: E402
+from merian_quake_tpu_torch.accel import build_accel, dense, woop  # noqa: E402
 from merian_quake_tpu_torch.accel.build import scene_features  # noqa: E402
-from merian_quake_tpu_torch.models.procedural import city  # noqa: E402
+from merian_quake_tpu_torch.models.procedural import city, outdoor_court  # noqa: E402
 from merian_quake_tpu_torch.models.types import RenderConfig  # noqa: E402
 
-SOURCES = ("woop_nearest", "woop_any", "woop_stream")
+SOURCES = ("woop_nearest", "woop_any", "woop_stream", "mt_dense")
+# the arguments of a pre-walk entry point: (rays, n_pad, woop_w, lo, hi,
+# nc, block, out0, out1, counts, stream)
+OLDER_ARGS = (woop._P, woop._I64, woop._P, woop._P, woop._P, woop._INT, woop._INT, woop._P,
+              woop._P, woop._P, woop._P)
+# the first K8's: (rays, n_pad, tris f32[16, T], T, block, t, tri, u, v, stream)
+OLDER_K8_ARGS = (woop._P, woop._I64, woop._P, woop._I64, woop._INT, woop._P, woop._P, woop._P,
+                 woop._P, woop._P)
 
 
-def use(csrc: str) -> bool:
+def use(csrc: str) -> dict:
     """Have every wrapper launch the kernels built from ``csrc``; returns
-    whether its K1 and K3 are the walk (else the older argument list)."""
+    which of its kernels are the current designs: ``walk`` (K1 and K3 are
+    the walk), ``k2`` (K2 is too), ``k8`` (K8 takes mt_table's layout)."""
     kernels.CSRC_DIR = csrc
     kernels.load_library.cache_clear()
-    return os.path.exists(os.path.join(csrc, "woop_walk.cuh"))
+    read = lambda name: open(os.path.join(csrc, name)).read()
+    return {"walk": os.path.exists(os.path.join(csrc, "woop_walk.cuh")),
+            "k2": "woop_walk.cuh" in read("woop_any.cu"),
+            "k8": "mt_resolve_kernel" in read("mt_dense.cu")}
 
 
 def older(name, rays, w, lo, hi, occ=None, anyhit=False):
-    """K1 or K3 of a checkout from before the walk: (rays, n_pad, woop_w,
-    lo, hi, nc, block, out0, out1, counts, stream)."""
+    """K1, K2 or K3 of a checkout from before the walk (the older argument
+    list)."""
     n, dev = rays.shape[1], rays.device
     if anyhit:
         out = torch.empty(n, dtype=torch.bool, device=dev)
@@ -65,9 +81,21 @@ def older(name, rays, w, lo, hi, occ=None, anyhit=False):
         out = (torch.empty(n, dtype=torch.float32, device=dev),
                torch.empty(n, dtype=torch.int32, device=dev))
         outs = (out[0].data_ptr(), out[1].data_ptr())
-    entry = "mq_woop_stream_any" if anyhit else None
-    woop._call(woop._kernel_lib(name, entry, woop._WOOP_ARGS), dev, rays.data_ptr(), n,
+    entry = "mq_woop_stream_any" if anyhit and name == "woop_stream" else None
+    woop._call(woop._kernel_lib(name, entry, OLDER_ARGS), dev, rays.data_ptr(), n,
                w.data_ptr(), lo.data_ptr(), hi.data_ptr(), lo.shape[0], woop.RAY_BLOCK, *outs, None)
+    return out
+
+
+def older_k8(rays, tris):
+    """The first K8 on the f32[16, T] triangle rows."""
+    n, dev = rays.shape[1], rays.device
+    out = (torch.empty(n, dtype=torch.float32, device=dev),
+           torch.empty(n, dtype=torch.int32, device=dev),
+           torch.empty(n, dtype=torch.float32, device=dev),
+           torch.empty(n, dtype=torch.float32, device=dev))
+    woop._call(woop._kernel_lib("mt_dense", None, OLDER_K8_ARGS), dev, rays.data_ptr(), n,
+               tris.data_ptr(), tris.shape[1], woop.RAY_BLOCK, *(x.data_ptr() for x in out))
     return out
 
 
@@ -80,16 +108,22 @@ def same(name, a, b) -> None:
             raise AssertionError(f"{name}: the two checkouts' kernels differ")
 
 
+def k2_case(name, rays, table, occ=None):
+    """(name, fn): K2 on one table, the walk's instance or the older one."""
+    return (name, lambda c: woop.woop_any(rays, *table, occ) if c["k2"]
+            else older("woop_any", rays, *table, occ=occ, anyhit=True))
+
+
 def cases(dev, scene_kw, with_k1_k2):
-    """(name, fn) pairs on one scene's 1080p rays; fn(walk) launches the
-    kernel of the checkout in use (``walk``: what :func:`use` returned)."""
+    """(name, fn) pairs on one scene's 1080p rays; fn(c) launches the
+    kernel of the checkout in use (``c``: what :func:`use` returned)."""
     bundle = city(**scene_kw, device=dev)
     accel = build_accel(bundle.scene, bundle.atlas)
     feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
     config = RenderConfig(width=chip_smoke.W, height=chip_smoke.H, spp=chip_smoke.SPP,
                           max_path_length=chip_smoke.MPL, features=feats)
     n = chip_smoke.W * chip_smoke.H
-    full = lambda v: torch.full((n,), v, device=dev)
+    full = lambda v, k=n: torch.full((k,), v, device=dev)
     po, pd = chip_smoke.primary_rays(bundle, accel, dev)
     bo, bd, bt = chip_smoke.bounce_rays(bundle, accel, config, dev)
     perm = woop.sort_perm(accel, bo, bd, bt)
@@ -98,26 +132,49 @@ def cases(dev, scene_kw, with_k1_k2):
     prim = woop.k1_inputs(accel, po, pd, full(0.0), full(1e4))
     boun = woop.k1_inputs(accel, bo, bd, full(0.0), bt)
     rays, proxy, shadow = woop.k2_inputs(accel, so, sd, full(1e-3), st)
-    pre = woop.woop_any(rays, *proxy)
+    pre = woop.intersect_woop_any_reference(rays, proxy[0])
     tag = "map" if scene_kw else "city"
-    k1 = lambda a: lambda walk: woop.woop_nearest(*a) if walk else older("woop_nearest", *a)
-    k3 = lambda a: lambda walk: woop.woop_stream(*a) if walk else older("woop_stream", *a)
-    out = []
+    k1 = lambda a: lambda c: woop.woop_nearest(*a) if c["walk"] else older("woop_nearest", *a)
+    k3 = lambda a: lambda c: woop.woop_stream(*a) if c["walk"] else older("woop_stream", *a)
+    out = [k2_case(f"{tag} K2 proxy", rays, proxy)]
     if with_k1_k2:
         out += [(f"{tag} K1 primary", k1(prim)), (f"{tag} K1 bounce", k1(boun)),
-                (f"{tag} K2 shadow after proxy", lambda walk: woop.woop_any(rays, *shadow, pre))]
+                k2_case(f"{tag} K2 shadow", rays, shadow),
+                k2_case(f"{tag} K2 shadow after proxy", rays, shadow, pre)]
     out += [(f"{tag} K3 primary", k3(prim)), (f"{tag} K3 bounce", k3(boun)),
             (f"{tag} K3 shadow after proxy",
-             lambda walk: woop.woop_stream(rays, *shadow, anyhit=True, occluded_in=pre) if walk
+             lambda c: woop.woop_stream(rays, *shadow, anyhit=True, occluded_in=pre) if c["walk"]
              else older("woop_stream", rays, *shadow, occ=pre, anyhit=True))]
+    if scene_kw:
+        mid = slice(n // 2, n // 2 + chip_smoke.SUBSET)
+        k8_rays = woop._pack_rays(po[mid].contiguous(), pd[mid].contiguous(),
+                                  full(0.0, chip_smoke.SUBSET), full(1e4, chip_smoke.SUBSET),
+                                  woop.RAY_BLOCK)
+        tris = dense.pack_tris(accel.scene.v0, accel.scene.v1, accel.scene.v2, accel.candidate)
+        table = dense.scene_table(accel)
+        out.append((f"{tag} K8 primary {chip_smoke.SUBSET}",
+                    lambda c: dense.mt_dense(k8_rays, table) if c["k8"] else older_k8(k8_rays, tris)))
     return out
+
+
+def court_cases(dev):
+    """K2 on the court's 1080p shade rays (its shadow table; no proxy)."""
+    bundle = outdoor_court(device=dev)
+    accel = build_accel(bundle.scene, bundle.atlas)
+    feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
+    config = RenderConfig(width=chip_smoke.W, height=chip_smoke.H, spp=chip_smoke.SPP,
+                          max_path_length=chip_smoke.MPL, features=feats)
+    so, sd, st = chip_smoke.shade_rays(bundle, accel, config, dev)
+    rays, _, shadow = woop.k2_inputs(accel, so, sd, torch.full_like(st, 1e-3), st)
+    return [k2_case("court K2 shadow", rays, shadow)]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="the other checkout's root")
-    ap.add_argument("--map", action="store_true", help="add K3 on the map scene")
+    ap.add_argument("--map", action="store_true", help="add K3, K2's proxy and K8 on the map")
     ap.add_argument("--reps", type=int, default=10, help="launches a timed turn")
+    ap.add_argument("--only", default="", help="kernels to compare, e.g. K2,K8 (default all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_trace_kernels: no CUDA device")
@@ -133,21 +190,25 @@ def main() -> int:
         use(csrc)
         kernels.build_libraries(*SOURCES)
 
-    runs = cases(dev, {}, True)
+    runs = cases(dev, {}, True) + court_cases(dev)
     if args.map:
         runs += cases(dev, chip_smoke.MAP, False)
+    only = [k for k in args.only.split(",") if k]
     for name, fn in runs:
+        if only and not any(f" {k} " in name for k in only):
+            continue
         base = fn(use(parent))
         same(name, fn(use(change)), base)
+        reps = 3 if " K8 " in name else args.reps
         times = []
         for csrc in (parent, change, change, parent):
-            walk = use(csrc)
-            fn(walk)
-            times.append(chip_smoke.cuda_time(lambda: fn(walk), args.reps))
+            c = use(csrc)
+            fn(c)
+            times.append(chip_smoke.cuda_time(lambda: fn(c), reps))
         p = (times[0] + times[3]) / 2
-        c = (times[1] + times[2]) / 2
+        ch = (times[1] + times[2]) / 2
         print(f"{name} [{smi}]: parent {times[0]:.4f} / {times[3]:.4f} ms, change "
-              f"{times[1]:.4f} / {times[2]:.4f} ms, change / parent {c / p:.4f}; "
+              f"{times[1]:.4f} / {times[2]:.4f} ms, change / parent {ch / p:.4f}; "
               f"outputs bit-equal", flush=True)
     return 0
 

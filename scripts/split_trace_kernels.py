@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where K1's and K3's cycles go, on one GPU: the split by phase of their
-profile instances on the frames' own ray populations.
+"""Where K1's, K2's and K3's cycles go, on one GPU: the split by phase of
+their profile instances on the frames' own ray populations.
 
     python3 scripts/split_trace_kernels.py [--map]
 
@@ -78,7 +78,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     kernels.build_libraries("woop_nearest", "woop_any", "woop_stream")
-    for name in ("woop_nearest", "woop_stream"):
+    for name in ("woop_nearest", "woop_any", "woop_stream"):
         with open(kernels.library_path(name) + ".log") as f:
             print(name, " | ".join(line.strip() for line in f if "ptxas info" in line
                                    and ("Used" in line or "spill" in line)), flush=True)
@@ -86,9 +86,11 @@ def main() -> int:
     accel, prim, boun, (rays, shadow, pre) = populations(dev, {})
     nc = accel.cluster_lo.shape[0]
     print(f"city: {nc} clusters; CTAs an SM: K1 {woop.ctas_per_sm('woop_nearest', nc)}, "
-          f"K3 {woop.ctas_per_sm('woop_stream', nc)}", flush=True)
+          f"K2 {woop.ctas_per_sm('woop_any', nc)}, K3 {woop.ctas_per_sm('woop_stream', nc)}",
+          flush=True)
     chip_smoke.trace_split(0, "city primary K1", woop.woop_nearest, prim, smi)
     chip_smoke.trace_split(0, "city bounce K1", woop.woop_nearest, boun, smi)
+    chip_smoke.trace_split(0, "city shadow K2", woop.woop_any, (rays, *shadow), smi)
     chip_smoke.trace_split(0, "city primary K3", woop.woop_stream, prim, smi)
     chip_smoke.trace_split(0, "city bounce K3", woop.woop_stream, boun, smi)
     if args.map:

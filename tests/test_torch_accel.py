@@ -9,11 +9,11 @@ and t agrees as in tests/test_accel.py (rtol 1e-4, atol 1e-3): XLA fuses
 multiply-adds on the CPU and PyTorch does not.
 
 The CUDA kernels cannot run here; their traversal schedules (K1: the
-walk of csrc/woop_walk.cuh in node order, modelled in
-tests/torch_walk_model.py; K2: every cluster in index order behind a
-per-ray AABB gate with a slack limit, occluded rays dropping out and a
-warm start) are modelled in torch and must give exactly the dense plain
-versions' results, and mutants of K1's model must not.
+walk of csrc/woop_walk.cuh in node order; K2: its any-hit instance, in
+the order csrc/woop_any.cu launches, with occluded lanes dropping out, a
+warm start and the walk's end once every lane is occluded; both modelled
+in tests/torch_walk_model.py) are modelled in torch and must give exactly
+the dense plain versions' results, and mutants of the models must not.
 The kernels are compared with the plain versions on the card by the
 ``cuda``-marked tests and by chip_smoke.py.
 
@@ -44,7 +44,7 @@ from merian_quake_tpu_torch.accel import build_accel, intersect, trace_nearest, 
 from merian_quake_tpu_torch.accel.intersect import trace_visibility
 from merian_quake_tpu_torch.models import procedural
 from merian_quake_tpu_torch.models.types import build_scene_from_soup
-from torch_walk_model import NODE, model_walk, sparse_warps, tie_table
+from torch_walk_model import K2_LISTED, NODE, model_walk, sparse_warps, tie_table
 
 # the module (the package's ``intersect`` attribute is the function)
 intersect_mod = importlib.import_module("merian_quake_tpu_torch.accel.intersect")
@@ -307,7 +307,7 @@ def test_k1_schedule_matches_plain_version(rng, population):
 ])
 def test_k1_schedule_mutants_fail(rng, mutant, population):
     """Each mutant of the walk gives another result than the plain
-    version: one that never walks the last node, a compacted visit that
+    version: one that never walks the last node its warp reaches, a compacted visit that
     leaves out its last reaching ray, a compacted winner that takes the
     highest index among equal t."""
     args = _k1_population(rng, population)
@@ -564,49 +564,17 @@ def test_k2_sky_quad_in_front_of_occluder():
     assert not bool(woop.intersect_woop_any(ta, torch.from_numpy(o), torch.from_numpy(d), 1e-3, 5.0).any())
 
 
-def _model_k2(rays, w, lo, hi, occluded_in=None):
-    """torch model of csrc/woop_any.cu's schedule, one lane per ray: per
-    ray block, visit every cluster in index order; a lane tests a cluster
-    when it is not yet occluded and its slab gate (limit t_max with the
-    slack) passes; a block stops once all its lanes are occluded."""
-    nc = lo.shape[0]
-    blk = woop.RAY_BLOCK
-    nb = rays.shape[1] // blk
-    r = rays.reshape(8, nb, blk)
-    o, d, t_min, t_max = r[0:3], r[3:6], r[6], r[7]
-    inv = 1.0 / torch.where(d.abs() < 1e-20, torch.where(d >= 0, 1e-20, -1e-20), d)
-    rows = w.reshape(nc, 3, 64, 8)[..., :4]
-    occ = torch.zeros((nb, blk), dtype=torch.bool)
-    if occluded_in is not None:
-        occ = occluded_in.reshape(nb, blk).clone()
-    lim = t_max + t_max.abs() * 1e-4 + 1e-3
-    for ci in range(nc):
-        if bool(occ.all()):
-            break
-        c = torch.full((nb,), ci)
-        tn, tf = torch.zeros_like(lim), lim
-        for k in range(3):
-            t1 = (lo[c, k][:, None] - o[k]) * inv[k]
-            t2 = (hi[c, k][:, None] - o[k]) * inv[k]
-            tn = torch.maximum(tn, torch.minimum(t1, t2))
-            tf = torch.minimum(tf, torch.maximum(t1, t2))
-        reach = (tn <= tf) & ~occ
-        a = rows[c][:, :, None]  # (nb, 3, 1, 64, 4)
-
-        def img(x, i, aff):
-            p = (x[0][..., None] * a[:, i, :, :, 0] + x[1][..., None] * a[:, i, :, :, 1]
-                 + x[2][..., None] * a[:, i, :, :, 2])
-            return p + a[:, i, :, :, 3] if aff else p
-
-        u0, v0, z0 = (img(o, i, True) for i in range(3))
-        du, dv, dz = (img(d, i, False) for i in range(3))
-        z0n = -z0
-        U = u0 * dz - z0 * du
-        V = v0 * dz - z0 * dv
-        hit = ((U >= 0) & (V >= 0) & (dz - U - V >= 0) & (dz - 1e-12 >= 0)
-               & (z0n - t_min[..., None] * dz >= 0) & (t_max[..., None] * dz - z0n >= 0))
-        occ = occ | (reach & hit.any(-1))
-    return occ.reshape(-1)
+def _model_k2(rays, w, lo, hi, occluded_in=None, mutant=None):
+    """torch model of csrc/woop_any.cu's schedule: the any-hit instance of
+    the walk of csrc/woop_walk.cuh (tests/torch_walk_model.py) in the
+    order the kernel launches (K2_LISTED): a warp of 32 rays gates node,
+    sub-node and cluster boxes with limit slack(t_max), -inf once
+    occluded (or occluded on entry: the warm start), fetches a reached
+    tile one ahead and tests it on the lanes that still reach it, triangle
+    per lane when few do; the warp's walk ends once every live lane is
+    occluded. Must equal the plain version on every ray."""
+    return model_walk(rays, w, lo, hi, NODE, listed=K2_LISTED, anyhit=True,
+                      occluded_in=occluded_in, mutant=mutant)
 
 
 def _city_shadow_rays(bundle, accel, width=48, height=32):
@@ -632,8 +600,36 @@ def _city_shadow_rays(bundle, accel, width=48, height=32):
     return frm.contiguous(), dd.contiguous(), torch.clamp_min(dist - 2e-3, 1e-3).contiguous()
 
 
-@pytest.mark.parametrize("population", ["soup", "city"])
-def test_k2_schedule_matches_plain_version(rng, population):
+def _staggered_segments(acc, warps=4):
+    """Short shadow segments in the city, each ending just behind the
+    centroid of one shadow-table triangle (the largest of its cluster),
+    aimed at its front face: a warp's 32 lanes take triangles of 32
+    different clusters in cluster order, so they are occluded one tile
+    after another and the last lane only by a late tile."""
+    w = acc.woop_w_shadow
+    nc = acc.cluster_lo.shape[0]
+    v0, v1, v2 = acc.scene.v0, acc.scene.v1, acc.scene.v2
+    n_ref = torch.linalg.cross(v2 - v0, v1 - v0)
+    area = torch.linalg.vector_norm(n_ref, dim=-1)
+    shadow = w.reshape(nc, 3, 64, 8).abs().sum((1, 3)).reshape(-1) > 0
+    score = torch.where(shadow & (area > 1.0), area, 0.0).reshape(nc, 64)
+    best, idx = score.max(1)
+    clusters = torch.nonzero(best > 0)[:, 0]
+    g = torch.Generator().manual_seed(3)
+    picks = [clusters[torch.randperm(len(clusters), generator=g)[:32]].sort().values
+             for _ in range(warps)]
+    tris = torch.cat([cs * 64 + idx[cs] for cs in picks])
+    d = -n_ref[tris] / area[tris, None]
+    o = (v0[tris] + v1[tris] + v2[tris]) / 3.0 - d * 0.5
+    return o, d, torch.ones(len(tris))
+
+
+def _k2_population(rng, population):
+    """(n, rays, proxy, shadow) of one K2 test population. ``city_covered``:
+    segments from above the city straight down through its ground (the
+    proxy table's largest triangles), so the proxy pre-pass leaves whole
+    warps occluded on entry, then city's shadow rays; ``city_staggered``:
+    :func:`_staggered_segments`, then city's shadow rays."""
     if population == "soup":
         v0, v1, v2, flags = _mixed_soup(rng, sky_share=0.05)
         acc = build_accel(build_scene_from_soup(v0, v1, v2, flags=flags, device="cpu"))
@@ -642,17 +638,54 @@ def test_k2_schedule_matches_plain_version(rng, population):
         bundle = procedural.city(device="cpu")
         acc = build_accel(bundle.scene, bundle.atlas)
         o, d, t_max = _city_shadow_rays(bundle, acc, 32, 16)
+        if population == "city_staggered":
+            so, sd, st = _staggered_segments(acc)
+            o, d, t_max = torch.cat([so, o]), torch.cat([sd, d]), torch.cat([st, t_max])
+        elif population == "city_covered":
+            g = torch.Generator().manual_seed(9)
+            m = 256
+            top = acc.world_lo + (acc.world_hi - acc.world_lo) * torch.rand((m, 3), generator=g)
+            top[:, 2] = acc.world_hi[2] - 1.0
+            down = torch.tensor([0.0, 0.0, -1.0]).expand(m, 3)
+            o, d = torch.cat([top, o]), torch.cat([down, d])
+            t_max = torch.cat([torch.full((m,), float(acc.world_hi[2]) + 50.0), t_max])
     n = o.shape[0]
-    rays, proxy, shadow = woop.k2_inputs(acc, o, d, torch.full((n,), 1e-3), t_max)
+    return (n, *woop.k2_inputs(acc, o.contiguous(), d.contiguous(), torch.full((n,), 1e-3),
+                               t_max.contiguous()))
+
+
+@pytest.mark.parametrize("population", ["soup", "city", "city_covered", "city_staggered"])
+def test_k2_schedule_matches_plain_version(rng, population):
+    n, rays, proxy, shadow = _k2_population(rng, population)
     dense = woop.intersect_woop_any_reference(rays, shadow[0])
     assert dense[:n].any() and (~dense[:n]).any()
     torch.testing.assert_close(_model_k2(rays, *shadow), dense, rtol=0, atol=0)
     pre = _model_k2(rays, *proxy)
     torch.testing.assert_close(pre, woop.intersect_woop_any_reference(rays, proxy[0]), rtol=0, atol=0)
     assert pre.any()
+    if population == "city_covered":  # some warps are wholly occluded on entry, some not
+        warps = pre.reshape(-1, 32).all(1)
+        assert warps.any() and (~warps).any()
+    if population == "city_staggered":  # every staggered segment is occluded
+        assert dense[:128].all()
+    # the warm start
     torch.testing.assert_close(_model_k2(rays, *shadow, pre), dense, rtol=0, atol=0)
     # the CPU wrapper is the plain version, warm start included
     torch.testing.assert_close(woop.woop_any(rays, *shadow, pre), dense, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mutant", ["early_exit", "stops_before_all_occluded"])
+def test_k2_schedule_mutants_fail(rng, mutant):
+    """Each any-hit mutant of the walk gives another occlusion than the
+    plain version on city's shadow rays (with segments that are occluded
+    one tile after another, :func:`_staggered_segments`): a walk that ends early
+    (K1's order: the last node a warp reaches is never walked; the list:
+    one node early), and a warp that ends its walk before every live lane
+    is occluded."""
+    _, rays, _, shadow = _k2_population(rng, "city_staggered")
+    ref = woop.intersect_woop_any_reference(rays, shadow[0])
+    out = _model_k2(rays, *shadow, mutant=mutant)
+    assert int((out != ref).sum()) > 0
 
 
 def test_woop_any_rejects_bad_inputs(rng):

@@ -18,8 +18,13 @@ threshold, so routing by size is tested without forcing it.
   lagging by one tile, compacted visits, dead and occluded rays) is
   modelled in torch (tests/torch_walk_model.py) and must give exactly the
   plain versions' results; mutants of the model must not.
-- K8's plain version (the port's CPU oracle arithmetic) against the JAX
-  K8 in interpret mode: ``tri`` equal, t/u/v within rtol 1e-5.
+- K8's plain version (the port's CPU oracle arithmetic) on K8's table
+  (``dense.mt_table``) against the JAX K8 in interpret mode: ``tri``
+  equal, t/u/v within rtol 1e-5. K8's schedule (rays a thread, parts
+  merged by key, tile order, the division-free pre-tests before the
+  reciprocal, the resolve) is modelled in torch and must equal the
+  oracle's body bit for bit; pre-test mutants that reject a +0
+  numerator (a hit with u or v = -0) must not.
 - One map-scale frame, PT and ReSTIR, at 32×18, port against the JAX
   package (both trace with the CPU oracle), with the bounds of
   tests/test_torch_slice.py and tests/test_torch_restir_slice.py (one
@@ -29,6 +34,8 @@ The CUDA kernels cannot run here; the ``cuda``-marked tests and
 chip_smoke.py hold them against their plain versions on the card.
 """
 import importlib
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +57,7 @@ from merian_quake_tpu_torch.models.procedural import city
 from merian_quake_tpu_torch.models.types import RenderConfig, build_scene_from_soup
 from merian_quake_tpu_torch.render.restir import ReSTIRConfig
 from merian_quake_tpu_torch.renderer import render_sequence
-from torch_walk_model import NODE, model_walk, sparse_warps, tie_table
+from torch_walk_model import NODE, _float_key, model_walk, sparse_warps, tie_table
 
 # the module (the package's ``intersect`` attribute is the function)
 intersect_mod = importlib.import_module("merian_quake_tpu_torch.accel.intersect")
@@ -189,9 +196,9 @@ def test_map_tables_match_jax_and_route_to_stream(map_scene, monkeypatch):
     np.testing.assert_array_equal(_np(ta.cluster_lo_proxy), np.asarray(ja.cluster_lo_proxy))
     assert ta.woop_w_proxy.shape[0] // 3 == 4096
 
-    # routing by size, with no argument: the map's sweeps go to K3, the
-    # proxy pre-pass (4,096 triangles) to K2; with the threshold above the
-    # map's size, K1 gives the same hits
+    # routing by size, with no argument: the map's sweeps go to K3 (the
+    # proxy pre-pass over its 4,096-triangle table is not run: PERF.md,
+    # section 6); with the threshold above the map's size, K1 gives the same hits
     u = tb.uniforms
     o = u.cam_x.expand(128, 3).contiguous()
     d = torch.nn.functional.normalize(u.cam_w + torch.linspace(-0.3, 0.3, 128)[:, None]
@@ -201,7 +208,7 @@ def test_map_tables_match_jax_and_route_to_stream(map_scene, monkeypatch):
     occ = woop.intersect_woop_any(ta, o, d, 1e-3, 500.0)
     monkeypatch.setattr(woop, "RESIDENT_MAX_TRIS", MAP_TRIS)
     forced = woop.intersect_woop(ta, o, d, 0.0, 1e4)
-    assert spy.calls == ["woop_stream", "woop_any", "woop_stream_any", "woop_nearest"]
+    assert spy.calls == ["woop_stream", "woop_stream_any", "woop_nearest"]
     assert bool(hr.hit.all()) and bool(occ.any())
     for a, b in zip(hr, forced):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -389,8 +396,10 @@ def test_woop_stream_rejects_bad_inputs(rng):
 
 @pytest.mark.parametrize("scene", ["soup", "city"])
 def test_k8_plain_matches_jax_packed_kernel(rng, scene):
-    """The port's K8 plain version (the oracle's arithmetic) against the
-    JAX K8 (pallas_intersect.intersect_packed) in interpret mode."""
+    """The port's K8 plain version (the oracle's arithmetic) on K8's table
+    (``dense.mt_table``: v0, the rounded edges and the flag, made from the
+    JAX package's packed layout) against the JAX K8
+    (pallas_intersect.intersect_packed) in interpret mode."""
     if scene == "soup":
         v0, v1, v2 = _soup(rng, 256, spread=8.0)
         ja = j_build_accel(j_soup(v0, v1, v2))
@@ -405,10 +414,18 @@ def test_k8_plain_matches_jax_packed_kernel(rng, scene):
     tris = dense.pack_tris(ta.scene.v0, ta.scene.v1, ta.scene.v2, ta.candidate)
     j_tris = np.asarray(j_pack_tris(ja.scene.v0, ja.scene.v1, ja.scene.v2, ja.candidate))
     np.testing.assert_array_equal(_np(tris), j_tris)
+    # K8's table: (v0, flag), (e1, 0), (e2, 0) a triangle, the edges rounded
+    table = dense.mt_table(tris)
+    assert table.shape == (j_tris.shape[1], 12) and table.is_contiguous()
+    zero = np.zeros((j_tris.shape[1], 1), np.float32)
+    np.testing.assert_array_equal(_np(table), np.concatenate(
+        [j_tris[0:3].T, j_tris[9:10].T, (j_tris[3:6] - j_tris[0:3]).T, zero,
+         (j_tris[6:9] - j_tris[0:3]).T, zero], axis=1))
+    np.testing.assert_array_equal(_np(dense.scene_table(ta)), _np(table))
     out, idx = j_intersect_packed(jnp.asarray(_np(rays)), jnp.asarray(j_tris), ray_block=n,
                                   interpret=True)
     out, idx = np.asarray(out), np.asarray(idx)[0]
-    t, tri, u, v = dense.mt_dense(rays, tris)  # the CPU wrapper is the plain version
+    t, tri, u, v = dense.mt_dense(rays, table)  # the CPU wrapper is the plain version
     np.testing.assert_array_equal(_np(tri), idx)
     hit = idx >= 0
     assert hit.any() and (scene == "city" or (~hit).any())
@@ -426,11 +443,199 @@ def test_mt_dense_rejects_bad_inputs(rng):
     acc = build_accel(build_scene_from_soup(v0, v1, v2, device="cpu"))
     o, d = (torch.from_numpy(x) for x in _rays(rng, 256))
     rays = woop._pack_rays(o, d, torch.zeros(256), torch.full((256,), 1e4), woop.RAY_BLOCK)
-    tris = dense.pack_tris(acc.scene.v0, acc.scene.v1, acc.scene.v2, acc.candidate)
-    for bad in ((rays[:, :200], tris), (rays, tris[:, :32].contiguous()), (rays.double(), tris),
-                (rays, tris[:10].contiguous())):
+    table = dense.scene_table(acc)
+    for bad in ((rays[:, :200], table), (rays, table[:32].contiguous()), (rays.double(), table),
+                (rays, table[:, :10].contiguous()), (rays, table.T.contiguous())):
         with pytest.raises(ValueError):
             dense.mt_dense(*bad)
+    with pytest.raises(ValueError):  # the CPU counts nothing
+        dense.mt_dense(rays, table, counts=torch.zeros((2, 3), dtype=torch.int64))
+
+
+# K8's schedule constants, read from the source so that the model keeps
+# the rays a thread, the tile and the pre-test threshold the kernel has
+with open(os.path.join(os.path.dirname(dense.__file__), "..", "csrc", "mt_dense.cu")) as _f:
+    _K8_SRC = _f.read()
+K8_THREADS, K8_RAYS, K8_TRIS = (int(re.search(rf"constexpr int {k} = (\d+);", _K8_SRC).group(1))
+                                for k in ("kThreads", "kRays", "kTris"))
+K8_TINY = float.fromhex(re.search(r"constexpr float kTiny = (0x[0-9a-fp.+-]+)f;", _K8_SRC).group(1))
+
+
+def _model_k8(rays, table, parts, mutant=None):
+    """torch model of csrc/mt_dense.cu's schedule: a CTA of K8_THREADS
+    threads holds K8_RAYS rays a thread (ray CTA base + r * K8_THREADS +
+    thread), a warp's vote covers its 32 threads' rays; the tiles of
+    K8_TRIS triangles are split into ``parts`` runs (the grid's second
+    dimension), each swept in tile order with a running best (t, tri) and a
+    strict <; per pair the pre-test levels of the kernel, each skipped by a
+    warp when no pair of it passed the level before: (1) p, det: front and
+    the flag; (2) s, s . p: s . p < K8_TINY or det = -inf; (3) q, d . q,
+    e2 . q: d . q < K8_TINY or det = -inf, and e2 . q < 0 where t_min >= 0;
+    then the reciprocal and the exact test; the parts merge by the least
+    (order-preserving key of t, tri); the winner's t, u, v are recomputed.
+    Mutants of the pre-test: ``rejects_zero_u`` / ``rejects_zero_v`` (level
+    2 / 3 asks s . p < 0 / d . q < 0, so a +0 numerator, whose u or v is
+    -0 and passes >= 0, is rejected). Returns (t, tri, u, v)."""
+    n = rays.shape[1]
+    ntiles = table.shape[0] // K8_TRIS
+    per = -(-ntiles // parts)
+    cta = K8_THREADS * K8_RAYS
+    n_cta = -(-n // cta)
+    # ray index of (CTA, slot r, warp, lane), regrouped a warp's rays a row
+    idx = torch.arange(n_cta * cta).reshape(n_cta, K8_RAYS, K8_THREADS // 32, 32)
+    order = idx.permute(0, 2, 1, 3).reshape(-1, 32 * K8_RAYS)
+    live = order < n
+    src = torch.where(live, order, 0)
+    # per warp and ray slot, broadcast against the triangles of a chunk;
+    # past n a ray has d = 0 (no pair is front-facing)
+    ox, oy, oz, dx, dy, dz, t0, t1 = (torch.where(live, rays[k][src], 0.0)[..., None]
+                                      for k in range(8))
+    none = (1 << 63) - 1
+    keys = torch.full(order.shape, none, dtype=torch.int64)
+
+    def cross1(ay, az, by, bz):
+        return ay * bz - az * by
+
+    def dot3(ax, ay, az, bx, by, bz):
+        return ax * bx + ay * by + az * bz
+
+    chunk = 16  # tiles at a time: the running best's update is the same
+    for p in range(-(-ntiles // per)):
+        best = torch.full(order.shape, woop.BIG)
+        best_tri = torch.full(order.shape, -1, dtype=torch.int64)
+        for j0 in range(p * per, min(ntiles, (p + 1) * per), chunk):
+            j1 = min(j0 + chunk, ntiles, (p + 1) * per)
+            tri = table[j0 * K8_TRIS:j1 * K8_TRIS]
+            a, e1, e2 = tri[:, 0:4].T, tri[:, 4:7].T, tri[:, 8:11].T  # (4 | 3, C)
+            px = cross1(dy, dz, e2[1], e2[2])
+            py = cross1(dz, dx, e2[2], e2[0])
+            pz = cross1(dx, dy, e2[0], e2[1])
+            det = dot3(e1[0], e1[1], e1[2], px, py, pz)
+            f = (det < -dense.DET_EPS) & (a[3] > 0.5)
+            inf_det = det == -torch.inf
+            f &= f.any(1, keepdim=True)  # a warp's vote a triangle
+            sx, sy, sz = ox - a[0], oy - a[1], oz - a[2]
+            un = dot3(sx, sy, sz, px, py, pz)
+            f &= (un < (0.0 if mutant == "rejects_zero_u" else K8_TINY)) | inf_det
+            f &= f.any(1, keepdim=True)
+            qx = cross1(sy, sz, e1[1], e1[2])
+            qy = cross1(sz, sx, e1[2], e1[0])
+            qz = cross1(sx, sy, e1[0], e1[1])
+            vn = dot3(dx, dy, dz, qx, qy, qz)
+            tn = dot3(e2[0], e2[1], e2[2], qx, qy, qz)
+            f &= (vn < (0.0 if mutant == "rejects_zero_v" else K8_TINY)) | inf_det
+            f &= (tn < 0.0) | ~(t0 >= 0.0)
+            f &= f.any(1, keepdim=True)
+            inv = torch.reciprocal(torch.where(f, det, -1.0))
+            u, v, t = un * inv, vn * inv, tn * inv
+            ok = f & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t0) & (t <= t1)
+            # triangles in index order with a strict <: the first least t wins
+            t_m = torch.where(ok, t, woop.BIG)
+            k = torch.argmin(t_m, dim=-1)
+            tk = torch.gather(t_m, -1, k[..., None])[..., 0]
+            better = tk < best
+            best = torch.where(better, tk, best)
+            best_tri = torch.where(better, j0 * K8_TRIS + k, best_tri)
+        key = (_float_key(best) << 31) | best_tri
+        keys = torch.where(best_tri >= 0, torch.minimum(keys, key), keys)
+    # back to ray order; each winner's t, u, v recomputed
+    flat = torch.full((n_cta * cta,), none, dtype=torch.int64)
+    flat[order.reshape(-1)] = keys.reshape(-1)
+    flat = flat[:n]
+    hit = flat != none
+    tri = torch.where(hit, flat & ((1 << 31) - 1), 0)
+    a, e1, e2 = table[tri, 0:3].T, table[tri, 4:7].T, table[tri, 8:11].T
+    o, d = rays[0:3], rays[3:6]
+    px = cross1(d[1], d[2], e2[1], e2[2])
+    py = cross1(d[2], d[0], e2[2], e2[0])
+    pz = cross1(d[0], d[1], e2[0], e2[1])
+    inv = torch.reciprocal(dot3(e1[0], e1[1], e1[2], px, py, pz))
+    sx, sy, sz = o[0] - a[0], o[1] - a[1], o[2] - a[2]
+    qx = cross1(sy, sz, e1[1], e1[2])
+    qy = cross1(sz, sx, e1[2], e1[0])
+    qz = cross1(sx, sy, e1[0], e1[1])
+    t = dot3(e2[0], e2[1], e2[2], qx, qy, qz) * inv
+    u = dot3(sx, sy, sz, px, py, pz) * inv
+    v = dot3(d[0], d[1], d[2], qx, qy, qz) * inv
+    return (torch.where(hit, t, woop.BIG), torch.where(hit, tri, -1).to(torch.int32),
+            torch.where(hit, u, 0.0), torch.where(hit, v, 0.0))
+
+
+def _edge_grid():
+    """A hand-laid floor of unit squares (z = 0, each two triangles facing
+    +z, corners on integers) and rays straight down from z = 1 at every
+    quarter point: exact arithmetic, so rays on an edge meet s . p = +0 or
+    d . q = +0, whose u or v is -0 (a hit), and two triangles tie on a
+    shared edge. (rays f32[8, n], table)."""
+    tri = []
+    for x in range(8):
+        for y in range(4):
+            tri.append([(x, y, 0), (x, y + 1, 0), (x + 1, y, 0)])
+            tri.append([(x + 1, y + 1, 0), (x + 1, y, 0), (x, y + 1, 0)])
+    tri = torch.tensor(tri, dtype=torch.float32)
+    tris = dense.pack_tris(tri[:, 0], tri[:, 1], tri[:, 2], torch.ones(len(tri), dtype=torch.bool))
+    q = torch.arange(0, 8.25, 0.25)
+    gx, gy = torch.meshgrid(q, q[q <= 4.0], indexing="ij")
+    n = gx.numel()
+    o = torch.stack([gx.reshape(-1), gy.reshape(-1), torch.ones(n)], 1)
+    d = torch.tensor([0.0, 0.0, -1.0]).expand(n, 3)
+    rays = woop._pack_rays(o, d, torch.zeros(n), torch.full((n,), 1e4), woop.RAY_BLOCK)
+    return rays, dense.mt_table(tris)
+
+
+def _k8_population(rng, map_scene, name):
+    """(rays, table, parts, the oracle's (t, tri, u, v)) of one K8 test
+    population: the oracle's body ``dense.mt_nearest`` on the scene's
+    vertices, or on the edge grid its body on K8's table."""
+    if name == "edges":
+        rays, table = _edge_grid()
+        return rays, table, 2, dense.intersect_dense_reference(rays, table)
+    if name == "soup":
+        v0, v1, v2 = _soup(rng, 256, spread=8.0)
+        acc = build_accel(build_scene_from_soup(v0, v1, v2, device="cpu"))
+        o, d = (torch.from_numpy(x) for x in _rays(rng, 512, misses=True))
+        t_min, parts = torch.zeros(512), 3
+    else:  # a subset of the map's primary rays, t_min 1e-3
+        acc = map_scene[3]
+        o, d = _city_primary(map_scene[2], 16, 16)
+        t_min, parts = torch.full((256,), 1e-3), 5
+    n = o.shape[0]
+    t_max = torch.full((n,), 1e4)
+    rays = woop._pack_rays(o, d, t_min, t_max, woop.RAY_BLOCK)
+    s = acc.scene
+    ref = dense.mt_nearest(o, d, t_min, t_max, s.v0, s.v1, s.v2, acc.candidate)
+    return rays, dense.scene_table(acc), parts, ref
+
+
+@pytest.mark.parametrize("name", ["soup", "map", "edges"])
+def test_k8_schedule_matches_oracle(rng, map_scene, name):
+    """The torch model of K8's schedule (rays a thread, parts, tile order,
+    the division-free pre-tests before the reciprocal, the keyed merge and
+    the resolve) equals the oracle's body bit for bit in (t, tri, u, v)."""
+    rays, table, parts, ref = _k8_population(rng, map_scene, name)
+    n = ref[0].shape[0]
+    out = _model_k8(rays, table, parts)
+    assert (ref[1] >= 0).any() and (name == "map" or (ref[1] < 0).any())
+    if name == "edges":  # hits with u = -0 and with v = -0
+        hit = ref[1] >= 0
+        for x in (ref[2], ref[3]):
+            assert ((x == 0) & torch.signbit(x) & hit).any()
+    for a, b in zip(out, ref):
+        a = a[:n]
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), int((a != b).sum())
+    # the CPU wrapper is the plain version
+    for a, b in zip(dense.mt_dense(rays, table), ref):
+        assert torch.equal(a[:n].view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("mutant", ["rejects_zero_u", "rejects_zero_v"])
+def test_k8_pretest_mutants_fail(rng, map_scene, mutant):
+    """A pre-test that rejects a +0 numerator (so a hit with u or v = -0,
+    which passes u >= 0, is lost) gives another nearest hit than the
+    oracle on the edge grid."""
+    rays, table, parts, ref = _k8_population(rng, map_scene, "edges")
+    out = _model_k8(rays, table, parts, mutant=mutant)
+    assert int((out[1] != ref[1]).sum()) > 0
 
 
 # ------------------------------------------------------------------ frames

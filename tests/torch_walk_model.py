@@ -1,7 +1,7 @@
-"""torch model of csrc/woop_walk.cuh, the walk that K1 (csrc/woop_nearest.cu)
-and K3 (csrc/woop_stream.cu) share, and the hand-laid inputs that drive its
-compacted visit: imported by tests/test_torch_accel.py and
-tests/test_torch_map.py. One warp of 32 rays at a time, step for step as
+"""torch model of csrc/woop_walk.cuh, the walk that K1 (csrc/woop_nearest.cu),
+K2 (csrc/woop_any.cu) and K3 (csrc/woop_stream.cu) share, and the hand-laid
+inputs that drive its compacted visit: imported by tests/test_torch_accel.py
+and tests/test_torch_map.py. One warp of 32 rays at a time, step for step as
 the kernel takes them; the pair tests repeat the plain versions'
 arithmetic, so the model must equal them bit for bit.
 """
@@ -24,6 +24,10 @@ with open(os.path.join(os.path.dirname(woop.__file__), "..", "csrc", "woop_walk.
     COMPACT_MAX, *NODE = (int(re.search(rf"constexpr int {_k} = (\d+);", _src).group(1))
                           for _src in [_f.read()] for _k in ("kCompactMax", "kNode", "kSub"))
 NODE = tuple(NODE)  # (clusters a node, clusters a sub-node)
+# K2's order: the walk instance csrc/woop_any.cu launches (True: K3's
+# near-to-far node list, False: K1's node order)
+with open(os.path.join(os.path.dirname(woop.__file__), "..", "csrc", "woop_any.cu")) as _f:
+    K2_LISTED = re.search(r"launch_walk<kNode, kSub, (true|false), true>", _f.read()).group(1) == "true"
 NO_KEY = (1 << 32) - 1
 
 tie_table = chip_smoke.tie_table
@@ -54,9 +58,14 @@ def model_walk(rays, w, lo, hi, node, listed, anyhit=False, occluded_in=None, mu
       reaching ray the least float_key(t) over the 64 triangles, then the
       least index among those equal to it, committed by K1's rule; a denser
       one ray per lane.
-    Mutants: ``early_exit`` (K1: the last node is never walked; K3: the walk
+    Any-hit: an occluded lane's limit is -inf, so once every live lane is
+    occluded no gate passes and no further tile is fetched.
+    Mutants: ``early_exit`` (node order: the last node a warp reaches is
+    never walked; the list: the walk
     stops one node early: before the last listed node, and already where
     the entry after the next one lies beyond the horizon),
+    ``stops_before_all_occluded`` (any-hit: the warp ends its walk once at
+    most one live lane is still unoccluded),
     ``compact_drops_last`` (a compacted visit leaves out its last reaching
     ray), ``winner_ignores_index`` (the compacted winner among equal t is
     the highest index, not the lowest).
@@ -87,6 +96,11 @@ def model_walk(rays, w, lo, hi, node, listed, anyhit=False, occluded_in=None, mu
                 return torch.where(occ, -torch.inf, _slack(t_max))
             return _slack(torch.minimum(best, t_max))
 
+        def done():
+            """any-hit: no live lane is left unoccluded (the mutant: one)"""
+            left = 1 if mutant == "stops_before_all_occluded" else 0
+            return anyhit and int((limit() >= 0.0).sum()) <= left
+
         def reaches(ids, lim):
             """(lanes, boxes) reach and entry of boxes ``ids`` (a tensor)."""
             b = boxes[ids]
@@ -99,6 +113,8 @@ def model_walk(rays, w, lo, hi, node, listed, anyhit=False, occluded_in=None, mu
         def reached(first, count, end):
             """The boxes first .. first + count - 1 (below ``end``) some lane
             reaches, gated with one reading of the limits."""
+            if done():
+                return []
             ids = torch.arange(first, min(first + count, end))
             return ids[reaches(ids, limit())[0].any(0)].tolist()
 
@@ -155,6 +171,8 @@ def model_walk(rays, w, lo, hi, node, listed, anyhit=False, occluded_in=None, mu
 
         def visit_members(sb):
             for b in reached(cl0 + sb * S, S, cl0 + nc):
+                if done():
+                    break
                 c = b - cl0  # issue(c): its copy starts now
                 if state["pending"] >= 0:
                     test(state["pending"])
@@ -185,13 +203,17 @@ def model_walk(rays, w, lo, hi, node, listed, anyhit=False, occluded_in=None, mu
                 if te_q > horizon:
                     break
                 nd = key & ((1 << 14) - 1)
-                if bool(reaches(torch.tensor([nd]), limit())[0].any()):
+                if not done() and bool(reaches(torch.tensor([nd]), limit())[0].any()):
                     visit_node(nd)
                 horizon = limit().amax()
         else:
-            last = nn - 1 if mutant == "early_exit" else nn
-            for g in range(0, last, 32):
-                for nd in reached(g, min(32, last - g), last):
+            held = None  # early_exit: each reached node is walked only after the next one
+            for g in range(0, nn, 32):
+                for nd in reached(g, min(32, nn - g), nn):
+                    if mutant == "early_exit":
+                        nd, held = held, nd
+                        if nd is None:
+                            continue
                     visit_node(nd)
         if state["pending"] >= 0:
             test(state["pending"])
