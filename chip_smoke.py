@@ -32,7 +32,8 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
    lies (what a frame launches K1 on) and of the same sorted for
    coherence (t_min = 0 and 1e-3); then the whole 2,073,600-ray primary,
    sorted bounce (t_min = 0 and 1e-3) and unsorted bounce populations,
-   with each timed by CUDA events in turns at t_min = 0, K1's
+   with K1 timed by CUDA events at t_min = 0 (twice) beside the one
+   run of the plain version that it is held against, K1's
    bound from its count of the pairs it tested, where its cycles go (the
    profile instance: list, the gates that look for the next tile, a
    tile's issue and second gate, tile waits, pair loops), its lane use
@@ -101,15 +102,19 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     target-sorted bounce population; K5 on cluster boxes and on node
     boxes of 8 clusters, in the JAX package's mode and in the walker's;
     times in turns with the plain versions (CUDA events) and bounds;
-13. the walker against its plain versions, bit for bit (nearest) and on
-    every ray (any-hit): P = 1 (on target-sorted rays), 8 and 16 with
-    compact 0 and 32; any-hit P = 1, 8 and 16 with and without the proxy
-    pre-pass's warm start; the soup, the subsets and the whole
-    populations; its counts (pairs tested, tile visits, compacted visits,
-    which must be > 0 where it compacts) and its time against K1/K2 on
-    the same rays; F4 under ``TraceSchedule(node_clusters=8)``: one
-    visibility trace without and with the pre-pass, in turns, equal on
-    every ray;
+13. the walker (the walk's block-list instance) against its plain
+    versions, bit for bit (nearest) and on every ray (any-hit): P = 1 (on
+    target-sorted rays), 8 and 16 with compact 0 and 32, P = 32, (64, 32)
+    and 128 (the sub-node level); any-hit P = 1, 8, 16, 32, 64 and 128 with
+    and without the proxy pre-pass's warm start; the soup, the subsets and
+    the whole populations; the 4,147,200 guided rays of an MCPG bounce
+    segment on city(1600) under ``TraceSchedule(True, 8, 32)`` (against the
+    plain version on a subset, K1 on all); its counts (pairs tested, tile
+    visits, compacted visits, which must be > 0 where it compacts), its
+    profile (cycle shares, lane use), CTAs an SM, and its time against
+    K1/K2 on the same rays with the bound at its own and at the fewest
+    pairs; F4 under ``TraceSchedule(node_clusters=8)``: one visibility
+    trace without and with the pre-pass, in turns, equal on every ray;
 14. 6 frames at 1080p on city(1600) for each schedule and for the
     default routes (the yardstick), with exact launch counts a frame: PT
     5 K1; ReSTIR 2 K1 + 1 K2; PT ``TraceSchedule(target_key=True)`` 1 K1,
@@ -352,7 +357,8 @@ def trace_split(phase, name, kernel, args, smi, first_design=None, **kw):
     from merian_quake_tpu_torch.accel import woop
 
     n = args[0].shape[1]
-    prof = torch.zeros((n // 128, 8), dtype=torch.int64, device=args[0].device)
+    prof = torch.zeros((n // 128, len(woop.PROF_FIELDS)), dtype=torch.int64,
+                       device=args[0].device)
     kernel(*args, counts=prof, **kw)
     torch.cuda.synchronize()
     rec = dict(zip(woop.PROF_FIELDS, (int(x) for x in prof.sum(0))))
@@ -389,6 +395,12 @@ def cuda_time(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed_call(fn):
+    """(fn()'s output, the ms it took on the CUDA-event clock)."""
+    out = []
+    return out, cuda_time(lambda: out.append(fn()), 1)
 
 
 def compare_k1(name, args, woop):
@@ -1217,16 +1229,38 @@ def phase12(dev, soup, c16, smi):
     return out
 
 
+def guided_1600(dev, c16):
+    """The 4,147,200 guided rays of the first MCPG bounce segment on
+    city(1600) after 4 frames, sorted by the target key as
+    ``TraceSchedule(True, 8, 32)`` sorts them: (o, d, t_min, t_max)."""
+    from merian_quake_tpu_torch.accel import woop
+    from merian_quake_tpu_torch.renderer import init_state, render_frame
+
+    bundle, accel, config, _ = c16
+    cfg, mcfg = mcpg_scene_config(config)
+    state = init_state(cfg, mcfg, device=dev)
+    for f in range(4):
+        state, _ = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=f), cfg,
+                                state, mcfg)
+    o, d, t_max = guided_population(bundle, accel, cfg, mcfg, state, 4)[1][0]
+    perm = torch.sort(woop.target_sort_key(accel, o, d, t_max), stable=True).indices
+    return (o[perm].contiguous(), d[perm].contiguous(), torch.zeros_like(t_max),
+            t_max[perm].contiguous())
+
+
 def phase13(dev, soup, c16, smi):
     """The walker against its plain versions, bit for bit (nearest) and on
-    every ray (any-hit), in every mode; its counts; times against K1/K2."""
+    every ray (any-hit), in every mode (P = 1, 8, 16, 32, 64, 128; compact 0
+    and 32), and on the MCPG guided rays under (True, 8, 32); its counts,
+    profile and times against the parent-less yardsticks K1/K2."""
     from merian_quake_tpu_torch.accel import woop
 
     acc_soup, o_t, d_t = soup
     _, accel, _, pops = c16
     S = woop.TraceSchedule
     modes = [S(), S(compact=32), S(node_clusters=8), S(node_clusters=8, compact=32),
-             S(node_clusters=16), S(node_clusters=16, compact=32)]
+             S(node_clusters=16), S(node_clusters=16, compact=32), S(node_clusters=32),
+             S(node_clusters=64, compact=32), S(node_clusters=128)]
     tag = lambda s, nc=252: f"P={woop.schedule_nodes(s, nc)} compact={s.compact}"
     n = o_t.shape[0]
     full = lambda v, k: torch.full((k,), v, device=dev)
@@ -1247,7 +1281,8 @@ def phase13(dev, soup, c16, smi):
         rays, proxy, shadow = woop.k2_inputs(acc, o, d, torch.full_like(t_max, 1e-3), t_max)
         plain = woop.intersect_woop_any_reference(rays, shadow[0])
         pre = None if proxy is None else woop.woop_any(rays, *proxy)
-        for s in (S(), S(node_clusters=8), S(node_clusters=16)):
+        for s in (S(), S(node_clusters=8), S(node_clusters=16), S(node_clusters=32),
+                  S(node_clusters=64), S(node_clusters=128)):
             label = f"{name} walker any-hit {tag(s, acc.cluster_lo.shape[0])}"
             errs.append(check_k2(label, woop._walk(rays, *shadow, s, anyhit=True), plain,
                                  phase=13))
@@ -1255,74 +1290,96 @@ def phase13(dev, soup, c16, smi):
                 errs.append(check_k2(f"{label} after proxy",
                                      woop._walk(rays, *shadow, s, anyhit=True, occluded_in=pre),
                                      plain, phase=13))
+    # the MCPG guided rays under (True, 8, 32): against the plain version on
+    # a subset, against K1 on all 4,147,200
+    guided = guided_1600(dev, c16)
+    ng = guided[0].shape[0]
+    mid = slice(ng // 2, ng // 2 + SUBSET)
+    sub = woop.k1_inputs(accel, *(x[mid].contiguous() for x in guided))
+    errs.append(check_exact(13, f"city1600 guided {SUBSET} walker (True, 8, 32) vs plain",
+                            woop._walk(*sub, S(True, 8, 32)),
+                            woop.intersect_woop_reference(sub[0], sub[1])))
+    g_args = woop.k1_inputs(accel, *guided)
+    errs.append(check_exact(13, f"city1600 guided {ng} walker (True, 8, 32) vs K1",
+                            woop._walk(*g_args, S(True, 8, 32)), woop.woop_nearest(*g_args)))
 
-    # counts and times on the whole populations, against K1 / K2 on the
-    # same rays (the walk with its list: K5, the row sort, the walker)
-    out = {}
-    nf = W * H
-    for pname, s in (("bounce_target", S()), ("bounce_target", S(node_clusters=8)),
-                     ("bounce_target", S(node_clusters=8, compact=32)),
-                     ("primary", S(node_clusters=8, compact=32))):
-        rays, w, lo, hi = args = woop.k1_inputs(accel, *pops[pname])
+    # counts, profile and times on the whole populations, against K1 / K2
+    # on the same rays (the walk with its list: K5, the row sort, the walker)
+    out = {"ctas_per_sm": woop.ctas_per_sm("woop_list", accel.cluster_lo.shape[0])}
+    for pname, s, anyhit in (("bounce_target", S(), False), ("bounce_target", S(node_clusters=8), False),
+                             ("bounce_target", S(node_clusters=8, compact=32), False),
+                             ("primary", S(node_clusters=8, compact=32), False),
+                             ("shade", S(node_clusters=8), True),
+                             ("guided", S(node_clusters=8, compact=32), False)):
+        if pname == "shade":
+            rays, _, (w, lo, hi) = woop.k2_inputs(accel, *pops["shade"][:2],
+                                                  full(1e-3, W * H), pops["shade"][2])
+            args = (rays, w, lo, hi)
+        else:
+            rays, w, lo, hi = args = g_args if pname == "guided" else woop.k1_inputs(
+                accel, *pops[pname])
+        nr = rays.shape[1]
         P = max(s.node_clusters, 1)
         blo, bhi = woop.node_bounds(lo, hi, P) if P > 1 else (lo, hi)
         lst = woop.visit_list(rays, blo, bhi)
-        kw = dict(node_lo=blo, node_hi=bhi, nodes=P) if P > 1 else {}
-        counts = torch.zeros((nf // 128, 3), dtype=torch.int64, device=dev)
-        woop.woop_list(rays, w, lo, hi, *lst, compact=s.compact, counts=counts, **kw)
+        kw = dict(node_lo=blo, node_hi=bhi, nodes=P, compact=s.compact, anyhit=anyhit)
+        if P == 1:
+            kw = dict(compact=s.compact)
+        counts = torch.zeros((nr // 128, 3), dtype=torch.int64, device=dev)
+        woop.woop_list(rays, w, lo, hi, *lst, counts=counts, **kw)
         pairs, visits, cvisits = (int(x) for x in counts.sum(0))
+        label = f"{pname} {tag(s)}" + (" any" if anyhit else "")
         if s.compact and not cvisits:
-            raise AssertionError(f"{pname} {tag(s)}: no compacted visit")
-        k1_counts = torch.zeros(nf // 128, dtype=torch.int64, device=dev)
-        woop.woop_nearest(*args, counts=k1_counts)
-        walk = lambda: woop.woop_list(rays, w, lo, hi, *lst, compact=s.compact, **kw)
-        full_walk = lambda: woop._walk(*args, s)
-        k1 = lambda: woop.woop_nearest(*args)
+            raise AssertionError(f"{label}: no compacted visit")
+        split = trace_split(13, f"city1600 {label} walker",
+                            lambda *a, **k: woop.woop_list(*a, *lst, **kw, **k), args, smi)
+        ref = woop.woop_any if anyhit else woop.woop_nearest
+        ref_counts = torch.zeros(nr // 128, dtype=torch.int64, device=dev)
+        ref(*args, counts=ref_counts)
+        walk = lambda: woop.woop_list(rays, w, lo, hi, *lst, **kw)
+        full_walk = lambda: woop._walk(*args, s, anyhit=anyhit)
+        k1 = lambda: ref(*args)
         a1, b1, c1, c2, b2, a2 = (cuda_time(walk, 10), cuda_time(full_walk, 10), cuda_time(k1, 10),
                                   cuda_time(k1, 10), cuda_time(full_walk, 10), cuda_time(walk, 10))
-        nb, m = nf // 128, blo.shape[0]
-        bnd, by = bound_ms(pairs * OPS_NEAREST, nf * 32 + nf * 8 + nb * m * 8
-                           + (w.shape[0] // 3) * 48 + m * 24)
-        out[f"{pname} {tag(s)}"] = {"ms": (a1 + a2) / 2, "with_list_ms": (b1 + b2) / 2,
-                                    "k1_ms": (c1 + c2) / 2, "bound_ms": bnd, "bound_by": by,
-                                    "pairs": pairs, "visits": visits, "cvisits": cvisits}
-        log(f"phase 13 timing {pname} {nf} rays {tag(s)} [{smi}]: walker {a1:.3f} / {a2:.3f} ms, "
-            f"with its list (K5 + sort + walker) {b1:.3f} / {b2:.3f} ms, K1 {c1:.3f} / {c2:.3f} "
-            f"ms; pairs tested {pairs} (K1 {int(k1_counts.sum())}), tile visits {visits}, "
-            f"compacted {cvisits} ({cvisits / max(visits, 1):.4f}); bound {bnd:.4f} ms ({by})")
-    # any-hit: the shadow sweep, walker P = 8 (with its list) against K2;
+        nb, m = nr // 128, blo.shape[0]
+        per_pair = OPS_ANY if anyhit else OPS_NEAREST
+        nbytes = nr * 32 + nr * (1 if anyhit else 8) + nb * m * 8 + (w.shape[0] // 3) * 48 + m * 24
+        bnd, by = bound_ms(pairs * per_pair, nbytes)
+        fewest = min(pairs, int(ref_counts.sum()))
+        bnd_few, _ = bound_ms(fewest * per_pair, nbytes)
+        out[label] = {"ms": (a1 + a2) / 2, "with_list_ms": (b1 + b2) / 2,
+                      "k1_ms": (c1 + c2) / 2, "bound_ms": bnd, "bound_by": by,
+                      "bound_fewest_ms": bnd_few, "pairs": pairs,
+                      "ref_pairs": int(ref_counts.sum()), "visits": visits, "cvisits": cvisits,
+                      "lane_use": split["lane_use"], "cycle_shares": split["shares"], "rays": nr}
+        rname = "K2" if anyhit else "K1"
+        log(f"phase 13 timing {label} {nr} rays [{smi}]: walker {a1:.3f} / {a2:.3f} ms, "
+            f"with its list (K5 + sort + walker) {b1:.3f} / {b2:.3f} ms, {rname} {c1:.3f} / "
+            f"{c2:.3f} ms; pairs tested {pairs} ({rname} {int(ref_counts.sum())}), tile visits "
+            f"{visits}, compacted {cvisits} ({cvisits / max(visits, 1):.4f}); bound {bnd:.4f} ms "
+            f"({by}), {bnd_few:.4f} at the fewest pairs; lane use {split['lane_use']:.4f}")
     # F4 under the node schedule: without the proxy pre-pass and with it
     # (K2 on the proxy table, then the walker warm-started), in turns
-    rays, proxy, shadow = woop.k2_inputs(accel, *pops["shade"][:2], full(1e-3, nf),
+    rays, proxy, shadow = woop.k2_inputs(accel, *pops["shade"][:2], full(1e-3, W * H),
                                          pops["shade"][2])
     s = S(node_clusters=8)
     walk = lambda: woop._walk(rays, *shadow, s, anyhit=True)
     with_pre = lambda: woop._walk(rays, *shadow, s, anyhit=True,
                                   occluded_in=woop.woop_any(rays, *proxy))
-    k2 = lambda: woop.woop_any(rays, *shadow)
-    errs.append(check_k2(f"city1600 shade {nf} F4 walker P=8 without vs with the pre-pass",
+    errs.append(check_k2(f"city1600 shade {W * H} F4 walker P=8 without vs with the pre-pass",
                          walk(), with_pre(), phase=13))
-    a1, b1, c1, c2, b2, a2 = (cuda_time(walk, 10), cuda_time(with_pre, 10), cuda_time(k2, 10),
-                              cuda_time(k2, 10), cuda_time(with_pre, 10), cuda_time(walk, 10))
-    nlo, nhi = woop.node_bounds(shadow[1], shadow[2], 8)
-    counts = torch.zeros((nf // 128, 3), dtype=torch.int64, device=dev)
-    woop.woop_list(rays, *shadow, *woop.visit_list(rays, nlo, nhi), node_lo=nlo, node_hi=nhi,
-                   nodes=8, anyhit=True, counts=counts)
-    pairs = int(counts[:, 0].sum())
-    bnd, by = bound_ms(pairs * OPS_ANY, nf * 33 + (shadow[0].shape[0] // 3) * 48)
-    out["shade P=8 any"] = {"with_list_ms": (a1 + a2) / 2, "k2_ms": (c1 + c2) / 2,
-                            "bound_ms": bnd, "bound_by": by, "pairs": pairs,
-                            "f4": {"without_ms": (a1 + a2) / 2, "with_ms": (b1 + b2) / 2}}
-    log(f"phase 13 timing shade {nf} rays any-hit P=8 [{smi}]: with its list "
-        f"{a1:.3f} / {a2:.3f} ms, K2 {c1:.3f} / {c2:.3f} ms; pairs tested {pairs}; bound "
-        f"{bnd:.4f} ms ({by}); F4: with the proxy pre-pass (K2 proxy + walker warm-started) "
-        f"{b1:.3f} / {b2:.3f} ms")
+    a1, b1, b2, a2 = (cuda_time(walk, 10), cuda_time(with_pre, 10), cuda_time(with_pre, 10),
+                      cuda_time(walk, 10))
+    out["f4"] = {"without_ms": (a1 + a2) / 2, "with_ms": (b1 + b2) / 2}
+    log(f"phase 13 F4 shade {W * H} rays P=8 [{smi}]: with its list {a1:.3f} / {a2:.3f} ms; "
+        f"with the proxy pre-pass (K2 proxy + walker warm-started) {b1:.3f} / {b2:.3f} ms")
     # the plain versions' time, on the subset
     args = woop.k1_inputs(accel, *_sub(pops["bounce_target"]))
     p1 = cuda_time(lambda: woop.intersect_woop_reference(args[0], args[1]), 1)
     out["plain_ms_subset"] = p1
     out["max_abs_err"] = max(errs)
-    log(f"phase 13 plain version on {SUBSET} target-sorted bounce rays: {p1:.1f} ms")
+    log(f"phase 13 plain version on {SUBSET} target-sorted bounce rays: {p1:.1f} ms; the "
+        f"walker: {out['ctas_per_sm']} CTAs of 128 threads an SM")
     return out
 
 
@@ -2092,6 +2149,10 @@ def main() -> int:
         f"cuda {torch.version.cuda}; K1, K2, K3, K4 + K5, K6 + K7, K8 build {build_s:.2f} s; "
         f"spill bytes {spills}; " + "; ".join(f"{k} ({ptxas[k]})" for k in kernels.KERNELS))
 
+    # seconds each phase took, printed with the whole run's
+    marks = [(1, time.perf_counter())]
+    mark = lambda phase: marks.append((phase, time.perf_counter()))
+
     # ---- phase 2: K1 vs plain version ----
     rng = np.random.default_rng(1337)
     n_tri = 256
@@ -2145,30 +2206,30 @@ def main() -> int:
         ubt[mid].contiguous(),
     ), woop))
 
-    # full 1080p populations: K1 and the plain version timed in turns;
-    # the warm-up outputs are held against each other
+    # full 1080p populations: K1 timed twice, the plain version once, and
+    # their outputs held against each other
     timings, k1_split = {}, {}
     for name, args in (
         ("primary", woop.k1_inputs(accel, po, pd, full(0.0, n_full), full(1e4, n_full))),
         ("bounce", woop.k1_inputs(accel, bo, bd, full(0.0, n_full), bt)),
         ("bounce_unsorted", woop.k1_inputs(accel, ubo, ubd, full(0.0, n_full), ubt)),
     ):
-        ref = lambda: woop.intersect_woop_reference(args[0], args[1])
+        # the plain version's one run (6 s on a whole population) is both
+        # the comparison and its time
+        ref, r1 = timed_call(lambda: woop.intersect_woop_reference(args[0], args[1]))
         k1 = lambda: woop.woop_nearest(*args)
-        max_abs.append(check_exact(2, f"city {name} {n_full} t_min=0.0", k1(), ref()))
-        r1 = cuda_time(ref, 1)
+        max_abs.append(check_exact(2, f"city {name} {n_full} t_min=0.0", k1(), ref[0]))
         k_1 = cuda_time(k1, 10)
         k_2 = cuda_time(k1, 10)
-        r2 = cuda_time(ref, 1)
         ops, nbytes = woop_work(woop.woop_nearest, args)
-        timings[name] = ((k_1 + k_2) / 2, (r1 + r2) / 2, *bound_ms(ops, nbytes))
+        timings[name] = ((k_1 + k_2) / 2, r1, *bound_ms(ops, nbytes))
         # K3 on the same table: the other side of the routing threshold,
         # timed in turns with K1
         k3 = lambda: woop.woop_stream(*args)
         check_exact(2, f"city {name} {n_full} K3 vs K1", k3(), k1())
         s_1, c_1, c_2, s_2 = cuda_time(k3, 10), cuda_time(k1, 10), cuda_time(k1, 10), cuda_time(k3, 10)
         log(f"phase 2 timing {name} {n_full} rays [{smi}]: K1 {k_1:.3f} / {k_2:.3f} ms, "
-            f"plain {r1:.1f} / {r2:.1f} ms; bound {timings[name][2]:.4f} ms "
+            f"plain {r1:.1f} ms; bound {timings[name][2]:.4f} ms "
             f"({timings[name][3]}; {ops / OPS_NEAREST:.4g} pairs tested); K3 forced "
             f"{s_1:.3f} / {s_2:.3f} ms against K1 {c_1:.3f} / {c_2:.3f} ms"
             + first_design_ms("K1", name))
@@ -2180,6 +2241,7 @@ def main() -> int:
     max_abs.append(compare_k1(f"city bounce {n_full} t_min=0.001", woop.k1_inputs(
         accel, bo, bd, full(1e-3, n_full), bt), woop))
 
+    mark(2)
     # ---- phase 3: the slice on the card ----
     state = init_state(config, device=dev)
     reset_launches()
@@ -2213,6 +2275,7 @@ def main() -> int:
         f"(frames {', '.join(f'{x:.1f}' for x in frame_ms)}), "
         f"{rays / steady / 1e3:.2f} Mrays/s; ldr mean {float(out['ldr'].mean()):.4f}")
 
+    mark(3)
     # ---- phase 4: CPU oracle vs card K1 ----
     small = RenderConfig(width=64, height=36, spp=SPP, max_path_length=MPL)
     _, out_cpu = render_sequence(city(device="cpu"), small, frames=3, device="cpu")
@@ -2225,42 +2288,63 @@ def main() -> int:
     if share < PIX_SHARE or mean >= MEAN_TOL:
         raise AssertionError("CPU and card LDR images disagree")
 
+    mark(4)
     # ---- phase 5: K2 vs plain version ----
     k2 = phase5(dev, rng, acc_soup, bundle, accel, config, smi)
+    mark(5)
 
     # ---- phase 6: the ReSTIR slice on the card ----
     restir_city, f4_city_frames = phase6(dev, bundle, accel, feats, smi)
+    mark(6)
 
     # ---- phase 7: CPU oracle vs card K1 + K2, ReSTIR ----
     phase7(dev)
+    mark(7)
 
     # ---- phases 8-11: the map scene, K3 and K8 ----
     soup = (acc_soup, o_t, d_t)
     m_bundle, m_accel, m_config = map_scene(dev)
     k3, (mpo, mpd) = phase8(dev, soup, m_bundle, m_accel, m_config, smi)
+    mark(8)
     k8 = phase9(dev, soup, m_accel, mpo, mpd, smi)
+    mark(9)
     map_paths, f4_map_frames = phase10(dev, m_bundle, m_accel, m_config, smi)
+    mark(10)
     phase11(dev)
+    mark(11)
 
     # ---- phases 12-15: city(1600, 7), the trace schedules ----
     c16 = city1600(dev)
     k45 = phase12(dev, soup, c16, smi)
+    mark(12)
     walk = phase13(dev, soup, c16, smi)
+    mark(13)
     sched_paths, _, f4_sched_frames = phase14(dev, c16, smi)
+    mark(14)
     phase15(dev)
+    mark(15)
 
     # ---- phases 16-19: the MCPG surface frame ----
     mcpg_city, mcpg_sched, city_pops, mcpg_city_t = phase16(dev, bundle, accel, config, c16, smi)
+    mark(16)
     mcpg_map, map_pops, mcpg_map_t = phase17(dev, m_bundle, m_accel, m_config, smi)
+    mark(17)
     g1 = phase18(dev, "city", accel, city_pops[0], woop.woop_nearest, woop.woop_stream, smi)
     g3 = phase18(dev, "map", m_accel, map_pops[0], woop.woop_stream, woop.woop_nearest, smi)
+    mark(18)
     phase19(dev)
+    mark(19)
 
     # ---- phases 20-22: the court, the volume pass, the production config ----
     court_paths, court_stats = phase20(dev, smi)
+    mark(20)
     volume_path, volume_stats, g_vol = phase21(dev, smi)
+    mark(21)
     prod_path, prod_stats = phase22(dev, bundle, accel, config, smi)
-    log(f"chip_smoke: every phase passed in {time.perf_counter() - run_t0:.1f} s")
+    mark(22)
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - run_t0:.1f} s (phase 1 "
+        f"{marks[0][1] - run_t0:.1f} s, " + ", ".join(
+            f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:])) + ")")
 
     paths = {"pt": pt_city, "restir": restir_city, "dense_map": k8["launches"],
              "pt_map": map_paths["pt"], "restir_map": map_paths["restir"], **sched_paths,
@@ -2296,7 +2380,7 @@ def main() -> int:
         "ctas_per_sm": k2["ctas_per_sm"], "lane_use": k2["lane_use"],
         "cycle_shares": k2["cycle_shares"],
         "proxy_prepass": {"city_trace": k2["f4_city"], "map_trace": k3["f4_map"],
-                          "nodes_trace": walk["shade P=8 any"]["f4"],
+                          "nodes_trace": walk["f4"],
                           "city_restir_frame": f4_city_frames, "map_restir_frame": f4_map_frames,
                           **{f"{p}_frame": v for p, v in f4_sched_frames.items()}},
     }, {
@@ -2336,33 +2420,38 @@ def main() -> int:
         "bound_ms": k45["K5 clusters"][2], "bound_by": k45["K5 clusters"][3], "library_ms": None,
         "rays": n_full, "scene": "city1600", "nodes8_ms": k45["K5 nodes8"][0],
         "nodes8_plain_ms": k45["K5 nodes8"][1], "nodes8_bound_ms": k45["K5 nodes8"][2],
-    }, {
-        "name": "woop_list (nodes)", "route": "cuda", "source": K67_SOURCE,
-        "replaces": K6_REPLACES, "launches": total("woop_list_nodes"),
-        "launches_by_path": by_path("woop_list_nodes"),
-        "list_walk_launches_by_path": {p: v["woop_list"] - v["woop_list_nodes"]
-                                       for p, v in paths.items()},
-        "max_abs_err": walk["max_abs_err"], "ms": walk["bounce_target P=8 compact=0"]["ms"],
+    }] + [{
+        "name": f"woop_list ({kind_})", "route": "cuda", "source": K67_SOURCE,
+        "replaces": replaces, "launches": total(counter),
+        "launches_by_path": by_path(counter),
+        "max_abs_err": walk["max_abs_err"], "ms": walk[key]["ms"],
         "plain_ms": walk["plain_ms_subset"], "plain_rays": SUBSET,
-        "bound_ms": walk["bounce_target P=8 compact=0"]["bound_ms"],
-        "bound_by": walk["bounce_target P=8 compact=0"]["bound_by"], "library_ms": None,
-        "k1_ms": walk["bounce_target P=8 compact=0"]["k1_ms"],
-        "list_walk_ms": walk["bounce_target P=1 compact=0"]["ms"],
-        "list_walk_bound_ms": walk["bounce_target P=1 compact=0"]["bound_ms"],
-        "anyhit_with_list_ms": walk["shade P=8 any"]["with_list_ms"],
-        "anyhit_k2_ms": walk["shade P=8 any"]["k2_ms"], "rays": n_full, "scene": "city1600",
-    }, {
-        "name": "woop_list (compact)", "route": "cuda", "source": K67_SOURCE,
-        "replaces": K7_REPLACES, "launches": total("woop_list_compact"),
-        "launches_by_path": by_path("woop_list_compact"),
-        "max_abs_err": walk["max_abs_err"], "ms": walk["bounce_target P=8 compact=32"]["ms"],
-        "plain_ms": walk["plain_ms_subset"], "plain_rays": SUBSET,
-        "bound_ms": walk["bounce_target P=8 compact=32"]["bound_ms"],
-        "bound_by": walk["bounce_target P=8 compact=32"]["bound_by"], "library_ms": None,
-        "compacted_visit_share": walk["bounce_target P=8 compact=32"]["cvisits"]
-        / max(walk["bounce_target P=8 compact=32"]["visits"], 1),
-        "rays": n_full, "scene": "city1600",
-    }]}))
+        "bound_ms": walk[key]["bound_ms"], "bound_by": walk[key]["bound_by"],
+        "library_ms": None, "bound_fewest_pairs_ms": walk[key]["bound_fewest_ms"],
+        "k1_ms": walk[key]["k1_ms"], "with_list_ms": walk[key]["with_list_ms"],
+        "ctas_per_sm": walk["ctas_per_sm"], "spill_bytes": spills["woop_list"],
+        "lane_use": {k: v["lane_use"] for k, v in walk.items() if isinstance(v, dict)
+                     and "lane_use" in v},
+        "cycle_shares": {k: v["cycle_shares"] for k, v in walk.items() if isinstance(v, dict)
+                         and "cycle_shares" in v},
+        "rays": n_full, "scene": "city1600", **extra,
+    } for kind_, replaces, counter, key, extra in (
+        ("nodes", K6_REPLACES, "woop_list_nodes", "bounce_target P=8 compact=0", {
+            "list_walk_launches_by_path": {p: v["woop_list"] - v["woop_list_nodes"]
+                                           for p, v in paths.items()},
+            "list_walk_ms": walk["bounce_target P=1 compact=0"]["ms"],
+            "list_walk_bound_ms": walk["bounce_target P=1 compact=0"]["bound_ms"],
+            "anyhit_ms": walk["shade P=8 compact=0 any"]["ms"],
+            "anyhit_with_list_ms": walk["shade P=8 compact=0 any"]["with_list_ms"],
+            "anyhit_k2_ms": walk["shade P=8 compact=0 any"]["k1_ms"]}),
+        ("compact", K7_REPLACES, "woop_list_compact", "bounce_target P=8 compact=32", {
+            "compacted_visit_share": walk["bounce_target P=8 compact=32"]["cvisits"]
+            / max(walk["bounce_target P=8 compact=32"]["visits"], 1),
+            "primary_ms": walk["primary P=8 compact=32"]["ms"],
+            "guided_ms": walk["guided P=8 compact=32"]["ms"],
+            "guided_k1_ms": walk["guided P=8 compact=32"]["k1_ms"],
+            "guided_rays": walk["guided P=8 compact=32"]["rays"]}),
+    )]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

@@ -10,9 +10,10 @@ test on the transformed origin/direction is division-free.
 - ``woop_nearest``: the wrapper of K1, ``csrc/woop_nearest.cu`` — the
   hand-written Hopper kernel that replaces the TPU kernel
   ``_kernel_resident`` + ``_intersect_tile``. A CUDA tensor launches the
-  kernel; a CPU tensor runs the plain version. K1, K2 and K3 are three
-  instances of one walk (``csrc/woop_walk.cuh``: a warp of rays walks
-  nodes, sub-nodes and clusters alone and fetches tiles by bulk copies);
+  kernel; a CPU tensor runs the plain version. K1, K2, K3 and the list
+  walker are four instances of one walk (``csrc/woop_walk.cuh``: a warp of
+  rays walks nodes, sub-nodes and clusters alone and fetches tiles by bulk
+  copies);
   they read the table's packed rows (``pack_table``, made once where
   ``build_accel`` places a table) and boxes computed once a table
   (``walk_boxes``).
@@ -39,9 +40,11 @@ test on the transformed origin/direction is division-free.
   their three nearest clusters; ``te_union``, the wrapper of K5 (the same
   source, replacing ``_kernel_te_union``), gives each ray block's exact
   near-to-far visit list; ``woop_list``, the wrapper of the list walker
-  (``csrc/woop_list.cu``), walks it over clusters (K1's result), over
-  nodes of P clusters (K6, replacing ``_kernel_resident_nodes``) and with
-  compacted visits (K7, replacing ``_intersect_tile_compact``). Their
+  (``csrc/woop_list.cu``, the walk's block-list instance: each warp walks
+  its block's list with a horizon of its own), walks it over clusters
+  (K1's result), over nodes of P clusters (K6, replacing
+  ``_kernel_resident_nodes``) and with compacted visits (K7, replacing
+  ``_intersect_tile_compact``). Their
   plain versions are ``target_keys_reference``, ``te_union_reference``
   and, for the walker, ``intersect_woop_reference`` /
   ``intersect_woop_any_reference``: a schedule changes which tiles a
@@ -94,8 +97,12 @@ class TraceSchedule(NamedTuple):
     - ``node_clusters`` = P > 1 (dividing 128): nearest-hit and any-hit
       sweeps walk a list of nodes of P consecutive clusters (K6) when the
       table has more than P clusters.
-    - ``compact`` > 0: nearest-hit walks test a tile that 1..compact rays
-      reach on those rays alone (K7).
+    - ``compact`` > 0: nearest-hit walks test a tile that few rays reach
+      on those rays alone (K7). The JAX package counts the reaching rays
+      of a 128-ray block; the walker's warps have 32 lanes, so a warp
+      compacts a visit that 1..ceil(compact / 4) of its lanes reach (at
+      most 32: the same share of the rays; :func:`compact_lanes`).
+      ``compact`` = 0 compacts no visit.
     A table routed to K3 ignores the schedule, as in the JAX package.
     """
 
@@ -191,8 +198,9 @@ def padded_bounds(lo, hi):
 
 
 def walk_boxes(lo, hi, nodes: int, sub: int) -> torch.Tensor:
-    """The boxes K1's, K2's and K3's walks read, f32[nn + ns + nc, 8]: the boxes
-    of nodes of ``nodes`` consecutive clusters (nn = ceil(nc / nodes);
+    """The boxes the walks read (K1, K2, K3, the list walker), f32[nn +
+    ns + nc, 8]: the boxes of nodes of ``nodes`` consecutive clusters (nn
+    = ceil(nc / nodes);
     :func:`node_bounds` of the padded cluster bounds lo/hi f32[nc, 3]),
     then, when ``sub`` < ``nodes``, of sub-nodes of ``sub`` clusters (ns =
     ceil(nc / sub), else 0), then the cluster boxes, each (lo.xyz, empty
@@ -415,20 +423,22 @@ def _call(fn, device, *args):
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {err}")
 
 
-# the columns of K1's, K2's and K3's profile (``counts=`` int64[n_pad /
-# RAY_BLOCK, 8]): cycles (clock64, summed over a CTA's warps) in the node list, in the
-# gates that look for the next tile (nodes, sub-nodes, clusters), in issuing
-# a tile and gating it again at its test, in tile waits, in pair loops and
-# in the whole kernel; the (ray, triangle) pairs tested; and the warp-issued
-# pairs (warp iterations of a pair loop: 64 a ray-per-lane visit, 2k one
-# compacted on k rays)
+# the columns of the walk's profile (K1, K2, K3 and the list walker;
+# ``counts=`` int64[n_pad / RAY_BLOCK, 10]): cycles (clock64, summed over a
+# CTA's warps) in the node list, in the gates that look for the next tile
+# (nodes, sub-nodes, clusters), in issuing a tile and gating it again at
+# its test, in tile waits, in pair loops and in the whole kernel; the (ray,
+# triangle) pairs tested; the warp-issued pairs (warp iterations of a pair
+# loop: 64 a ray-per-lane visit, 2k one compacted on k rays); the tile
+# visits (tests some lane reached) and the compacted ones
 PROF_FIELDS = ("list", "search", "visit", "wait", "pairs_cycles", "total", "pairs",
-               "warp_pairs")
+               "warp_pairs", "visits", "compact_visits")
 
 
 def ctas_per_sm(name, nc):
-    """CTAs of kernel ``name`` (``woop_nearest``, ``woop_any`` or
-    ``woop_stream``, the frame instance) that fit one SM for a table of ``nc`` clusters
+    """CTAs of kernel ``name`` (``woop_nearest``, ``woop_any``,
+    ``woop_stream`` or ``woop_list``, the nearest-hit frame instance) that
+    fit one SM for a table of ``nc`` clusters
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     return _kernel_lib(name, f"mq_{name}_ctas_per_sm", (_INT,))(nc)
 
@@ -446,6 +456,35 @@ def node_sizes(name):
 _WALK_ARGS = (_P, _I64, _P, _P, _INT, _INT, _P, _P, _P, _P)
 
 
+def _profile(counts, n_pad, device, short=("pairs",)):
+    """(prof, finish) for a walk instance's ``counts``: None (no profile),
+    an int64[n_pad / RAY_BLOCK, len(PROF_FIELDS)] CUDA tensor (the whole
+    profile, written in place), or one of int64[n_pad / RAY_BLOCK] (the
+    pairs each CTA tested) or, for ``short`` of more fields,
+    int64[n_pad / RAY_BLOCK, len(short)] (those columns). ``prof`` is the
+    zeroed buffer the kernel fills; ``finish()`` copies ``short`` from it
+    into ``counts``."""
+    nb = n_pad // RAY_BLOCK
+    if counts is None:
+        return None, lambda: None
+    if counts.dim() == 2 and counts.shape[1] == len(PROF_FIELDS):
+        _check("counts", counts, torch.int64, (nb, len(PROF_FIELDS)), device)
+        return counts.zero_(), lambda: None
+    want = (nb,) if len(short) == 1 else (nb, len(short))
+    _check("counts", counts, torch.int64, want, device)
+    prof = torch.zeros((nb, len(PROF_FIELDS)), dtype=torch.int64, device=device)
+    cols = [PROF_FIELDS.index(f) for f in short]
+    return prof, lambda: counts.copy_(prof[:, cols].reshape(want))
+
+
+def _aligned_rows(name, w):
+    """The table's packed rows, checked for the bulk copies."""
+    rows4 = packed_rows(w)
+    if rows4.data_ptr() % 16:
+        raise ValueError(f"{name}: the packed rows must be 16-byte aligned (bulk copies)")
+    return rows4
+
+
 def _launch_walk(name, rays, w, cluster_lo, cluster_hi, out0, out1, counts, entry=None):
     """Launch K1, K2 or K3 (the walk of csrc/woop_walk.cuh) on the current
     stream, with the table's packed rows and its cached boxes, packed for
@@ -453,26 +492,16 @@ def _launch_walk(name, rays, w, cluster_lo, cluster_hi, out0, out1, counts, entr
     without packed rows.
     ``counts`` is None (the frame path: the instance without the profile),
     an int64[n_pad / RAY_BLOCK] CUDA tensor that gets the (ray, triangle)
-    pairs each CTA tested, or an int64[n_pad / RAY_BLOCK, 8] one that gets
+    pairs each CTA tested, or an int64[n_pad / RAY_BLOCK, 10] one that gets
     the whole profile (PROF_FIELDS)."""
-    n_pad, nb = rays.shape[1], rays.shape[1] // RAY_BLOCK
-    rows4 = packed_rows(w)
-    if rows4.data_ptr() % 16:
-        raise ValueError(f"{name}: the packed rows must be 16-byte aligned (bulk copies)")
+    n_pad = rays.shape[1]
+    rows4 = _aligned_rows(name, w)
     boxes = walk_boxes(cluster_lo, cluster_hi, *node_sizes(name))
-    prof = None
-    if counts is not None:
-        if counts.dim() == 2:
-            _check("counts", counts, torch.int64, (nb, len(PROF_FIELDS)), rays.device)
-            prof = counts.zero_()
-        else:
-            _check("counts", counts, torch.int64, (nb,), rays.device)
-            prof = torch.zeros((nb, len(PROF_FIELDS)), dtype=torch.int64, device=rays.device)
+    prof, finish = _profile(counts, n_pad, rays.device)
     _call(_kernel_lib(name, entry, _WALK_ARGS), rays.device, rays.data_ptr(), n_pad,
           rows4.data_ptr(), boxes.data_ptr(), cluster_lo.shape[0], RAY_BLOCK, out0, out1,
           None if prof is None else prof.data_ptr())
-    if prof is not None and counts.dim() == 1:
-        counts.copy_(prof[:, PROF_FIELDS.index("pairs")])
+    finish()
 
 
 def _refuse_counts_on_cpu(counts):
@@ -780,26 +809,49 @@ def visit_list(rays, lo, hi):
     return te_s.contiguous(), order.to(torch.int32).contiguous()
 
 
-_LIST_ARGS = (_P, _I64, _P, _P, _P, _INT, _P, _P, _INT, _P, _P, _INT, _INT, _INT, _P, _P, _P,
-              _P, _P, _P)
+# mq_woop_list's arguments: (rays, n_pad, rows4, boxes, nc, te_s, order, m,
+# P, compact, anyhit, occ_in, out_t, out_tri, out_occ, prof, stream)
+_LIST_ARGS = (_P, _I64, _P, _P, _INT, _P, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P, _P, _P)
+# the walker's ``counts`` of three columns: pairs tested, tile visits,
+# compacted visits (PROF_FIELDS' names)
+LIST_COUNTS = ("pairs", "visits", "compact_visits")
+
+
+def list_sub(nodes):
+    """Clusters a sub-node of the list walker at nodes of ``nodes``
+    clusters (``nodes`` itself where it has no sub-node level): a
+    constant of csrc/woop_list.cu, read from the built library."""
+    return _kernel_lib("woop_list", "mq_woop_list_sub", (_INT,))(nodes)
+
+
+def compact_lanes(compact):
+    """The reaching lanes of a warp up to which the list walker compacts a
+    visit under the schedule's ``compact`` (reaching rays of a 128-ray
+    block): csrc/woop_list.cu's mapping, read from the built library."""
+    return _kernel_lib("woop_list", "mq_woop_list_compact_lanes", (_INT,))(compact)
 
 
 def woop_list(rays, w, cluster_lo, cluster_hi, te_s, order, *, node_lo=None, node_hi=None,
               nodes=1, compact=0, anyhit=False, occluded_in=None, counts=None):
     """The list walker: K1's result (``anyhit=False``: (t f32[n_pad], tri
     i32[n_pad])) or K2's (occluded bool[n_pad], warm-started by
-    ``occluded_in``), each ray block walking its visit list ``te_s`` /
-    ``order`` f32/i32[nb, m] (:func:`visit_list`) near to far with an
-    exact horizon exit.
+    ``occluded_in``), each warp of 32 rays walking its 128-ray block's
+    visit list ``te_s`` / ``order`` f32/i32[nb, m] (:func:`visit_list`)
+    near to far with an exact horizon exit of its own.
 
     ``nodes`` = 1: the list is over the clusters (m = nc); ``nodes`` = P
     > 1 (K6): over nodes of P clusters (m = ceil(nc / P)) whose boxes
-    ``node_lo``/``node_hi`` f32[m, 3] come from :func:`node_bounds` on the
-    same padded cluster bounds. ``compact`` > 0 (K7, nearest only): a
-    tile that 1..compact rays reach is tested on those rays alone.
-    Other arguments as :func:`woop_nearest`'s; ``counts`` (None or an
-    int64[n_pad / RAY_BLOCK, 3] CUDA tensor, zeroed here) gets per CTA
-    the pairs tested, the tile visits and the compacted visits.
+    ``node_lo``/``node_hi`` f32[m, 3] are :func:`node_bounds` of the same
+    padded cluster bounds: the kernel gates the node level of
+    :func:`walk_boxes` (cluster_lo, cluster_hi, P, :func:`list_sub` (P)),
+    which is those boxes. ``compact`` > 0 (K7, nearest only): a tile that
+    :func:`compact_lanes` (compact) or fewer lanes of a warp reach is tested
+    on those rays alone. Other arguments as :func:`woop_nearest`'s (on a
+    card ``w`` needs its packed rows); ``counts``: None, or an int64 CUDA
+    tensor of shape [n_pad / RAY_BLOCK, 3] (per CTA the pairs tested, the
+    tile visits and the compacted visits, LIST_COUNTS), [n_pad /
+    RAY_BLOCK] (the pairs) or [n_pad / RAY_BLOCK, 10] (the whole profile,
+    PROF_FIELDS).
 
     On CUDA tensors this launches csrc/woop_list.cu and counts the launch
     in ``woop_list.launches`` (and in ``node_launches``,
@@ -830,11 +882,9 @@ def woop_list(rays, w, cluster_lo, cluster_hi, te_s, order, *, node_lo=None, nod
         if anyhit:
             return intersect_woop_any_reference(rays, w, occluded_in)
         return intersect_woop_reference(rays, w)
-    cptr = None
-    if counts is not None:
-        _check("counts", counts, torch.int64, (nb, 3), dev)
-        counts.zero_()
-        cptr = counts.data_ptr()
+    rows4 = _aligned_rows("woop_list", w)
+    boxes = walk_boxes(cluster_lo, cluster_hi, nodes, list_sub(nodes))
+    prof, finish = _profile(counts, n_pad, dev, LIST_COUNTS)
     ptr = lambda x: None if x is None else x.data_ptr()
     if anyhit:
         out = torch.empty(n_pad, dtype=torch.bool, device=dev)
@@ -844,10 +894,9 @@ def woop_list(rays, w, cluster_lo, cluster_hi, te_s, order, *, node_lo=None, nod
                torch.empty(n_pad, dtype=torch.int32, device=dev))
         outs = (out[0].data_ptr(), out[1].data_ptr(), None)
     _call(_kernel_lib("woop_list", "mq_woop_list", _LIST_ARGS), dev, rays.data_ptr(), n_pad,
-          w.data_ptr(), cluster_lo.data_ptr(), cluster_hi.data_ptr(), nc, te_s.data_ptr(),
-          order.data_ptr(), m, ptr(node_lo if nodes > 1 else None),
-          ptr(node_hi if nodes > 1 else None), nodes, compact, int(anyhit), ptr(occluded_in),
-          *outs, cptr)
+          rows4.data_ptr(), boxes.data_ptr(), nc, te_s.data_ptr(), order.data_ptr(), m, nodes,
+          compact, int(anyhit), ptr(occluded_in), *outs, ptr(prof))
+    finish()
     woop_list.launches += 1
     woop_list.node_launches += nodes > 1
     woop_list.compact_launches += compact > 0

@@ -44,7 +44,7 @@
 // of csrc/woop_walk.cuh, the body of K1 and K3 too (see that header):
 //   - a warp of 32 rays walks alone, through ceil(nc / 64) node boxes, the
 //     8 sub-node boxes of a node it reaches and the 8 member clusters of a
-//     reached sub-node, in index order (kList = false, K1's order); no CTA
+//     reached sub-node, in index order (kIndexOrder, K1's order); no CTA
 //     barrier is left: a skipped box costs one warp vote;
 //   - tiles arrive by one bulk copy (cp.async.bulk, 3,072 contiguous bytes
 //     of the packed rows) into the warp's 2-slot ring, one tile ahead,
@@ -58,7 +58,7 @@
 //     entry (the warm start) or dead walks nothing.
 // The order was chosen by measurement (NVIDIA H100 80GB HBM3, 700 W,
 // scripts/ab_trace_kernels.py, in turns): node order against the
-// near-to-far node list with the horizon exit (kList = true, K3's any-hit
+// near-to-far node list with the horizon exit (kNodeList, K3's any-hit
 // form) on city's 2,073,600 shade rays took 1.720 against 1.727 ms on the
 // shadow table, 0.539 against 0.543 on the proxy table, and 0.201 against
 // 0.207 on the court's (PERF.md, section 6): the list buys nothing on a table
@@ -76,13 +76,13 @@ using mq::kSub;
 // synchronise, allocates nothing; returns cudaGetLastError() (0 = launched).
 // `block` must be 128, `boxes` packed for the node sizes below, `rows4`
 // 16-byte aligned; `occ_in` may be null (no warm start). `prof`
-// (u64[8 * n_pad / 128], zeroed by the caller, or null) gets the profile of
+// (u64[10 * n_pad / 128], zeroed by the caller, or null) gets the profile of
 // csrc/woop_walk.cuh; null launches the kernel without it.
 extern "C" int mq_woop_any(const float* rays, int64_t n_pad, const float* rows4,
                            const float* boxes, int nc, int block, const uint8_t* occ_in,
                            uint8_t* out, unsigned long long* prof, void* stream) {
-  return mq::launch_walk<kNode, kSub, false, true>(rays, n_pad, rows4, boxes, nc, block, occ_in,
-                                                   nullptr, nullptr, out, prof, stream);
+  return mq::launch_walk<kNode, kSub, mq::kIndexOrder, true>(
+      rays, n_pad, rows4, boxes, nc, block, occ_in, nullptr, nullptr, out, prof, stream);
 }
 
 // clusters a node and clusters a sub-node that `boxes` must be packed for
@@ -91,5 +91,5 @@ extern "C" int mq_woop_any_sub() { return kSub; }
 
 // CTAs of the frame instance that fit one SM
 extern "C" int mq_woop_any_ctas_per_sm(int nc) {
-  return mq::walk_ctas_per_sm<kNode, kSub, false, true>(nc);
+  return mq::walk_ctas_per_sm<kNode, kSub, mq::kIndexOrder, true>(nc);
 }

@@ -68,14 +68,14 @@ using mq::kSub;
 // Plain C entry point (bound with ctypes). Launches on `stream`, does not
 // synchronise, allocates nothing; returns cudaGetLastError() (0 = launched).
 // `block` must be 128, `boxes` packed for the node sizes below, `rows4`
-// 16-byte aligned. `prof` (u64[8 * n_pad / 128], zeroed by the caller, or
+// 16-byte aligned. `prof` (u64[10 * n_pad / 128], zeroed by the caller, or
 // null) gets the profile of csrc/woop_walk.cuh; null launches the kernel
 // without it.
 extern "C" int mq_woop_nearest(const float* rays, int64_t n_pad, const float* rows4,
                                const float* boxes, int nc, int block, float* out_t, int* out_tri,
                                unsigned long long* prof, void* stream) {
-  return mq::launch_walk<kNode, kSub, false, false>(rays, n_pad, rows4, boxes, nc, block, nullptr,
-                                                    out_t, out_tri, nullptr, prof, stream);
+  return mq::launch_walk<kNode, kSub, mq::kIndexOrder, false>(
+      rays, n_pad, rows4, boxes, nc, block, nullptr, out_t, out_tri, nullptr, prof, stream);
 }
 
 // clusters a node and clusters a sub-node that `boxes` must be packed for
@@ -84,5 +84,5 @@ extern "C" int mq_woop_nearest_sub() { return kSub; }
 
 // CTAs of the frame instance that fit one SM
 extern "C" int mq_woop_nearest_ctas_per_sm(int nc) {
-  return mq::walk_ctas_per_sm<kNode, kSub, false, false>(nc);
+  return mq::walk_ctas_per_sm<kNode, kSub, mq::kIndexOrder, false>(nc);
 }

@@ -76,21 +76,21 @@ using mq::kSub;
 // not synchronise, allocates nothing, and returns cudaGetLastError()
 // (0 = launched). `block` must be 128, `boxes` packed for the node sizes
 // below and nc at most 16,384; `rows4` must be 16-byte aligned. `prof`
-// (u64[8 * n_pad / 128], zeroed by the caller, or null) gets the profile of
+// (u64[10 * n_pad / 128], zeroed by the caller, or null) gets the profile of
 // csrc/woop_walk.cuh; null launches the kernel without it.
 extern "C" int mq_woop_stream(const float* rays, int64_t n_pad, const float* rows4,
                               const float* boxes, int nc, int block, float* out_t, int* out_tri,
                               unsigned long long* prof, void* stream) {
-  return mq::launch_walk<kNode, kSub, true, false>(rays, n_pad, rows4, boxes, nc, block, nullptr,
-                                                   out_t, out_tri, nullptr, prof, stream);
+  return mq::launch_walk<kNode, kSub, mq::kNodeList, false>(
+      rays, n_pad, rows4, boxes, nc, block, nullptr, out_t, out_tri, nullptr, prof, stream);
 }
 
 // `occ_in` may be null (no warm start).
 extern "C" int mq_woop_stream_any(const float* rays, int64_t n_pad, const float* rows4,
                                   const float* boxes, int nc, int block, const uint8_t* occ_in,
                                   uint8_t* out, unsigned long long* prof, void* stream) {
-  return mq::launch_walk<kNode, kSub, true, true>(rays, n_pad, rows4, boxes, nc, block, occ_in,
-                                                  nullptr, nullptr, out, prof, stream);
+  return mq::launch_walk<kNode, kSub, mq::kNodeList, true>(
+      rays, n_pad, rows4, boxes, nc, block, occ_in, nullptr, nullptr, out, prof, stream);
 }
 
 // clusters a node and clusters a sub-node that `boxes` must be packed for
@@ -99,5 +99,5 @@ extern "C" int mq_woop_stream_sub() { return kSub; }
 
 // CTAs of the frame instance (nearest hit) that fit one SM
 extern "C" int mq_woop_stream_ctas_per_sm(int nc) {
-  return mq::walk_ctas_per_sm<kNode, kSub, true, false>(nc);
+  return mq::walk_ctas_per_sm<kNode, kSub, mq::kNodeList, false>(nc);
 }

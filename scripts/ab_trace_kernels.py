@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""K1, K2, K3 and K8 of this checkout against the same kernels of another
-checkout, on one GPU: equal results, and their times in turns.
+"""K1, K2, K3, K6/K7 and K8 of this checkout against the same kernels of
+another checkout, on one GPU: equal results, and their times in turns.
 
-    python3 scripts/ab_trace_kernels.py --parent DIR [--map] [--reps 10] [--only K2,K8]
+    python3 scripts/ab_trace_kernels.py --parent DIR [--map] [--reps 10] [--only K6,K7]
 
 DIR is another checkout of the repo, for example the parent commit
 unpacked with ``git archive``, or a copy of this one whose ``csrc/`` holds
@@ -23,16 +23,34 @@ on the shadow table warm-started by the proxy pre-pass; K3's any-hit
 form); the court's shade rays (K2 on its shadow table). With ``--map``
 the map scene (``city(28000, 11)``, 281,536 triangles) adds its primary,
 bounce and shadow rays through K3, its proxy pre-pass through K2, and K8
-on 65,536 of its primary rays (those chip_smoke.py phase 9 takes). Each
-kernel's output must equal the other checkout's bit for bit. Times are
-CUDA-event means over ``--reps`` launches (K8: 3), taken in the turns
-parent, change, change, parent. Prints one line a measurement with the
-card's name and power limit.
+on 65,536 of its primary rays (those chip_smoke.py phase 9 takes).
+K6/K7, the list walker (``csrc/woop_list.cu``), runs on city(1600, 7)
+(252 clusters, so the target key applies) on the populations
+chip_smoke.py phase 13 takes: the target-sorted first bounce at P = 1, P
+= 8 and (P = 8, compact 32), the primary rays at (8, 32), the shade
+pass's shadow rays any-hit at P = 8, and the 4,147,200 guided rays of an
+MCPG bounce segment (a frame after 4 warm-up frames), target-sorted, at
+(8, 32); each on the list K5 gives it (``woop.visit_list``). A walker of
+the walk (``woop_walk.cuh`` in its source) is launched through
+``woop.woop_list``, an older one through this script's own call with its
+argument list (``woop_w`` and the node boxes). Beside each: the list's
+time (K5 + the row sort) and K1's (K2's) on the same rays, the pairs
+each tested, the bound at its own pairs and at the fewest pairs
+measured, and the change's profile (cycle shares, lane use); then the
+compaction's lane limit in turns (:func:`woop.compact_lanes` of compact
+32, 96, 128). First it prints each Woop kernel's stack frame and spill
+bytes, as ptxas reported them, for both checkouts. Each kernel's output must equal the other checkout's bit
+for bit (a walker's: on every ray, and the script goes on to the next
+population and fails at the end). Times are CUDA-event means over
+``--reps`` launches (K8: 3), taken in the turns parent, change, change,
+parent. Prints one line a measurement with the card's name and power
+limit.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 
@@ -47,12 +65,19 @@ from merian_quake_tpu_torch.accel import build_accel, dense, woop  # noqa: E402
 from merian_quake_tpu_torch.accel.build import scene_features  # noqa: E402
 from merian_quake_tpu_torch.models.procedural import city, outdoor_court  # noqa: E402
 from merian_quake_tpu_torch.models.types import RenderConfig  # noqa: E402
+from merian_quake_tpu_torch.renderer import init_state, render_frame  # noqa: E402
 
-SOURCES = ("woop_nearest", "woop_any", "woop_stream", "mt_dense")
+SOURCES = ("woop_nearest", "woop_any", "woop_stream", "woop_keys", "woop_list", "mt_dense")
 # the arguments of a pre-walk entry point: (rays, n_pad, woop_w, lo, hi,
 # nc, block, out0, out1, counts, stream)
 OLDER_ARGS = (woop._P, woop._I64, woop._P, woop._P, woop._P, woop._INT, woop._INT, woop._P,
               woop._P, woop._P, woop._P)
+# the first list walker's: (rays, n_pad, woop_w, lo, hi, nc, te_s, order, m,
+# node_lo, node_hi, P, compact, anyhit, occ_in, out_t, out_tri, out_occ,
+# counts u64[n_pad / 128, 3], stream)
+OLDER_LIST_ARGS = (woop._P, woop._I64, woop._P, woop._P, woop._P, woop._INT, woop._P, woop._P,
+                   woop._INT, woop._P, woop._P, woop._INT, woop._INT, woop._INT, woop._P, woop._P,
+                   woop._P, woop._P, woop._P, woop._P)
 # the first K8's: (rays, n_pad, tris f32[16, T], T, block, t, tri, u, v, stream)
 OLDER_K8_ARGS = (woop._P, woop._I64, woop._P, woop._I64, woop._INT, woop._P, woop._P, woop._P,
                  woop._P, woop._P)
@@ -61,12 +86,14 @@ OLDER_K8_ARGS = (woop._P, woop._I64, woop._P, woop._I64, woop._INT, woop._P, woo
 def use(csrc: str) -> dict:
     """Have every wrapper launch the kernels built from ``csrc``; returns
     which of its kernels are the current designs: ``walk`` (K1 and K3 are
-    the walk), ``k2`` (K2 is too), ``k8`` (K8 takes mt_table's layout)."""
+    the walk), ``k2`` (K2 is too), ``list`` (the list walker is too),
+    ``k8`` (K8 takes mt_table's layout)."""
     kernels.CSRC_DIR = csrc
     kernels.load_library.cache_clear()
     read = lambda name: open(os.path.join(csrc, name)).read()
     return {"walk": os.path.exists(os.path.join(csrc, "woop_walk.cuh")),
             "k2": "woop_walk.cuh" in read("woop_any.cu"),
+            "list": "woop_walk.cuh" in read("woop_list.cu"),
             "k8": "mt_resolve_kernel" in read("mt_dense.cu")}
 
 
@@ -96,6 +123,43 @@ def older_k8(rays, tris):
            torch.empty(n, dtype=torch.float32, device=dev))
     woop._call(woop._kernel_lib("mt_dense", None, OLDER_K8_ARGS), dev, rays.data_ptr(), n,
                tris.data_ptr(), tris.shape[1], woop.RAY_BLOCK, *(x.data_ptr() for x in out))
+    return out
+
+
+def older_list(rays, w, lo, hi, lst, nodes, compact, anyhit=False, occ=None, counts=None):
+    """The first list walker (a CTA of 128 rays walking its block's list),
+    with its own argument list; ``counts`` None or int64[n_pad / 128, 3]."""
+    n, dev = rays.shape[1], rays.device
+    ptr = lambda x: None if x is None else x.data_ptr()
+    nlo, nhi = woop.node_bounds(lo, hi, nodes) if nodes > 1 else (None, None)
+    if anyhit:
+        out = torch.empty(n, dtype=torch.bool, device=dev)
+        outs = (None, None, out.data_ptr())
+    else:
+        out = (torch.empty(n, dtype=torch.float32, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev))
+        outs = (out[0].data_ptr(), out[1].data_ptr(), None)
+    if counts is not None:
+        counts.zero_()
+    woop._call(woop._kernel_lib("woop_list", None, OLDER_LIST_ARGS), dev, rays.data_ptr(), n,
+               w.data_ptr(), lo.data_ptr(), hi.data_ptr(), lo.shape[0], lst[0].data_ptr(),
+               lst[1].data_ptr(), lst[0].shape[1], ptr(nlo), ptr(nhi), nodes, compact,
+               int(anyhit), ptr(occ), *outs, ptr(counts))
+    return out
+
+
+def spills(name):
+    """Each kernel of library ``name`` (as built from the checkout in use)
+    with the stack frame and spill bytes ptxas reported for it."""
+    out, fn = [], None
+    with open(kernels.library_path(name) + ".log") as f:
+        for line in f:
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+            elif fn and "spill" in line:
+                out.append(f"{fn}: {line.strip()}")
+                fn = None
     return out
 
 
@@ -169,6 +233,112 @@ def court_cases(dev):
     return [k2_case("court K2 shadow", rays, shadow)]
 
 
+def list_populations(dev):
+    """The walker's populations on city(1600, 7) at 1080p: (name, (rays, w,
+    lo, hi), P, compact, anyhit)."""
+    bundle, accel, config, pops = chip_smoke.city1600(dev)
+    n = chip_smoke.W * chip_smoke.H
+    # the guided rays of the first MCPG bounce segment after 4 frames,
+    # target-sorted as the schedule sorts them
+    cfg, mcfg = chip_smoke.mcpg_scene_config(config)
+    state = init_state(cfg, mcfg, device=dev)
+    for f in range(4):
+        state, _ = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=f), cfg,
+                                state, mcfg)
+    go, gd, gt = chip_smoke.guided_population(bundle, accel, cfg, mcfg, state, 4)[1][0]
+    perm = torch.sort(woop.target_sort_key(accel, go, gd, gt), stable=True).indices
+    guided = (go[perm].contiguous(), gd[perm].contiguous(), torch.zeros_like(gt),
+              gt[perm].contiguous())
+    so, sd, st = pops["shade"]
+    rays, _, shadow = woop.k2_inputs(accel, so, sd, torch.full((n,), 1e-3, device=dev), st)
+    k1 = lambda pop: woop.k1_inputs(accel, *pop)
+    return [("bounce_target P=1", k1(pops["bounce_target"]), 1, 0, False),
+            ("bounce_target P=8", k1(pops["bounce_target"]), 8, 0, False),
+            ("bounce_target P=8 compact=32", k1(pops["bounce_target"]), 8, 32, False),
+            ("primary P=8 compact=32", k1(pops["primary"]), 8, 32, False),
+            ("shade any-hit P=8", (rays, *shadow), 8, 0, True),
+            (f"guided {guided[0].shape[0]} P=8 compact=32", k1(guided), 8, 32, False)]
+
+
+def list_ab(dev, parent, change, reps, smi) -> int:
+    """K6/K7 of the two checkouts on :func:`list_populations`, in turns,
+    with the readings beside them; returns the populations on which the
+    two differ."""
+    fails = 0
+    for name, (rays, w, lo, hi), nodes, compact, anyhit in list_populations(dev):
+        n, nb = rays.shape[1], rays.shape[1] // woop.RAY_BLOCK
+        blo, bhi = woop.node_bounds(lo, hi, nodes) if nodes > 1 else (lo, hi)
+        lst = woop.visit_list(rays, blo, bhi)
+        kw = dict(node_lo=blo, node_hi=bhi, nodes=nodes) if nodes > 1 else {}
+
+        def fn(c, counts=None, compact=compact):
+            if c["list"]:
+                return woop.woop_list(rays, w, lo, hi, *lst, compact=compact, anyhit=anyhit,
+                                      counts=counts, **kw)
+            return older_list(rays, w, lo, hi, lst, nodes, compact, anyhit, counts=counts)
+
+        label = f"city1600 K{7 if compact else 6} {name}"
+        base, new = fn(use(parent)), fn(use(change))
+        torch.cuda.synchronize()
+        pairs_out = zip(base if isinstance(base, tuple) else (base,),
+                        new if isinstance(new, tuple) else (new,))
+        differ = max(int((x != y).sum()) for x, y in pairs_out)
+        if differ:
+            print(f"{label}: the two checkouts' walkers differ on {differ} rays", flush=True)
+            fails += 1
+            continue
+        times = []
+        for csrc in (parent, change, change, parent):
+            c = use(csrc)
+            fn(c)
+            times.append(chip_smoke.cuda_time(lambda: fn(c), reps))
+        counts_parent = torch.zeros((nb, 3), dtype=torch.int64, device=dev)
+        fn(use(parent), counts=counts_parent)
+        c = use(change)
+        prof = torch.zeros((nb, len(woop.PROF_FIELDS)), dtype=torch.int64, device=dev)
+        fn(c, counts=prof)
+        rec = dict(zip(woop.PROF_FIELDS, (int(x) for x in prof.sum(0))))
+        shares = {k: rec[k] / max(rec["total"], 1) for k in woop.PROF_FIELDS[:5]}
+        lane_use = rec["pairs"] / 32 / max(rec["warp_pairs"], 1)
+        # K1 (K2) on the same rays, the list (K5 + row sort), both with the
+        # change's kernels, in turns with the walker
+        ref = (lambda: woop.woop_any(rays, w, lo, hi)) if anyhit else (
+            lambda: woop.woop_nearest(rays, w, lo, hi))
+        ref_counts = torch.zeros(nb, dtype=torch.int64, device=dev)
+        (woop.woop_any if anyhit else woop.woop_nearest)(rays, w, lo, hi, counts=ref_counts)
+        make_list = lambda: woop.visit_list(rays, blo, bhi)
+        walk = lambda: fn(c)
+        turns = [chip_smoke.cuda_time(f, reps) for f in (make_list, ref, ref, make_list)]
+        pairs = {"parent": int(counts_parent[:, 0].sum()), "change": rec["pairs"],
+                 "K2" if anyhit else "K1": int(ref_counts.sum())}
+        nbytes = (n * 32 + (n if anyhit else 8 * n) + nb * lst[0].shape[1] * 8
+                  + (w.shape[0] // 3) * 48 + blo.shape[0] * 24)
+        per_pair = chip_smoke.OPS_ANY if anyhit else chip_smoke.OPS_NEAREST
+        own, by = chip_smoke.bound_ms(rec["pairs"] * per_pair, nbytes)
+        fewest, _ = chip_smoke.bound_ms(min(pairs.values()) * per_pair, nbytes)
+        p, ch = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        print(f"{label} [{smi}]: parent {times[0]:.4f} / {times[3]:.4f} ms, change "
+              f"{times[1]:.4f} / {times[2]:.4f} ms, change / parent {ch / p:.4f}; list (K5 + "
+              f"sort) {turns[0]:.4f} / {turns[3]:.4f} ms, {'K2' if anyhit else 'K1'} "
+              f"{turns[1]:.4f} / {turns[2]:.4f} ms; pairs {pairs}; bound {own:.4f} ms at the "
+              f"change's pairs ({by}), {fewest:.4f} at the fewest; change: cycle shares "
+              + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+              + f", lane use {lane_use:.4f}, tile visits {rec['visits']}, compacted "
+              f"{rec['compact_visits']}; parent: tile visits {int(counts_parent[:, 1].sum())}, "
+              f"compacted {int(counts_parent[:, 2].sum())}; outputs equal", flush=True)
+        if name == "bounce_target P=8 compact=32":
+            # the compaction's lane limit, in turns: compact 32, 96, 128
+            lim = [32, 96, 128]
+            ms = {k: [] for k in lim}
+            for k in lim + lim[::-1]:
+                fn(c, compact=k)
+                ms[k].append(chip_smoke.cuda_time(lambda: fn(c, compact=k), reps))
+            print(f"city1600 K7 {name} compaction A/B [{smi}]: " + ", ".join(
+                f"compact {k} ({woop.compact_lanes(k)} lanes) {v[0]:.4f} / {v[1]:.4f} ms"
+                for k, v in ms.items()), flush=True)
+    return fails
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="the other checkout's root")
@@ -186,14 +356,22 @@ def main() -> int:
     print(smi, flush=True)
     change = kernels.CSRC_DIR
     parent = os.path.join(os.path.abspath(args.parent), "merian_quake_tpu_torch", "csrc")
-    for csrc in (parent, change):
+    for label, csrc in (("parent", parent), ("change", change)):
         use(csrc)
         kernels.build_libraries(*SOURCES)
+        for name in SOURCES[:-1]:
+            for line in spills(name):
+                print(f"ptxas {label} {name} {line}", flush=True)
 
-    runs = cases(dev, {}, True) + court_cases(dev)
-    if args.map:
-        runs += cases(dev, chip_smoke.MAP, False)
     only = [k for k in args.only.split(",") if k]
+    fails = 0
+    if not only or "K6" in only or "K7" in only:
+        fails += list_ab(dev, parent, change, args.reps, smi)
+    runs = []
+    if not only or set(only) - {"K6", "K7"}:
+        runs = cases(dev, {}, True) + court_cases(dev)
+        if args.map:
+            runs += cases(dev, chip_smoke.MAP, False)
     for name, fn in runs:
         if only and not any(f" {k} " in name for k in only):
             continue
@@ -210,7 +388,7 @@ def main() -> int:
         print(f"{name} [{smi}]: parent {times[0]:.4f} / {times[3]:.4f} ms, change "
               f"{times[1]:.4f} / {times[2]:.4f} ms, change / parent {ch / p:.4f}; "
               f"outputs bit-equal", flush=True)
-    return 0
+    return 1 if fails else 0
 
 
 if __name__ == "__main__":

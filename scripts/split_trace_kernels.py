@@ -6,7 +6,7 @@ their profile instances on the frames' own ray populations.
 
 Builds this checkout's kernels with nvcc for sm_90a, makes city's (16,640
 triangles) 1080p primary rays and sorted first-bounce rays, launches K1's
-profile instance on them (``counts=`` int64[n / 128, 8], see
+profile instance on them (``counts=`` int64[n / 128, 10], see
 ``woop.PROF_FIELDS``) and prints, a line a population: the cycles summed
 over all warps and their shares in the node list, the gates that look for
 the next tile, a tile's issue and second gate, tile waits and pair loops

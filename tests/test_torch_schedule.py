@@ -40,6 +40,7 @@ from merian_quake_tpu_torch.accel.build import cluster_aabbs
 from merian_quake_tpu_torch.models.procedural import city
 from merian_quake_tpu_torch.models.types import RenderConfig, build_scene_from_soup
 from merian_quake_tpu_torch.renderer import render_sequence
+from torch_walk_model import compact_lanes, list_sub, model_walk
 
 # the module (the package's ``intersect`` attribute is the function)
 intersect_mod = importlib.import_module("merian_quake_tpu_torch.accel.intersect")
@@ -309,124 +310,27 @@ def test_list_wrappers_reject_bad_inputs(rng):
 
 
 def _model_walk(rays, w, lo, hi, nodes=1, compact=0, anyhit=False, occluded_in=None,
-                mutant=None):
-    """torch model of csrc/woop_list.cu's schedule, one lane per ray,
-    every block stepping through its own walk at once:
+                mutant=None, raw_bounds=None):
+    """torch model of csrc/woop_list.cu's schedule: the block-list source
+    of tests/torch_walk_model.py's walk, one warp of 32 rays at a time:
     1. visit list: K5 in its walker mode (limit list_slack(t_max), empty
        boxes never listed) over the clusters, or over nodes of ``nodes``
        clusters (woop.node_bounds), each row sorted near to far;
-    2. walk: stop at the first entry whose te exceeds the horizon (the
-       largest gate limit over the block); at node level, a node gate with
-       the current limits, then each member cluster's gate; a gate that no
-       ray passes skips its tile;
-    3. a tile that 1..compact rays reach is tested on those rays alone
-       (nearest only), a denser one on every reaching ray.
-    Mutants: ``early_exit`` stops one entry early (it looks at the next
-    entry's te), ``node_no_slack`` gates nodes with min(best, t_max)
-    itself, ``compact_drops_last`` leaves the last reaching ray out of a
-    compacted visit."""
-    nc = lo.shape[0]
-    blk = woop.RAY_BLOCK
-    nb = rays.shape[1] // blk
-    r = rays.reshape(8, nb, blk)
-    o, d, t_min, t_max = r[0:3].permute(1, 2, 0), r[3:6].permute(1, 2, 0), r[6], r[7]
-    inv = 1.0 / torch.where(d.abs() < 1e-20, torch.where(d >= 0, 1e-20, -1e-20), d)
-    rows = w.reshape(nc, 3, 64, 8)[..., :4]
-    ids64 = torch.arange(64, dtype=torch.int32)
-    bidx = torch.arange(nb)
-    best = torch.full((nb, blk), woop.BIG)
-    best_tri = torch.full((nb, blk), -1, dtype=torch.int32)
-    occ = torch.zeros((nb, blk), dtype=torch.bool)
-    if occluded_in is not None:
-        occ = occluded_in.reshape(nb, blk).clone()
-
-    def raw_limit():
-        return torch.where(occ, -torch.inf, t_max) if anyhit else torch.minimum(best, t_max)
-
-    def limit():
-        lim = woop.list_slack(raw_limit())
-        return torch.where(occ, -torch.inf, lim) if anyhit else lim
-
-    def block_max(lim):  # a NaN limit (a NaN ray) reaches nothing
-        return torch.where(lim.isnan(), -torch.inf, lim).amax(1)
-
-    def gate(blo, bhi, c, lim):  # (nb,) box ids → (nb, blk) reach
-        empty = (blo[c] > bhi[c]).any(-1)
-        reach = woop._slab_entry(o[:, :, None, :], inv[:, :, None, :], lim[..., None],
-                                 blo[c][:, None, None, :], bhi[c][:, None, None, :])[0][..., 0]
-        return reach & ~empty[:, None]
-
-    def test_tile(reach, c):
-        nonlocal best, best_tri, occ
-        a = rows[c][:, :, None]  # (nb, 3, 1, 64, 4)
-        x0, x1 = o.permute(2, 0, 1), d.permute(2, 0, 1)
-
-        def img(x, i, aff):
-            p = (x[0][..., None] * a[:, i, :, :, 0] + x[1][..., None] * a[:, i, :, :, 1]
-                 + x[2][..., None] * a[:, i, :, :, 2])
-            return p + a[:, i, :, :, 3] if aff else p
-
-        u0, v0, z0 = (img(x0, i, True) for i in range(3))
-        du, dv, dz = (img(x1, i, False) for i in range(3))
-        z0n = -z0
-        U = u0 * dz - z0 * du
-        V = v0 * dz - z0 * dv
-        if anyhit:
-            hit = ((U >= 0) & (V >= 0) & (dz - U - V >= 0) & (dz - 1e-12 >= 0)
-                   & (z0n - t_min[..., None] * dz >= 0) & (t_max[..., None] * dz - z0n >= 0))
-            occ = occ | (reach & hit.any(-1))
-            return
-        front = dz > 1e-12
-        ok = (front & (U >= 0) & (V >= 0) & (U + V <= dz)
-              & (z0n > t_min[..., None] * dz) & (z0n <= t_max[..., None] * dz) & reach[..., None])
-        t = torch.where(ok, z0n / torch.where(front, dz, 1.0), woop.BIG)
-        ct = t.amin(-1)
-        ck = torch.where(t == ct[..., None], ids64, 64).amin(-1)
-        ctri = (c[:, None] * 64 + ck).to(torch.int32)
-        better = (ct < best) | ((ct == best) & (ctri < best_tri) & (ct < woop.BIG))
-        best = torch.where(better, ct, best)
-        best_tri = torch.where(better, ctri, best_tri)
-
-    def visit(c, mask):
-        reach = gate(lo, hi, c, limit()) & mask[:, None]
-        cnt = reach.sum(1)
-        if compact and not anyhit and mutant == "compact_drops_last":
-            compacted = (cnt > 0) & (cnt <= compact)
-            last = reach & (reach.cumsum(1) == cnt[:, None])
-            reach = reach & ~(last & compacted[:, None])
-        test_tile(reach, c)
-        return cnt > 0
-
-    if nodes > 1:
-        nlo, nhi = woop.node_bounds(lo, hi, nodes)
-        te_s, order = woop.visit_list(rays, nlo, nhi)
-    else:
-        te_s, order = woop.visit_list(rays, lo, hi)
-    m = te_s.shape[1]
-    te_s = torch.cat([te_s, torch.full((nb, 1), torch.inf)], 1)
-    j = torch.zeros(nb, dtype=torch.long)
-    live = torch.ones(nb, dtype=torch.bool)
-    horizon = block_max(limit())
-    while True:
-        look = j + 1 if mutant == "early_exit" else j
-        live = live & (j < m) & (te_s[bidx, look.clamp_max(m)] <= horizon)
-        if not bool(live.any()):
-            break
-        ids = order[bidx, j.clamp_max(m - 1)].long()
-        if nodes > 1:
-            lim = woop.list_slack(raw_limit()) if mutant != "node_no_slack" else raw_limit()
-            in_node = live & (gate(nlo, nhi, ids, lim) & live[:, None]).any(1)
-            tested = torch.zeros(nb, dtype=torch.bool)
-            for k in range(nodes):
-                c = ids * nodes + k
-                tested |= visit(c.clamp_max(nc - 1), in_node & (c < nc))
-        else:
-            tested = visit(ids, live)
-        horizon = torch.where(tested, block_max(limit()), horizon)
-        j = j + live
-    if anyhit:
-        return occ.reshape(-1)
-    return best.reshape(-1), best_tri.reshape(-1)
+    2. each warp walks its block's list BATCH entries a step, keeping the
+       entries within its own horizon (the largest of its lanes' limits),
+       gating them with K5's slab at the current limits; at node level a
+       reached node's members (or sub-nodes, then their members, above 32
+       clusters a node) are gated next;
+    3. tiles fetched one ahead (limits lag by a tile), a tile that
+       1..compact_lanes(compact) lanes reach tested triangle per lane
+       (nearest only), a denser one ray per lane; any-hit ends a warp's
+       walk once every live lane is occluded.
+    Mutants: torch_walk_model.model_walk's."""
+    blo, bhi = woop.node_bounds(lo, hi, nodes) if nodes > 1 else (lo, hi)
+    return model_walk(rays, w, lo, hi, (nodes, list_sub(nodes)), None, anyhit=anyhit,
+                      occluded_in=occluded_in, mutant=mutant,
+                      block_list=woop.visit_list(rays, blo, bhi),
+                      compact=0 if anyhit else compact_lanes(compact), raw_bounds=raw_bounds)
 
 
 def _city_primary(bundle, width, height):
@@ -487,7 +391,7 @@ def _planes():
     o[:, 1:] = rng.uniform(-6, 6, (n, 2))
     d = np.concatenate([np.ones((n, 1)), rng.uniform(-0.3, 0.3, (n, 2))], 1).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    o, d, w = torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(w)
+    o, d, w = torch.from_numpy(o), torch.from_numpy(d), woop.pack_table(torch.from_numpy(w))
     rays = woop._pack_rays(o, d, torch.zeros(n), torch.full((n,), 1e4), 128)
     t_hit = woop.intersect_woop_reference(rays, w)[0][:n]
     t_max = torch.where(t_hit < 1e4, t_hit, 1e4)
@@ -563,9 +467,45 @@ def test_walk_model_anyhit_matches_plain_version(rng, city_1600, nodes):
                                            occluded_in=pre), dense, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("nodes,compact", [(32, 0), (64, 32), (128, 0)])
+def test_walk_model_sub_nodes_match_plain_version(rng, city_1600, nodes, compact):
+    """Nodes of 32 clusters (members gated straight, 32 votes a word) and
+    of 64 and 128 (the sub-node level of 8) on city(1600)'s target-sorted
+    bounce and primary rays."""
+    for name in ("city_bounce_target", "city_primary"):
+        args = _walk_inputs(name, rng, city_1600)
+        t_ref, tri_ref = woop.intersect_woop_reference(args[0], args[1])
+        t_mod, tri_mod = _model_walk(*args, nodes=nodes, compact=compact)
+        torch.testing.assert_close(tri_mod, tri_ref, rtol=0, atol=0)
+        torch.testing.assert_close(t_mod, t_ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("nodes", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_walk_boxes_node_level_is_node_bounds(city_1600, nodes):
+    """The walker gates the node level of walk_boxes(lo, hi, P, list_sub(P))
+    and K5 lists node_bounds(lo, hi, P) of the same padded bounds: the two
+    must be the same boxes, or the horizon exit is no longer exact."""
+    acc = city_1600[1]
+    lo, hi = woop.padded_bounds(acc.cluster_lo, acc.cluster_hi)
+    nn = -(-lo.shape[0] // nodes)
+    boxes = woop.walk_boxes(lo, hi, nodes, list_sub(nodes))
+    nlo, nhi = woop.node_bounds(lo, hi, nodes)
+    torch.testing.assert_close(boxes[:nn, 0:3], nlo, rtol=0, atol=0)
+    torch.testing.assert_close(boxes[:nn, 4:7], nhi, rtol=0, atol=0)
+    torch.testing.assert_close(boxes[:nn, 3], (nlo > nhi).any(-1).float(), rtol=0, atol=0)
+    torch.testing.assert_close(boxes[-lo.shape[0]:, 0:3], lo, rtol=0, atol=0)
+
+
+def _unpadded(lo, hi):
+    """The cluster bounds without woop._pad_bounds' margin."""
+    return lo + (lo.abs() * 1e-5 + 1e-3), hi - (hi.abs() * 1e-5 + 1e-3)
+
+
 @pytest.mark.parametrize("mutant,nodes,compact", [
     ("early_exit", 1, 0), ("early_exit", 8, 32), ("node_no_slack", 8, 0),
     ("compact_drops_last", 1, 32), ("compact_drops_last", 8, 32),
+    ("horizon_next_entry", 8, 0), ("unpadded_node_boxes", 8, 0),
+    ("compact_wrong_lanes", 8, 32),
 ])
 def test_walk_model_mutants_fail(rng, city_1600, mutant, nodes, compact):
     """Each mutant of the walker's schedule gives another result than the
@@ -574,9 +514,20 @@ def test_walk_model_mutants_fail(rng, city_1600, mutant, nodes, compact):
     for name in ("soup", "city_primary", "city_bounce_target", "planes"):
         args = _walk_inputs(name, rng, city_1600)
         t_ref, tri_ref = woop.intersect_woop_reference(args[0], args[1])
-        t_mod, tri_mod = _model_walk(*args, nodes=nodes, compact=compact, mutant=mutant)
+        t_mod, tri_mod = _model_walk(*args, nodes=nodes, compact=compact, mutant=mutant,
+                                     raw_bounds=_unpadded(*args[2:4]))
         differ += int((tri_mod != tri_ref).sum())
     assert differ > 0
+
+
+def test_walk_model_anyhit_stopping_at_first_occluded_lane_fails(rng, city_1600):
+    """Any-hit must walk on until every live lane of the warp is occluded:
+    a walk that stops at the first occluded lane misses the occluders of
+    the others."""
+    rays, shadow, _ = _walk_inputs("city_shadow", rng, city_1600)
+    dense = woop.intersect_woop_any_reference(rays, shadow[0])
+    occ = _model_walk(rays, *shadow, nodes=8, anyhit=True, mutant="anyhit_first_occluded")
+    assert int((occ != dense).sum()) > 0
 
 
 # ------------------------------------------------------------------ the frame
@@ -634,7 +585,8 @@ def test_list_kernels_match_plain_versions_on_card(city_1600, nodes, compact):
     """K4, K5 and the walker (K6/K7) against their plain versions on
     city(1600)'s primary rays. On the card: chip_smoke.py phase 12 (K4
     and K5 on 65,536-ray subsets and the whole populations) and phase 13
-    (the walker in every mode, P = 1, 8 and 16, compact 0 and 32)."""
+    (the walker in every mode, P = 1, 8, 16, 32, 64 and 128, compact 0
+    and 32, and on the MCPG guided rays under (True, 8, 32))."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda")
