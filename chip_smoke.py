@@ -16,7 +16,8 @@ schedules (``woop.TraceSchedule``), on ``city(n_buildings=1600)``
 building and checking their hand-written kernels: K1
 (csrc/woop_nearest.cu, nearest hit), K2 (csrc/woop_any.cu, any hit), K3
 (csrc/woop_stream.cu, both for tables above 65,536 triangles), K4 and K5
-(csrc/woop_keys.cu, target keys and block union entries), the list
+(csrc/woop_keys.cu, target keys, block union entries and the visit list
+they make with its row sort), the list
 walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
 (csrc/mt_dense.cu, the dense Möller–Trumbore sweep of
 ``accel.dense.intersect_dense``). Phases, one line each or more:
@@ -96,12 +97,18 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     whose default is the card): the LDR images agree within the slice test's
     tolerance (at 64×36 the CPU oracle took 61 s for the PT frames alone
     on the card's host, so the size is a quarter of phase 4's);
-12. K4 and K5 against their plain versions on the card, bit for bit: the
-    random soup, 65,536-ray subsets of city(1600)'s 1080p primary, bounce
-    and target-sorted bounce rays, and the whole 2,073,600-ray
-    target-sorted bounce population; K5 on cluster boxes and on node
-    boxes of 8 clusters, in the JAX package's mode and in the walker's;
-    times in turns with the plain versions (CUDA events) and bounds;
+12. K4, K5 and the fused visit list against their plain versions on the
+    card, bit for bit: the random soup, 65,536-ray subsets of
+    city(1600)'s 1080p primary, bounce and target-sorted bounce rays, the
+    whole 2,073,600-ray target-sorted bounce population, and edge-case
+    boxes (empty, inverted, NaN and flat boxes at 3 to 1,024; +-0
+    directions, NaN origins, infinite, zero, negative and NaN limits, a
+    dead warp and a dead block); K4 and its counting instance, K5 on
+    cluster boxes and on node boxes of 8 clusters in the JAX package's
+    mode and in the walker's, the visit list (te_s and order) on both;
+    times in turns with the plain versions (CUDA events), the list's
+    against K5 + torch's row sort; bounds at 24 and 18 operations a slab,
+    K4's also at the slabs its counting instance computed;
 13. the walker (the walk's block-list instance) against its plain
     versions, bit for bit (nearest) and on every ray (any-hit): P = 1 (on
     target-sorted rays), 8 and 16 with compact 0 and 32, P = 32, (64, 32)
@@ -118,9 +125,9 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
 14. 6 frames at 1080p on city(1600) for each schedule and for the
     default routes (the yardstick), with exact launch counts a frame: PT
     5 K1; ReSTIR 2 K1 + 1 K2; PT ``TraceSchedule(target_key=True)`` 1 K1,
-    4 K4, 4 K5, 4 walks (P = 1); PT ``TraceSchedule(True, 8, 32)`` 4 K4,
-    5 K5, 5 walks at P = 8 with compaction, no K1; ReSTIR
-    ``TraceSchedule(node_clusters=8)`` 3 K5, 2 nearest and 1 any-hit walks
+    4 K4, 4 visit lists, 4 walks (P = 1); PT ``TraceSchedule(True, 8, 32)``
+    4 K4, 5 visit lists, 5 walks at P = 8 with compaction, no K1; ReSTIR
+    ``TraceSchedule(node_clusters=8)`` 3 visit lists, 2 nearest and 1 any-hit walks
     at P = 8, no K1 or K2; each schedule's LDR against the
     default routes' (bit-identical or not, and within the slice test's
     tolerance); cold and steady ms/frame; F4's frames of both ReSTIR runs
@@ -137,7 +144,7 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     ``torch.cuda.set_sync_debug_mode("error")`` (no host read in a steady
     frame); the bounce coherence sort A/B on 8 further frames; 6 frames
     each of city(1600) with the default routes and under
-    ``TraceSchedule(True, 8, 32)`` (2 K4 + 3 K5 + 3 compacting node walks);
+    ``TraceSchedule(True, 8, 32)`` (2 K4 + 3 visit lists + 3 compacting node walks);
 17. map MCPG at 1080p: 9 frames, exactly 3 K3 launches a frame and no K1,
     the same checks, the mean of frames 6-8;
 18. K1 (city) and K3 (map) on the 4,147,200 rays of one guided bounce
@@ -246,9 +253,10 @@ FP32_ISSUE_RATE = FP32_RATE / 2
 # FP32 multiplies and adds a (ray, triangle) pair: the Woop nearest test,
 # the Woop any-hit test, Möller–Trumbore (with its reciprocal)
 OPS_NEAREST, OPS_ANY, OPS_MT = 42, 46, 46
-# FP32 operations of a (ray, box) slab (K4, K5): 6 subtracts, 6 multiplies
-# and 12 min/max
-OPS_SLAB = 24
+# FP32 operations of a (ray, box) slab (K4, K5): the JAX slab's 6 subtracts,
+# 6 multiplies and 12 min/max; with each axis's planes ordered and chosen
+# once a ray (csrc/woop_keys.cu), 6 min/max
+OPS_SLAB, OPS_SLAB_CHOSEN = 24, 18
 # K8 against the oracle (t, u, v) and against K3 (t): relative tolerance
 T_RTOL = 1e-5
 # CPU vs card LDR agreement (the slice test's tolerance)
@@ -270,6 +278,7 @@ def reset_launches() -> None:
     woop.woop_stream.launches = woop.woop_stream.anyhit_launches = 0
     dense.mt_dense.launches = 0
     woop.target_keys.launches = woop.te_union.launches = woop.woop_list.launches = 0
+    woop.visit_list.launches = 0
     woop.woop_list.node_launches = woop.woop_list.compact_launches = 0
     woop.woop_list.anyhit_launches = 0
 
@@ -281,7 +290,8 @@ def launches() -> dict:
             "woop_stream": woop.woop_stream.launches,
             "woop_stream_any": woop.woop_stream.anyhit_launches,
             "mt_dense": dense.mt_dense.launches, "target_keys": woop.target_keys.launches,
-            "te_union": woop.te_union.launches, "woop_list": woop.woop_list.launches,
+            "te_union": woop.te_union.launches, "visit_list": woop.visit_list.launches,
+            "woop_list": woop.woop_list.launches,
             "woop_list_nodes": woop.woop_list.node_launches,
             "woop_list_compact": woop.woop_list.compact_launches,
             "woop_list_any": woop.woop_list.anyhit_launches}
@@ -1165,15 +1175,73 @@ def timed_turns(plain, kernel, reps):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def edge_boxes(rng, m, few_empty=False, device="cpu"):
+    """m boxes in [-50, 50]^3 with the cases K4 and K5 must keep exact
+    (lo/hi f32[m, 3]): every 5th empty as the padding fills it (3e37 >
+    -3e37), every 7th empty as the build fills it (1e30 > -1e30), every 3rd
+    inverted on one axis, one with a NaN plane, one flat (lo = hi on an
+    axis). The JAX slab enters an empty box at 0 from any finite origin,
+    so K4's keys take the first three empty ids: ``few_empty`` leaves only
+    two (at 30% and 60% of the ids), so that the third is a real box's."""
+    lo = rng.uniform(-50, 45, (m, 3)).astype(np.float32)
+    hi = (lo + rng.uniform(0.5, 15, (m, 3))).astype(np.float32)
+    for c in range(0, m, 3):
+        k = c % 3
+        lo[c, k], hi[c, k] = hi[c, k], lo[c, k]
+    if few_empty:
+        lo[3 * m // 10], hi[3 * m // 10] = 1e30, -1e30
+        lo[6 * m // 10], hi[6 * m // 10] = 3e37, -3e37
+    else:
+        lo[4::5], hi[4::5] = 3e37, -3e37
+        lo[6::7], hi[6::7] = 1e30, -1e30
+    if m > 10:
+        lo[10, 1] = np.nan
+        hi[8, 2] = lo[8, 2]
+    return torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device)
+
+
+def edge_rays(rng, n=640, device="cpu"):
+    """Packed rays f32[8, n] for K4 and K5 around :func:`edge_boxes`:
+    origins in and around the boxes, directions with +0, -0 and
+    sub-1e-20 components, NaN origins and a NaN direction, limits 1e4,
+    +inf, 0, -0, negative, NaN; a warp whose limits are all negative and a
+    128-ray block whose limits are all dead."""
+    from merian_quake_tpu_torch.accel import woop
+
+    o = rng.uniform(-60, 60, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o[::9] = rng.uniform(-50, 50, (len(o[::9]), 3))
+    d[1::6, 0] = 0.0
+    d[2::6, 1] = -0.0
+    d[3::6, 2] = 1e-25
+    d[4::6, :2] = 0.0
+    d[4::6, 2] = -1.0
+    o[5::50, 0] = np.nan
+    d[7, 2] = np.nan
+    t_max = np.full(n, 1e4, np.float32)
+    t_max[1::10] = np.inf
+    t_max[2::10] = 0.0
+    t_max[3::10] = -0.0
+    t_max[4::10] = -1.0
+    t_max[5::10] = np.nan
+    t_max[6::10] = 15.0
+    t_max[64:96] = -1.0  # a dead warp
+    t_max[256:384] = np.where(np.arange(128) % 2, -2.0, np.nan)  # a dead block
+    t = lambda x: torch.from_numpy(x).to(device)
+    return woop._pack_rays(t(o), t(d), torch.zeros(n, device=device), t(t_max), woop.RAY_BLOCK)
+
+
 def phase12(dev, soup, c16, smi):
-    """K4 and K5 against their plain versions, bit for bit; times and
-    bounds."""
+    """K4, K5 (both modes) and the fused visit list against their plain
+    versions, bit for bit; times in turns, bounds at 24 and 18 operations
+    a slab and, for K4, at the slabs its counting instance computed."""
     from merian_quake_tpu_torch.accel import woop
 
     acc_soup, o_t, d_t = soup
     _, accel, _, pops = c16
 
-    errs = {"K4": [], "K5": []}
+    errs = {"K4": [], "K5": [], "list": []}
 
     def same_bits(kernel, name, a, b):
         torch.cuda.synchronize()
@@ -1187,27 +1255,51 @@ def phase12(dev, soup, c16, smi):
         if differ:
             raise AssertionError(f"{name}: kernel and plain version differ on {differ} values")
 
+    def same_list(name, rays, lo, hi):
+        got, ref = woop.visit_list(rays, lo, hi), woop.visit_list_reference(rays, lo, hi)
+        same_bits("list", f"{name} visit list te_s", got[0], ref[0])
+        same_bits("list", f"{name} visit list order", got[1], ref[1])
+
+    # (name, rays, K4's and the JAX mode's boxes, the walker's boxes)
     n = o_t.shape[0]
     full = lambda v, k: torch.full((k,), v, device=dev)
-    inputs = [("random soup", acc_soup, o_t, d_t, full(0.0, n), full(60.0, n))]
-    for name in ("primary", "bounce", "bounce_target"):
-        inputs.append((f"city1600 {name} {SUBSET}", accel, *_sub(pops[name])))
-    inputs.append((f"city1600 bounce_target {W * H}", accel, *pops["bounce_target"]))
-    for name, acc, o, d, t_min, t_max in inputs:
+    inputs = []
+    for name, acc, o, d, t_min, t_max in (
+            [("random soup", acc_soup, o_t, d_t, full(0.0, n), full(60.0, n))]
+            + [(f"city1600 {k} {SUBSET}", accel, *_sub(pops[k]))
+               for k in ("primary", "bounce", "bounce_target")]
+            + [(f"city1600 bounce_target {W * H}", accel, *pops["bounce_target"])]):
         rays, _, lo, hi = woop.k1_inputs(acc, o, d, t_min, t_max)
-        same_bits("K4", f"{name} K4", woop.target_keys(rays, acc.cluster_lo, acc.cluster_hi),
-                  woop.target_keys_reference(rays, acc.cluster_lo, acc.cluster_hi))
-        boxes = {"clusters": (acc.cluster_lo, acc.cluster_hi, lo, hi),
-                 "nodes8": (*woop.node_bounds(acc.cluster_lo, acc.cluster_hi, 8),
-                            *woop.node_bounds(lo, hi, 8))}
-        for bname, (jlo, jhi, wlo, whi) in boxes.items():
+        inputs.append((name, rays, acc.cluster_lo, acc.cluster_hi, lo, hi))
+    rng = np.random.default_rng(12)
+    rays_e = edge_rays(rng, device=dev)
+    for m in (3, 100, 1024):
+        lo, hi = edge_boxes(rng, m, device=dev)
+        inputs.append((f"edge boxes m={m}", rays_e, lo, hi, lo, hi))
+    for m in (3, 100, 256):
+        lo, hi = edge_boxes(rng, m, few_empty=True, device=dev)
+        same_bits("K4", f"edge boxes m={m} (two empty) K4", woop.target_keys(rays_e, lo, hi),
+                  woop.target_keys_reference(rays_e, lo, hi))
+    for name, rays, clo, chi, wlo, whi in inputs:
+        if clo.shape[0] <= woop.MAX_KEY_CLUSTERS:
+            ref = woop.target_keys_reference(rays, clo, chi)
+            same_bits("K4", f"{name} K4", woop.target_keys(rays, clo, chi), ref)
+            counts = torch.zeros((rays.shape[1] // 128, 3), dtype=torch.int64, device=dev)
+            same_bits("K4", f"{name} K4 counting instance",
+                      woop.target_keys(rays, clo, chi, counts=counts), ref)
+        boxes = {"clusters": (clo, chi, wlo, whi),
+                 "nodes8": (*woop.node_bounds(clo, chi, 8), *woop.node_bounds(wlo, whi, 8))}
+        for bname, (jlo, jhi, blo, bhi) in boxes.items():
             same_bits("K5", f"{name} K5 {bname} JAX mode", woop.te_union(rays, jlo, jhi),
                       woop.te_union_reference(rays, jlo, jhi))
-            same_bits("K5", f"{name} K5 {bname} walker mode", woop.te_union(rays, wlo, whi, slack=True),
-                      woop.te_union_reference(rays, wlo, whi, slack=True))
+            same_bits("K5", f"{name} K5 {bname} walker mode",
+                      woop.te_union(rays, blo, bhi, slack=True),
+                      woop.te_union_reference(rays, blo, bhi, slack=True))
+            same_list(f"{name} {bname}", rays, blo, bhi)
 
     # times on the whole populations as the frames launch them: K4 on the
-    # bounce rays in pixel order, K5 (walker mode) on the target-sorted ones
+    # bounce rays in pixel order, K5 (walker mode) and the list on the
+    # target-sorted ones
     nf = W * H
     rays_b = woop.k1_inputs(accel, *pops["bounce"])[0]
     rays_t, _, lo, hi = woop.k1_inputs(accel, *pops["bounce_target"])
@@ -1216,17 +1308,59 @@ def phase12(dev, soup, c16, smi):
     out = {"max_abs_err": {k: max(v) for k, v in errs.items()}}
     k4 = timed_turns(lambda: woop.target_keys_reference(rays_b, accel.cluster_lo, accel.cluster_hi),
                      lambda: woop.target_keys(rays_b, accel.cluster_lo, accel.cluster_hi), 10)
-    out["K4"] = (*k4, *bound_ms(OPS_SLAB * nf * nc, nf * 32 + nf * 4 + nc * 24))
+    counts = torch.zeros((nf // 128, 3), dtype=torch.int64, device=dev)
+    woop.target_keys(rays_b, accel.cluster_lo, accel.cluster_hi, counts=counts)
+    work = dict(zip(woop.KEY_COUNTS, (int(x) for x in counts.sum(0))))
+    k4_bytes = nf * 32 + nf * 4 + nc * 24
+    out["K4"] = {"ms": k4[0], "plain_ms": k4[1], "boxes": nc, "counts": work,
+                 **slab_bounds(nf * nc, work["slabs"] + work["node_slabs"], k4_bytes)}
+    # K5 needs the slabs of the live rays (limit >= 0) with every box
+    live = int((woop.list_slack(rays_t[7]) >= 0.0).sum())
     for bname, (blo, bhi) in (("clusters", (lo, hi)), ("nodes8", (nlo, nhi))):
         m = blo.shape[0]
         k5 = timed_turns(lambda: woop.te_union_reference(rays_t, blo, bhi, slack=True),
                          lambda: woop.te_union(rays_t, blo, bhi, slack=True), 10)
-        out[f"K5 {bname}"] = (*k5, *bound_ms(OPS_SLAB * nf * m, nf * 32 + (nf // 128) * m * 4
-                                             + m * 24))
-    for name, (ms, plain, bnd, by) in ((k, v) for k, v in out.items() if k != "max_abs_err"):
-        log(f"phase 12 timing {name} on {nf} bounce rays [{smi}]: kernel {ms:.3f} ms, plain "
-            f"{plain:.1f} ms; bound {bnd:.4f} ms ({by})")
+        union_bytes = nf * 32 + (nf // 128) * m * 4 + m * 24
+        out[f"K5 {bname}"] = {"ms": k5[0], "plain_ms": k5[1], "boxes": m, "live_rays": live,
+                              **slab_bounds(nf * m, live * m, union_bytes)}
+        # the list: the fused entry against K5 + torch's row sort (the route
+        # before the fusion), in turns, and against its plain version
+        fused = lambda: woop.visit_list(rays_t, blo, bhi)
+        unfused = lambda: torch.sort(woop.te_union(rays_t, blo, bhi, slack=True), dim=1,
+                                     stable=True)
+        u1, f1, f2, u2 = (cuda_time(unfused, 10), cuda_time(fused, 10), cuda_time(fused, 10),
+                          cuda_time(unfused, 10))
+        plain = cuda_time(lambda: woop.visit_list_reference(rays_t, blo, bhi), 1)
+        out[f"list {bname}"] = {"ms": (f1 + f2) / 2, "plain_ms": plain,
+                                "unfused_ms": (u1 + u2) / 2, "boxes": m, "live_rays": live,
+                                **slab_bounds(nf * m, live * m,
+                                              union_bytes + (nf // 128) * m * 4)}
+    for name, r in ((k, v) for k, v in out.items() if k != "max_abs_err"):
+        if name == "K4":
+            need = (f"the {r['need_slabs'] / (nf * nc):.4f} of rays x boxes its counting "
+                    f"instance computed {r['counts']}")
+        else:
+            need = f"its {r['live_rays']} live rays x boxes"
+        extra = f"; K5 + torch.sort {r['unfused_ms']:.3f} ms in turns" if "unfused_ms" in r else ""
+        log(f"phase 12 timing {name} ({r['boxes']} boxes) on {nf} bounce rays [{smi}]: kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms; bound {r['bound_ms']:.4f} ms at "
+            f"{OPS_SLAB_CHOSEN} operations a slab of {need} ({r['bound_by']}, share "
+            f"{r['bound_ms'] / r['ms']:.3f}); over every ray x box {r['bound_18_ms']:.4f} ms at "
+            f"{OPS_SLAB_CHOSEN} (share {r['bound_18_ms'] / r['ms']:.3f}), {r['bound_24_ms']:.4f} "
+            f"ms at the JAX slab's {OPS_SLAB} (share {r['bound_24_ms'] / r['ms']:.3f}){extra}")
     return out
+
+
+def slab_bounds(slabs, need, nbytes):
+    """The bounds of a kernel over ``slabs`` (ray, box) slabs moving
+    ``nbytes``: bound_ms (bound_by) at 18 operations a slab (each axis's
+    planes ordered and chosen once a ray) over the ``need`` slabs this
+    run's data needs; beside it 18 and the JAX slab's 24 a slab over every
+    slab (bound_18_ms, bound_24_ms)."""
+    bnd, by = bound_ms(OPS_SLAB_CHOSEN * need, nbytes)
+    return {"bound_ms": bnd, "bound_by": by, "need_slabs": need,
+            "bound_18_ms": bound_ms(OPS_SLAB_CHOSEN * slabs, nbytes)[0],
+            "bound_24_ms": bound_ms(OPS_SLAB * slabs, nbytes)[0]}
 
 
 def guided_1600(dev, c16):
@@ -1304,7 +1438,7 @@ def phase13(dev, soup, c16, smi):
                             woop._walk(*g_args, S(True, 8, 32)), woop.woop_nearest(*g_args)))
 
     # counts, profile and times on the whole populations, against K1 / K2
-    # on the same rays (the walk with its list: K5, the row sort, the walker)
+    # on the same rays (the walk with its list: the visit list, the walker)
     out = {"ctas_per_sm": woop.ctas_per_sm("woop_list", accel.cluster_lo.shape[0])}
     for pname, s, anyhit in (("bounce_target", S(), False), ("bounce_target", S(node_clusters=8), False),
                              ("bounce_target", S(node_clusters=8, compact=32), False),
@@ -1354,7 +1488,7 @@ def phase13(dev, soup, c16, smi):
                       "lane_use": split["lane_use"], "cycle_shares": split["shares"], "rays": nr}
         rname = "K2" if anyhit else "K1"
         log(f"phase 13 timing {label} {nr} rays [{smi}]: walker {a1:.3f} / {a2:.3f} ms, "
-            f"with its list (K5 + sort + walker) {b1:.3f} / {b2:.3f} ms, {rname} {c1:.3f} / "
+            f"with its list (visit list + walker) {b1:.3f} / {b2:.3f} ms, {rname} {c1:.3f} / "
             f"{c2:.3f} ms; pairs tested {pairs} ({rname} {int(ref_counts.sum())}), tile visits "
             f"{visits}, compacted {cvisits} ({cvisits / max(visits, 1):.4f}); bound {bnd:.4f} ms "
             f"({by}), {bnd_few:.4f} at the fewest pairs; lane use {split['lane_use']:.4f}")
@@ -1397,12 +1531,12 @@ def phase14(dev, c16, smi):
         ("pt_1600", "pt", None, {"woop_nearest": 5}),
         ("restir_1600", "restir", None, {"woop_nearest": 2, "woop_any": 1}),
         ("pt_1600_target", "pt", S(target_key=True),
-         {"woop_nearest": 1, "target_keys": 4, "te_union": 4, "woop_list": 4}),
+         {"woop_nearest": 1, "target_keys": 4, "visit_list": 4, "woop_list": 4}),
         ("pt_1600_nodes_compact", "pt", S(True, 8, 32),
-         {"target_keys": 4, "te_union": 5, "woop_list": 5, "woop_list_nodes": 5,
+         {"target_keys": 4, "visit_list": 5, "woop_list": 5, "woop_list_nodes": 5,
           "woop_list_compact": 5}),
         ("restir_1600_nodes", "restir", S(node_clusters=8),
-         {"te_union": 3, "woop_list": 3, "woop_list_nodes": 3, "woop_list_any": 1}),
+         {"visit_list": 3, "woop_list": 3, "woop_list_nodes": 3, "woop_list_any": 1}),
     ]
     per_path, ldr, timing = {}, {}, {}
     for path, integrator, sched, expect in runs:
@@ -1623,14 +1757,14 @@ def phase16(dev, bundle, accel, config, c16, smi):
 
     # one reading under a trace schedule, on city(1600): default routes
     # against TraceSchedule(True, 8, 32) (the two bounce segments sorted by
-    # the target key; K5's list and the compacting node walk for all three)
+    # the target key; the visit list and the compacting node walk for all three)
     b16, a16, c16cfg, _ = c16
     cfg16, _ = mcpg_scene_config(c16cfg)
     sched_paths = {}
     for path, sched, expect in (
         ("mcpg_1600", None, {"woop_nearest": 3}),
         ("mcpg_1600_nodes_compact", woop.TraceSchedule(True, 8, 32),
-         {"target_keys": 2, "te_union": 3, "woop_list": 3, "woop_list_nodes": 3,
+         {"target_keys": 2, "visit_list": 3, "woop_list": 3, "woop_list_nodes": 3,
           "woop_list_compact": 3}),
     ):
         _, _, sched_paths[path], _, _ = mcpg_frames(
@@ -2410,16 +2544,25 @@ def main() -> int:
         "name": "target_keys", "route": "cuda", "source": K45_SOURCE,
         "replaces": K4_REPLACES, "launches": total("target_keys"),
         "launches_by_path": by_path("target_keys"), "max_abs_err": k45["max_abs_err"]["K4"],
-        "ms": k45["K4"][0], "plain_ms": k45["K4"][1], "bound_ms": k45["K4"][2],
-        "bound_by": k45["K4"][3], "library_ms": None, "rays": n_full, "scene": "city1600",
+        **k45["K4"], "library_ms": None,
+        "rays": n_full, "scene": "city1600",
     }, {
+        # K5's two-mode entry (mq_te_union) runs on no frame's path: the
+        # frames launch K5 through the fused list, the visit_list row
         "name": "te_union", "route": "cuda", "source": K45_SOURCE,
         "replaces": K5_REPLACES, "launches": total("te_union"),
-        "launches_by_path": by_path("te_union"), "max_abs_err": k45["max_abs_err"]["K5"],
-        "ms": k45["K5 clusters"][0], "plain_ms": k45["K5 clusters"][1],
-        "bound_ms": k45["K5 clusters"][2], "bound_by": k45["K5 clusters"][3], "library_ms": None,
-        "rays": n_full, "scene": "city1600", "nodes8_ms": k45["K5 nodes8"][0],
-        "nodes8_plain_ms": k45["K5 nodes8"][1], "nodes8_bound_ms": k45["K5 nodes8"][2],
+        "launches_by_path": by_path("te_union"),
+        "max_abs_err": k45["max_abs_err"]["K5"], **k45["K5 clusters"],
+        "library_ms": None, "rays": n_full, "scene": "city1600",
+        **{f"nodes8_{k}": v for k, v in k45["K5 nodes8"].items()},
+    }, {
+        "name": "visit_list", "route": "cuda", "source": K45_SOURCE,
+        "replaces": K5_REPLACES, "also_replaces": "the row sort (XLA) at "
+        "merian_quake_tpu/accel/woop.py:1251",
+        "launches": total("visit_list"), "launches_by_path": by_path("visit_list"),
+        "max_abs_err": k45["max_abs_err"]["list"], **k45["list clusters"],
+        "library_ms": None, "rays": n_full, "scene": "city1600",
+        **{f"nodes8_{k}": v for k, v in k45["list nodes8"].items()},
     }] + [{
         "name": f"woop_list ({kind_})", "route": "cuda", "source": K67_SOURCE,
         "replaces": replaces, "launches": total(counter),

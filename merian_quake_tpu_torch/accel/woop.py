@@ -83,6 +83,10 @@ MAX_STREAM_CLUSTERS = 1 << 14
 # K4's largest cluster count: its key holds three 8-bit ids (the JAX
 # package's rule, woop.py:1653 there)
 MAX_KEY_CLUSTERS = 256
+# the fused visit list's largest box count (csrc/woop_keys.cu kMaxListBoxes):
+# the walker runs on tables of up to RESIDENT_MAX_TRIS triangles, 1,024
+# clusters of CLUSTER_SIZE
+MAX_LIST_BOXES = 1024
 
 
 class TraceSchedule(NamedTuple):
@@ -713,26 +717,37 @@ def _check_boxes(name, lo, hi, device):
     return m
 
 
-_KEYS_ARGS = (_P, _I64, _P, _P, _INT, _P, _P)
+_KEYS_ARGS = (_P, _I64, _P, _P, _INT, _P, _P, _P)
 _UNION_ARGS = (_P, _I64, _P, _P, _INT, _INT, _P, _P)
+_VISIT_LIST_ARGS = (_P, _I64, _P, _P, _INT, _P, _P, _P)
+# K4's ``counts`` columns, per CTA: the (ray, box) slabs of member boxes and
+# of node boxes it computed (32 a warp's slab) and its warps' insertions
+KEY_COUNTS = ("slabs", "node_slabs", "inserts")
 
 
-def target_keys(rays, lo, hi):
+def target_keys(rays, lo, hi, counts=None):
     """K4: each ray's target key (see :func:`target_keys_reference`),
     i32[n_pad]. rays f32[8, n_pad] (n_pad a multiple of RAY_BLOCK); lo/hi
     f32[nc, 3], nc ≤ MAX_KEY_CLUSTERS, the accel's cluster AABBs as they
     are. On CUDA tensors this launches csrc/woop_keys.cu and counts the
     launch in ``target_keys.launches``; on CPU tensors it runs the plain
-    version."""
+    version. ``counts``: None (the frames' instance), or an int64 CUDA
+    tensor [n_pad / RAY_BLOCK, 3] that gets per CTA the work of KEY_COUNTS
+    (the counting instance)."""
     n_pad = _check_rays(rays)
     nc = _check_boxes("cluster", lo, hi, rays.device)
     if nc > MAX_KEY_CLUSTERS:
         raise ValueError(f"target_keys: {nc} clusters, at most {MAX_KEY_CLUSTERS}")
     if rays.device.type == "cpu":
+        _refuse_counts_on_cpu(counts)
         return target_keys_reference(rays, lo, hi)
+    if counts is not None:
+        _check("counts", counts, torch.int64, (n_pad // RAY_BLOCK, len(KEY_COUNTS)), rays.device)
+        counts.zero_()
     out = torch.empty(n_pad, dtype=torch.int32, device=rays.device)
     _call(_kernel_lib("woop_keys", "mq_target_keys", _KEYS_ARGS), rays.device, rays.data_ptr(),
-          n_pad, lo.data_ptr(), hi.data_ptr(), nc, out.data_ptr())
+          n_pad, lo.data_ptr(), hi.data_ptr(), nc, out.data_ptr(),
+          None if counts is None else counts.data_ptr())
     target_keys.launches += 1
     return out
 
@@ -800,13 +815,43 @@ def node_bounds(lo, hi, nodes):
             hi.reshape(nn, nodes, 3).amax(1).contiguous())
 
 
-def visit_list(rays, lo, hi):
-    """Each block's near-to-far visit list over boxes lo/hi: K5 in its
-    walker mode, then each row sorted (in torch, as the JAX package sorts
-    it in XLA, woop.py:1251-1257 there) → (te_s f32[nb, m], order
-    i32[nb, m])."""
-    te_s, order = torch.sort(te_union(rays, lo, hi, slack=True), dim=1, stable=True)
+def _sorted_rows(te):
+    te_s, order = torch.sort(te, dim=1, stable=True)
     return te_s.contiguous(), order.to(torch.int32).contiguous()
+
+
+def visit_list_reference(rays, lo, hi):
+    """Plain PyTorch version of :func:`visit_list`: each row of K5's walker
+    mode sorted by entry, equal entries by id (a stable sort)."""
+    return _sorted_rows(te_union_reference(rays, lo, hi, slack=True))
+
+
+def visit_list(rays, lo, hi):
+    """Each block's near-to-far visit list over boxes lo/hi f32[m, 3]: K5
+    in its walker mode with each row sorted (the JAX package sorts it in
+    XLA, woop.py:1251-1257 there) → (te_s f32[nb, m], order i32[nb, m]),
+    equal entries in id order. On CUDA tensors this launches
+    csrc/woop_keys.cu's fused entry (the union and the row sort by one
+    warp a block, m ≤ MAX_LIST_BOXES) and counts the launch in
+    ``visit_list.launches``; on CPU tensors it sorts the rows of
+    :func:`te_union` (its plain version there), so that the CPU route
+    calls K5's wrapper where the card's launches K5."""
+    n_pad = _check_rays(rays)
+    m = _check_boxes("box", lo, hi, rays.device)
+    if not 0 < m <= MAX_LIST_BOXES:
+        raise ValueError(f"visit_list: {m} boxes, 1 to {MAX_LIST_BOXES}")
+    if rays.device.type == "cpu":
+        return _sorted_rows(te_union(rays, lo, hi, slack=True))
+    te_s = torch.empty((n_pad // RAY_BLOCK, m), dtype=torch.float32, device=rays.device)
+    order = torch.empty((n_pad // RAY_BLOCK, m), dtype=torch.int32, device=rays.device)
+    _call(_kernel_lib("woop_keys", "mq_visit_list", _VISIT_LIST_ARGS), rays.device,
+          rays.data_ptr(), n_pad, lo.data_ptr(), hi.data_ptr(), m, te_s.data_ptr(),
+          order.data_ptr())
+    visit_list.launches += 1
+    return te_s, order
+
+
+visit_list.launches = 0
 
 
 # mq_woop_list's arguments: (rays, n_pad, rows4, boxes, nc, te_s, order, m,

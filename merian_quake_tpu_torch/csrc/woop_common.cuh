@@ -3,9 +3,10 @@
 // K6/K7 (csrc/woop_list.cu); the mbarrier and bulk-copy helpers and the
 // ordered float key also serve K8 (csrc/mt_dense.cu). Every pair test of every kernel is one of the
 // two functions below, so the bit-exact contract with the plain versions
-// lives in one place. The union that builds a walk's list and
-// the walk's per-ray gate call the same slab function here, so a box the
-// gate could pass is always listed. kernels.py hashes this header into the
+// lives in one place. The walk's per-ray gate calls the slab function
+// here; the union that builds its list (csrc/woop_keys.cu) computes the same
+// entry bit for bit with each ray's planes chosen once, so a box the gate
+// could pass is always listed. kernels.py hashes this header into the
 // name of every library, so an edit rebuilds them all.
 #pragma once
 
@@ -59,14 +60,6 @@ struct Ray {
 struct Box {
   float lx, ly, lz, hx, hy, hz;
 };
-
-__device__ __forceinline__ Box load_box(const float* lo, const float* hi, int c) {
-  return {lo[3 * c], lo[3 * c + 1], lo[3 * c + 2], hi[3 * c], hi[3 * c + 1], hi[3 * c + 2]};
-}
-
-__device__ __forceinline__ bool empty_box(const Box& b) {
-  return b.lx > b.hx || b.ly > b.hy || b.lz > b.hz;
-}
 
 // The slab of the JAX package's _slab_te_lanes (woop.py:852-874): from
 // tn = 0, tf = lim, per axis t1 = (lo - o)·inv, t2 = (hi - o)·inv (each

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""K1, K2, K3, K6/K7 and K8 of this checkout against the same kernels of
+"""K1, K2, K3, K4/K5, K6/K7 and K8 of this checkout against the same kernels of
 another checkout, on one GPU: equal results, and their times in turns.
 
-    python3 scripts/ab_trace_kernels.py --parent DIR [--map] [--reps 10] [--only K6,K7]
+    python3 scripts/ab_trace_kernels.py --parent DIR [--map] [--reps 10] [--only K4,K5] [--frames]
 
 DIR is another checkout of the repo, for example the parent commit
 unpacked with ``git archive``, or a copy of this one whose ``csrc/`` holds
@@ -30,17 +30,30 @@ chip_smoke.py phase 13 takes: the target-sorted first bounce at P = 1, P
 = 8 and (P = 8, compact 32), the primary rays at (8, 32), the shade
 pass's shadow rays any-hit at P = 8, and the 4,147,200 guided rays of an
 MCPG bounce segment (a frame after 4 warm-up frames), target-sorted, at
-(8, 32); each on the list K5 gives it (``woop.visit_list``). A walker of
+(8, 32); each on the list K5 gives it (``woop.visit_list``). K4 and K5
+(``csrc/woop_keys.cu``) run on city(1600, 7) too: K4 on the first bounce
+in pixel order (as the frames key it) and target-sorted, K5 in the
+walker's mode on the target-sorted bounce over the 252 cluster boxes and
+32 node boxes of 8, in the JAX package's mode on the bounce, and the
+visit list on the target-sorted bounce (a checkout without the fused
+entry makes it as K5 + torch's stable row sort); each also on
+chip_smoke.py's edge-case boxes and rays; K4 beside the change's slab
+counts and its bounds at 24 and 18 operations a slab and at the slabs it
+computed. An older K4 (no ``counts``) is launched through this script's
+own call. ``--frames`` adds city(1600)'s 1080p frames that launch K4 and
+the visit list (PT under the target key, PT and MCPG under (True, 8,
+32)) with each checkout's kernels in turns, on the host clock and the
+device's (the profiler's kernel time a frame). A walker of
 the walk (``woop_walk.cuh`` in its source) is launched through
 ``woop.woop_list``, an older one through this script's own call with its
 argument list (``woop_w`` and the node boxes). Beside each: the list's
-time (K5 + the row sort) and K1's (K2's) on the same rays, the pairs
+time (the visit list) and K1's (K2's) on the same rays, the pairs
 each tested, the bound at its own pairs and at the fewest pairs
 measured, and the change's profile (cycle shares, lane use); then the
 compaction's lane limit in turns (:func:`woop.compact_lanes` of compact
-32, 96, 128). First it prints each Woop kernel's stack frame and spill
-bytes, as ptxas reported them, for both checkouts. Each kernel's output must equal the other checkout's bit
-for bit (a walker's: on every ray, and the script goes on to the next
+32, 96, 128). First it prints each Woop kernel's registers, stack frame
+and spill bytes, as ptxas reported them, for both checkouts. Each
+kernel's output must equal the other checkout's bit for bit (a walker's: on every ray, and the script goes on to the next
 population and fails at the end). Times are CUDA-event means over
 ``--reps`` launches (K8: 3), taken in the turns parent, change, change,
 parent. Prints one line a measurement with the card's name and power
@@ -53,7 +66,9 @@ import os
 import re
 import subprocess
 import sys
+import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,6 +93,8 @@ OLDER_ARGS = (woop._P, woop._I64, woop._P, woop._P, woop._P, woop._INT, woop._IN
 OLDER_LIST_ARGS = (woop._P, woop._I64, woop._P, woop._P, woop._P, woop._INT, woop._P, woop._P,
                    woop._INT, woop._P, woop._P, woop._INT, woop._INT, woop._INT, woop._P, woop._P,
                    woop._P, woop._P, woop._P, woop._P)
+# the first K4's: (rays, n_pad, lo, hi, nc, out, stream)
+OLDER_KEYS_ARGS = (woop._P, woop._I64, woop._P, woop._P, woop._INT, woop._P, woop._P)
 # the first K8's: (rays, n_pad, tris f32[16, T], T, block, t, tri, u, v, stream)
 OLDER_K8_ARGS = (woop._P, woop._I64, woop._P, woop._I64, woop._INT, woop._P, woop._P, woop._P,
                  woop._P, woop._P)
@@ -87,14 +104,16 @@ def use(csrc: str) -> dict:
     """Have every wrapper launch the kernels built from ``csrc``; returns
     which of its kernels are the current designs: ``walk`` (K1 and K3 are
     the walk), ``k2`` (K2 is too), ``list`` (the list walker is too),
-    ``k8`` (K8 takes mt_table's layout)."""
+    ``k8`` (K8 takes mt_table's layout), ``keys`` (K4 takes ``counts`` and
+    the visit list is one launch)."""
     kernels.CSRC_DIR = csrc
     kernels.load_library.cache_clear()
     read = lambda name: open(os.path.join(csrc, name)).read()
     return {"walk": os.path.exists(os.path.join(csrc, "woop_walk.cuh")),
             "k2": "woop_walk.cuh" in read("woop_any.cu"),
             "list": "woop_walk.cuh" in read("woop_list.cu"),
-            "k8": "mt_resolve_kernel" in read("mt_dense.cu")}
+            "k8": "mt_resolve_kernel" in read("mt_dense.cu"),
+            "keys": "mq_visit_list" in read("woop_keys.cu")}
 
 
 def older(name, rays, w, lo, hi, occ=None, anyhit=False):
@@ -126,6 +145,24 @@ def older_k8(rays, tris):
     return out
 
 
+def older_keys(rays, lo, hi):
+    """The first K4, whose entry point takes no ``counts``."""
+    out = torch.empty(rays.shape[1], dtype=torch.int32, device=rays.device)
+    woop._call(woop._kernel_lib("woop_keys", "mq_target_keys", OLDER_KEYS_ARGS), rays.device,
+               rays.data_ptr(), rays.shape[1], lo.data_ptr(), hi.data_ptr(), lo.shape[0],
+               out.data_ptr())
+    return out
+
+
+def visit_list_of(c, rays, lo, hi):
+    """The visit list as a checkout makes it: one launch, or K5 in its
+    walker mode and torch's stable row sort."""
+    if c["keys"]:
+        return woop.visit_list(rays, lo, hi)
+    te_s, order = torch.sort(woop.te_union(rays, lo, hi, slack=True), dim=1, stable=True)
+    return te_s, order.int()
+
+
 def older_list(rays, w, lo, hi, lst, nodes, compact, anyhit=False, occ=None, counts=None):
     """The first list walker (a CTA of 128 rays walking its block's list),
     with its own argument list; ``counts`` None or int64[n_pad / 128, 3]."""
@@ -150,15 +187,19 @@ def older_list(rays, w, lo, hi, lst, nodes, compact, anyhit=False, occ=None, cou
 
 def spills(name):
     """Each kernel of library ``name`` (as built from the checkout in use)
-    with the stack frame and spill bytes ptxas reported for it."""
-    out, fn = [], None
+    with the registers, stack frame and spill bytes ptxas reported for
+    it."""
+    out, fn, frame = [], None, ""
     with open(kernels.library_path(name) + ".log") as f:
         for line in f:
             m = re.search(r"Function properties for (\S+)", line)
             if m:
                 fn = m.group(1)
             elif fn and "spill" in line:
-                out.append(f"{fn}: {line.strip()}")
+                frame = line.strip()
+            elif fn and "Used" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                out.append(f"{fn}: {regs} registers, {frame}")
                 fn = None
     return out
 
@@ -339,12 +380,145 @@ def list_ab(dev, parent, change, reps, smi) -> int:
     return fails
 
 
+def keys_ab(dev, parent, change, reps, smi) -> None:
+    """K4, K5 and the visit list of the two checkouts on city(1600, 7)'s
+    1080p rays and on chip_smoke's edge-case boxes: bit-equal, then timed
+    in turns; K4 with the change's slab counts and its bounds."""
+    _, accel, _, pops = chip_smoke.city1600(dev)
+    k1 = lambda name: woop.k1_inputs(accel, *pops[name])
+    bounce, (target, _, lo, hi) = k1("bounce")[0], k1("bounce_target")
+    nlo, nhi = woop.node_bounds(lo, hi, 8)
+    clo, chi = accel.cluster_lo, accel.cluster_hi
+    erng = np.random.default_rng(12)
+    edge = chip_smoke.edge_rays(erng, device=dev)
+    elo, ehi = chip_smoke.edge_boxes(erng, 100, device=dev)
+    flo, fhi = chip_smoke.edge_boxes(erng, 100, few_empty=True, device=dev)
+    k4 = lambda rays, a, b: lambda c: woop.target_keys(rays, a, b) if c["keys"] else older_keys(
+        rays, a, b)
+    k5 = lambda rays, a, b, slack: lambda c: woop.te_union(rays, a, b, slack=slack)
+    lst = lambda rays, a, b: lambda c: visit_list_of(c, rays, a, b)
+    runs = [("K4 bounce (pixel order)", k4(bounce, clo, chi), (bounce, clo, chi)),
+            ("K4 bounce_target", k4(target, clo, chi), (target, clo, chi)),
+            ("K4 edge boxes", k4(edge, flo, fhi), None),
+            ("K5 walker mode bounce_target clusters", k5(target, lo, hi, True), None),
+            ("K5 walker mode bounce_target nodes8", k5(target, nlo, nhi, True), None),
+            ("K5 JAX mode bounce clusters", k5(bounce, clo, chi, False), None),
+            ("K5 edge boxes JAX mode", k5(edge, elo, ehi, False), None),
+            ("K5 edge boxes walker mode", k5(edge, elo, ehi, True), None),
+            ("list bounce_target clusters", lst(target, lo, hi), None),
+            ("list bounce_target nodes8", lst(target, nlo, nhi), None),
+            ("list edge boxes", lst(edge, elo, ehi), None)]
+    for name, fn, count_args in runs:
+        base = fn(use(parent))
+        same(name, fn(use(change)), base)
+        times = []
+        for csrc in (parent, change, change, parent):
+            c = use(csrc)
+            fn(c)
+            times.append(chip_smoke.cuda_time(lambda: fn(c), reps))
+        p, ch = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        extra = ""
+        if count_args is not None:
+            rays, a, b = count_args
+            n, nc = rays.shape[1], a.shape[0]
+            counts = torch.zeros((n // woop.RAY_BLOCK, 3), dtype=torch.int64, device=dev)
+            use(change)
+            woop.target_keys(rays, a, b, counts=counts)
+            work = dict(zip(woop.KEY_COUNTS, (int(x) for x in counts.sum(0))))
+            tested = work["slabs"] + work["node_slabs"]
+            bound = lambda ops: chip_smoke.bound_ms(ops, n * 36 + nc * 24)[0]
+            extra = (f"; change's work {work} ({tested / (n * nc):.4f} of rays x boxes); bound "
+                     f"{bound(chip_smoke.OPS_SLAB_CHOSEN * tested):.4f} ms at 18 operations a "
+                     f"slab it computed; over every ray x box "
+                     f"{bound(chip_smoke.OPS_SLAB_CHOSEN * n * nc):.4f} at 18, "
+                     f"{bound(chip_smoke.OPS_SLAB * n * nc):.4f} at the JAX slab's 24")
+        print(f"city1600 {name} [{smi}]: parent {times[0]:.4f} / {times[3]:.4f} ms, change "
+              f"{times[1]:.4f} / {times[2]:.4f} ms, change / parent {ch / p:.4f}; outputs "
+              f"bit-equal{extra}", flush=True)
+    use(change)
+
+
+def device_ms(fn) -> float:
+    """The device time of the kernels and copies ``fn()`` launches
+    (``torch.profiler``), in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+    return sum(dev_us(e) for e in prof.key_averages() if e.device_type.name != "CPU") / 1e3
+
+
+def frames_ab(dev, parent, change, smi, frames=3) -> None:
+    """city(1600, 7)'s 1080p frames under the schedules that launch K4 and
+    the visit list (PT with the target key, PT and MCPG under (True, 8,
+    32)), rendered with the kernels of the two checkouts in turns (parent,
+    change, change, parent; ``frames`` frames a turn on the host clock,
+    then one under the profiler for its device time), one state carried
+    through the turns."""
+    from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+
+    bundle, accel, config, _ = chip_smoke.city1600(dev)
+    own = (woop.target_keys, woop.visit_list)
+
+    def switch(csrc):
+        c = use(csrc)
+        woop.target_keys, woop.visit_list = own if c["keys"] else (
+            lambda rays, lo, hi, counts=None: older_keys(rays, lo, hi),
+            lambda rays, lo, hi: visit_list_of(c, rays, lo, hi))
+
+    S = woop.TraceSchedule
+    try:
+        for path, integrator, sched in (("pt target key", "pt", S(target_key=True)),
+                                        ("pt (True, 8, 32)", "pt", S(True, 8, 32)),
+                                        ("mcpg (True, 8, 32)", "mcpg", S(True, 8, 32))):
+            cfg = config._replace(integrator=integrator)
+            mcfg = MCPGConfig() if integrator == "mcpg" else None
+            state = [init_state(cfg, mcfg, device=dev)]
+            frame = [0]
+
+            def step():
+                state[0], _ = render_frame(accel, bundle.atlas,
+                                           bundle.uniforms._replace(frame=frame[0]), cfg,
+                                           state[0], mcfg, schedule=sched)
+                frame[0] += 1
+
+            switch(change)
+            for _ in range(4):
+                step()
+            host, device = {}, {}
+            for label, csrc in (("parent", parent), ("change", change), ("change", change),
+                                ("parent", parent)):
+                switch(csrc)
+                step()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(frames):
+                    step()
+                torch.cuda.synchronize()
+                host.setdefault(label, []).append((time.perf_counter() - t0) * 1e3 / frames)
+                device.setdefault(label, []).append(device_ms(step))
+            fmt = lambda d, k: " / ".join(f"{x:.2f}" for x in d[k])
+            print(f"city1600 frame {path} 1920x1080 [{smi}]: host ms/frame parent "
+                  f"{fmt(host, 'parent')}, change {fmt(host, 'change')}; device ms/frame parent "
+                  f"{fmt(device, 'parent')}, change {fmt(device, 'change')} (turns parent, "
+                  f"change, change, parent)", flush=True)
+    finally:
+        woop.target_keys, woop.visit_list = own
+        use(change)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="the other checkout's root")
     ap.add_argument("--map", action="store_true", help="add K3, K2's proxy and K8 on the map")
     ap.add_argument("--reps", type=int, default=10, help="launches a timed turn")
     ap.add_argument("--only", default="", help="kernels to compare, e.g. K2,K8 (default all)")
+    ap.add_argument("--frames", action="store_true",
+                    help="add city(1600)'s frames under the K4/K5 schedules, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_trace_kernels: no CUDA device")
@@ -365,10 +539,14 @@ def main() -> int:
 
     only = [k for k in args.only.split(",") if k]
     fails = 0
+    if not only or "K4" in only or "K5" in only:
+        keys_ab(dev, parent, change, args.reps, smi)
+    if args.frames:
+        frames_ab(dev, parent, change, smi)
     if not only or "K6" in only or "K7" in only:
         fails += list_ab(dev, parent, change, args.reps, smi)
     runs = []
-    if not only or set(only) - {"K6", "K7"}:
+    if not only or set(only) - {"K4", "K5", "K6", "K7"}:
         runs = cases(dev, {}, True) + court_cases(dev)
         if args.map:
             runs += cases(dev, chip_smoke.MAP, False)
