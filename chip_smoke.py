@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives merian_quake_tpu_torch's three paths at 1920×1080 — the guided
+Drives merian_quake_tpu_torch's paths at 1920×1080 — the guided
 (MCPG) frame (2 spp, max path length 3, ``MCPGConfig()``; with the
 volume pass, ``VolumeConfig()`` and ``production_config()``), the
-path-traced frame (2 spp, max path length 3) and the ReSTIR DI frame
-(``ReSTIRConfig()``) — on the first CUDA device, on the procedural
+path-traced frame (2 spp, max path length 3), the ReSTIR DI frame
+(``ReSTIRConfig()``) and the SSMM frame (``SSMMConfig()``), each also
+with ``denoise=True`` (SVGF, exposure, tonemap, TAA, FXAA; with the
+volume pass a second SVGF on the volume's history) — on the first CUDA
+device, on the procedural
 ``city`` (16,640 triangles), on the map scene ``city(n_buildings=
 28000, seed=11)`` (281,536 triangles), on ``outdoor_court`` (two
 alpha-tested grates; fogged for the volume pass) and, under the trace
@@ -173,12 +176,41 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     from an empty state with exactly 3 + volume_spp K1 launches a frame,
     the cold frame and frames 6-8 (bench.py's window), peak device
     memory, one ``pack_states_draw`` of the 33.6M-row table, and a
-    steady frame under ``torch.cuda.set_sync_debug_mode("error")``.
+    steady frame under ``torch.cuda.set_sync_debug_mode("error")``;
+23. the denoised main path: city MCPG at 1080p with ``denoise=True``, 16
+    frames, exactly 3 K1 launches a frame, finite images and denoiser
+    histories, frames 12-15 beside phase 16's undenoised frames, the
+    denoise chain's device ms by stage (CUDA events: each SVGF instance,
+    its temporal pass and its à-trous passes, exposure + tonemap, TAA,
+    FXAA), one more frame under ``set_sync_debug_mode("error")``;
+    config3's render setup (ReSTIR with 2 spatial iterations and basic
+    temporal bias correction, 1 spp, denoise, cornell_box): 8 frames, 2
+    K1 + 1 K2 a frame; the chain on identical seeded 256×144 inputs on
+    the CPU and the card within tests/test_torch_post.py's tolerance; 3
+    denoised PT frames of cornell_box at 64×36 on the CPU against the
+    card (LDR within tests/test_torch_denoise_slice.py's bound, HDR
+    printed: the two traces round the history's validity apart);
+24. the second SVGF: the fogged court, MCPG + ``VolumeConfig(volume_spp=
+    1)``, denoise, 1080p, 9 frames as phase 20's (config5's render setup,
+    still camera), both SVGF instances timed; 3 frames at 64×36 on the
+    CPU against the card (LDR and the volume image within
+    tests/test_torch_denoise_volume.py's bounds);
+25. SSMM: city at 1080p, 2 spp, 10 frames, exactly 1 + spp K1 launches a
+    frame; the court at 1080p, 1 spp, denoise, 8 frames as phase 20's
+    (config4's render setup, still camera); cornell_box at 64×36 and at
+    256×8 (tiled buffer order, where SSMM's lane-shuffle roll differs
+    from one over the image) on the CPU against the card (the raw
+    irradiance within tests/test_torch_ssmm_slice.py's spread bound; the
+    denoised frame's images printed), and 64 accumulated SSMM frames on
+    the card within 15% of PT's mean irradiance (tests/test_ssmm.py's
+    check).
 
 Each path (PT city, ReSTIR city, dense map, PT map, ReSTIR map, the five
 city(1600) frame runs of phase 14, MCPG city, MCPG map, the two
 city(1600) MCPG runs of phase 16, court PT, ReSTIR and MCPG, the fogged
-court's MCPG + volume and production city) is driven with every launch
+court's MCPG + volume, production city, denoised city MCPG, config3's
+denoised ReSTIR box, the denoised fogged court, SSMM city and the denoised
+SSMM court) is driven with every launch
 count set to 0 just before it and read just after. The whole run's
 seconds are printed before the kernels' line. The line before the
 last is the kernels' JSON record (with each kernel's launches by path
@@ -1636,44 +1668,63 @@ def check_mcpg_finite(path, state, out):
         raise AssertionError(f"{path} ldr has the wrong shape or is constant")
 
 
-def mcpg_frames(phase, path, dev, bundle, accel, config, mcfg, frames, window, expect, smi,
-                schedule=None, rays=W * H * (1 + SPP * (MPL - 1))):
-    """``frames`` MCPG frames at 1080p with the launch counts set to 0
-    just before and read just after, each frame's launches held to
-    ``expect`` exactly; ``rays`` a frame for the rate. Prints, per frame, ms, the
-    count of chain states with sum_w > 0 and ``lc_updates_applied`` (read
-    outside the timed region). Returns (state, out, the path's launches,
-    frame ms)."""
+def frames_run(phase, path, dev, bundle, accel, config, icfg, frames, window, expect, smi, rays,
+               schedule=None, per_frame=None):
+    """``frames`` frames at 1080p from an empty state with the launch
+    counts set to 0 just before and read just after, each frame's launches
+    held to ``expect`` exactly; finite outputs; ``rays`` a frame for the
+    rate. ``per_frame`` (label, fn of the state) is read after each frame,
+    outside the timed region, and printed. Returns (state, out, the path's
+    launches, frame ms, the per-frame readings)."""
     from merian_quake_tpu_torch.renderer import init_state, render_frame
 
-    state = init_state(config, mcfg, device=dev)
+    state = init_state(config, icfg, device=dev)
     reset_launches()
-    frame_ms, live, applied = [], [], []
+    frame_ms, seen = [], []
     for i in range(frames):
         before = launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, out = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=i), config,
-                                  state, mcfg, schedule=schedule)
+                                  state, icfg, schedule=schedule)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         got = {k: v - before[k] for k, v in launches().items()}
         if got != {**{k: 0 for k in got}, **expect}:
             raise AssertionError(f"{path} frame {i}: launched {got}, expected {expect}")
-        live.append(int((state.mcpg.mc.sum_w > 0).sum()))
-        applied.append(int(state.mcpg.lc_updates_applied))
+        if per_frame is not None:
+            seen.append(per_frame[1](state))
     counts = launches()
-    check_mcpg_finite(path, state, out)
+    for name, x in (("ldr", out["ldr"]), ("hdr", out["hdr"]), ("irradiance", out["irradiance"])):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{path} {name} is not finite")
+    if tuple(out["ldr"].shape) != (H, W, 3) or float(out["ldr"].std()) <= 0.0:
+        raise AssertionError(f"{path} ldr has the wrong shape or is constant")
     lo, hi = window
     steady = float(np.mean(frame_ms[lo:hi]))
-    log(f"phase {phase} {path} {W}x{H} spp {SPP} mpl {MPL} "
+    log(f"phase {phase} {path} {W}x{H} spp {config.spp} mpl {config.max_path_length} "
         f"schedule={tuple(schedule) if schedule else None} [{smi}]: launches "
         f"{ {k: v for k, v in counts.items() if v} }; cold {frame_ms[0]:.1f} ms, mean of frames "
-        f"{lo}-{hi - 1} {steady:.1f} ms/frame, {rays / steady / 1e3:.2f} "
-        f"Mrays/s (frames {', '.join(f'{x:.1f}' for x in frame_ms)}); states with sum_w > 0 per "
-        f"frame {live}; lc_updates_applied per frame {applied}; ldr mean "
-        f"{float(out['ldr'].mean()):.4f}")
-    return state, out, counts, frame_ms, (live, applied)
+        f"{lo}-{hi - 1} {steady:.1f} ms/frame, {rays / steady / 1e3:.2f} Mrays/s (frames "
+        f"{', '.join(f'{x:.1f}' for x in frame_ms)}); "
+        + (f"per frame {per_frame[0]} {seen}; " if per_frame is not None else "")
+        + f"ldr mean {float(out['ldr'].mean()):.4f}")
+    return state, out, counts, frame_ms, seen
+
+
+def mcpg_frames(phase, path, dev, bundle, accel, config, mcfg, frames, window, expect, smi,
+                schedule=None, rays=W * H * (1 + SPP * (MPL - 1))):
+    """``frames`` MCPG frames through :func:`frames_run`, printing per frame
+    the count of chain states with sum_w > 0 and ``lc_updates_applied``;
+    the guiding state finite. Returns (state, out, the path's launches,
+    frame ms, (states per frame, lc_updates_applied per frame))."""
+    learned = ("(states with sum_w > 0, lc_updates_applied)",
+               lambda s: (int((s.mcpg.mc.sum_w > 0).sum()), int(s.mcpg.lc_updates_applied)))
+    state, out, counts, frame_ms, seen = frames_run(
+        phase, path, dev, bundle, accel, config, mcfg, frames, window, expect, smi, rays,
+        schedule=schedule, per_frame=learned)
+    check_mcpg_finite(path, state, out)
+    return state, out, counts, frame_ms, tuple(list(x) for x in zip(*seen))
 
 
 def guided_population(bundle, accel, config, mcfg, state, frame):
@@ -2056,9 +2107,9 @@ def court_frames(phase, path, dev, bundle, accel, config, mcfg, frames, window, 
     lo, hi = window
     steady = float(np.mean(frame_ms[lo:hi]))
     k1, k2, loops, rounds, reads, host_ms, dev_ms = (float(np.mean(c)) for c in zip(*per[lo:hi]))
-    log(f"phase {phase} {path} {W}x{H} spp {SPP} mpl {MPL} [{smi}]: launches "
-        f"{ {k: v for k, v in counts.items() if v} }; cold {frame_ms[0]:.1f} ms, mean of frames "
-        f"{lo}-{hi - 1} {steady:.1f} ms/frame, {rays / steady / 1e3:.2f} Mrays/s (frames "
+    log(f"phase {phase} {path} {W}x{H} spp {config.spp} mpl {config.max_path_length} [{smi}]: "
+        f"launches { {k: v for k, v in counts.items() if v} }; cold {frame_ms[0]:.1f} ms, mean of "
+        f"frames {lo}-{hi - 1} {steady:.1f} ms/frame, {rays / steady / 1e3:.2f} Mrays/s (frames "
         f"{', '.join(f'{x:.1f}' for x in frame_ms)}); a frame (mean of the same): K1 {k1:.1f}, "
         f"K2 {k2:.1f}, alpha loops {loops:.1f} of {rounds:.1f} rounds, {reads:.1f} host reads, "
         f"the loops {host_ms:.2f} ms on the host clock and {dev_ms:.2f} ms between their CUDA "
@@ -2070,10 +2121,10 @@ def court_frames(phase, path, dev, bundle, accel, config, mcfg, frames, window, 
                                 "loop_device_ms": dev_ms, "syncs": syncs}
 
 
-def cpu_vs_card(phase, name, bundle_fn, config, mcfg, frames, bounds):
-    """``frames`` frames at 64x36 on the CPU (oracle) and on the card:
-    each output of ``bounds`` ({key: (share within 1e-3, mean |d|)})
-    within its bound."""
+def cpu_vs_card(phase, name, bundle_fn, config, mcfg, frames, bounds, report=()):
+    """``frames`` frames of a small ``config`` on the CPU (oracle) and on
+    the card: each output of ``bounds`` ({key: (share within 1e-3, mean |d|)})
+    within its bound; the outputs in ``report`` printed beside them."""
     from merian_quake_tpu_torch.renderer import render_sequence
 
     k1 = launches()["woop_nearest"]
@@ -2085,11 +2136,17 @@ def cpu_vs_card(phase, name, bundle_fn, config, mcfg, frames, bounds):
         diff = (oc[key] - og[key].cpu()).abs()
         share = float((diff.amax(-1) <= PIX_TOL).float().mean())
         mean = float(diff.mean())
-        log(f"phase {phase} {name} cpu vs cuda 64x36 x{frames} frames {key}: pixels within "
-            f"{PIX_TOL} {share:.5f} (bound {share_min}), mean |d| {mean:.3e} (bound {mean_max}), "
-            f"max |d| {float(diff.max()):.3e}")
+        log(f"phase {phase} {name} cpu vs cuda {config.width}x{config.height} x{frames} frames "
+            f"{key}: pixels within {PIX_TOL} {share:.5f} (bound {share_min}), mean |d| "
+            f"{mean:.3e} (bound {mean_max}), max |d| {float(diff.max()):.3e}")
         if share < share_min or mean >= mean_max:
             raise AssertionError(f"{name} {key}: CPU and card images disagree")
+    for key in report:
+        diff = (oc[key] - og[key].cpu()).abs()
+        share = float((diff.amax(-1) <= PIX_TOL).float().mean())
+        log(f"phase {phase} {name} cpu vs cuda {config.width}x{config.height} x{frames} frames "
+            f"{key} (not held): pixels within {PIX_TOL} {share:.5f}, mean |d| "
+            f"{float(diff.mean()):.3e}, max |d| {float(diff.max()):.3e}")
 
 
 def phase20(dev, smi):
@@ -2241,6 +2298,321 @@ def phase22(dev, bundle, accel, config, smi):
         f"{dist_live} (city has no fog: mu_t = 0, nothing scatters); frame 9 under torch.cuda.set_sync_debug_mode('error'): no synchronizing "
         f"call")
     return counts, {"ms": steady, "cold": frame_ms[0], "peak_bytes": peak, "pack_ms": pack}
+
+
+def spread_bound(share, mean, margin=0.02):
+    """A denoised frame's CPU-vs-card bound at 64x36 over 3 frames: the
+    sequence bound of tests/test_torch_denoise_slice.py (cornell_box PT),
+    test_torch_ssmm_slice.py (cornell_box SSMM) or
+    test_torch_denoise_volume.py (the fogged court, ``margin`` 0.05), read
+    from the JAX package's own jitted-vs-op-by-op spread
+    (scripts/denoise_spread.py): its share within 1e-3 less ``margin``,
+    1.25x its mean |d|."""
+    return share - margin, 1.25 * mean
+
+
+# The card's trace (Woop) and the CPU oracle (Moller-Trumbore) round hit
+# distances and motion vectors apart, so under a still camera SVGF's history
+# validity flips on the image border (1.6% of the box's pixels) and CUDA's
+# exp and pow differ from the CPU's by an ulp: the denoised HDR image's
+# CPU-vs-card spread on the box (56.8% within 1e-3, mean 7.85e-3; PR 11
+# call 2) is wider than the JAX package's own (70.6%, 3.16e-3). So the LDR
+# image is held to the test's bound, the HDR image is printed, and the chain
+# itself is held on identical inputs (chain_cpu_vs_card).
+DENOISE_PT = {"ldr": spread_bound(0.13845, 7.573e-3)}
+DENOISE_VOLUME = {"ldr": spread_bound(0.44748, 2.149e-3, 0.05),
+                  "volume": spread_bound(0.99826, 1.139e-4, 0.05)}
+# SSMM's chains drift between the CPU and the card as between the JAX
+# package's two runs, so its raw irradiance is held to that spread (the
+# pass the denoiser does not feed back into); the denoiser spreads a moved
+# chain's pixel, so the denoised SSMM images are printed (LDR 27.9% within
+# 1e-3, mean 8.63e-3 on the box; PR 11 call 3)
+SSMM_IRRADIANCE = {"irradiance": spread_bound(0.93620, 9.740e-2)}
+# the chain on identical inputs, CPU against card: tests/test_torch_post.py's
+# filter tolerance for SVGF and TAA; FXAA's edge decisions turn on an ulp of
+# its input (96.9% of pixels within 1e-3, PR 11 call 2)
+CHAIN_TOL = dict(rtol=1e-5, atol=1e-6)
+FXAA_SHARE = 0.95
+# tests/test_ssmm.py:55-57: accumulated SSMM within 15% of PT's mean
+SSMM_ESTIMATOR_REL = 0.15
+
+
+class DenoiseSplit:
+    """CUDA events around the denoise chain's stages while installed: each
+    ``svgf`` call (one an SVGF instance: the surface's, then the volume's),
+    its ``temporal`` and ``svgf_filter`` (the à-trous passes), ``taa`` and
+    ``fxaa``. A frame ends with its ``fxaa``. Exposure and tonemap (with
+    the first-hit emission and the volume added) are the time between the
+    last SVGF's end and TAA's start."""
+
+    STAGES = ("svgf", "temporal", "svgf_filter", "taa", "fxaa")
+
+    def __init__(self):
+        import importlib
+
+        mod = importlib.import_module
+        self.owner = {"svgf": mod("merian_quake_tpu_torch.post.svgf"),
+                      "temporal": mod("merian_quake_tpu_torch.post.svgf"),
+                      "svgf_filter": mod("merian_quake_tpu_torch.post.svgf"),
+                      "taa": mod("merian_quake_tpu_torch.post.taa"),
+                      "fxaa": mod("merian_quake_tpu_torch.post.fxaa")}
+        self.plain = {s: getattr(self.owner[s], s) for s in self.STAGES}
+        self.frames, self.cur = [], []
+
+    def _timed(self, stage):
+        plain = self.plain[stage]
+
+        def run(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = plain(*a, **k)
+            e1.record()
+            self.cur.append((stage, e0, e1))
+            if stage == "fxaa":
+                self.frames.append(self.cur)
+                self.cur = []
+            return out
+        return run
+
+    def __enter__(self):
+        for s in self.STAGES:
+            setattr(self.owner[s], s, self._timed(s))
+        return self
+
+    def __exit__(self, *exc):
+        for s in self.STAGES:
+            setattr(self.owner[s], s, self.plain[s])
+
+    def frame(self, i) -> dict:
+        """Frame ``i``'s device ms by stage."""
+        torch.cuda.synchronize()
+        rec = self.frames[i]
+        ms = lambda a, b: a.elapsed_time(b)
+        of = lambda s: [(e0, e1) for st, e0, e1 in rec if st == s]
+        inst = of("svgf")
+        (taa0, taa1), (fx0, fx1) = of("taa")[0], of("fxaa")[0]
+        return {"svgf_instances": [ms(a, b) for a, b in inst],
+                "temporal": sum(ms(a, b) for a, b in of("temporal")),
+                "atrous": sum(ms(a, b) for a, b in of("svgf_filter")),
+                "exposure_tonemap": ms(inst[-1][1], taa0), "taa": ms(taa0, taa1),
+                "fxaa": ms(fx0, fx1), "chain": ms(inst[0][0], fx1)}
+
+    def mean(self, lo, hi) -> dict:
+        per = [self.frame(i) for i in range(lo, hi)]
+        out = {k: float(np.mean([p[k] for p in per])) for k in per[0] if k != "svgf_instances"}
+        out["svgf_instances"] = [float(x) for x in np.mean([p["svgf_instances"] for p in per], 0)]
+        return out
+
+
+def split_text(s: dict) -> str:
+    inst = " + ".join(f"{x:.2f}" for x in s["svgf_instances"])
+    return (f"denoise chain {s['chain']:.2f} ms on the device: SVGF {inst} ms (temporal "
+            f"{s['temporal']:.2f}, a-trous {s['atrous']:.2f}), exposure + tonemap "
+            f"{s['exposure_tonemap']:.2f}, TAA {s['taa']:.2f}, FXAA {s['fxaa']:.2f}")
+
+
+def chain_cpu_vs_card(phase, smi):
+    """The denoise chain on identical seeded inputs at 256x144 (two depth
+    planes, a normal flip, a flat block, motion vectors), on the CPU and
+    on the card: three SVGF frames (output and every state field), TAA,
+    FXAA and the auto exposure."""
+    from merian_quake_tpu_torch.post import exposure, fxaa, svgf, taa
+
+    r = np.random.default_rng(3)
+    h, w = 144, 256
+    irr = r.gamma(1.0, 0.5, (h, w, 3)).astype(np.float32)
+    irr[20:40, 20:40] = 0.5
+    mom = (irr.mean(-1) ** 2 * 2.0).astype(np.float32)
+    mv = r.normal(0, 1.5, (h, w, 2)).astype(np.float32)
+    n = np.zeros((h, w, 3), np.float32)
+    n[..., 2] = 1.0
+    n[:, w // 2:] = [1.0, 0.0, 0.0]
+    n += r.normal(0, 0.05, n.shape).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    z = (np.where(np.arange(w)[None] < w // 3, 50.0, 500.0) * np.ones((h, 1))
+         + r.uniform(0, 1, (h, w))).astype(np.float32)
+    zg = r.uniform(0, 2, (h, w, 2)).astype(np.float32)
+    alb = r.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        a = [torch.from_numpy(x).to(dev) for x in (irr, mom, mv, n, z, zg, alb)]
+        st = svgf.init_svgf_state(h, w, device=dev)
+        for _ in range(3):
+            st, out = svgf.svgf(st, *a)
+        ldr = out / (1.0 + out)
+        t = taa.taa(ldr * 0.9, ldr, a[2])
+        res[dev] = (out, t, fxaa.fxaa(t), exposure.auto_exposure(out)[1], st)
+    (o_c, t_c, f_c, e_c, s_c), (o_g, t_g, f_g, e_g, s_g) = res["cpu"], res["cuda"]
+    close = lambda x, y: bool(torch.allclose(y.cpu(), x, **CHAIN_TOL))
+    rel = lambda x, y: float(((y.cpu() - x).abs() / (x.abs() + 1e-6)).max())
+    fx = float(((f_g.cpu() - f_c).abs().amax(-1) <= PIX_TOL).float().mean())
+    log(f"phase {phase} denoise chain cpu vs cuda on identical 256x144 inputs: svgf max rel "
+        f"{rel(o_c, o_g):.3e}, state max rel {max(rel(x, y) for x, y in zip(s_c, s_g)):.3e}, taa "
+        f"{rel(t_c, t_g):.3e}, fxaa pixels within {PIX_TOL} {fx:.5f} (bound {FXAA_SHARE}), "
+        f"exposure scale {float(e_c):.6f} / {float(e_g):.6f}")
+    if not (close(o_c, o_g) and all(close(x, y) for x, y in zip(s_c, s_g)) and close(t_c, t_g)
+            and close(e_c, e_g) and fx >= FXAA_SHARE):
+        raise AssertionError("the denoise chain differs between the CPU and the card")
+
+
+def scene_1080(bundle, **kw):
+    """A bundle's accel and its 1080p config (``kw`` on top)."""
+    from merian_quake_tpu_torch.accel import build_accel
+    from merian_quake_tpu_torch.accel.build import scene_features
+    from merian_quake_tpu_torch.models.types import RenderConfig
+
+    accel = build_accel(bundle.scene, bundle.atlas)
+    feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
+    return accel, RenderConfig(width=W, height=H, features=feats, **kw)
+
+
+def phase23(dev, bundle, accel, config, undenoised, smi):
+    """The denoised main path: city MCPG at 1080p with ``denoise=True``,
+    16 frames (3 K1 a frame), the denoise chain's split, a steady frame
+    with no synchronizing call; config3's render setup (ReSTIR, 1 spp,
+    denoise, cornell_box, 8 frames); cornell_box PT denoised at 64x36 on
+    the CPU against the card."""
+    from merian_quake_tpu_torch.models.procedural import cornell_box
+    from merian_quake_tpu_torch.models.types import RenderConfig
+    from merian_quake_tpu_torch.render.restir import ReSTIRConfig
+    from merian_quake_tpu_torch.renderer import render_frame
+
+    config, mcfg = mcpg_scene_config(config)
+    config = config._replace(denoise=True)
+    with DenoiseSplit() as split:
+        state, out, counts, frame_ms, (live, applied) = mcpg_frames(
+            23, "mcpg city denoise", dev, bundle, accel, config, mcfg, 16, (12, 16),
+            {"woop_nearest": 3}, smi)
+        s = split.mean(12, 16)
+    if counts != {**{k: 0 for k in counts}, "woop_nearest": 48}:
+        raise AssertionError(f"the denoised city MCPG frames launched {counts}, expected K1 alone")
+    for name, x in (("svgf.irr", state.svgf.irr), ("svgf.moments", state.svgf.moments),
+                    ("taa_prev", state.taa_prev)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"mcpg city denoise {name} is not finite")
+    if float(state.svgf.history_len.max()) != 16.0 or bool(state.accum_irradiance.any()):
+        raise AssertionError("the SVGF history does not grow, or the plain accumulators moved")
+    steady = float(np.mean(frame_ms[12:16]))
+    log(f"phase 23 mcpg city denoise [{smi}]: frames 12-15 {steady:.1f} ms/frame against "
+        f"{undenoised['ms']:.1f} without denoise (phase 16, same run); {split_text(s)} "
+        f"(mean of frames 12-15, CUDA events), {100 * s['chain'] / steady:.1f}% of the frame")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, out = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=16), config,
+                                  state, mcfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("phase 23 mcpg city denoise frame 16 under torch.cuda.set_sync_debug_mode('error'): no "
+        "synchronizing call")
+
+    # config3's render setup (presets.py:98-108), still camera
+    box = cornell_box(device=dev)
+    b_accel, b_cfg = scene_1080(box, spp=1, integrator="restir", denoise=True)
+    rcfg = ReSTIRConfig(spatial_reuse_iterations=2, temporal_bias_correction=1)
+    with DenoiseSplit() as rsplit:
+        _, _, restir_counts, r_ms, _ = frames_run(
+            23, "restir box denoise (config3)", dev, box, b_accel, b_cfg, rcfg, 8, (4, 8),
+            {"woop_nearest": 2, "woop_any": 1}, smi, W * H * 3)
+        rs = rsplit.mean(4, 8)
+    log(f"phase 23 restir box denoise (config3) [{smi}]: {split_text(rs)} (frames 4-7)")
+
+    chain_cpu_vs_card(23, smi)
+    small = RenderConfig(width=64, height=36, spp=SPP, max_path_length=MPL, denoise=True)
+    cpu_vs_card(23, "box pt denoise", lambda: cornell_box(device="cpu"), small, None, 3, DENOISE_PT,
+                report=("hdr",))
+    return counts, restir_counts, {"ms": steady, "cold": frame_ms[0], "split": s,
+                                   "undenoised_ms": undenoised["ms"],
+                                   "restir_box_ms": float(np.mean(r_ms[4:8])), "restir_split": rs}
+
+
+def phase24(dev, smi):
+    """The second SVGF: the fogged court, MCPG + VolumeConfig(volume_spp=1),
+    denoise, 1080p, 2 spp, 9 frames (config5's render setup, still
+    camera), both SVGF instances timed; 64x36 CPU against card."""
+    from merian_quake_tpu_torch.models.procedural import outdoor_court
+    from merian_quake_tpu_torch.models.types import RenderConfig
+    from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+    from merian_quake_tpu_torch.render.mcpg.volume import VolumeConfig
+
+    bundle, accel, config = court(dev, FOG_MU_T)
+    config = config._replace(integrator="mcpg", denoise=True)
+    mcfg = MCPGConfig(volume=VolumeConfig(volume_spp=1))
+    rays = W * H * (1 + SPP * (MPL - 1) + 1)
+    with DenoiseSplit() as split:
+        state, out, counts, stats = court_frames(24, "court fog mcpg + volume denoise", dev, bundle,
+                                                 accel, config, mcfg, 9, (6, 9), rays, smi)
+        s = split.mean(6, 9)
+    if len(s["svgf_instances"]) != 2 or state.volume_svgf is None:
+        raise AssertionError("the volume's SVGF did not run")
+    for name, x in (("volume_svgf.irr", state.volume_svgf.irr), ("svgf.irr", state.svgf.irr)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"court fog denoise {name} is not finite")
+    log(f"phase 24 court fog mcpg + volume denoise [{smi}]: {split_text(s)} (frames 6-8; the "
+        f"second SVGF instance is the volume's), {100 * s['chain'] / stats['ms']:.1f}% of the frame")
+    small = RenderConfig(width=64, height=36, spp=1, max_path_length=MPL, integrator="mcpg",
+                         denoise=True)
+    cpu_vs_card(24, "court fog mcpg + volume denoise", lambda: outdoor_court(FOG_MU_T, device="cpu"),
+                small, MCPGConfig(volume=VolumeConfig()), 3, DENOISE_VOLUME, report=("hdr",))
+    return counts, {**stats, "split": s}
+
+
+def phase25(dev, bundle, accel, config, smi):
+    """SSMM: city at 1080p, 2 spp, 10 frames (1 + spp K1 a frame); the court
+    at 1080p, 1 spp, denoise, 8 frames (config4's render setup, still
+    camera); cornell_box at 64x36 and 256x8 (tiled buffer order) on the CPU
+    against the card; 64 accumulated frames against PT's mean."""
+    from merian_quake_tpu_torch.models.procedural import cornell_box
+    from merian_quake_tpu_torch.models.types import RenderConfig
+    from merian_quake_tpu_torch.render import layout
+    from merian_quake_tpu_torch.render.ssmm import SSMMConfig
+    from merian_quake_tpu_torch.renderer import render_sequence
+
+    scfg = SSMMConfig()
+    cfg = config._replace(integrator="ssmm")
+    state, out, city_counts, frame_ms, _ = frames_run(
+        25, "ssmm city", dev, bundle, accel, cfg, scfg, 10, (4, 10), {"woop_nearest": 1 + SPP}, smi,
+        W * H * (1 + SPP))
+    live = float((state.ssmm.sum_w > 0).float().mean())
+    if not (live > 0.1 and bool(torch.isfinite(state.ssmm.sum_tgt).all())):
+        raise AssertionError(f"the SSMM chains did not learn: {live} of the pixels")
+    ssmm_ms = float(np.mean(frame_ms[4:10]))
+
+    c_bundle, c_accel, c_cfg = court(dev)
+    c_cfg = c_cfg._replace(spp=1, integrator="ssmm", denoise=True)
+    with DenoiseSplit() as split:
+        _, _, court_counts, stats = court_frames(25, "court ssmm denoise", dev, c_bundle, c_accel,
+                                                 c_cfg, scfg, 8, (4, 8), W * H * 2, smi)
+        s = split.mean(4, 8)
+    log(f"phase 25 ssmm city: chains with sum_w > 0 {live:.4f} of the pixels, frames 4-9 "
+        f"{ssmm_ms:.1f} ms/frame; court ssmm denoise [{smi}]: {split_text(s)} (frames 4-7)")
+
+    for w, h in ((64, 36), (256, 8)):
+        small = RenderConfig(width=w, height=h, spp=SPP, integrator="ssmm")
+        if layout.is_tiled(w, h) != (w == 256):
+            raise AssertionError("256x8 is not in tiled buffer order")
+        cpu_vs_card(25, "box ssmm", lambda: cornell_box(device="cpu"), small, scfg, 3,
+                    SSMM_IRRADIANCE)
+    small = RenderConfig(width=64, height=36, spp=SPP, integrator="ssmm", denoise=True)
+    cpu_vs_card(25, "box ssmm denoise", lambda: cornell_box(device="cpu"), small, scfg, 3,
+                SSMM_IRRADIANCE, report=("ldr", "hdr"))
+
+    # the estimator: 64 accumulated frames of ssmm (2 spp) and of pt (4
+    # spp, max path length 2: the one bounce SSMM guides) on the card
+    means = {}
+    for name, kw in (("ssmm", dict(spp=SPP, integrator="ssmm")), ("pt", dict(spp=4, max_path_length=2))):
+        st, _ = render_sequence(cornell_box(device="cpu"), RenderConfig(width=64, height=36, **kw),
+                                frames=64, mcpg_config=scfg if name == "ssmm" else None)
+        means[name] = float(st.accum_irradiance[..., :3].mean())
+    rel = abs(means["ssmm"] - means["pt"]) / means["pt"]
+    log(f"phase 25 estimator box 64x36 x64 accumulated frames on the card: mean irradiance ssmm "
+        f"{means['ssmm']:.5f}, pt {means['pt']:.5f}, relative difference {rel:.4f} (bound "
+        f"{SSMM_ESTIMATOR_REL})")
+    if rel > SSMM_ESTIMATOR_REL:
+        raise AssertionError("SSMM's estimate and the path tracer's disagree")
+    return city_counts, court_counts, {"ms": ssmm_ms, "cold": frame_ms[0], "court": {**stats, "split": s},
+                                       "estimator_rel": rel}
 
 
 def main() -> int:
@@ -2476,6 +2848,15 @@ def main() -> int:
     mark(21)
     prod_path, prod_stats = phase22(dev, bundle, accel, config, smi)
     mark(22)
+
+    # ---- phases 23-25: the denoise chain, the volume's SVGF, SSMM ----
+    denoise_path, restir_dn_path, denoise_stats = phase23(dev, bundle, accel, config, mcpg_city_t,
+                                                          smi)
+    mark(23)
+    court_dn_path, court_dn_stats = phase24(dev, smi)
+    mark(24)
+    ssmm_path, ssmm_court_path, ssmm_stats = phase25(dev, bundle, accel, config, smi)
+    mark(25)
     log(f"chip_smoke: every phase passed in {time.perf_counter() - run_t0:.1f} s (phase 1 "
         f"{marks[0][1] - run_t0:.1f} s, " + ", ".join(
             f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:])) + ")")
@@ -2483,7 +2864,10 @@ def main() -> int:
     paths = {"pt": pt_city, "restir": restir_city, "dense_map": k8["launches"],
              "pt_map": map_paths["pt"], "restir_map": map_paths["restir"], **sched_paths,
              "mcpg": mcpg_city, "mcpg_map": mcpg_map, **mcpg_sched, **court_paths,
-             "mcpg_court_volume": volume_path, "mcpg_production": prod_path}
+             "mcpg_court_volume": volume_path, "mcpg_production": prod_path,
+             "mcpg_denoise": denoise_path, "restir_box_denoise": restir_dn_path,
+             "mcpg_court_volume_denoise": court_dn_path, "ssmm": ssmm_path,
+             "ssmm_court_denoise": ssmm_court_path}
     by_path = lambda k: {p: v[k] for p, v in paths.items()}
     total = lambda k: sum(by_path(k).values())
     # a PT frame's 1 primary + 4 bounce traces, the bounce rays as they lie
@@ -2503,7 +2887,8 @@ def main() -> int:
         "sorted_bounce_bound_ms": city_t["bounce"]["bound_ms"],
         "mcpg_bounce": g1, "mcpg_frame_ms": mcpg_city_t["ms"], "mcpg_frame_cold_ms": mcpg_city_t["cold"],
         "volume_scatter": g_vol, "court_alpha_loop": {**court_stats, "mcpg_volume": volume_stats},
-        "production_frame": prod_stats,
+        "production_frame": prod_stats, "denoise_frame": denoise_stats,
+        "court_volume_denoise_frame": court_dn_stats, "ssmm_frame": ssmm_stats,
     }, {
         "name": "woop_any", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": total("woop_any"),

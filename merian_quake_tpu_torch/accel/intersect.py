@@ -132,8 +132,8 @@ def trace_visibility(accel: AccelScene, tex, from_pos, to_pos, offset: float = 1
     accepted hit on the full table (alpha loop when ``tex`` is given),
     visible when it misses or hits sky. CUDA tensors run K2 (K3 at map
     scale, or the walker at a ``schedule``'s node level) on the shadow
-    table (after the proxy pre-pass, on K2), then,
-    when ``tex`` is given and the scene has alpha-tested triangles, a
+    table alone, with no proxy pre-pass (``woop.intersect_woop_any``),
+    then, when ``tex`` is given and the scene has alpha-tested triangles, a
     nearest + alpha-loop trace (K1 or K3, by the table's size) on the
     alpha-only table. The two differ only where an
     opaque surface lies behind a sky polygon within range: K2 calls it

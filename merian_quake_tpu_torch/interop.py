@@ -123,24 +123,43 @@ def surface_result_from_numpy(result, device="cuda"):
     )
 
 
+def svgf_state_from_numpy(state, device="cuda"):
+    """An SVGF history (irradiance, moments, history length, normals,
+    depth)."""
+    from .post.svgf import SVGFState
+
+    return SVGFState(*[tensor(getattr(state, f), device) for f in SVGFState._fields])
+
+
+def ssmm_state_from_numpy(state, device="cuda"):
+    """The SSMM chains, one a pixel in flat buffer order (``N`` int32)."""
+    from .render.ssmm import SSMMState
+
+    return SSMMState(*[tensor(getattr(state, f), device) for f in SSMMState._fields])
+
+
 def frame_state_from_numpy(state, device="cuda"):
-    """The accumulators, the frame count and, where present, the ReSTIR
-    and the MCPG state and the volume's state and history of a frame
-    state."""
+    """The accumulators, the frame count and, where present, the ReSTIR,
+    the MCPG and the SSMM state, the volume's state and history, and the
+    denoiser's histories (both SVGF states and the TAA's previous LDR)
+    of a frame state."""
     from .renderer import FrameState
 
-    restir = getattr(state, "restir", None)
-    mcpg = getattr(state, "mcpg", None)
-    volume = getattr(state, "volume", None)
+    get = lambda f: getattr(state, f, None)
     opt = lambda x: None if x is None else tensor(x, device)
+    opt_with = lambda fn, x: None if x is None else fn(x, device)
     return FrameState(
         accum_irradiance=tensor(state.accum_irradiance, device),
         accum_direct=tensor(state.accum_direct, device),
         accum_albedo=tensor(state.accum_albedo, device),
         iteration=int(np.asarray(state.iteration)),
-        restir=None if restir is None else restir_state_from_numpy(restir, device),
-        mcpg=None if mcpg is None else mcpg_state_from_numpy(mcpg, device),
-        volume=None if volume is None else volume_state_from_numpy(volume, device),
-        accum_volume=opt(getattr(state, "accum_volume", None)),
-        accum_volume_len=opt(getattr(state, "accum_volume_len", None)),
+        restir=opt_with(restir_state_from_numpy, get("restir")),
+        mcpg=opt_with(mcpg_state_from_numpy, get("mcpg")),
+        volume=opt_with(volume_state_from_numpy, get("volume")),
+        accum_volume=opt(get("accum_volume")),
+        accum_volume_len=opt(get("accum_volume_len")),
+        ssmm=opt_with(ssmm_state_from_numpy, get("ssmm")),
+        svgf=opt_with(svgf_state_from_numpy, get("svgf")),
+        taa_prev=opt(get("taa_prev")),
+        volume_svgf=opt_with(svgf_state_from_numpy, get("volume_svgf")),
     )

@@ -1,17 +1,20 @@
-"""The frame: gbuffer → integrator → accumulate → exposure → tonemap.
+"""The frame: gbuffer → integrator → accumulate or denoise → exposure →
+tonemap (→ TAA → FXAA when denoising).
 
-Port of merian_quake_tpu/renderer.py for the path-traced (``pt``), the
-ReSTIR DI (``restir``) and the guided (``mcpg``, with the volume pass
-when ``MCPGConfig.volume`` is set) frames without denoise. PyTorch runs
-eagerly, so
-``render_frame`` is ``frame_core`` over the whole image; the state is
-updated out of place, like the JAX package's. The integrator's config
-goes under the JAX package's keyword ``mcpg_config`` (an MCPGConfig for
-``mcpg``, a ReSTIRConfig for ``restir``), so that call sites map one to
-one. ``schedule`` (an
-accel.woop.TraceSchedule; None: the default routes) chooses the card's
-trace schedule, which the JAX package takes from process environment
-switches; it changes no hit, and the CPU oracle ignores it.
+Port of merian_quake_tpu/renderer.py for every integrator of the JAX
+package's ``frame_core``: the path-traced (``pt``), the ReSTIR DI
+(``restir``), the guided (``mcpg``, with the volume pass when
+``MCPGConfig.volume`` is set) and the screen-space mixture-model
+(``ssmm``) frames, with or without ``denoise`` (SVGF, and a second SVGF
+on the volume's history). PyTorch runs eagerly, so ``render_frame`` is
+``frame_core`` over the whole image; the state is updated out of place,
+like the JAX package's. The integrator's config goes under the JAX
+package's keyword ``mcpg_config`` (an MCPGConfig for ``mcpg``, a
+ReSTIRConfig for ``restir``, an SSMMConfig for ``ssmm``), so that call
+sites map one to one. ``schedule`` (an accel.woop.TraceSchedule; None:
+the default routes) chooses the card's trace schedule, which the JAX
+package takes from process environment switches; it changes no hit, and
+the CPU oracle ignores it.
 """
 from __future__ import annotations
 
@@ -24,15 +27,12 @@ from .models.procedural import SceneBundle
 from .models.types import RenderConfig, TextureAtlas, Uniforms
 from .ops import color as color_ops
 from .post.accumulate import accumulate, accumulate_reprojected
+from .post.svgf import init_svgf_state
 from .post.tonemap import tonemap_reinhard_extended
 from .render.gbuffer import render_gbuffer
 from .render.pt import render_pt
 
-# ROADMAP.md "Modules to port" items for the paths not ported yet
-_NOT_PORTED = {
-    "ssmm": "ROADMAP.md item 2 (SSMM)",
-}
-_PORTED = ("pt", "restir", "mcpg")
+_INTEGRATORS = ("pt", "restir", "mcpg", "ssmm")
 
 
 class FrameState(NamedTuple):
@@ -47,26 +47,23 @@ class FrameState(NamedTuple):
     volume: object = None  # VolumeState when MCPGConfig.volume is set
     accum_volume: object = None  # f32[H, W, 4] accumulated volume radiance
     accum_volume_len: object = None  # f32[H, W] volume accum history length
+    ssmm: object = None  # SSMMState when integrator == "ssmm"
+    svgf: object = None  # SVGFState when config.denoise
+    taa_prev: object = None  # f32[H, W, 3] previous LDR (TAA history)
+    volume_svgf: object = None  # SVGFState for the volume denoiser
 
 
-def _check_supported(config: RenderConfig, mcpg_config=None) -> None:
-    if config.denoise:
-        raise NotImplementedError(
-            "denoise=True is not ported yet: ROADMAP.md item 1 "
-            "(denoise and beauty chain, with the volume's own SVGF)"
-        )
-    if config.integrator not in _PORTED:
-        raise NotImplementedError(
-            f"integrator {config.integrator!r} is not ported yet: "
-            + _NOT_PORTED.get(config.integrator, "unknown integrator")
-        )
+def _check_supported(config: RenderConfig) -> None:
+    if config.integrator not in _INTEGRATORS:
+        raise ValueError(f"unknown integrator {config.integrator!r}")
 
 
 def init_state(config: RenderConfig, mcpg_config=None, device="cuda") -> FrameState:
-    _check_supported(config, mcpg_config)
+    _check_supported(config)
     H, W = config.height, config.width
     z = lambda: torch.zeros((H, W, 4), device=device)
-    restir = mcpg = volume = accum_volume = accum_volume_len = None
+    restir = mcpg = volume = accum_volume = accum_volume_len = ssmm = None
+    svgf = taa_prev = volume_svgf = None
     if config.integrator == "restir":
         from .render.restir import init_restir_state
 
@@ -82,10 +79,20 @@ def init_state(config: RenderConfig, mcpg_config=None, device="cuda") -> FrameSt
             volume = init_volume_state(config, mcfg.volume, device=device)
             accum_volume = z()
             accum_volume_len = torch.zeros((H, W), device=device)
+            if config.denoise:
+                volume_svgf = init_svgf_state(H, W, device=device)
+    elif config.integrator == "ssmm":
+        from .render.ssmm import init_ssmm_state
+
+        ssmm = init_ssmm_state(W, H, device=device)
+    if config.denoise:
+        svgf = init_svgf_state(H, W, device=device)
+        taa_prev = torch.zeros((H, W, 3), device=device)
     return FrameState(
         accum_irradiance=z(), accum_direct=z(), accum_albedo=z(), iteration=0,
         restir=restir, mcpg=mcpg, volume=volume, accum_volume=accum_volume,
-        accum_volume_len=accum_volume_len,
+        accum_volume_len=accum_volume_len, ssmm=ssmm, svgf=svgf, taa_prev=taa_prev,
+        volume_svgf=volume_svgf,
     )
 
 
@@ -182,10 +189,11 @@ def frame_core(
     """One frame. Returns (new_state, outputs) with outputs
     {"hdr", "ldr", "irradiance", "gbuffer"}, and "volume" and
     "volume_mv" when the volume pass runs."""
-    _check_supported(config, mcpg_config)
+    _check_supported(config)
     gbuf = render_gbuffer(accel, atlas, uniforms, config, schedule)
     new_restir = state.restir
     new_mcpg = state.mcpg
+    new_ssmm = state.ssmm
     vol = None
     if config.integrator == "mcpg":
         from .render.mcpg import MCPGConfig
@@ -201,33 +209,75 @@ def frame_core(
             accel, atlas, uniforms, config, mcpg_config or ReSTIRConfig(),
             state.restir, gbuf, schedule,
         )
+    elif config.integrator == "ssmm":
+        from .render.ssmm import SSMMConfig, render_ssmm
+
+        irr, new_ssmm = render_ssmm(
+            accel, atlas, uniforms, config, mcpg_config or SSMMConfig(),
+            state.ssmm, gbuf, schedule,
+        )
     else:
         irr = render_pt(accel, atlas, uniforms, config, gbuf, schedule)
     it = state.iteration
+    if config.denoise:
+        # the denoise beauty path reads none of the plain accumulators
+        # (SVGF integrates its own history): they keep their inputs
+        acc_irr, acc_dir, acc_alb = state.accum_irradiance, state.accum_direct, state.accum_albedo
+    else:
+        acc_irr = accumulate(state.accum_irradiance, irr, it)
+        acc_dir = accumulate(state.accum_direct, gbuf.irradiance, it)
+        acc_alb = accumulate(state.accum_albedo, gbuf.albedo, it)
     new_state = FrameState(
-        accum_irradiance=accumulate(state.accum_irradiance, irr, it),
-        accum_direct=accumulate(state.accum_direct, gbuf.irradiance, it),
-        accum_albedo=accumulate(state.accum_albedo, gbuf.albedo, it),
-        iteration=it + 1,
-        restir=new_restir,
-        mcpg=new_mcpg,
+        accum_irradiance=acc_irr, accum_direct=acc_dir, accum_albedo=acc_alb,
+        iteration=it + 1, restir=new_restir, mcpg=new_mcpg, ssmm=new_ssmm,
+        volume_svgf=state.volume_svgf,
     )
     if vol is not None:
         new_state = new_state._replace(
             volume=vol[0], accum_volume=vol[1], accum_volume_len=vol[2]
         )
-    beauty_hdr = (
-        new_state.accum_irradiance[..., :3]
-        * torch.clamp_min(new_state.accum_albedo[..., :3], 0.0)
-        + new_state.accum_direct[..., :3]
-    )
-    if vol is not None:
-        beauty_hdr = beauty_hdr + new_state.accum_volume[..., :3]
+    # beauty path (the reference's wiring): with denoise, irradiance →
+    # SVGF (+ albedo remodulate) → add direct emission (+ the volume's
+    # own SVGF) → exposure → tonemap → TAA → FXAA
+    if config.denoise:
+        from .post.fxaa import fxaa
+        from .post.svgf import svgf
+        from .post.taa import taa
+
+        new_svgf, filtered = svgf(
+            state.svgf, irr[..., :3], irr[..., 3], gbuf.mv, gbuf.normal, gbuf.linear_z,
+            gbuf.z_grad, gbuf.albedo[..., :3],
+        )
+        beauty_hdr = filtered + gbuf.irradiance[..., :3]
+        if vol is not None:
+            # the second SVGF instance, on the volume's history: its
+            # reprojection follows the VOLUME motion vectors, its albedo
+            # is all ones (the reference's 'one' Color node)
+            acc_vol = new_state.accum_volume
+            new_vol_svgf, vol_filtered = svgf(
+                state.volume_svgf, acc_vol[..., :3], acc_vol[..., 3], vol[4], gbuf.normal,
+                gbuf.linear_z, gbuf.z_grad, torch.ones_like(acc_vol[..., :3]),
+            )
+            beauty_hdr = beauty_hdr + vol_filtered
+            new_state = new_state._replace(volume_svgf=new_vol_svgf)
+    else:
+        beauty_hdr = (
+            new_state.accum_irradiance[..., :3]
+            * torch.clamp_min(new_state.accum_albedo[..., :3], 0.0)
+            + new_state.accum_direct[..., :3]
+        )
+        if vol is not None:
+            beauty_hdr = beauty_hdr + new_state.accum_volume[..., :3]
     # auto exposure (key / log-average luminance, merian Exposure node)
     lum = color_ops.yuv_luminance(beauty_hdr)
     log_mean = torch.log(lum + 1e-4).mean()
     scale = 0.18 / torch.clamp_min(torch.exp(log_mean), 1e-4)
     ldr = tonemap_reinhard_extended(beauty_hdr * scale)
+    if config.denoise:
+        # the TAA history is the LDR before FXAA
+        ldr = taa(state.taa_prev, ldr, gbuf.mv)
+        new_state = new_state._replace(svgf=new_svgf, taa_prev=ldr)
+        ldr = fxaa(ldr)
     outputs = {"hdr": beauty_hdr, "ldr": ldr, "irradiance": irr, "gbuffer": gbuf}
     if vol is not None:
         outputs["volume"], outputs["volume_mv"] = vol[3], vol[4]
@@ -254,7 +304,7 @@ def render_sequence(
 ):
     """Render ``frames`` frames of a static scene on ``device``,
     returning the final (state, outputs)."""
-    _check_supported(config, mcpg_config)
+    _check_supported(config)
     bundle = SceneBundle(*[x.to(device) for x in bundle])
     accel = build_accel(bundle.scene, bundle.atlas, device=device)
     config = config._replace(

@@ -2,8 +2,9 @@
 none): in a subprocess that blocks ``jax`` before anything is imported,
 build cornell_box and render one 32×16 path-traced frame, one 32×16
 ReSTIR frame, two 32×16 guided (MCPG) frames, two 32×16 MCPG frames
-with the volume pass on the fogged court and one path-traced frame
-under a trace schedule on the CPU, trace it under the schedule through ``woop.intersect_woop``'s glue,
+with the volume pass on the fogged court, one path-traced frame
+under a trace schedule, two denoised path-traced frames and two SSMM
+frames on the CPU, trace it under the schedule through ``woop.intersect_woop``'s glue,
 time two frames through ``bench_torch.phases`` and import ``interop``. And the port's entry
 points run on the card unless the caller asks for the CPU: without a
 CUDA device, a call without ``device=`` raises."""
@@ -48,6 +49,10 @@ acc = build_accel(cornell_box(device="cpu").scene)
 o, d = torch.zeros((256, 3)) + 0.5, torch.nn.functional.normalize(torch.rand((256, 3)) - 0.5, dim=-1)
 hr = woop.intersect_woop(acc, o, d, 0.0, 1e4, sort_rays=True, schedule=sched)
 assert torch.equal(hr.tri, woop.intersect_woop(acc, o, d, 0.0, 1e4).tri)
+state, out = render_sequence(cornell_box(device="cpu"), RenderConfig(width=32, height=16, denoise=True), frames=2, device="cpu")
+assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["ldr"]).all()) and state.svgf.history_len.max() == 2
+state, out = render_sequence(cornell_box(device="cpu"), RenderConfig(width=32, height=16, spp=2, integrator="ssmm"), frames=2, device="cpu")
+assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["ldr"]).all()) and float(state.ssmm.sum_w.max()) > 0
 import merian_quake_tpu_torch.interop
 import bench_torch
 b = cornell_box(device="cpu")
