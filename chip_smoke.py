@@ -9,7 +9,8 @@ volume pass, ``VolumeConfig()`` and ``production_config()``), the
 path-traced frame (2 spp, max path length 3), the ReSTIR DI frame
 (``ReSTIRConfig()``) and the SSMM frame (``SSMMConfig()``), each also
 with ``denoise=True`` (SVGF, exposure, tonemap, TAA, FXAA; with the
-volume pass a second SVGF on the volume's history) — on the first CUDA
+volume pass a second SVGF on the volume's history), the presets, their
+certification, the frame graph and the debug views — on the first CUDA
 device, on the procedural
 ``city`` (16,640 triangles), on the map scene ``city(n_buildings=
 28000, seed=11)`` (281,536 triangles), on ``outdoor_court`` (two
@@ -203,14 +204,44 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     irradiance within tests/test_torch_ssmm_slice.py's spread bound; the
     denoised frame's images printed), and 64 accumulated SSMM frames on
     the card within 15% of PT's mean irradiance (tests/test_ssmm.py's
-    check).
+    check);
+26. presets and certification: ``run_preset`` for config1 and config6 at
+    their 640x360 and config3 at 1080p, each for its preset's frames,
+    with the launches those frames make (config1 and config6 3 K1 a
+    frame, config3 2 K1 + 1 K2) and ms/frame; ``certify_presets`` of
+    config1 and config6 at their named 640x360 with certify's default
+    budgets (64 frames, 4 truth runs of 256), every frame's 3 K1 counted:
+    config1's ratio exactly 1, config6's (the guiding-bound preset) below
+    1, every relMSE finite, each convergence series lower at 64 frames than
+    at 1; the orbit presets (config2, config4, config5) raise, naming
+    ROADMAP item 5;
+27. the frame graph at 1080p: res/pt_graph.json on city against
+    ``frame_core`` (6 frames, 5 K1 a frame, the tonemap output within
+    tests/test_graph.py's 1e-5); ``flagship_graph_config()`` on the fogged
+    court with config5's render setup (MCPG + ``VolumeConfig(volume_spp=
+    1)``, 2 spp, denoise, still camera) against ``frame_core`` (9
+    frames): the same K1 launches and the same synchronizing calls a frame
+    (the alpha loop's reads), how far apart the two land in the default
+    mode (the MCPG replay's ``torch.cumsum`` does not repeat itself on the
+    card), and 9 more frames of each under
+    ``torch.use_deterministic_algorithms``: the HUD and add outputs and
+    both SVGF histories bit for bit; the
+    flagship on city (MCPG, denoise) with a steady frame under
+    ``set_sync_debug_mode("error")``; each path's ms/frame beside
+    ``frame_core``'s;
+28. debug views: the 9 MCPG views on phase 16's 1080p city state and the 5
+    ReSTIR views on phase 6's, finite, (1080, 1920, 3), with ms a view;
+    64x36 states made on the CPU and moved to the card: view 3 and its
+    cell keys bit for bit, the others within rtol 1e-5; a ``Profiler``
+    device span around one 1080p MCPG frame.
 
 Each path (PT city, ReSTIR city, dense map, PT map, ReSTIR map, the five
 city(1600) frame runs of phase 14, MCPG city, MCPG map, the two
 city(1600) MCPG runs of phase 16, court PT, ReSTIR and MCPG, the fogged
 court's MCPG + volume, production city, denoised city MCPG, config3's
-denoised ReSTIR box, the denoised fogged court, SSMM city and the denoised
-SSMM court) is driven with every launch
+denoised ReSTIR box, the denoised fogged court, SSMM city, the denoised
+SSMM court, the three presets run, the two certifications and the three
+graph runs) is driven with every launch
 count set to 0 just before it and read just after. The whole run's
 seconds are printed before the kernels' line. The line before the
 last is the kernels' JSON record (with each kernel's launches by path
@@ -790,7 +821,7 @@ def phase6(dev, bundle, accel, feats, smi):
         f"ms/frame (frames {', '.join(f'{x:.1f}' for x in frame_ms)}); max M {m_max}; "
         f"valid reservoirs {float((res.y_flags & 1).float().mean()):.4f}; "
         f"ldr mean {float(out['ldr'].mean()):.4f}")
-    return got, prepass_ab(6, "restir city", bundle, accel, config, dev, smi)
+    return got, prepass_ab(6, "restir city", bundle, accel, config, dev, smi), (config, state, out)
 
 
 def phase7(dev):
@@ -1802,6 +1833,7 @@ def phase16(dev, bundle, accel, config, c16, smi):
     finally:
         surface.trace_ray = plain
     check_mcpg_finite("mcpg city after the A/B", state, out)
+    last = (config, mcfg, bundle.uniforms._replace(frame=25), state, out)
     log(f"phase 16 mcpg city bounce sort A/B [{smi}]: as they lie "
         f"{' / '.join(f'{x:.1f}' for x in ab['none'])} ms/frame, sorted "
         f"{' / '.join(f'{x:.1f}' for x in ab['sort'])} ms/frame (frames 18-25, host clock)")
@@ -1820,7 +1852,8 @@ def phase16(dev, bundle, accel, config, c16, smi):
     ):
         _, _, sched_paths[path], _, _ = mcpg_frames(
             16, path, dev, b16, a16, cfg16, mcfg, 6, (2, 6), expect, smi, schedule=sched)
-    return counts, sched_paths, pops, {"ms": float(np.mean(frame_ms[12:16])), "cold": frame_ms[0]}
+    return (counts, sched_paths, pops, {"ms": float(np.mean(frame_ms[12:16])), "cold": frame_ms[0]},
+            last)
 
 
 def phase17(dev, bundle, accel, config, smi):
@@ -2020,9 +2053,9 @@ class AlphaLoop:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
-def count_syncs(fn):
+def sync_sites(fn):
     """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")`` and
-    return (its result, the synchronizing calls it made)."""
+    return (its result, the file:line of each synchronizing call)."""
     import warnings
 
     torch.cuda.synchronize()
@@ -2034,7 +2067,8 @@ def count_syncs(fn):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return out, sum("synchroniz" in str(w.message) for w in seen)
+    return out, [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in seen
+                 if "synchroniz" in str(w.message)]
 
 
 def court(dev, fog=0.0):
@@ -2075,7 +2109,8 @@ def court_frames(phase, path, dev, bundle, accel, config, mcfg, frames, window, 
             step = lambda: render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=i),
                                         config, state, mcfg)
             if i == frames:  # the extra frame: its synchronizing calls
-                (state, out), syncs = count_syncs(step)
+                (state, out), sites = sync_sites(step)
+                syncs = len(sites)
                 loop_dev = probe.device_ms()
             else:
                 torch.cuda.synchronize()
@@ -2615,6 +2650,352 @@ def phase25(dev, bundle, accel, config, smi):
                                        "estimator_rel": rel}
 
 
+# certify_presets on the card at the presets' named 640x360 with certify's
+# default budgets (64 frames, 4 truth runs of 256): tests/test_certify.py's
+# criteria, config1's PT against itself (ratio 1 exactly) and the
+# guiding-bound config6 below 1
+CERTIFY = ("config1", "config6")
+# each preset frame's launches (cornell_box and the alcove have no
+# alpha-tested triangles): PT and MCPG 1 primary + 2 bounce traces at 1
+# spp, config3's ReSTIR 2 traces + 1 visibility sweep
+PRESET_FRAME = {"config1": {"woop_nearest": 3}, "config6": {"woop_nearest": 3},
+                "config3": {"woop_nearest": 2, "woop_any": 1}}
+# tests/test_graph.py's tolerance for the PT graph (its accumulators
+# reproject with zero motion, frame_core's average plainly)
+GRAPH_PT_ATOL = 1e-5
+# the debug views, CPU against card on the same state: view 3's colour is
+# rounded once from f64 (render/mcpg/debug.py), the others are f32 chains
+VIEW_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def phase26(dev, smi):
+    """Presets and certification: ``run_preset`` for config1 and config6
+    (640x360) and config3 (1080p) at their frame counts, the launches
+    those frames make; ``certify_presets`` of config1 and config6 at their
+    named 640x360 with certify's default budgets, each truth, candidate
+    and equal-budget frame counted; the orbit presets raise."""
+    import csv
+    import tempfile
+
+    from merian_quake_tpu_torch.presets import PRESETS, run_preset
+    from merian_quake_tpu_torch.utils.certify import certify_presets
+
+    paths, stats = {}, {"preset_ms": {}, "certify": {}}
+    for name, per_frame in PRESET_FRAME.items():
+        p = PRESETS[name]
+        reset_launches()
+        _, out, spf = run_preset(name, device=dev)
+        got = launches()
+        want = {**{k: 0 for k in got}, **{k: v * p.frames for k, v in per_frame.items()}}
+        if got != want:
+            raise AssertionError(f"run_preset({name!r}) launched {got}, expected {want}")
+        for key in ("ldr", "hdr"):
+            if not bool(torch.isfinite(out[key]).all()):
+                raise AssertionError(f"run_preset({name!r}) {key} is not finite")
+        if tuple(out["ldr"].shape) != (p.config.height, p.config.width, 3):
+            raise AssertionError(f"run_preset({name!r}) ldr has the shape {tuple(out['ldr'].shape)}")
+        paths[f"preset_{name}"] = got
+        stats["preset_ms"][name] = spf * 1e3
+        log(f"phase 26 run_preset {name} {p.config.width}x{p.config.height} {p.config.integrator} "
+            f"denoise={p.config.denoise} x{p.frames} frames [{smi}]: {spf * 1e3:.2f} ms/frame (frames "
+            f"1-{p.frames - 1}); launches { {k: v for k, v in got.items() if v} }; ldr mean "
+            f"{float(out['ldr'].mean()):.4f}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in CERTIFY:
+            reset_launches()
+            t0 = time.perf_counter()
+            r = certify_presets([name], scale=1.0, convergence_dir=tmp, device=dev)[name]
+            secs = time.perf_counter() - t0
+            got = launches()
+            frames = r["ref_frames"] * r["ref_runs"] + r["frames"] * (1 if r["integrator"] == "pt" else 2)
+            want = {**{k: 0 for k in got}, "woop_nearest": 3 * frames}
+            if got != want:
+                raise AssertionError(f"certify {name} launched {got}, expected {want}")
+            with open(r["convergence_csv"]) as f:
+                series = [(int(row["frames"]), float(row["relmse"]), float(row["relmse_trimmed"]))
+                          for row in csv.DictReader(f)]
+            values = [r[k] for k in ("relmse", "relmse_pt_equal_budget", "relmse_trimmed",
+                                     "relmse_trimmed_pt")] + [x for s in series for x in s[1:]]
+            log(f"phase 26 certify {name} {r['resolution']} {r['integrator']} frames {r['frames']}, "
+                f"truth {r['ref_runs']} x {r['ref_frames']} [{smi}]: relmse {r['relmse']:.6g}, equal-"
+                f"budget reference {r['relmse_pt_equal_budget']:.6g}, ratio_vs_pt "
+                f"{r['ratio_vs_pt']:.6g}, trimmed ratio {r['ratio_trimmed_vs_pt']:.6g}; convergence "
+                f"(frames, relmse, trimmed) {series}; {frames} frames in {secs:.1f} s; launches "
+                f"{ {k: v for k, v in got.items() if v} }")
+            if not all(np.isfinite(v) for v in values):
+                raise AssertionError(f"certify {name}: a relMSE is not finite")
+            if series[0][0] != 1 or series[-1][0] != 64 or not series[-1][1] < series[0][1]:
+                raise AssertionError(f"certify {name}: the convergence series does not fall: {series}")
+            if name == "config1" and r["ratio_vs_pt"] != 1.0:
+                raise AssertionError(f"certify config1: PT against itself gave {r['ratio_vs_pt']}")
+            if name == "config6" and not r["ratio_vs_pt"] < 1.0:
+                raise AssertionError(f"certify config6: guiding does not beat PT: {r['ratio_vs_pt']}")
+            paths[f"certify_{name}"] = got
+            stats["certify"][name] = {**{k: r[k] for k in (
+                "resolution", "relmse", "relmse_pt_equal_budget", "ratio_vs_pt",
+                "ratio_trimmed_vs_pt")}, "convergence": series, "seconds": secs}
+
+    for name in ("config2", "config4", "config5"):
+        try:
+            run_preset(name, device=dev)
+        except NotImplementedError as e:
+            if "item 5" not in str(e):
+                raise AssertionError(f"run_preset({name!r}) raised without naming ROADMAP item 5: {e}")
+        else:
+            raise AssertionError(f"run_preset({name!r}) rendered its orbit with a still camera")
+    log("phase 26 run_preset config2, config4, config5 (orbit presets): NotImplementedError naming "
+        "ROADMAP queue 1, item 5")
+    return paths, stats
+
+
+def graph_or_core(step, frames, uniforms):
+    """``frames`` frames of ``step(state, uniforms) -> (state, out)`` from
+    ``step(None, None)``'s initial state; returns (state, out, host ms a
+    frame with each frame synced, K1 launches a frame)."""
+    state = step(None, None)
+    ms, k1, out = [], [], None
+    for i in range(frames):
+        before = launches()["woop_nearest"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = step(state, uniforms._replace(frame=i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        k1.append(launches()["woop_nearest"] - before)
+    return state, out, ms, k1
+
+
+def graph_step(graph):
+    return lambda st, u: graph.init_state() if st is None else graph.run(st, {"uniforms": u})
+
+
+def core_step(accel, atlas, config, icfg, dev):
+    from merian_quake_tpu_torch.renderer import frame_core, init_state
+
+    return lambda st, u: (init_state(config, icfg, device=dev) if st is None
+                          else frame_core(accel, atlas, u, config, st, mcpg_config=icfg))
+
+
+def image_reading(a, b):
+    """(share of pixels within PIX_TOL, mean |d|) of two images or
+    per-pixel state fields."""
+    d = (a - b).abs().reshape(a.shape[0], a.shape[1], -1)
+    return float((d.amax(-1) <= PIX_TOL).float().mean()), float(d.mean())
+
+
+def flagship_pairs(gst, gout, fst, fout):
+    """The flagship graph's outputs and SVGF histories beside frame_core's."""
+    pairs = {"hud/ldr": (gout[("hud", "out")], fout["ldr"]),
+             "add/hdr": (gout[("add", "out")], fout["hdr"])}
+    for node, field in (("denoiser", "svgf"), ("volume_denoiser", "volume_svgf")):
+        for k in gst["nodes"][node]._fields:
+            pairs[f"{field}.{k}"] = (getattr(gst["nodes"][node], k), getattr(getattr(fst, field), k))
+    return pairs
+
+
+def phase27(dev, bundle, accel, config, smi):
+    """The frame graph at 1080p: res/pt_graph.json on city against
+    frame_core (6 frames, 5 K1 a frame); flagship_graph_config() on the
+    fogged court with config5's render setup against frame_core (9
+    frames): the same K1 launches and synchronizing calls a frame, and
+    under torch's deterministic algorithms the HUD and add outputs and
+    both SVGF histories equal; the flagship on city (MCPG, denoise, no
+    volume) with one steady frame under set_sync_debug_mode("error")."""
+    import os
+
+    from merian_quake_tpu_torch.graph import Graph
+    from merian_quake_tpu_torch.graph.nodes import GraphContext, flagship_graph_config
+    from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+    from merian_quake_tpu_torch.render.mcpg.volume import VolumeConfig
+
+    paths, stats = {}, {}
+    res = os.path.join(os.path.dirname(os.path.abspath(__file__)), "res")
+    g = Graph.from_config(os.path.join(res, "pt_graph.json"),
+                          GraphContext(accel, bundle.atlas, config, device=dev))
+    reset_launches()
+    _, gout, g_ms, g_k1 = graph_or_core(graph_step(g), 6, bundle.uniforms)
+    paths["graph_pt_city"] = launches()
+    _, fout, f_ms, f_k1 = graph_or_core(core_step(accel, bundle.atlas, config, None, dev), 6,
+                                        bundle.uniforms)
+    d = float((gout[("tonemap", "out")] - fout["ldr"]).abs().max())
+    want = [1 + SPP * (MPL - 1)] * 6
+    log(f"phase 27 graph res/pt_graph.json city {W}x{H} [{smi}]: frames 2-5 "
+        f"{np.mean(g_ms[2:]):.2f} ms/frame against frame_core's {np.mean(f_ms[2:]):.2f}; K1 a frame "
+        f"{g_k1} (frame_core {f_k1}); tonemap against frame_core's ldr max |d| {d:.3e} (bound "
+        f"{GRAPH_PT_ATOL}); launches { {k: v for k, v in paths['graph_pt_city'].items() if v} }")
+    if g_k1 != want or f_k1 != want or d > GRAPH_PT_ATOL:
+        raise AssertionError("the PT graph differs from frame_core")
+    stats["pt_city"] = {"ms": float(np.mean(g_ms[2:])), "frame_core_ms": float(np.mean(f_ms[2:])),
+                        "max_abs_ldr": d}
+
+    # the flagship graph on the fogged court, config5's render setup: the
+    # timed runs in the default mode, their launches and host reads, and
+    # how far apart they land (F7: the replay's cumsum does not repeat
+    # itself on the card)
+    c_bundle, c_accel, c_cfg = court(dev, FOG_MU_T)
+    c_cfg = c_cfg._replace(integrator="mcpg", denoise=True)
+    mcfg = MCPGConfig(volume=VolumeConfig(volume_spp=1))
+    g = Graph.from_config(flagship_graph_config(), GraphContext(
+        c_accel, c_bundle.atlas, c_cfg, mcpg_config=mcfg, device=dev))
+    reset_launches()
+    gst, gout, g_ms, g_k1 = graph_or_core(graph_step(g), 9, c_bundle.uniforms)
+    paths["graph_flagship_court"] = launches()
+    core = core_step(c_accel, c_bundle.atlas, c_cfg, mcfg, dev)
+    fst, fout, f_ms, f_k1 = graph_or_core(core, 9, c_bundle.uniforms)
+    spread = {k: image_reading(x, y) for k, (x, y) in flagship_pairs(gst, gout, fst, fout).items()}
+    # frame 9's synchronizing calls; the process's first call in the
+    # "warn" mode adds one of torch's own, so frame_core goes first and
+    # again after the graph
+    u9 = c_bundle.uniforms._replace(frame=9)
+    sync_sites(lambda: core(fst, u9))
+    _, g_sync = sync_sites(lambda: g.run(gst, {"uniforms": u9}))
+    _, f_sync = sync_sites(lambda: core(fst, u9))
+    if g_k1 != f_k1 or sorted(set(g_sync)) != sorted(set(f_sync)) or len(g_sync) != len(f_sync):
+        raise AssertionError(f"the flagship graph's launches or host reads differ from frame_core's: "
+                             f"K1 {g_k1} against {f_k1}, synchronizing calls at {g_sync} against "
+                             f"{f_sync}")
+    # with torch's deterministic algorithms frame_core repeats itself, and
+    # the graph must equal it bit for bit, as on the CPU
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        d_gst, d_gout, _, _ = graph_or_core(graph_step(g), 9, c_bundle.uniforms)
+        d_fst, d_fout, _, _ = graph_or_core(core, 9, c_bundle.uniforms)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    pairs = flagship_pairs(d_gst, d_gout, d_fst, d_fout)
+    unequal = [k for k, (x, y) in pairs.items() if not torch.equal(x, y)]
+    log(f"phase 27 graph flagship court fog mcpg + volume denoise {W}x{H} spp {c_cfg.spp} [{smi}]: "
+        f"frames 6-8 {np.mean(g_ms[6:]):.1f} ms/frame against frame_core's {np.mean(f_ms[6:]):.1f}; "
+        f"K1 a frame {g_k1} (frame_core {f_k1}); synchronizing calls in frame 9: graph "
+        f"{len(g_sync)}, frame_core {len(f_sync)}; under torch.use_deterministic_algorithms the "
+        f"HUD, add and both SVGF histories ({len(pairs)} tensors) bit-identical: {not unequal}; "
+        f"the default mode's runs apart (within {PIX_TOL}, mean |d|): "
+        + ", ".join(f"{k} {a:.5f} {m:.3e}" for k, (a, m) in spread.items()))
+    if unequal:
+        raise AssertionError(f"the flagship graph differs from frame_core in {unequal}")
+    stats["flagship_court"] = {"ms": float(np.mean(g_ms[6:])), "frame_core_ms": float(np.mean(f_ms[6:])),
+                               "k1_per_frame": g_k1[-1], "syncs": len(g_sync),
+                               "default_mode_apart": spread}
+
+    # the flagship on city (no alpha test, so no host read of the alpha
+    # loop): a steady frame makes no synchronizing call, as frame_core's
+    # denoised frame makes none (phase 23)
+    m_cfg = config._replace(integrator="mcpg", denoise=True)
+    g = Graph.from_config(flagship_graph_config(), GraphContext(
+        accel, bundle.atlas, m_cfg, mcpg_config=MCPGConfig(), device=dev))
+    reset_launches()
+    gst, _, g_ms, g_k1 = graph_or_core(graph_step(g), 3, bundle.uniforms)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gst, gout = g.run(gst, {"uniforms": bundle.uniforms._replace(frame=3)})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    paths["graph_flagship_city"] = launches()
+    if g_k1 != [3] * 3 or not bool(torch.isfinite(gout[("hud", "out")]).all()):
+        raise AssertionError(f"the flagship graph on city: K1 a frame {g_k1}, or a non-finite image")
+    log(f"phase 27 graph flagship city mcpg denoise {W}x{H} [{smi}]: frames 1-2 "
+        f"{np.mean(g_ms[1:]):.1f} ms/frame, K1 a frame {g_k1}; frame 3 under "
+        f"torch.cuda.set_sync_debug_mode('error'): no synchronizing call")
+    stats["flagship_city_ms"] = float(np.mean(g_ms[1:]))
+    return paths, stats
+
+
+def to_device(x, dev):
+    """Tensors in NamedTuples, tuples, lists and dicts, on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: to_device(v, dev) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[to_device(v, dev) for v in x])
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_device(v, dev) for v in x)
+    return x
+
+
+def phase28(dev, bundle, accel, mcpg_city, restir_city, smi):
+    """Debug views: all 9 MCPG views on phase 16's city state and every
+    ReSTIR view on phase 6's at 1080p, finite and of the image's shape; at
+    64x36 states made on the CPU, moved to the card: each view the same on
+    both (view 3 and its cell keys bit for bit); a Profiler device span
+    around one frame."""
+    from merian_quake_tpu_torch.models.procedural import city
+    from merian_quake_tpu_torch.models.types import RenderConfig
+    from merian_quake_tpu_torch.render.hit import decompress_hit
+    from merian_quake_tpu_torch.render.mcpg.debug import (
+        DEBUG_VIEWS, grid_cell_seed, render_mcpg_debug,
+    )
+    from merian_quake_tpu_torch.render.restir import ReSTIRConfig
+    from merian_quake_tpu_torch.render.restir.debug import DEBUG_VIEWS as RESTIR_VIEWS
+    from merian_quake_tpu_torch.render.restir.debug import render_restir_debug
+    from merian_quake_tpu_torch.renderer import render_frame, render_sequence
+    from merian_quake_tpu_torch.utils.profiler import Profiler
+
+    m_cfg, mcfg, m_uni, m_state, m_out = mcpg_city
+    r_cfg, r_state, r_out = restir_city
+    mcpg_view = lambda s, u, c, st, o: render_mcpg_debug(s, u, c, mcfg, st.mcpg, o["gbuffer"],
+                                                         o["irradiance"])
+    restir_view = lambda s, c, st, o: render_restir_debug(s, c, st.restir, o["gbuffer"])
+    ms = {}
+    for kind, views, run in (("mcpg", DEBUG_VIEWS, lambda s: mcpg_view(s, m_uni, m_cfg, m_state, m_out)),
+                             ("restir", RESTIR_VIEWS, lambda s: restir_view(s, r_cfg, r_state, r_out))):
+        for s in views:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = run(s)
+            torch.cuda.synchronize()
+            ms[f"{kind} {s}"] = (time.perf_counter() - t0) * 1e3
+            if tuple(img.shape) != (H, W, 3) or not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"{kind} debug view {s} ({views[s]}): shape "
+                                     f"{tuple(img.shape)} or not finite")
+    log(f"phase 28 debug views {W}x{H} on phases 16 and 6's states [{smi}]: every view finite, "
+        f"ms a view " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+
+    small = RenderConfig(width=64, height=36, spp=SPP, max_path_length=MPL)
+    readings = []
+    for kind, icfg, views in (("mcpg", mcfg, DEBUG_VIEWS), ("restir", ReSTIRConfig(), RESTIR_VIEWS)):
+        cfg = small._replace(integrator=kind)
+        st, out = render_sequence(city(device="cpu"), cfg, frames=3, mcpg_config=icfg, device="cpu")
+        uni = city(device="cpu").uniforms._replace(frame=2)
+        st_d, out_d, uni_d = to_device(st, dev), to_device(out, dev), to_device(uni, dev)
+        for s in views:
+            if kind == "mcpg":
+                a, b = mcpg_view(s, uni, cfg, st, out), mcpg_view(s, uni_d, cfg, st_d, out_d)
+            else:
+                a, b = restir_view(s, cfg, st, out), restir_view(s, cfg, st_d, out_d)
+            b = b.cpu()
+            same = torch.equal(a, b) if (kind, s) == ("mcpg", 3) else torch.allclose(b, a, **VIEW_TOL)
+            readings.append(f"{kind} {s} max |d| {float((a - b).abs().max()):.3e} on "
+                            f"{int((a != b).any(-1).sum())} pixels")
+            if not same:
+                raise AssertionError(f"{kind} debug view {s} differs between the CPU and the card: "
+                                     f"{readings[-1]}")
+        if kind == "mcpg":
+            hit = decompress_hit(out["gbuffer"].hits)
+            keys = grid_cell_seed(hit.pos, uni.cam_x, mcfg)
+            keys_d = grid_cell_seed(hit.pos.to(dev), uni_d.cam_x, mcfg).cpu()
+            if not torch.equal(keys, keys_d):
+                raise AssertionError("view 3's cell keys differ between the CPU and the card")
+    log(f"phase 28 debug views 64x36, a CPU state on the CPU and on the card: view 3 and its "
+        f"cell keys bit for bit, the others within {VIEW_TOL}; " + "; ".join(readings))
+
+    prof = Profiler(report_every=1)
+    with prof.device("mcpg city frame") as held:
+        _, out = render_frame(accel, bundle.atlas, m_uni._replace(frame=m_uni.frame + 1), m_cfg,
+                              m_state, mcfg)
+        held.append(out["ldr"])
+    report = prof.frame_done()
+    span_ms = prof._acc["mcpg city frame"] * 1e3
+    log(f"phase 28 Profiler device span around one 1080p city MCPG frame: {span_ms:.2f} ms; "
+        f"report: {report!r}")
+    if not (report and span_ms > 0.0):
+        raise AssertionError("the Profiler's device span reported no time")
+    return {"view_ms": ms, "profiler_span_ms": span_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2800,7 +3181,7 @@ def main() -> int:
     mark(5)
 
     # ---- phase 6: the ReSTIR slice on the card ----
-    restir_city, f4_city_frames = phase6(dev, bundle, accel, feats, smi)
+    restir_city, f4_city_frames, restir_last = phase6(dev, bundle, accel, feats, smi)
     mark(6)
 
     # ---- phase 7: CPU oracle vs card K1 + K2, ReSTIR ----
@@ -2831,7 +3212,8 @@ def main() -> int:
     mark(15)
 
     # ---- phases 16-19: the MCPG surface frame ----
-    mcpg_city, mcpg_sched, city_pops, mcpg_city_t = phase16(dev, bundle, accel, config, c16, smi)
+    mcpg_city, mcpg_sched, city_pops, mcpg_city_t, mcpg_last = phase16(dev, bundle, accel, config,
+                                                                       c16, smi)
     mark(16)
     mcpg_map, map_pops, mcpg_map_t = phase17(dev, m_bundle, m_accel, m_config, smi)
     mark(17)
@@ -2857,6 +3239,14 @@ def main() -> int:
     mark(24)
     ssmm_path, ssmm_court_path, ssmm_stats = phase25(dev, bundle, accel, config, smi)
     mark(25)
+
+    # ---- phases 26-28: presets and certification, the frame graph, debug views ----
+    preset_paths, preset_stats = phase26(dev, smi)
+    mark(26)
+    graph_paths, graph_stats = phase27(dev, bundle, accel, config, smi)
+    mark(27)
+    debug_stats = phase28(dev, bundle, accel, mcpg_last, restir_last, smi)
+    mark(28)
     log(f"chip_smoke: every phase passed in {time.perf_counter() - run_t0:.1f} s (phase 1 "
         f"{marks[0][1] - run_t0:.1f} s, " + ", ".join(
             f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:])) + ")")
@@ -2867,7 +3257,7 @@ def main() -> int:
              "mcpg_court_volume": volume_path, "mcpg_production": prod_path,
              "mcpg_denoise": denoise_path, "restir_box_denoise": restir_dn_path,
              "mcpg_court_volume_denoise": court_dn_path, "ssmm": ssmm_path,
-             "ssmm_court_denoise": ssmm_court_path}
+             "ssmm_court_denoise": ssmm_court_path, **preset_paths, **graph_paths}
     by_path = lambda k: {p: v[k] for p, v in paths.items()}
     total = lambda k: sum(by_path(k).values())
     # a PT frame's 1 primary + 4 bounce traces, the bounce rays as they lie
@@ -2889,6 +3279,7 @@ def main() -> int:
         "volume_scatter": g_vol, "court_alpha_loop": {**court_stats, "mcpg_volume": volume_stats},
         "production_frame": prod_stats, "denoise_frame": denoise_stats,
         "court_volume_denoise_frame": court_dn_stats, "ssmm_frame": ssmm_stats,
+        "presets": preset_stats, "graph": graph_stats, "debug_views": debug_stats,
     }, {
         "name": "woop_any", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": total("woop_any"),

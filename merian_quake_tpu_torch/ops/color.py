@@ -22,6 +22,26 @@ def ldr_to_hdr(color: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp_min(color, 0.0)) * 2.0 * l / (1.0 - l)
 
 
+def oklch_to_rgb(lch: torch.Tensor) -> torch.Tensor:
+    """OKLCh [..., 3] (L, C, h in radians) → linear sRGB [..., 3]
+    (merian-shaders colors_oklch.glsl; the MCPG grid debug view).
+    Ottosson's OKLab transform; the cubes are products, as XLA computes
+    an integer power."""
+    L = lch[..., 0]
+    C = lch[..., 1]
+    h = lch[..., 2]
+    a = C * torch.cos(h)
+    b = C * torch.sin(h)
+    l_ = L + 0.3963377774 * a + 0.2158037573 * b
+    m_ = L - 0.1055613458 * a - 0.0638541728 * b
+    s_ = L - 0.0894841775 * a - 1.2914855480 * b
+    l3, m3, s3 = l_ * l_ * l_, m_ * m_ * m_, s_ * s_ * s_
+    r = 4.0767416621 * l3 - 3.3077115913 * m3 + 0.2309699292 * s3
+    g = -1.2684380046 * l3 + 2.6097574011 * m3 - 0.3413193965 * s3
+    bb = -0.0041960863 * l3 - 0.7034186147 * m3 + 1.7076147010 * s3
+    return torch.clamp(torch.stack([r, g, bb], dim=-1), 0.0, 1.0)
+
+
 def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
     c = torch.clamp(c, 0.0, 1.0)
     return torch.where(

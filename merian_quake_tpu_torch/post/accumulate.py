@@ -8,9 +8,14 @@ import torch
 from ..ops import color as color_ops
 
 
-def accumulate(history, new, iteration: int):
-    """history, new: f32[H, W, C]; iteration: 0-based frame counter."""
-    return history + (new - history) * (1.0 / (float(iteration) + 1.0))
+def accumulate(history, new, iteration: int, alpha=0.0):
+    """history, new: f32[H, W, C]; iteration: 0-based frame counter.
+    ``alpha == 0`` gives the cumulative average; otherwise an
+    exponentially weighted average with warm-up 1/(iteration + 1)."""
+    w_new = 1.0 / (float(iteration) + 1.0)
+    if alpha > 0.0:
+        w_new = max(float(alpha), w_new)
+    return history + (new - history) * w_new
 
 
 def firefly_clamp(img, k=4.0):

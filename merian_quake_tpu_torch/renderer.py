@@ -96,24 +96,26 @@ def init_state(config: RenderConfig, mcpg_config=None, device="cuda") -> FrameSt
     )
 
 
-def _render_mcpg(accel, atlas, uniforms, config, mcfg, state, gbuf, schedule, _surf=None):
-    """The guided surface pass, the volume pass when ``mcfg.volume`` is
-    set, and the replay of their queues into the guiding state. Returns
-    (irradiance image, new MCPGState, the volume's (new VolumeState,
-    accumulated image, its history length, this frame's image, motion
-    vectors) or None). ``_surf``: a SurfaceResult to replay instead of
-    rendering one (tests)."""
+def _render_mcpg(accel, atlas, uniforms, config, mcfg, mstate, vstate, gbuf, schedule,
+                 _surf=None):
+    """The guided surface pass on MCPGState ``mstate``, the volume pass on
+    VolumeState ``vstate`` when ``mcfg.volume`` is set, and the replay of
+    their queues into the guiding state. Returns (irradiance image, new
+    MCPGState, the volume's (new VolumeState, this frame's image, motion
+    vectors) or None). ``frame_core`` and the frame graph's
+    ``render_markovchain`` node both render through it. ``_surf``: a
+    SurfaceResult to replay instead of rendering one (tests)."""
     from .render.mcpg.surface import (
         SurfaceResult, _seg_budgets, pack_tables, render_mcpg_surface,
     )
     from .render.mcpg.updates import apply_updates_compact, compact_queues, queue_gidx
 
     # both passes read the same packed tables: build them once
-    packed = pack_tables(state.mcpg, uniforms)
+    packed = pack_tables(mstate, uniforms)
     res = (
         _surf if _surf is not None
         else render_mcpg_surface(
-            accel, atlas, uniforms, config, mcfg, state.mcpg, gbuf, schedule, packed=packed
+            accel, atlas, uniforms, config, mcfg, mstate, gbuf, schedule, packed=packed
         )
     )
     W, H = config.width, config.height
@@ -147,7 +149,7 @@ def _render_mcpg(accel, atlas, uniforms, config, mcfg, state, gbuf, schedule, _s
         from .render.mcpg.volume import apply_dist_updates, compact_dist, render_volume
 
         vol_img, vol_mv, new_volume, vres = render_volume(
-            accel, atlas, uniforms, config, mcfg, mcfg.volume, state.mcpg, state.volume, gbuf,
+            accel, atlas, uniforms, config, mcfg, mcfg.volume, mstate, vstate, gbuf,
             schedule, packed=packed,
         )
         # the volume's rows follow the surface's in the global row order
@@ -162,18 +164,12 @@ def _render_mcpg(accel, atlas, uniforms, config, mcfg, state, gbuf, schedule, _s
             lc_samples=cat(res.lc_samples, vres.lc_samples),
             zeros=cat(res.zeros, vres.zeros),
         )
-        dmc = state.volume.dist_mc
+        dmc = vstate.dist_mc
         dq = compact_dist(vres.dist, dmc.sum_w.numel(), gidx_vol)
         new_volume = new_volume._replace(dist_mc=apply_dist_updates(dmc, dq))
-        # the volume history is reprojected along the volume motion
-        # vectors: under camera motion it tracks the fog instead of
-        # ghosting
-        acc, acc_len = accumulate_reprojected(
-            state.accum_volume, state.accum_volume_len, vol_img, vol_mv
-        )
-        vol = (new_volume, acc, acc_len, vol_img, vol_mv)
+        vol = (new_volume, vol_img, vol_mv)
     cq = compact_queues(res, mcfg, gidx, gidx)
-    return res.irradiance, apply_updates_compact(config.seed, state.mcpg, cq, uniforms, mcfg), vol
+    return res.irradiance, apply_updates_compact(config.seed, mstate, cq, uniforms, mcfg), vol
 
 
 def frame_core(
@@ -199,8 +195,8 @@ def frame_core(
         from .render.mcpg import MCPGConfig
 
         irr, new_mcpg, vol = _render_mcpg(
-            accel, atlas, uniforms, config, mcpg_config or MCPGConfig(), state, gbuf,
-            schedule, _surf,
+            accel, atlas, uniforms, config, mcpg_config or MCPGConfig(), state.mcpg,
+            state.volume, gbuf, schedule, _surf,
         )
     elif config.integrator == "restir":
         from .render.restir import ReSTIRConfig, render_restir
@@ -233,8 +229,14 @@ def frame_core(
         volume_svgf=state.volume_svgf,
     )
     if vol is not None:
+        # the volume history is reprojected along the volume motion
+        # vectors: under camera motion it tracks the fog instead of
+        # ghosting
+        acc_vol, acc_vol_len = accumulate_reprojected(
+            state.accum_volume, state.accum_volume_len, vol[1], vol[2]
+        )
         new_state = new_state._replace(
-            volume=vol[0], accum_volume=vol[1], accum_volume_len=vol[2]
+            volume=vol[0], accum_volume=acc_vol, accum_volume_len=acc_vol_len
         )
     # beauty path (the reference's wiring): with denoise, irradiance →
     # SVGF (+ albedo remodulate) → add direct emission (+ the volume's
@@ -253,9 +255,8 @@ def frame_core(
             # the second SVGF instance, on the volume's history: its
             # reprojection follows the VOLUME motion vectors, its albedo
             # is all ones (the reference's 'one' Color node)
-            acc_vol = new_state.accum_volume
             new_vol_svgf, vol_filtered = svgf(
-                state.volume_svgf, acc_vol[..., :3], acc_vol[..., 3], vol[4], gbuf.normal,
+                state.volume_svgf, acc_vol[..., :3], acc_vol[..., 3], vol[2], gbuf.normal,
                 gbuf.linear_z, gbuf.z_grad, torch.ones_like(acc_vol[..., :3]),
             )
             beauty_hdr = beauty_hdr + vol_filtered
@@ -280,7 +281,7 @@ def frame_core(
         ldr = fxaa(ldr)
     outputs = {"hdr": beauty_hdr, "ldr": ldr, "irradiance": irr, "gbuffer": gbuf}
     if vol is not None:
-        outputs["volume"], outputs["volume_mv"] = vol[3], vol[4]
+        outputs["volume"], outputs["volume_mv"] = vol[1], vol[2]
     return new_state, outputs
 
 

@@ -5,7 +5,9 @@ ReSTIR frame, two 32×16 guided (MCPG) frames, two 32×16 MCPG frames
 with the volume pass on the fogged court, one path-traced frame
 under a trace schedule, two denoised path-traced frames and two SSMM
 frames on the CPU, trace it under the schedule through ``woop.intersect_woop``'s glue,
-time two frames through ``bench_torch.phases`` and import ``interop``. And the port's entry
+time two frames through ``bench_torch.phases``, import ``interop``, ``presets``,
+``utils.certify`` and both debug view modules, and run res/pt_graph.json
+through the frame graph for one 16×8 frame. And the port's entry
 points run on the card unless the caller asks for the CPU: without a
 CUDA device, a call without ``device=`` raises."""
 import os
@@ -58,6 +60,13 @@ import bench_torch
 b = cornell_box(device="cpu")
 t, peak = bench_torch.phases(b, build_accel(b.scene, b.atlas), RenderConfig(width=16, height=8, integrator="mcpg"), MCPGConfig(), {"cold": 0, "warm": 1}, 1, "cpu")
 assert set(t) == {"cold", "warm"} and min(t.values()) > 0 and peak is None
+import merian_quake_tpu_torch.presets, merian_quake_tpu_torch.utils.certify
+import merian_quake_tpu_torch.render.mcpg.debug, merian_quake_tpu_torch.render.restir.debug
+from merian_quake_tpu_torch.graph import Graph
+from merian_quake_tpu_torch.graph.nodes import GraphContext
+g = Graph.from_config("res/pt_graph.json", GraphContext(build_accel(b.scene, b.atlas), b.atlas, RenderConfig(width=16, height=8), device="cpu"))
+st, out = g.run(g.init_state(), {"uniforms": b.uniforms})
+assert out[("tonemap", "out")].shape == (8, 16, 3) and bool(torch.isfinite(out[("add", "out")]).all())
 loaded = [m for m, mod in sys.modules.items() if mod is not None]
 assert not [m for m in loaded if m in ("jax", "merian_quake_tpu") or m.startswith(("jax.", "merian_quake_tpu."))]
 print("ok")
@@ -89,3 +98,15 @@ def test_entry_points_default_to_the_card():
     bundle = cornell_box(device="cpu")
     with pytest.raises((AssertionError, RuntimeError)):
         render_sequence(bundle, RenderConfig(width=8, height=4, spp=1))
+    from merian_quake_tpu_torch.graph import Graph
+    from merian_quake_tpu_torch.graph.nodes import GraphContext, default_pt_graph_config
+    from merian_quake_tpu_torch.presets import run_preset
+    from merian_quake_tpu_torch.utils.certify import certify_presets
+
+    with pytest.raises((AssertionError, RuntimeError)):
+        run_preset("config1", frames=1)
+    with pytest.raises((AssertionError, RuntimeError)):
+        certify_presets(["config1"], scale=0.05, frames=1, ref_frames=1, ref_runs=1)
+    ctx = GraphContext(None, None, RenderConfig(width=8, height=4))
+    with pytest.raises((AssertionError, RuntimeError)):
+        Graph.from_config(default_pt_graph_config(), ctx).init_state()
