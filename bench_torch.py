@@ -16,12 +16,21 @@ path length 3, on the first CUDA device:
   chain states, 4,000,037 light-cache cells, 2 spp volume single
   scattering with distance guiding; frames 2-4 and 6-8.
 
-Each row renders two settle frames, then a fresh state from frame 0, and
-times windows of frames on the host clock, each ending in
-``torch.cuda.synchronize()``. Mrays/s = W·H·(1 + spp·(mpl − 1)) / frame
-time, plus W·H·volume_spp for the production row (bench.py:236-239).
-bench.py's ``live_scale`` row waits for the port's live game loop
-(ROADMAP.md queue 1, item 3); its ``vs_baseline`` and ``vs_prev`` compare
+- ``live_scale`` (bench.py:181-234): the live dungeon, ``make_bigmap()``
+  at its defaults (grid 8, 32 monsters, about 290,000 static triangles,
+  a dynamic suffix of 4,096), each frame the native game step
+  (``LiveGame.step_dynamic``), the dynamic suffix's refresh
+  (``refresh_dynamic``) and the MCPG render, with the features the
+  entities need forced on (bench.py:198-201); 7 settle frames (frames
+  5-7 give the step and refresh ms, host clock, and the render ms, synced),
+  then 3 timed frames (host clock, one synchronize at the end, as
+  bench.py times them).
+
+Each of the other rows renders two settle frames, then a fresh state
+from frame 0, and times windows of frames on the host clock, each ending
+in ``torch.cuda.synchronize()``. Mrays/s = W·H·(1 + spp·(mpl − 1)) /
+frame time, plus W·H·volume_spp for the production row
+(bench.py:236-239). bench.py's ``vs_baseline`` and ``vs_prev`` compare
 against TPU figures and are not computed. Without a CUDA device the
 script fails and prints no result.
 """
@@ -36,6 +45,9 @@ import torch
 
 W, H, SPP, MPL = 1920, 1080, 2, 3
 MAP = {"n_buildings": 28000, "seed": 11}
+# bench.py's live_scale frames: 7 settle frames (5-7 give the step, refresh
+# and render ms), then 3 timed
+LIVE_SETTLE, LIVE_TIMED = 7, 3
 
 
 def phases(bundle, accel, config, mcfg, windows, timed, device):
@@ -89,6 +101,56 @@ def scene(device, **kw):
     return bundle, accel, config
 
 
+def live_scale(device, mcfg):
+    """bench.py's ``live_scale`` row on ``device``: returns its numbers."""
+    from merian_quake_tpu_torch.accel.build import build_accel_live, refresh_dynamic
+    from merian_quake_tpu_torch.cli import live_features
+    from merian_quake_tpu_torch.game.bigmap import make_bigmap
+    from merian_quake_tpu_torch.models.types import RenderConfig
+    from merian_quake_tpu_torch.renderer import init_state, render_frame
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    live, _ = make_bigmap(device=device)
+    la = build_accel_live(live.gs.static_bundle, dyn_cap=live.gs.dynamic_capacity, device=device)
+    atlas = live.gs.static_bundle.atlas
+    cfg = RenderConfig(width=W, height=H, spp=SPP, max_path_length=MPL, integrator="mcpg",
+                       features=live_features(live.gs.static_bundle))
+    state = init_state(cfg, mcfg, device=device)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    step = refresh = render = 0.0
+    steady = range(4, 7)  # frames 5-7
+    for i in range(LIVE_SETTLE):
+        t0 = time.perf_counter()
+        dyn, uniforms = live.step_dynamic(dt=1.0 / 30.0, forward=120.0, yaw=25.0 + 2.0 * i)
+        t1 = time.perf_counter()
+        la = refresh_dynamic(la, dyn)
+        t2 = time.perf_counter()
+        state, out = render_frame(la.accel, atlas, uniforms, cfg, state, mcfg)
+        sync()
+        if i in steady:
+            step, refresh = step + t1 - t0, refresh + t2 - t1
+            render += time.perf_counter() - t2
+    t0 = time.perf_counter()
+    for i in range(LIVE_TIMED):
+        dyn, uniforms = live.step_dynamic(dt=1.0 / 30.0, forward=120.0, yaw=40.0 + 2.0 * i)
+        la = refresh_dynamic(la, dyn)
+        state, out = render_frame(la.accel, atlas, uniforms, cfg, state, mcfg)
+    sync()
+    frame = (time.perf_counter() - t0) / LIVE_TIMED
+    if not bool(torch.isfinite(out["ldr"]).all()) or int(dyn["valid"].sum()) == 0:
+        raise RuntimeError("live_scale: the image is not finite or no entity is drawn")
+    n = len(steady)
+    return {"live_ms_per_frame": round(frame * 1e3, 2), "step_ms": round(step / n * 1e3, 3),
+            "refresh_ms": round(refresh / n * 1e3, 3), "render_ms": round(render / n * 1e3, 2),
+            "h2d_bytes_per_frame": refresh_dynamic.h2d_bytes,
+            "static_triangles": la.n_static, "dynamic_capacity": la.dyn_cap,
+            "dynamic_triangles": int(dyn["valid"].sum()),
+            "peak_device_bytes": torch.cuda.max_memory_allocated() if cuda else None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench_torch: torch.cuda.is_available() is False")
@@ -115,6 +177,9 @@ def main() -> int:
     del bundle, accel
     m_bundle, m_accel, m_config = scene(device, **MAP)
     mp, map_peak = phases(m_bundle, m_accel, m_config, mcfg, {"cold": 2, "warm6": 6}, 3, device)
+    n_map = int(m_accel.scene.num_tris)
+    del m_bundle, m_accel
+    live = live_scale(device, mcfg)
 
     row = lambda t, key, r=rays: {"cold_frame_ms": round(t["cold"] * 1e3, 2),
                                   "cold_mrays_per_s": rate(t["cold"], r),
@@ -133,8 +198,9 @@ def main() -> int:
             "integrator": "mcpg", "scene": "procedural city (16,640 tris, sky+sun+emissives)",
             "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
             "torch": torch.__version__, "cuda": torch.version.cuda,
-            "map_scale": {**row(mp, "warm6"), "triangles": int(m_accel.scene.num_tris),
+            "map_scale": {**row(mp, "warm6"), "triangles": n_map,
                           "peak_device_bytes": map_peak},
+            "live_scale": {**live, "mrays_per_s": rate(live["live_ms_per_frame"] / 1e3)},
             "production_scale": {**row(pr, "warm6", rays_prod), "rays_per_frame": rays_prod,
                                  "mc_states": prod.mc_total_size, "light_cache": prod.lc_size,
                                  "volume_spp": prod.volume.volume_spp,

@@ -213,19 +213,16 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     budgets (64 frames, 4 truth runs of 256), every frame's 3 K1 counted:
     config1's ratio exactly 1, config6's (the guiding-bound preset) below
     1, every relMSE finite, each convergence series lower at 64 frames than
-    at 1; the orbit presets (config2, config4, config5) raise, naming
-    ROADMAP item 5;
+    at 1;
 27. the frame graph at 1080p: res/pt_graph.json on city against
     ``frame_core`` (6 frames, 5 K1 a frame, the tonemap output within
     tests/test_graph.py's 1e-5); ``flagship_graph_config()`` on the fogged
     court with config5's render setup (MCPG + ``VolumeConfig(volume_spp=
     1)``, 2 spp, denoise, still camera) against ``frame_core`` (9
     frames): the same K1 launches and the same synchronizing calls a frame
-    (the alpha loop's reads), how far apart the two land in the default
-    mode (the MCPG replay's ``torch.cumsum`` does not repeat itself on the
-    card), and 9 more frames of each under
-    ``torch.use_deterministic_algorithms``: the HUD and add outputs and
-    both SVGF histories bit for bit; the
+    (the alpha loop's reads), and in the default mode the HUD and add
+    outputs and both SVGF histories bit for bit (the MCPG replay's scan
+    repeats itself since F7's repair); the
     flagship on city (MCPG, denoise) with a steady frame under
     ``set_sync_debug_mode("error")``; each path's ms/frame beside
     ``frame_core``'s;
@@ -233,15 +230,50 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     ReSTIR views on phase 6's, finite, (1080, 1920, 3), with ms a view;
     64x36 states made on the CPU and moved to the card: view 3 and its
     cell keys bit for bit, the others within rtol 1e-5; a ``Profiler``
-    device span around one 1080p MCPG frame.
+    device span around one 1080p MCPG frame;
+29. F7: two ``frame_core`` runs of 6 city MCPG frames from one state are
+    bit-equal in the default mode (the guiding table, the light cache,
+    the images), beside two runs with the parent's ``torch.cumsum`` in
+    the replay's segment sums; the parent's scan against the repair
+    (``ops/segments.py::scan_rows``), frames in turns (parent, change,
+    change, parent), on city MCPG and the fogged court with the volume
+    pass: the repair's cost a frame;
+30. the live dungeon at full width: the game host library built with g++
+    from native/game (seconds), ``make_bigmap()`` at its defaults (grid
+    8, 32 monsters, dynamic capacity 4,096) and ``build_accel_live``
+    (static triangles, seconds), 10 frames of the slice's path
+    (``step_dynamic``, ``refresh_dynamic``, ``render_frame`` MCPG at
+    1080p, 2 spp, mpl 3, the entities' features forced on): frames 5-7's
+    step, refresh and render ms, bench.py's live ms/frame of 3 timed
+    frames, K3 launches and host reads a frame (only the alpha loop's),
+    the bytes the refresh copies, peak bytes; finite outputs, entities
+    drawn;
+31. the refresh against fresh tables on the card, after those moving
+    steps: K3 and its any-hit form on the dungeon's refreshed tables
+    bit-equal to their plain versions on 65,536-ray subsets of the frame's
+    primary and bounce rays and on rays aimed at the monsters; every
+    table's packed rows, padded bounds and walk boxes equal to a fresh
+    computation; the hits of a from-scratch ``build_accel`` of the same
+    frame's full scene (hit/miss, t); the same on the live arena for K1
+    and K2, after 6 live frames each of MCPG (K1) and ReSTIR (K1 + K2) at
+    1080p; a refresh that leaves the packed rows as they were (the
+    mutant) fails the K3 check;
+32. the live dungeon at grid 3, 4 monsters, after 3 steps, on the CPU and
+    on the card: PT (mpl 2) and MCPG frames at 64x40, LDR within the
+    slice test's tolerance;
+33. ``run_preset`` for the orbit presets config2, config4 and config5 at
+    their named sizes and frames, with ms/frame and launches;
+34. ``python -m merian_quake_tpu_torch.cli play --map bigmap --frames 3``
+    at 1080p MCPG in a subprocess on the card: it writes its PNG.
 
 Each path (PT city, ReSTIR city, dense map, PT map, ReSTIR map, the five
 city(1600) frame runs of phase 14, MCPG city, MCPG map, the two
 city(1600) MCPG runs of phase 16, court PT, ReSTIR and MCPG, the fogged
 court's MCPG + volume, production city, denoised city MCPG, config3's
 denoised ReSTIR box, the denoised fogged court, SSMM city, the denoised
-SSMM court, the three presets run, the two certifications and the three
-graph runs) is driven with every launch
+SSMM court, the three presets run, the two certifications, the three
+graph runs, the live dungeon, the live arena's MCPG and ReSTIR frames and
+the three orbit presets) is driven with every launch
 count set to 0 just before it and read just after. The whole run's
 seconds are printed before the kernels' line. The line before the
 last is the kernels' JSON record (with each kernel's launches by path
@@ -2673,7 +2705,7 @@ def phase26(dev, smi):
     (640x360) and config3 (1080p) at their frame counts, the launches
     those frames make; ``certify_presets`` of config1 and config6 at their
     named 640x360 with certify's default budgets, each truth, candidate
-    and equal-budget frame counted; the orbit presets raise."""
+    and equal-budget frame counted (the orbit presets: phase 33)."""
     import csv
     import tempfile
 
@@ -2736,16 +2768,6 @@ def phase26(dev, smi):
                 "resolution", "relmse", "relmse_pt_equal_budget", "ratio_vs_pt",
                 "ratio_trimmed_vs_pt")}, "convergence": series, "seconds": secs}
 
-    for name in ("config2", "config4", "config5"):
-        try:
-            run_preset(name, device=dev)
-        except NotImplementedError as e:
-            if "item 5" not in str(e):
-                raise AssertionError(f"run_preset({name!r}) raised without naming ROADMAP item 5: {e}")
-        else:
-            raise AssertionError(f"run_preset({name!r}) rendered its orbit with a still camera")
-    log("phase 26 run_preset config2, config4, config5 (orbit presets): NotImplementedError naming "
-        "ROADMAP queue 1, item 5")
     return paths, stats
 
 
@@ -2799,8 +2821,8 @@ def phase27(dev, bundle, accel, config, smi):
     frame_core (6 frames, 5 K1 a frame); flagship_graph_config() on the
     fogged court with config5's render setup against frame_core (9
     frames): the same K1 launches and synchronizing calls a frame, and
-    under torch's deterministic algorithms the HUD and add outputs and
-    both SVGF histories equal; the flagship on city (MCPG, denoise, no
+    in the default mode the HUD and add outputs and both SVGF histories
+    equal; the flagship on city (MCPG, denoise, no
     volume) with one steady frame under set_sync_debug_mode("error")."""
     import os
 
@@ -2829,10 +2851,11 @@ def phase27(dev, bundle, accel, config, smi):
     stats["pt_city"] = {"ms": float(np.mean(g_ms[2:])), "frame_core_ms": float(np.mean(f_ms[2:])),
                         "max_abs_ldr": d}
 
-    # the flagship graph on the fogged court, config5's render setup: the
-    # timed runs in the default mode, their launches and host reads, and
-    # how far apart they land (F7: the replay's cumsum does not repeat
-    # itself on the card)
+    # the flagship graph on the fogged court, config5's render setup, in
+    # the default mode: the same launches and host reads a frame, and the
+    # HUD, add and both SVGF histories equal frame_core's bit for bit (the
+    # replay's scan repeats itself since F7's repair, ops/segments.py::
+    # scan_rows)
     c_bundle, c_accel, c_cfg = court(dev, FOG_MU_T)
     c_cfg = c_cfg._replace(integrator="mcpg", denoise=True)
     mcfg = MCPGConfig(volume=VolumeConfig(volume_spp=1))
@@ -2843,7 +2866,9 @@ def phase27(dev, bundle, accel, config, smi):
     paths["graph_flagship_court"] = launches()
     core = core_step(c_accel, c_bundle.atlas, c_cfg, mcfg, dev)
     fst, fout, f_ms, f_k1 = graph_or_core(core, 9, c_bundle.uniforms)
-    spread = {k: image_reading(x, y) for k, (x, y) in flagship_pairs(gst, gout, fst, fout).items()}
+    pairs = flagship_pairs(gst, gout, fst, fout)
+    spread = {k: image_reading(x, y) for k, (x, y) in pairs.items()}
+    unequal = [k for k, (x, y) in pairs.items() if not torch.equal(x, y)]
     # frame 9's synchronizing calls; the process's first call in the
     # "warn" mode adds one of torch's own, so frame_core goes first and
     # again after the graph
@@ -2855,28 +2880,16 @@ def phase27(dev, bundle, accel, config, smi):
         raise AssertionError(f"the flagship graph's launches or host reads differ from frame_core's: "
                              f"K1 {g_k1} against {f_k1}, synchronizing calls at {g_sync} against "
                              f"{f_sync}")
-    # with torch's deterministic algorithms frame_core repeats itself, and
-    # the graph must equal it bit for bit, as on the CPU
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        d_gst, d_gout, _, _ = graph_or_core(graph_step(g), 9, c_bundle.uniforms)
-        d_fst, d_fout, _, _ = graph_or_core(core, 9, c_bundle.uniforms)
-    finally:
-        torch.use_deterministic_algorithms(False)
-    pairs = flagship_pairs(d_gst, d_gout, d_fst, d_fout)
-    unequal = [k for k, (x, y) in pairs.items() if not torch.equal(x, y)]
     log(f"phase 27 graph flagship court fog mcpg + volume denoise {W}x{H} spp {c_cfg.spp} [{smi}]: "
         f"frames 6-8 {np.mean(g_ms[6:]):.1f} ms/frame against frame_core's {np.mean(f_ms[6:]):.1f}; "
         f"K1 a frame {g_k1} (frame_core {f_k1}); synchronizing calls in frame 9: graph "
-        f"{len(g_sync)}, frame_core {len(f_sync)}; under torch.use_deterministic_algorithms the "
-        f"HUD, add and both SVGF histories ({len(pairs)} tensors) bit-identical: {not unequal}; "
-        f"the default mode's runs apart (within {PIX_TOL}, mean |d|): "
-        + ", ".join(f"{k} {a:.5f} {m:.3e}" for k, (a, m) in spread.items()))
+        f"{len(g_sync)}, frame_core {len(f_sync)}; in the default mode the HUD, add and both SVGF "
+        f"histories ({len(pairs)} tensors) bit-identical: {not unequal} (within {PIX_TOL}, "
+        f"mean |d|: " + ", ".join(f"{k} {a:.5f} {m:.3e}" for k, (a, m) in spread.items()) + ")")
     if unequal:
         raise AssertionError(f"the flagship graph differs from frame_core in {unequal}")
     stats["flagship_court"] = {"ms": float(np.mean(g_ms[6:])), "frame_core_ms": float(np.mean(f_ms[6:])),
-                               "k1_per_frame": g_k1[-1], "syncs": len(g_sync),
-                               "default_mode_apart": spread}
+                               "k1_per_frame": g_k1[-1], "syncs": len(g_sync)}
 
     # the flagship on city (no alpha test, so no host read of the alpha
     # loop): a steady frame makes no synchronizing call, as frame_core's
@@ -2994,6 +3007,461 @@ def phase28(dev, bundle, accel, mcpg_city, restir_city, smi):
     if not (report and span_ms > 0.0):
         raise AssertionError("the Profiler's device span reported no time")
     return {"view_ms": ms, "profiler_span_ms": span_ms}
+
+
+# ---------------------------------------------------------------- F7, the live loop, the CLI
+
+# frames of each F7 A/B run (the last 4 timed) and the turns of the A/B
+F7_FRAMES, F7_TURNS = 6, ("parent", "change", "change", "parent")
+# the live dungeon at full width (make_bigmap's defaults) and its frames,
+# as bench.py's live_scale row: 7 settle frames (5-7 steady), 3 timed
+LIVE_SETTLE, LIVE_TIMED = 7, 3
+# rays aimed at the live entities start this far from a triangle's centroid
+AIM_DIST = 48.0
+# the incremental accel against a full build of the same frame:
+# tests/test_live.py's tolerance on t (hits and misses equal)
+LIVE_T_RTOL, LIVE_T_ATOL = 1e-5, 1e-3
+# the CPU-vs-card live dungeon: grid 3, 4 monsters, dynamic capacity 512,
+# 3 steps, 64x40
+SMALL_DUNGEON, SMALL_W, SMALL_H = {"grid": 3, "monsters": 4, "dynamic_capacity": 512}, 64, 40
+
+
+def f7_runs(accel, atlas, uniforms, config, mcfg, dev, frames=F7_FRAMES):
+    """``frames`` frame_core frames from an empty state: (state, out, host
+    ms of each frame, synced)."""
+    from merian_quake_tpu_torch.renderer import init_state, render_frame
+
+    state = init_state(config, mcfg, device=dev)
+    ms = []
+    for i in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = render_frame(accel, atlas, uniforms._replace(frame=i), config, state, mcfg)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, out, ms
+
+
+def f7_tensors(state, out):
+    return {"mc.f": state.mcpg.mc.f, "mc.i": state.mcpg.mc.i, "lc.irr": state.mcpg.lc.irr,
+            "accum_irradiance": state.accum_irradiance, "ldr": out["ldr"]}
+
+
+def phase29(dev, bundle, accel, config, smi):
+    """F7: two frame_core runs from one state are bit-equal in the default
+    mode (city MCPG); the parent's scan (``torch.cumsum``) against the
+    repair (``segments.scan_rows``), frames in turns, on city MCPG and the
+    fogged court with the volume pass."""
+    from merian_quake_tpu_torch.ops import segments
+    from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+    from merian_quake_tpu_torch.render.mcpg.volume import VolumeConfig
+
+    repaired = segments.scan_rows
+    parent = lambda x: torch.cumsum(x, dim=1)  # what compact_sums ran before the repair
+    cfg, mcfg = mcpg_scene_config(config)
+    runs = {}
+    for name, scan in (("change", repaired), ("parent", parent)):
+        segments.scan_rows = scan
+        try:
+            a, b = (f7_tensors(*f7_runs(accel, bundle.atlas, bundle.uniforms, cfg, mcfg, dev)[:2])
+                    for _ in range(2))
+        finally:
+            segments.scan_rows = repaired
+        runs[name] = [k for k in a if not torch.equal(a[k], b[k])]
+    log(f"phase 29 F7 city mcpg {W}x{H}, two runs of {F7_FRAMES} frames from one state [{smi}]: "
+        f"tensors that differ, the repair {runs['change'] or 'none'}; the parent's cumsum "
+        f"{runs['parent'] or 'none'}")
+    if runs["change"]:
+        raise AssertionError(f"frame_core does not repeat itself: {runs['change']} differ")
+    c_bundle, c_accel, c_cfg = court(dev, FOG_MU_T)
+    c_cfg, c_mcfg = c_cfg._replace(integrator="mcpg"), MCPGConfig(volume=VolumeConfig())
+    ab = {}
+    for scene, args in (("city", (accel, bundle.atlas, bundle.uniforms, cfg, mcfg)),
+                        ("court_volume", (c_accel, c_bundle.atlas, c_bundle.uniforms, c_cfg,
+                                          c_mcfg))):
+        turns = []
+        for turn in F7_TURNS:
+            segments.scan_rows = parent if turn == "parent" else repaired
+            try:
+                turns.append(float(np.mean(f7_runs(*args, dev)[2][2:])))
+            finally:
+                segments.scan_rows = repaired
+        p_ms = (turns[0] + turns[3]) / 2
+        c_ms = (turns[1] + turns[2]) / 2
+        ab[scene] = {"turns_ms": turns, "parent_ms": p_ms, "change_ms": c_ms,
+                     "cost": c_ms / p_ms - 1.0}
+        log(f"phase 29 F7 A/B {scene} mcpg {W}x{H} [{smi}]: frames 2-{F7_FRAMES - 1} in turns "
+            f"{', '.join(f'{t} {x:.2f}' for t, x in zip(F7_TURNS, turns))} ms/frame; the repair "
+            f"costs {100 * ab[scene]['cost']:+.2f}% of the frame")
+    return {"repeats": not runs["change"], "parent_differs": runs["parent"], **ab}
+
+
+class LiveRun:
+    """The live dungeon (or arena) and its live accel on the card, with the
+    frame config the slice renders it at."""
+
+    def __init__(self, dev, live, la, config, mcfg):
+        self.dev, self.live, self.la, self.config, self.mcfg = dev, live, la, config, mcfg
+        self.state = None
+        self.i = 0
+
+    def step(self, render=True, sync=True):
+        """One frame of the slice's path: (step s, refresh s, render s, out);
+        with ``sync`` the frame ends in a synchronize."""
+        from merian_quake_tpu_torch.accel.build import refresh_dynamic
+        from merian_quake_tpu_torch.renderer import init_state, render_frame
+
+        if self.state is None:
+            self.state = init_state(self.config, self.mcfg, device=self.dev)
+        t0 = time.perf_counter()
+        self.dyn, self.uniforms = self.live.step_dynamic(dt=1.0 / 30.0, forward=120.0,
+                                                         yaw=25.0 + 2.0 * self.i)
+        t1 = time.perf_counter()
+        self.la = refresh_dynamic(self.la, self.dyn)
+        t2 = time.perf_counter()
+        out = None
+        if render:
+            self.state, out = render_frame(self.la.accel, self.live.gs.static_bundle.atlas,
+                                           self.uniforms, self.config, self.state, self.mcfg)
+        if sync:
+            torch.cuda.synchronize()
+        self.i += 1
+        return t1 - t0, t2 - t1, time.perf_counter() - t2, out
+
+
+def live_config(live, integrator="mcpg", width=W, height=H, mpl=MPL, spp=SPP):
+    from merian_quake_tpu_torch.cli import live_features
+    from merian_quake_tpu_torch.models.types import RenderConfig
+
+    return RenderConfig(width=width, height=height, spp=spp, max_path_length=mpl,
+                        integrator=integrator, features=live_features(live.gs.static_bundle))
+
+
+def phase30(dev, smi):
+    """The live dungeon at full width: the host library's build, the map
+    and its live accel, 10 frames of the slice's path (bench.py's
+    live_scale frames), K3 launches and host reads a frame, peak bytes."""
+    from merian_quake_tpu_torch.accel.build import build_accel_live, refresh_dynamic
+    from merian_quake_tpu_torch.game import host
+    from merian_quake_tpu_torch.game.bigmap import make_bigmap
+    from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+    from merian_quake_tpu_torch.renderer import render_frame
+
+    marks = [time.perf_counter()]
+    lib = host.build_library()
+    marks.append(time.perf_counter())
+    live, _ = make_bigmap(device=dev)
+    marks.append(time.perf_counter())
+    la = build_accel_live(live.gs.static_bundle, dyn_cap=live.gs.dynamic_capacity, device=dev)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    host_s, map_s, accel_s = np.diff(marks)
+    log(f"phase 30 live dungeon: game host built with g++ in {host_s:.2f} s "
+        f"({lib.rsplit('/', 1)[-1]}); make_bigmap() {map_s:.2f} s, {la.n_static} static "
+        f"triangles, dynamic capacity {la.dyn_cap}; build_accel_live {accel_s:.2f} s")
+    run = LiveRun(dev, live, la, live_config(live), MCPGConfig())
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    per_frame, times = [], []
+    for i in range(LIVE_SETTLE):
+        before = launches()["woop_stream"]
+        step_s, refresh_s, render_s, out = run.step()
+        per_frame.append(launches()["woop_stream"] - before)
+        times.append((step_s, refresh_s, render_s))
+    t0 = time.perf_counter()
+    for i in range(LIVE_TIMED):
+        before = launches()["woop_stream"]
+        run.dyn, run.uniforms = live.step_dynamic(dt=1.0 / 30.0, forward=120.0, yaw=40.0 + 2.0 * i)
+        run.la = refresh_dynamic(run.la, run.dyn)
+        run.state, out = render_frame(run.la.accel, live.gs.static_bundle.atlas, run.uniforms,
+                                      run.config, run.state, run.mcfg)
+        per_frame.append(launches()["woop_stream"] - before)
+    torch.cuda.synchronize()
+    live_ms = (time.perf_counter() - t0) / LIVE_TIMED * 1e3
+    path = launches()
+    peak = torch.cuda.max_memory_allocated()
+    others = {k: v for k, v in path.items() if v and k not in ("woop_stream",)}
+    if others or min(per_frame) < 3:
+        raise AssertionError(f"the live dungeon launched {path} (K3 a frame {per_frame})")
+    check_mcpg_finite("live dungeon", run.state, out)
+    valid = int(run.dyn["valid"].sum())
+    if valid <= 0:
+        raise AssertionError("the live dungeon draws no entity")
+    # two more frames' host reads (the alpha loop's, one a round, are the
+    # only ones a live frame may have); the first frame read takes the
+    # synchronizing call torch adds to a process's first call in the
+    # "warn" mode (phase 27), the second is held
+    sync_sites(lambda: run.step(sync=False))
+    _, sites = sync_sites(lambda: run.step(sync=False))
+    if not sites or any(not s.startswith("intersect.py:") for s in sites):
+        raise AssertionError(f"a live frame synchronizes outside the alpha loop: {sites}")
+    steady = np.mean(np.asarray(times[4:7]), axis=0) * 1e3
+    stats = {"static_triangles": la.n_static, "dynamic_triangles": valid,
+             "host_build_s": float(host_s), "make_bigmap_s": float(map_s),
+             "build_accel_live_s": float(accel_s),
+             "step_ms": float(steady[0]), "refresh_ms": float(steady[1]),
+             "render_ms": float(steady[2]), "live_ms_per_frame": live_ms,
+             "k3_per_frame": per_frame, "host_reads_per_frame": len(sites),
+             "h2d_bytes_per_frame": refresh_dynamic.h2d_bytes, "peak_device_bytes": peak}
+    log(f"phase 30 live dungeon mcpg {W}x{H} spp {SPP} mpl {MPL} [{smi}]: frames 5-7 step "
+        f"{steady[0]:.2f} ms, refresh {steady[1]:.2f} ms, render {steady[2]:.1f} ms (synced); "
+        f"{LIVE_TIMED} timed frames {live_ms:.1f} ms/frame (bench.py's timing); K3 a frame "
+        f"{per_frame}; host reads a frame {len(sites)} ({sorted(set(sites))}); refresh copies "
+        f"{refresh_dynamic.h2d_bytes} bytes to the card a frame; {valid} dynamic triangles; "
+        f"peak {peak} bytes; ldr mean {float(out['ldr'].mean()):.4f}")
+    return run, {"live_dungeon": path}, stats
+
+
+def aimed_rays(acc, n_static, n, seed):
+    """``n`` rays aimed at the live entities: each starts AIM_DIST from a
+    valid dynamic triangle's centroid and points at it."""
+    s = acc.scene
+    tris = s.valid[n_static:].nonzero()[:, 0] + n_static
+    g = torch.Generator(device=tris.device).manual_seed(seed)
+    pick = tris[torch.randint(0, tris.shape[0], (n,), device=tris.device, generator=g)]
+    c = (s.v0[pick] + s.v1[pick] + s.v2[pick]) / 3.0
+    u = torch.nn.functional.normalize(torch.randn((n, 3), device=c.device, generator=g), dim=-1)
+    o = (c + AIM_DIST * u).contiguous()
+    d = torch.nn.functional.normalize(c - o, dim=-1).contiguous()
+    return o, d
+
+
+def table_invariants(acc, node_sizes):
+    """The refreshed tables against fresh computations: packed rows,
+    padded bounds (as the traces cached them) and the walk's boxes."""
+    from merian_quake_tpu_torch.accel import woop
+
+    bad = []
+    for w_name, lo_name, hi_name in (("woop_w", "cluster_lo", "cluster_hi"),
+                                     ("woop_w_shadow", "cluster_lo", "cluster_hi"),
+                                     ("woop_w_alpha", "cluster_lo_alpha", "cluster_hi_alpha")):
+        w, lo, hi = getattr(acc, w_name), getattr(acc, lo_name), getattr(acc, hi_name)
+        plo, phi = woop.padded_bounds(lo, hi)
+        flo, fhi = (x.contiguous() for x in woop._pad_bounds(lo.clone(), hi.clone()))
+        pairs = {"rows4": (woop.packed_rows(w), w[:, :4]), "padded_lo": (plo, flo),
+                 "padded_hi": (phi, fhi),
+                 "walk_boxes": (woop.walk_boxes(plo, phi, *node_sizes),
+                                woop.walk_boxes(flo.clone(), fhi.clone(), *node_sizes))}
+        bad += [f"{w_name}.{k}" for k, (a, b) in pairs.items() if not torch.equal(a, b)]
+    return bad
+
+
+def live_checks(phase, name, run, populations, kernel, smi):
+    """A refreshed live accel on the card: ``kernel`` (K1 or K3) and, on
+    the shadow table, its any-hit form, bit-equal to the plain versions on
+    each population; the table invariants; the hits of a from-scratch
+    build_accel of the same frame's full scene (hit/miss equal, t within
+    tests/test_live.py's tolerance). Returns the largest |t difference|
+    against the plain versions and the readings."""
+    from merian_quake_tpu_torch.accel import build_accel, woop
+
+    la, acc = run.la, run.la.accel
+    any_kernel = woop.woop_stream if kernel is woop.woop_stream else woop.woop_any
+    max_abs, readings = [], {}
+    bad = table_invariants(acc, woop.node_sizes(kernel.__name__))
+    if bad:
+        raise AssertionError(f"{name}: refreshed tables differ from fresh ones: {bad}")
+    scene, _ = run.live.gs.extract()
+    full = build_accel(scene, run.live.gs.static_bundle.atlas)
+    for pop, (o, d, t_max) in populations.items():
+        n = o.shape[0]
+        t_min = torch.zeros(n, device=o.device)
+        args = woop.k1_inputs(acc, o, d, t_min, t_max)
+        ref = woop.intersect_woop_reference(args[0], args[1])
+        max_abs.append(check_exact(phase, f"{name} {pop} {n} {kernel.__name__}", kernel(*args), ref))
+        rays, _, shadow = woop.k2_inputs(acc, o, d, t_min, t_max)
+        occ = (any_kernel(rays, *shadow, anyhit=True) if any_kernel is woop.woop_stream
+               else any_kernel(rays, *shadow))
+        max_abs.append(check_k2(f"{name} {pop} {n} {any_kernel.__name__} shadow", occ,
+                                woop.intersect_woop_any_reference(rays, shadow[0]), phase))
+        a = woop.intersect_woop(acc, o, d, 0.0, t_max)
+        b = woop.intersect_woop(full, o, d, 0.0, t_max)
+        hit_differ = int((a.hit != b.hit).sum())
+        t_ok = torch.isclose(a.t[b.hit], b.t[b.hit], rtol=LIVE_T_RTOL, atol=LIVE_T_ATOL)
+        on_dyn = int((a.tri >= la.n_static).sum())
+        readings[pop] = {"rays": n, "hits": int(b.hit.sum()), "dynamic_hits": on_dyn,
+                         "hit_differ": hit_differ, "t_differ": int((~t_ok).sum())}
+        log(f"phase {phase} {name} {pop}: against a full build_accel of the frame's scene: hits "
+            f"{int(b.hit.sum())} of {n}, on the dynamic suffix {on_dyn}, hit/miss differ "
+            f"{hit_differ}, t outside rtol {LIVE_T_RTOL} / atol {LIVE_T_ATOL}: "
+            f"{int((~t_ok).sum())}")
+        if hit_differ or not bool(t_ok.all()):
+            raise AssertionError(f"{name} {pop}: the live accel does not hit as a full build does")
+    return max(max_abs), readings
+
+
+def dungeon_populations(run, dev):
+    """65,536-ray subsets of the frame's primary and bounce rays, and rays
+    aimed at the monsters."""
+    import types
+
+    from merian_quake_tpu_torch.accel import woop
+
+    bundle = types.SimpleNamespace(uniforms=run.uniforms, atlas=run.live.gs.static_bundle.atlas)
+    po, pd = primary_rays(bundle, run.la.accel, dev)
+    bo, bd, bt = bounce_rays(bundle, run.la.accel, run.config._replace(integrator="pt"), dev)
+    mid = slice(W * H // 2, W * H // 2 + SUBSET)
+    ao, ad = aimed_rays(run.la.accel, run.la.n_static, SUBSET, 13)
+    full = lambda v: torch.full((SUBSET,), v, device=dev)
+    return {"primary": (po[mid].contiguous(), pd[mid].contiguous(), full(1e4)),
+            "bounce": (bo[mid].contiguous(), bd[mid].contiguous(), bt[mid].contiguous()),
+            "aimed at the monsters": (ao, ad, full(1e4))}
+
+
+def phase31(dev, dungeon, smi):
+    """The refresh against fresh tables on the card, after the moving
+    steps of phase 30 (the dungeon, K3) and of the live arena (K1, K2);
+    the arena's live frames (MCPG: K1; ReSTIR: K1 + K2) at 1080p; the
+    rows4 mutant must fail the dungeon's check."""
+    from merian_quake_tpu_torch.accel import build, woop
+    from merian_quake_tpu_torch.accel.build import build_accel_live
+    from merian_quake_tpu_torch.game.mod import make_arena
+    from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+    from merian_quake_tpu_torch.render.restir import ReSTIRConfig
+
+    if not woop.streamed(dungeon.la.accel.woop_w):
+        raise AssertionError("the live dungeon's table is not streamed (K3)")
+    k3_err, k3_read = live_checks(31, "live dungeon", dungeon, dungeon_populations(dungeon, dev),
+                                  woop.woop_stream, smi)
+
+    paths, arena_stats = {}, {}
+    for integ, icfg, expect in (("mcpg", MCPGConfig(), ("woop_nearest",)),
+                                ("restir", ReSTIRConfig(), ("woop_nearest", "woop_any"))):
+        live = make_arena(dynamic_capacity=1024, device=dev)
+        la = build_accel_live(live.gs.static_bundle, dyn_cap=live.gs.dynamic_capacity, device=dev)
+        run = LiveRun(dev, live, la, live_config(live, integ), icfg)
+        reset_launches()
+        ms = [run.step()[2] * 1e3 for _ in range(6)]
+        got = launches()
+        if any(got[k] == 0 for k in expect) or any(v for k, v in got.items() if k not in expect):
+            raise AssertionError(f"the live arena ({integ}) launched {got}")
+        paths[f"live_arena_{integ}"] = got
+        arena_stats[f"{integ}_render_ms"] = float(np.mean(ms[2:]))
+        log(f"phase 31 live arena {integ} {W}x{H} [{smi}]: 6 frames, render frames 2-5 "
+            f"{np.mean(ms[2:]):.1f} ms/frame; launches { {k: v for k, v in got.items() if v} }")
+    if woop.streamed(run.la.accel.woop_w):
+        raise AssertionError("the live arena's table is streamed: K1/K2 expected")
+    o, d = aimed_rays(run.la.accel, run.la.n_static, SUBSET, 17)
+    pops = {"aimed at the entities": (o, d, torch.full((SUBSET,), 1e4, device=dev))}
+    k12_err, k12_read = live_checks(31, "live arena", run, pops, woop.woop_nearest, smi)
+
+    # the mutant: the refresh leaves the packed rows as they were
+    write_table = build._write_table
+    build._write_table = build._write
+    try:
+        dungeon.step(render=False)
+        o, d, t_max = dungeon_populations(dungeon, dev)["aimed at the monsters"]
+        args = woop.k1_inputs(dungeon.la.accel, o, d, torch.zeros_like(t_max), t_max)
+        try:
+            check_exact(31, "live dungeon rows4 mutant (must differ)", woop.woop_stream(*args),
+                        woop.intersect_woop_reference(args[0], args[1]))
+        except AssertionError:
+            caught = True
+        else:
+            caught = False
+    finally:
+        build._write_table = write_table
+    dungeon.step(render=False)  # the tables whole again
+    log(f"phase 31 the rows4 mutant (a refresh that does not rewrite the packed rows) fails the "
+        f"K3 check: {caught}")
+    if not caught:
+        raise AssertionError("the rows4 mutant passed the refreshed-table check")
+    return paths, {"k3": k3_read, "k1_k2_arena": k12_read, **arena_stats,
+                   "max_abs_err": max(k3_err, k12_err)}
+
+
+def phase32(dev, smi):
+    """CPU against card: the live dungeon (grid 3, 4 monsters) after 3
+    steps, a PT (mpl 2) and an MCPG frame at 64x40."""
+    from merian_quake_tpu_torch.accel.build import build_accel_live, refresh_dynamic
+    from merian_quake_tpu_torch.game.bigmap import make_bigmap
+    from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+    from merian_quake_tpu_torch.renderer import init_state, render_frame
+
+    outs = {}
+    for device in ("cpu", dev):
+        live, _ = make_bigmap(**SMALL_DUNGEON, device=device)
+        la = build_accel_live(live.gs.static_bundle, dyn_cap=live.gs.dynamic_capacity,
+                              device=device)
+        for i in range(3):
+            dyn, u = live.step_dynamic(dt=1 / 30, forward=100.0, yaw=15.0 + i)
+            la = refresh_dynamic(la, dyn)
+        for integ, mpl, mcfg in (("pt", 2, None), ("mcpg", 3, MCPGConfig())):
+            cfg = live_config(live, integ, SMALL_W, SMALL_H, mpl, 1)
+            _, out = render_frame(la.accel, live.gs.static_bundle.atlas, u, cfg,
+                                  init_state(cfg, mcfg, device=device), mcfg)
+            outs[(str(device), integ)] = out["ldr"].cpu()
+    stats = {}
+    for integ in ("pt", "mcpg"):
+        diff = (outs[("cpu", integ)] - outs[(str(dev), integ)]).abs()
+        share = float((diff.amax(-1) <= PIX_TOL).float().mean())
+        mean = float(diff.mean())
+        stats[integ] = {"share": share, "mean": mean}
+        log(f"phase 32 live dungeon grid 3 cpu vs cuda {SMALL_W}x{SMALL_H} {integ} after 3 steps: "
+            f"pixels within {PIX_TOL} {share:.5f}, mean |d| {mean:.3e}")
+        if share < PIX_SHARE or mean >= MEAN_TOL:
+            raise AssertionError(f"the live dungeon's {integ} frame: CPU and card disagree")
+    return stats
+
+
+# the orbit presets' frames through run_preset: only K1 (small scenes)
+ORBIT_PRESETS = ("config2", "config4", "config5")
+
+
+def phase33(dev, smi):
+    """run_preset for the orbit presets at their named sizes and frames."""
+    from merian_quake_tpu_torch.presets import PRESETS, run_preset
+
+    paths, stats = {}, {}
+    for name in ORBIT_PRESETS:
+        p = PRESETS[name]
+        reset_launches()
+        state, out, spf = run_preset(name, device=dev)
+        got = launches()
+        if not got["woop_nearest"] or any(v for k, v in got.items()
+                                           if k not in ("woop_nearest", "woop_any")):
+            raise AssertionError(f"run_preset({name!r}) launched {got}")
+        for key in ("ldr", "hdr"):
+            if not bool(torch.isfinite(out[key]).all()):
+                raise AssertionError(f"run_preset({name!r}) {key} is not finite")
+        if tuple(out["ldr"].shape) != (p.config.height, p.config.width, 3):
+            raise AssertionError(f"run_preset({name!r}) ldr has the shape {tuple(out['ldr'].shape)}")
+        paths[f"preset_{name}"] = got
+        stats[name] = spf * 1e3
+        log(f"phase 33 run_preset {name} {p.config.width}x{p.config.height} {p.config.integrator} "
+            f"denoise={p.config.denoise} x{p.frames} frames, orbit camera [{smi}]: "
+            f"{spf * 1e3:.2f} ms/frame (frames 1-{p.frames - 1}, the accel rebuilt each frame "
+            f"outside the timing); launches { {k: v for k, v in got.items() if v} }")
+    return paths, stats
+
+
+def phase34(dev, smi):
+    """``python -m merian_quake_tpu_torch.cli play --map bigmap`` at 1080p
+    MCPG, 3 frames, in a subprocess on the card: it writes its PNG."""
+    import os
+    import tempfile
+
+    from merian_quake_tpu_torch.utils.image import load_png
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "play.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "merian_quake_tpu_torch.cli", "--device", str(dev), "play",
+             "--map", "bigmap", "--frames", "3", "--size", f"{W}x{H}", "--spp", str(SPP),
+             "--integrator", "mcpg", "--out", png],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"cli play failed ({proc.returncode}): {proc.stderr[-3000:]}")
+        img = load_png(png)
+    if img.shape != (H, W, 3) or img.std() <= 0:
+        raise AssertionError(f"cli play wrote an image of shape {img.shape}, std {img.std()}")
+    lines = [x for x in proc.stdout.splitlines() if x.startswith(("played", "wrote"))]
+    log(f"phase 34 cli play --map bigmap --frames 3 {W}x{H} mcpg in a subprocess [{smi}]: "
+        f"{secs:.1f} s; {' | '.join(lines)}")
+    return {"seconds": secs}
 
 
 def main() -> int:
@@ -3247,6 +3715,21 @@ def main() -> int:
     mark(27)
     debug_stats = phase28(dev, bundle, accel, mcpg_last, restir_last, smi)
     mark(28)
+
+    # ---- phases 29-34: F7, the live game loop, the orbit presets, the CLI ----
+    f7_stats = phase29(dev, bundle, accel, config, smi)
+    mark(29)
+    dungeon, live_paths, live_stats = phase30(dev, smi)
+    mark(30)
+    arena_paths, refresh_stats = phase31(dev, dungeon, smi)
+    del dungeon
+    mark(31)
+    live_cpu_stats = phase32(dev, smi)
+    mark(32)
+    orbit_paths, orbit_stats = phase33(dev, smi)
+    mark(33)
+    cli_stats = phase34(dev, smi)
+    mark(34)
     log(f"chip_smoke: every phase passed in {time.perf_counter() - run_t0:.1f} s (phase 1 "
         f"{marks[0][1] - run_t0:.1f} s, " + ", ".join(
             f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:])) + ")")
@@ -3257,7 +3740,8 @@ def main() -> int:
              "mcpg_court_volume": volume_path, "mcpg_production": prod_path,
              "mcpg_denoise": denoise_path, "restir_box_denoise": restir_dn_path,
              "mcpg_court_volume_denoise": court_dn_path, "ssmm": ssmm_path,
-             "ssmm_court_denoise": ssmm_court_path, **preset_paths, **graph_paths}
+             "ssmm_court_denoise": ssmm_court_path, **preset_paths, **graph_paths,
+             **live_paths, **arena_paths, **orbit_paths}
     by_path = lambda k: {p: v[k] for p, v in paths.items()}
     total = lambda k: sum(by_path(k).values())
     # a PT frame's 1 primary + 4 bounce traces, the bounce rays as they lie
@@ -3280,6 +3764,10 @@ def main() -> int:
         "production_frame": prod_stats, "denoise_frame": denoise_stats,
         "court_volume_denoise_frame": court_dn_stats, "ssmm_frame": ssmm_stats,
         "presets": preset_stats, "graph": graph_stats, "debug_views": debug_stats,
+        "f7_replay_scan": f7_stats, "live_arena": {
+            k: v for k, v in refresh_stats.items() if k != "k3"},
+        "orbit_presets_ms": orbit_stats, "live_cpu_vs_card": live_cpu_stats,
+        "cli_play_bigmap": cli_stats,
     }, {
         "name": "woop_any", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": total("woop_any"),
@@ -3298,7 +3786,8 @@ def main() -> int:
         "replaces": K3_REPLACES, "launches": total("woop_stream"),
         "launches_by_path": by_path("woop_stream"),
         "anyhit_launches_by_path": by_path("woop_stream_any"),
-        "max_abs_err": max(k3["max_abs_err"], g3["max_abs_err"]), "ms": mix(k3, "ms"),
+        "max_abs_err": max(k3["max_abs_err"], g3["max_abs_err"], refresh_stats["max_abs_err"]),
+        "ms": mix(k3, "ms"),
         "plain_ms": mix(k3, "plain_ms"),
         "bound_ms": mix(k3, "bound_ms"), "bound_by": k3["bounce_unsorted"]["bound_by"], "library_ms": None,
         "rays": n_full, "plain_rays": SUBSET, "ms_plain_rays": mix(k3, "subset_ms"),
@@ -3308,6 +3797,7 @@ def main() -> int:
         "cycle_shares": {k: k3[k]["shares"] for k in K3_POPS},
         "sorted_bounce_ms": k3["bounce"]["ms"], "sorted_bounce_bound_ms": k3["bounce"]["bound_ms"],
         "mcpg_bounce": g3, "mcpg_frame_ms": mcpg_map_t["ms"], "mcpg_frame_cold_ms": mcpg_map_t["cold"],
+        "live_dungeon": {**live_stats, "refreshed_tables": refresh_stats["k3"]},
     }, {
         "name": "mt_dense", "route": "cuda", "source": K8_SOURCE,
         "replaces": K8_REPLACES, "launches": total("mt_dense"),

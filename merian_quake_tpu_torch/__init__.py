@@ -13,8 +13,16 @@ same outputs within a stated tolerance (tests/test_torch_*.py).
 - ``ops``: math/sampling library as plain torch functions
 - ``render``: trace + shading, gbuffer, path tracer, ReSTIR DI, MCPG
   (surface and volume passes)
-- ``post``: accumulation (plain and reprojected) and tonemapping
+- ``post``: accumulation (plain and reprojected), tonemapping and the
+  denoise chain
 - ``renderer``: the frame loop
+- ``game``: the live game loop (the native QuakeC host, entities, the
+  live dungeon); ``accel.build.build_accel_live`` / ``refresh_dynamic``
+  its per-frame accel refresh
+- ``presets``, ``graph``, ``utils``: the tracked configs, the frame
+  graph, certification
+- ``cli``: ``python -m merian_quake_tpu_torch.cli render | preset | play |
+  error | graph | certify``
 - ``interop``: the JAX package's objects, as arrays, into these containers
 
 Nothing here imports JAX. Every entry point takes ``device=`` and

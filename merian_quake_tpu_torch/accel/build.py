@@ -16,7 +16,10 @@ once:
 - the any-hit tables of K2 (build.py:231-296 of the JAX package): the
   shadow table (sky and alpha-tested triangles zeroed), the alpha-only
   table with its own AABBs, and the proxy table of the largest shadow
-  candidates.
+  candidates;
+- the live game's tables (build.py:387-652 there): the static build once
+  plus a dynamic suffix of fixed capacity, rewritten in place every
+  frame by :func:`refresh_dynamic`.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 
 from ..models import materials
 from ..models.types import CLUSTER_SIZE, Scene, SceneFeatures, TextureAtlas
+from . import woop
 from .woop import bake_candidacy, build_woop, pack_table
 
 
@@ -247,6 +251,208 @@ def _anyhit_tables(v0, v1, v2, flags, candidate, needs_alpha, woop_w) -> dict:
         out["woop_w_proxy"], pcand = build_woop(pv0, pv1, pv2, shadow_cand[sel])
         out["cluster_lo_proxy"], out["cluster_hi_proxy"] = cluster_aabbs(pv0, pv1, pv2, pcand)
     return out
+
+
+class LiveAccel(NamedTuple):
+    """The live game's accel (build.py:387-404 of the JAX package): the
+    static tables, built once, then a DYNAMIC suffix of ``dyn_cap`` rows
+    (cluster-aligned) in every table, which :func:`refresh_dynamic`
+    rewrites each frame in place, so that a frame costs O(dynamic), not
+    O(map) (the reference's BLAS refit, quake_node.cpp:896-1012)."""
+
+    accel: AccelScene  # full tables: static prefix + dynamic suffix
+    n_static: int  # static triangle rows (cluster-aligned)
+    dyn_cap: int  # dynamic capacity (cluster-aligned)
+    tex_alpha: np.ndarray  # bool[MAX_TEX] texture has alpha
+    tex_px: np.ndarray  # f64[MAX_TEX] texel count (mip density)
+
+
+def build_accel_live(bundle, dyn_cap: int = 4096, device="cuda") -> LiveAccel:
+    """One-time static build + dynamic-suffix allocation, on ``device``.
+
+    ``bundle``: the SceneBundle of the STATIC map. ``dyn_cap`` must be
+    the GameState's dynamic_capacity, rounded here to a cluster
+    multiple. Every table of the result is a tensor of its own: the
+    shadow table never aliases ``woop_w`` (as it may in :func:`build_accel`),
+    and the alpha-only table and its AABBs are allocated at full size
+    even when the static map has no alpha-tested triangle (the dynamic
+    sprites may have some), as in the JAX package (build.py:445-460).
+    Each Woop table carries its packed rows (``woop.pack_table``).
+    """
+    scene, atlas = bundle.scene, bundle.atlas
+    dyn_cap = -(-dyn_cap // CLUSTER_SIZE) * CLUSTER_SIZE
+    acc = build_accel(scene, atlas, device=device)
+    t0 = acc.scene.num_tris
+    ncd = dyn_cap // CLUSTER_SIZE
+    big = 1e30
+    nc = acc.num_clusters
+
+    def grow(x, fill=0):
+        return torch.cat([x, x.new_full((dyn_cap,) + tuple(x.shape[1:]), fill)])
+
+    def grow_table(w):
+        return pack_table(torch.cat([w, w.new_zeros((3 * dyn_cap, 8))]))
+
+    def boxes(lo, hi):
+        lo = acc.cluster_lo.new_full((nc, 3), big) if lo is None else lo
+        hi = acc.cluster_hi.new_full((nc, 3), -big) if hi is None else hi
+        return (torch.cat([lo, lo.new_full((ncd, 3), big)]),
+                torch.cat([hi, hi.new_full((ncd, 3), -big)]))
+
+    sc = acc.scene
+    new_scene = Scene(*[
+        grow(x, -1.0 if k == "alpha" else False if k == "valid" else 0)
+        for k, x in zip(Scene._fields, sc)
+    ])
+    shadow = acc.woop_w if acc.woop_w_shadow is None else acc.woop_w_shadow
+    alpha = torch.zeros_like(acc.woop_w) if acc.woop_w_alpha is None else acc.woop_w_alpha
+    lo, hi = boxes(acc.cluster_lo, acc.cluster_hi)
+    lo_a, hi_a = boxes(acc.cluster_lo_alpha, acc.cluster_hi_alpha)
+    table = _np(atlas.table)
+    acc2 = acc._replace(
+        scene=new_scene,
+        candidate=grow(acc.candidate, False),
+        needs_alpha=grow(acc.needs_alpha, False),
+        cluster_lo=lo,
+        cluster_hi=hi,
+        woop_w=grow_table(acc.woop_w),
+        tri_attr=grow(acc.tri_attr),
+        woop_w_shadow=grow_table(shadow),
+        woop_w_alpha=grow_table(alpha),
+        cluster_lo_alpha=lo_a,
+        cluster_hi_alpha=hi_a,
+    )
+    return LiveAccel(
+        accel=acc2,
+        n_static=t0,
+        dyn_cap=dyn_cap,
+        tex_alpha=texture_alpha_flags(atlas),
+        tex_px=np.maximum(table[:, 2] * table[:, 3], 1).astype(np.float64),
+    )
+
+
+def dynamic_rows(la: LiveAccel, dyn: dict) -> dict:
+    """The dynamic suffix's rows of every table, host arrays, from
+    ``GameState.extract_dynamic()``'s block (build.py:574-640 of the JAX
+    package, without its TPU-only fine tables): the scene fields, the
+    candidacy, the cluster AABBs, the Woop rows of the nearest, shadow and
+    alpha-only tables and the shading attributes (the JAX package's
+    ``_aabbs_np`` is :func:`cluster_aabbs`)."""
+    cap = la.dyn_cap
+    pad = cap - dyn["v"].shape[0]
+    pd = (
+        (lambda a: np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)]))
+        if pad
+        else (lambda a: a)
+    )
+    v0, v1, v2 = pd(dyn["v"][:, 0]), pd(dyn["v"][:, 1]), pd(dyn["v"][:, 2])
+    pv0, pv1, pv2 = pd(dyn["prev"][:, 0]), pd(dyn["prev"][:, 1]), pd(dyn["prev"][:, 2])
+    valid = pd(dyn["valid"])
+    flags = pd(dyn["flags"])
+    tex = pd(dyn["tex"])
+    fb = pd(dyn["fb"])
+    uv = pd(dyn["uv"])
+    salb = pd(dyn["salb"])
+    semm = pd(dyn["semm"])
+
+    flag_opaque = (flags > 0) & (flags < 7)
+    needs_alpha = valid & ~flag_opaque & la.tex_alpha[np.clip(tex, 0, None)]
+    w, cand = build_woop(v0, v1, v2, valid, chunk=CLUSTER_SIZE)
+    w = bake_candidacy(w, cand)
+    lo, hi = cluster_aabbs(v0, v1, v2, cand)
+    sky = flags == materials.MAT_FLAGS_SKY
+    shadow_cand = cand & ~sky & ~needs_alpha
+    w_shadow = bake_candidacy(w, shadow_cand)
+    alpha_cand = cand & needs_alpha
+    w_alpha = bake_candidacy(w, alpha_cand)
+    lo_a, hi_a = cluster_aabbs(v0, v1, v2, alpha_cand)
+
+    attr = np.zeros((cap, 40), np.float32)
+    attr[:, 0:3], attr[:, 3:6], attr[:, 6:9] = v0, v1, v2
+    attr[:, 9:12], attr[:, 12:15], attr[:, 15:18] = pv0, pv1, pv2
+    attr[:, 18:24] = uv.reshape(cap, 6)
+    attr[:, 24] = tex
+    attr[:, 25] = fb
+    attr[:, 27] = flags
+    attr[:, 28:31] = salb
+    attr[:, 31:34] = semm
+    sd0 = uv[:, 1] - uv[:, 0]
+    sd1 = uv[:, 2] - uv[:, 0]
+    uv_area = 0.5 * np.abs(sd0[:, 0] * sd1[:, 1] - sd0[:, 1] * sd1[:, 0])
+    w_area = 0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1)
+    tpx = la.tex_px[np.clip(tex, 0, len(la.tex_px) - 1)]
+    attr[:, 35] = np.sqrt(uv_area * tpx / np.maximum(w_area, 1e-9)).astype(np.float32)
+    return dict(
+        v0=v0, v1=v1, v2=v2, pv0=pv0, pv1=pv1, pv2=pv2,
+        st=uv, texnum=tex, fb=fb, flags=flags, salb=salb, semm=semm,
+        valid=valid, cand=cand, needs_alpha=needs_alpha,
+        lo=lo, hi=hi, lo_a=lo_a, hi_a=hi_a,
+        w=w, w_shadow=w_shadow, w_alpha=w_alpha, attr=attr,
+    )
+
+
+def _write(dst: torch.Tensor, at: int, rows: np.ndarray) -> int:
+    """Write host ``rows`` into ``dst`` from row ``at`` on, in place (on
+    the card through pinned memory, ordered on the current stream);
+    returns the bytes copied."""
+    src = torch.from_numpy(np.ascontiguousarray(rows)).to(dst.dtype)
+    if dst.is_cuda:
+        src = src.pin_memory()
+    dst[at : at + src.shape[0]].copy_(src, non_blocking=dst.is_cuda)
+    return src.numel() * src.element_size()
+
+
+def _write_table(w: torch.Tensor, at: int, rows: np.ndarray) -> int:
+    """:func:`_write` into a Woop table and its packed rows ``w.rows4``,
+    which K1, K2 and K3 read in its place (a copy, not a view)."""
+    n = _write(w, at, rows)
+    woop.packed_rows(w)[at:].copy_(w[at:, :4])
+    return n
+
+
+def refresh_dynamic(la: LiveAccel, dyn: dict) -> LiveAccel:
+    """Per-frame dynamic-suffix refresh (≈ BLAS refit + re-upload).
+
+    ``dyn``: ``GameState.extract_dynamic()``'s block. The host cost is
+    numpy over ``dyn_cap`` triangles (:func:`dynamic_rows`); the device
+    cost is a row write of the suffix of every table, in place, a few MB
+    over the host-to-device link. The JAX package makes new tables with
+    donated buffers instead (``_apply_dyn_jit``, build.py:514-571); here
+    each table keeps its identity, so what the tracers derived and kept
+    from a table is made anew: the packed rows of the three Woop tables
+    are rewritten with them, and the padded bounds, node and cluster
+    boxes (kept on ``cluster_lo`` and ``cluster_lo_alpha``) and K8's
+    triangle table (kept on ``scene.v0``) are forgotten, to be made at
+    the next trace. No device value is read. Returns ``la``, whose tables
+    now hold this frame; ``refresh_dynamic.h2d_bytes`` is what the last
+    call copied to the device."""
+    u = dynamic_rows(la, dyn)
+    t0 = la.n_static
+    c0 = t0 // CLUSTER_SIZE
+    a = la.accel
+    sc = a.scene
+    n = 0
+    for field, key in (("v0", "v0"), ("v1", "v1"), ("v2", "v2"), ("pv0", "pv0"),
+                       ("pv1", "pv1"), ("pv2", "pv2"), ("st", "st"), ("texnum", "texnum"),
+                       ("fb_texnum", "fb"), ("flags", "flags"), ("solid_albedo", "salb"),
+                       ("solid_emission", "semm"), ("valid", "valid")):
+        n += _write(getattr(sc, field), t0, u[key])
+    n += _write(a.candidate, t0, u["cand"])
+    n += _write(a.needs_alpha, t0, u["needs_alpha"])
+    n += _write(a.cluster_lo, c0, u["lo"])
+    n += _write(a.cluster_hi, c0, u["hi"])
+    n += _write(a.tri_attr, t0, u["attr"])
+    n += _write(a.cluster_lo_alpha, c0, u["lo_a"])
+    n += _write(a.cluster_hi_alpha, c0, u["hi_a"])
+    for w, key in ((a.woop_w, "w"), (a.woop_w_shadow, "w_shadow"), (a.woop_w_alpha, "w_alpha")):
+        n += _write_table(w, 3 * t0, u[key])
+    for owner in (a.cluster_lo, a.cluster_lo_alpha, sc.v0):
+        woop.drop_cached(owner)
+    refresh_dynamic.h2d_bytes = n
+    return la
+
+
+refresh_dynamic.h2d_bytes = 0
 
 
 def scene_features(scene: Scene, uniforms=None, atlas=None) -> SceneFeatures:

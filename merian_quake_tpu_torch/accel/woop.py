@@ -193,6 +193,13 @@ def _cached(owner, key, partner, make):
     return hit[1]
 
 
+def drop_cached(owner):
+    """Forget what :func:`_cached` keeps on ``owner``: a table written in
+    place keeps its identity, so what was derived from it must be made
+    anew."""
+    owner.__dict__.pop("_mq_cache", None)
+
+
 def padded_bounds(lo, hi):
     """:func:`_pad_bounds` of a table's cluster AABBs, contiguous, computed
     once a table (kept on ``lo``), so that every trace hands the kernels

@@ -163,3 +163,31 @@ def frame_state_from_numpy(state, device="cuda"):
         taa_prev=opt(get("taa_prev")),
         volume_svgf=opt_with(svgf_state_from_numpy, get("volume_svgf")),
     )
+
+
+def accel_from_numpy(accel, device="cuda"):
+    """The JAX package's AccelScene into the port's, on ``device``: the
+    fields the port keeps (not the TPU's ``woop_cand`` nor the fine
+    tables), each Woop table with its packed rows."""
+    from .accel.build import AccelScene
+    from .accel.woop import pack_table
+
+    def field(name):
+        x = getattr(accel, name)
+        if x is None:
+            return None
+        t = tensor(x, device)
+        return pack_table(t) if name.startswith("woop_w") else t
+
+    return AccelScene(scene=scene_from_numpy(accel.scene, device),
+                      **{f: field(f) for f in AccelScene._fields if f != "scene"})
+
+
+def live_accel_from_numpy(la, device="cuda"):
+    """The JAX package's LiveAccel into the port's, on ``device``, so that
+    a test can feed both packages the same live tables."""
+    from .accel.build import LiveAccel
+
+    return LiveAccel(accel=accel_from_numpy(la.accel, device), n_static=int(la.n_static),
+                     dyn_cap=int(la.dyn_cap), tex_alpha=np.array(la.tex_alpha),
+                     tex_px=np.array(la.tex_px))

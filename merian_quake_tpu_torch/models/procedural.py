@@ -36,6 +36,40 @@ class _SoupBuilder:
         self.alpha = []
         self.solid_albedo = []
         self.solid_emission = []
+        # bulk chunks (tri_batch): np.asarray over a list of hundreds
+        # of thousands of per-tri rows takes minutes; AD-scale
+        # generators append whole arrays instead
+        self._batches: list[tuple] = []
+
+    def tri_batch(
+        self,
+        v0,
+        v1,
+        v2,
+        st,
+        texnum=0,
+        fb=0,
+        flags=0,
+        alpha=-1.0,
+        solid_albedo=(0, 0, 0),
+        solid_emission=(0, 0, 0),
+    ):
+        """Append n triangles at once (arrays v0/v1/v2: (n, 3),
+        st: (n, 3, 2); scalar attributes broadcast)."""
+        n = v0.shape[0]
+        bc = lambda v, dt, sh: np.broadcast_to(np.asarray(v, dt), sh).reshape(sh)
+        self._batches.append((
+            np.asarray(v0, np.float32),
+            np.asarray(v1, np.float32),
+            np.asarray(v2, np.float32),
+            np.asarray(st, np.float32).reshape(n, 3, 2),
+            bc(texnum, np.int32, (n,)),
+            bc(fb, np.int32, (n,)),
+            bc(flags, np.int32, (n,)),
+            bc(alpha, np.float32, (n,)),
+            bc(solid_albedo, np.float32, (n, 3)),
+            bc(solid_emission, np.float32, (n, 3)),
+        ))
 
     def tri(
         self,
@@ -79,17 +113,28 @@ class _SoupBuilder:
 
     def build(self, device="cuda") -> Scene:
         n = len(self.v0)
-        return build_scene_from_soup(
+        head = (
             np.asarray(self.v0, np.float32).reshape(n, 3),
             np.asarray(self.v1, np.float32).reshape(n, 3),
             np.asarray(self.v2, np.float32).reshape(n, 3),
-            st=np.asarray(self.st, np.float32).reshape(n, 3, 2),
-            texnum=np.asarray(self.texnum, np.int32),
-            fb_texnum=np.asarray(self.fb, np.int32),
-            flags=np.asarray(self.flags, np.int32),
-            alpha=np.asarray(self.alpha, np.float32),
-            solid_albedo=np.asarray(self.solid_albedo, np.float32).reshape(n, 3),
-            solid_emission=np.asarray(self.solid_emission, np.float32).reshape(n, 3),
+            np.asarray(self.st, np.float32).reshape(n, 3, 2),
+            np.asarray(self.texnum, np.int32),
+            np.asarray(self.fb, np.int32),
+            np.asarray(self.flags, np.int32),
+            np.asarray(self.alpha, np.float32),
+            np.asarray(self.solid_albedo, np.float32).reshape(n, 3),
+            np.asarray(self.solid_emission, np.float32).reshape(n, 3),
+        )
+        cols = [np.concatenate([h] + [b[i] for b in self._batches]) for i, h in enumerate(head)]
+        return build_scene_from_soup(
+            cols[0], cols[1], cols[2],
+            st=cols[3],
+            texnum=cols[4],
+            fb_texnum=cols[5],
+            flags=cols[6],
+            alpha=cols[7],
+            solid_albedo=cols[8],
+            solid_emission=cols[9],
             device=device,
         )
 

@@ -20,6 +20,17 @@ from . import materials
 CLUSTER_SIZE = 64
 
 
+def host_to_device(a, device) -> torch.Tensor:
+    """A host (numpy) array as a tensor on ``device``. To the card the
+    copy goes through pinned memory without blocking the host: torch's
+    caching host allocator keeps the pinned block until the copy has
+    run, so the caller may reuse ``a`` at once."""
+    t = torch.from_numpy(np.array(a, order="C"))  # a 0-d array stays 0-d
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def to_device(x, device):
     """Move every tensor in a (nested) NamedTuple/tuple to ``device``."""
     if isinstance(x, torch.Tensor):
@@ -205,9 +216,11 @@ def build_scene_from_soup(
     pv0=None,
     pv1=None,
     pv2=None,
+    pad_to=None,
     device="cuda",
 ) -> Scene:
-    """Host-side (numpy) scene assembly with padding to CLUSTER_SIZE."""
+    """Host-side (numpy) scene assembly with padding to CLUSTER_SIZE
+    (or to ``pad_to`` rows)."""
     v0 = np.asarray(v0, np.float32)
     n = v0.shape[0]
 
@@ -232,7 +245,10 @@ def build_scene_from_soup(
     solid_emission = _default(solid_emission, (n, 3), np.float32)
     valid = np.ones((n,), bool)
 
-    pad = max(CLUSTER_SIZE, -(-n // CLUSTER_SIZE) * CLUSTER_SIZE) - n
+    t_pad = pad_to if pad_to is not None else max(CLUSTER_SIZE, -(-n // CLUSTER_SIZE) * CLUSTER_SIZE)
+    if t_pad < n:
+        raise ValueError(f"pad_to={t_pad} < triangle count {n}")
+    pad = t_pad - n
 
     def _pad(x, fill=0.0):
         if pad:

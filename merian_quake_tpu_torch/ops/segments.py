@@ -114,13 +114,48 @@ def take_compact(comp: Compact, cols: torch.Tensor, fill=0) -> torch.Tensor:
     return torch.where(mask, out, torch.full((), fill, dtype=cols.dtype, device=cols.device))
 
 
+# the chunk of :func:`scan_rows`' first level (elements of a row)
+SCAN_CHUNK = 1024
+
+
+def scan_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive sums along dim 1 of a contiguous (R, M) tensor, in an
+    association fixed by the shapes alone, so a run repeats bit for bit.
+
+    On the CPU this is ``torch.cumsum`` (a sequential scan). On the card
+    torch sends a scan over a single row to CUB's look-back scan, whose
+    float sums associate by timing (two frames from one state part in
+    the guiding table), so the card runs :func:`chunked_scan`."""
+    return chunked_scan(x) if x.is_cuda else torch.cumsum(x, dim=1)
+
+
+def chunked_scan(x: torch.Tensor) -> torch.Tensor:
+    """:func:`scan_rows` in chunks of SCAN_CHUNK elements: each chunk is
+    scanned alone (torch's row scan over R·M/SCAN_CHUNK rows, one order),
+    the chunks' totals are scanned the same way, and each chunk adds the
+    sum of the chunks before it. A single row is scanned beside a row of
+    zeros, so that torch never takes CUB's path."""
+    r, m = x.shape
+    if m <= SCAN_CHUNK:
+        if r == 1:
+            return torch.cumsum(torch.cat([x, torch.zeros_like(x)]), dim=1)[:1]
+        return torch.cumsum(x, dim=1)
+    b = -(-m // SCAN_CHUNK)
+    xp = torch.nn.functional.pad(x, (0, b * SCAN_CHUNK - m)).view(r * b, SCAN_CHUNK)
+    inner = torch.cumsum(xp, dim=1).view(r, b, SCAN_CHUNK)
+    before = chunked_scan(inner[:, :, -1].contiguous())  # (r, b) chunk prefix totals
+    before = torch.cat([torch.zeros_like(before[:, :1]), before[:, :-1]], dim=1)
+    return (inner + before[:, :, None]).view(r, b * SCAN_CHUNK)[:, :m]
+
+
 def compact_sums(comp: Compact, cols: torch.Tensor) -> torch.Tensor:
     """Per-segment totals on the compacted rows.
 
     ``cols``: f32[M] or f32[M, K] of per-row addends (already masked).
     cumsum + capacity-row gather + adjacent difference — the previous
     compacted row is exactly the previous segment's end, so no start
-    index is ever materialized.
+    index is ever materialized. The scan is :func:`scan_rows`, so the
+    totals repeat bit for bit on the card.
     """
     squeeze = cols.dim() == 1
     if squeeze:
@@ -128,7 +163,7 @@ def compact_sums(comp: Compact, cols: torch.Tensor) -> torch.Tensor:
     # the scan runs along the contiguous dim of a (K, M) layout: along
     # dim 0 of (M, K) torch's CUDA scan took 541 ms a call at M = 2-4
     # million rows, K = 4-8 (NVIDIA H100 80GB HBM3, 700 W)
-    cum = torch.cumsum(cols.T.contiguous(), dim=1).T
+    cum = scan_rows(cols.T.contiguous()).T
     at_end = take_compact(comp, cum)  # (cap, K)
     prev = torch.cat([torch.zeros_like(at_end[:1]), at_end[:-1]], dim=0)
     tot = at_end - prev

@@ -8,16 +8,17 @@ setup (integrator, resolution, spp, camera motion, volumetrics,
 animated entities) faithful.
 
 config2, config4 and config5 move their camera along an orbit (config5
-also animates an alias model): their game loop (``game/state.py``,
-``models/mdl.py``) is not ported yet (ROADMAP queue 1, item 5). Their
-orbits are kept here as data (``OrbitGame``); ``run_preset`` raises for
-them rather than render them with a still camera under their name.
-Certification (``utils/certify.py``) renders every preset with a still
-camera by design and runs all six.
+also animates an alias model): ``OrbitGame`` holds the orbit and makes
+the ``game.state.GameState`` that ``run_preset`` steps, rebuilding the
+accel each frame, as the JAX package does. Certification
+(``utils/certify.py``) renders every preset with a still camera by design
+and runs all six.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import numpy as np
 
 from .models.procedural import alcove, cornell_box, outdoor_court
 from .models.types import RenderConfig
@@ -38,23 +39,50 @@ class Preset(NamedTuple):
 
 
 class OrbitGame(NamedTuple):
-    """A preset's moving content as data: the camera orbits ``center`` at
+    """A preset's moving content: the camera orbits ``center`` at
     ``radius`` and ``height``, looking at the center; ``animated`` adds
     the JAX package's bouncing alias model 20 units above the center
-    (merian_quake_tpu/presets.py:33-73). Calling it, as the JAX package
-    calls ``make_game(bundle)``, raises until the game loop is ported."""
+    (merian_quake_tpu/presets.py:33-73). Calling it on a bundle, as the
+    JAX package calls ``make_game(bundle)``, returns the GameState, on
+    the bundle's device."""
 
     center: tuple
     radius: float
     height: float
     animated: bool = False
 
-    def __call__(self, bundle=None):
-        raise NotImplementedError(
-            "this preset moves its camera along an orbit (OrbitGame"
-            f"{tuple(self)}): the game loop it needs (game/state.py, "
-            "models/mdl.py) is ROADMAP queue 1, item 5, not ported yet"
-        )
+    def __call__(self, bundle):
+        from .game.state import GameState, orbit_camera
+
+        gs = GameState(bundle, dynamic_capacity=256, device=bundle.scene.v0.device)
+        gs.camera_path = orbit_camera(self.center, self.radius, self.height,
+                                      look_at=self.center)
+        if self.animated:
+            from .models.mdl import load_mdl, write_mdl
+
+            skin = np.full((8, 8), 240, np.uint8)
+            frames = np.stack([
+                np.asarray([[0, 0, 0], [40, 0, 0], [0, 40, 0], [0, 0, 50]], np.float32)
+                + [0, 0, 10 * i]
+                for i in range(4)
+            ])
+            mdl = load_mdl(
+                write_mdl(
+                    [skin],
+                    np.asarray([0, 7, 3, 1]),
+                    np.asarray([0, 0, 7, 3]),
+                    np.zeros(4, np.int64),
+                    np.asarray([[0, 1, 2], [0, 2, 3]]),
+                    np.asarray([1, 1]),
+                    frames,
+                    np.asarray([0.25, 0.25, 0.25], np.float32),
+                    np.zeros(3, np.float32),
+                ),
+                "bouncer",
+            )
+            gs.add_alias_entity(mdl, origin=np.asarray(self.center, np.float32) + [0, 0, 20])
+            gs.rebuild_atlas()
+        return gs
 
 
 def _fogged_court(device="cuda"):
@@ -140,9 +168,9 @@ PRESETS = {
 def run_preset(name: str, frames: int | None = None, out: str | None = None, device="cuda"):
     """Run a preset on ``device``; returns (state, outputs,
     seconds_per_frame), the mean over the frames after the first. On the
-    card each timed frame ends in ``torch.cuda.synchronize()``. Raises
-    NotImplementedError for the presets that move their camera (config2,
-    config4, config5: ROADMAP queue 1, item 5)."""
+    card each timed frame ends in ``torch.cuda.synchronize()``. A preset
+    with moving content steps its GameState and rebuilds the accel each
+    frame, outside the timed render (merian_quake_tpu/presets.py:175-181)."""
     import time
 
     import torch
@@ -151,24 +179,30 @@ def run_preset(name: str, frames: int | None = None, out: str | None = None, dev
     from .renderer import init_state, render_frame
 
     p = PRESETS[name]
-    if p.make_game is not None:
-        p.make_game(None)  # raises: the orbit needs the game loop
     frames = frames if frames is not None else p.frames
     bundle = p.make_bundle(device=device)
     config = p.config._replace(
         features=scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
     )
+    game = p.make_game(bundle) if p.make_game is not None else None
     sync = torch.device(device).type == "cuda"
     state = init_state(config, p.integ_config, device=device)
-    accel = build_accel(bundle.scene, bundle.atlas, device=device)
+    if game is None:
+        accel = build_accel(bundle.scene, bundle.atlas, device=device)
     outputs = None
     t_total = 0.0
     uniforms = bundle.uniforms
+    atlas = bundle.atlas
     for i in range(frames):
-        uniforms = uniforms._replace(frame=i)
+        if game is not None:
+            scene, uniforms = game.step(1.0 / 30.0)
+            atlas = game.static_bundle.atlas
+            accel = build_accel(scene, atlas, device=device)
+        else:
+            uniforms = uniforms._replace(frame=i)
         t0 = time.perf_counter()
         state, outputs = render_frame(
-            accel, bundle.atlas, uniforms, config, state, p.integ_config
+            accel, atlas, uniforms, config, state, p.integ_config
         )
         if sync:
             torch.cuda.synchronize(device)

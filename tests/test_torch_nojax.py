@@ -7,9 +7,13 @@ under a trace schedule, two denoised path-traced frames and two SSMM
 frames on the CPU, trace it under the schedule through ``woop.intersect_woop``'s glue,
 time two frames through ``bench_torch.phases``, import ``interop``, ``presets``,
 ``utils.certify`` and both debug view modules, and run res/pt_graph.json
-through the frame graph for one 16×8 frame. And the port's entry
-points run on the card unless the caller asks for the CPU: without a
-CUDA device, a call without ``device=`` raises."""
+through the frame graph for one 16×8 frame; boot the live arena
+(``make_arena(device="cpu")``, the game host built from native/game),
+step it twice, refresh its live accel and render one 32×16 frame, then run
+``python -m merian_quake_tpu_torch.cli play --device cpu --size 32x16
+--frames 2``. And the port's entry points run on the card unless the
+caller asks for the CPU: without a CUDA device, a call without
+``device=`` raises."""
 import os
 import subprocess
 import sys
@@ -67,6 +71,24 @@ from merian_quake_tpu_torch.graph.nodes import GraphContext
 g = Graph.from_config("res/pt_graph.json", GraphContext(build_accel(b.scene, b.atlas), b.atlas, RenderConfig(width=16, height=8), device="cpu"))
 st, out = g.run(g.init_state(), {"uniforms": b.uniforms})
 assert out[("tonemap", "out")].shape == (8, 16, 3) and bool(torch.isfinite(out[("add", "out")]).all())
+from merian_quake_tpu_torch.accel.build import build_accel_live, refresh_dynamic
+from merian_quake_tpu_torch.cli import live_features
+from merian_quake_tpu_torch.game.mod import make_arena
+from merian_quake_tpu_torch.renderer import init_state, render_frame
+live = make_arena(device="cpu")
+la = build_accel_live(live.gs.static_bundle, dyn_cap=live.gs.dynamic_capacity, device="cpu")
+for i in range(2):
+    dyn, u = live.step_dynamic(dt=1 / 30, forward=120.0, yaw=25.0 + 2 * i)
+    la = refresh_dynamic(la, dyn)
+cfg = RenderConfig(width=32, height=16, features=live_features(live.gs.static_bundle))
+st, out = render_frame(la.accel, live.gs.static_bundle.atlas, u, cfg, init_state(cfg, device="cpu"))
+assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["ldr"]).all()) and int(dyn["valid"].sum()) > 0
+import runpy, tempfile
+sys.argv = ["cli", "--device", "cpu", "play", "--size", "32x16", "--frames", "2", "--out", tempfile.mkdtemp() + "/play.png"]
+try:
+    runpy.run_module("merian_quake_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
 loaded = [m for m, mod in sys.modules.items() if mod is not None]
 assert not [m for m in loaded if m in ("jax", "merian_quake_tpu") or m.startswith(("jax.", "merian_quake_tpu."))]
 print("ok")
@@ -110,3 +132,16 @@ def test_entry_points_default_to_the_card():
     ctx = GraphContext(None, None, RenderConfig(width=8, height=4))
     with pytest.raises((AssertionError, RuntimeError)):
         Graph.from_config(default_pt_graph_config(), ctx).init_state()
+    from merian_quake_tpu_torch import cli
+    from merian_quake_tpu_torch.accel.build import build_accel_live
+    from merian_quake_tpu_torch.game.bigmap import make_bigmap
+    from merian_quake_tpu_torch.game.live import LiveGame
+    from merian_quake_tpu_torch.game.mod import make_arena
+    from merian_quake_tpu_torch.game.state import GameState
+
+    for make in (make_arena, lambda: make_bigmap(grid=2, monsters=1),
+                 lambda: GameState(bundle), lambda: build_accel_live(bundle),
+                 lambda: LiveGame(make_arena(device="cpu").host, bundle),
+                 lambda: cli.main(["play", "--size", "8x4", "--frames", "1"])):
+        with pytest.raises((AssertionError, RuntimeError)):
+            make()

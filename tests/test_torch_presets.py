@@ -100,9 +100,16 @@ def test_mutants_fail(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["config2", "config4", "config5"])
-def test_orbit_presets_raise(name):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_presets.run_preset(name, device="cpu")
+def test_orbit_presets_raise(name, monkeypatch):
+    """The orbit presets raised NotImplementedError until the game loop
+    was ported; they now run through ``run_preset`` (here at 32x16): the
+    camera moves along the orbit, and the image is finite."""
+    p = t_presets.PRESETS[name]
+    monkeypatch.setitem(t_presets.PRESETS, name,
+                        p._replace(config=p.config._replace(width=32, height=16)))
+    state, out, spf = t_presets.run_preset(name, frames=2, device="cpu")
+    assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["hdr"]).all())
+    assert state.iteration == 2 and spf > 0.0
 
 
 def test_run_preset_on_the_cpu():
