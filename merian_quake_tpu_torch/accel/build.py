@@ -1,10 +1,14 @@
 """Host-side acceleration build: triangle classes + median-split clusters.
 
-Port of merian_quake_tpu/accel/build.py::build_accel for the nearest-hit
-path. The build runs in numpy on the host (the JAX package's numpy
-fallbacks; its optional C++ helpers give the same tables up to f32
-rounding of the Woop rows) and the tables move to the requested device
-once:
+Port of merian_quake_tpu/accel/build.py::build_accel. The build runs on
+the host, in the native C++ builder where the JAX package uses it
+(utils/native.py: cluster AABBs, Woop rows, the Morton order) and in
+numpy elsewhere, and the tables move to the requested device once.
+``native=False`` builds every table in numpy (the JAX package's
+fallbacks, its ``MQ_NO_NATIVE``): the plain version the tests hold the
+native build to. ``cluster="morton"`` orders the triangles by Morton
+code (the JAX package's ``MQ_CLUSTER=morton``) in place of the
+median split. The build gives:
 
 - per-triangle acceptance class for the any-hit loop: ``candidate``
   (participates in intersection) and ``needs_alpha`` (a committed hit
@@ -30,6 +34,7 @@ import torch
 
 from ..models import materials
 from ..models.types import CLUSTER_SIZE, Scene, SceneFeatures, TextureAtlas
+from ..utils import native as _native
 from . import woop
 from .woop import bake_candidacy, build_woop, pack_table
 
@@ -131,11 +136,44 @@ def cluster_aabbs(v0, v1, v2, mask, chunk=CLUSTER_SIZE):
     return lo.astype(np.float32), hi.astype(np.float32)
 
 
+def _morton3(x, y, z):
+    """Interleave three 10-bit integer coordinate arrays (uint64)."""
+
+    def spread(v):
+        v = v & np.uint64(0x3FF)
+        v = (v | (v << np.uint64(16))) & np.uint64(0x030000FF)
+        v = (v | (v << np.uint64(8))) & np.uint64(0x0300F00F)
+        v = (v | (v << np.uint64(4))) & np.uint64(0x030C30C3)
+        v = (v | (v << np.uint64(2))) & np.uint64(0x09249249)
+        return v
+
+    return spread(x) | (spread(y) << np.uint64(1)) | (spread(z) << np.uint64(2))
+
+
+def _morton_perm(v0, v1, v2, candidate, valid):
+    """Morton order of the centroids: candidates first, then alpha-only
+    valid triangles, then padding (numpy; the native builder's
+    ``mq_morton_perm`` gives the same keys in the same order)."""
+    cent = (v0 + v1 + v2) / 3.0
+    lo = cent.min(axis=0)
+    ext = np.maximum(cent.max(axis=0) - lo, 1e-6)
+    q = np.clip(((cent - lo) / ext * 1023.0), 0, 1023).astype(np.uint64)
+    codes = _morton3(q[:, 0], q[:, 1], q[:, 2])
+    rank = np.where(candidate, 0, np.where(valid, 1, 2)).astype(np.uint64)
+    return np.lexsort((codes, rank))
+
+
 def build_accel(
-    scene: Scene, atlas: TextureAtlas | None = None, device=None
+    scene: Scene, atlas: TextureAtlas | None = None, device=None, cluster: str = "median",
+    native: bool = True,
 ) -> AccelScene:
     """Build the accel tables on the host; place them on ``device``
-    (default: the scene's device)."""
+    (default: the scene's device). ``cluster``: "median" (the
+    cluster-aligned median split) or "morton"; ``native``: the C++
+    builder (utils/native.py, built on first use; a failed build
+    raises) or numpy."""
+    if cluster not in ("median", "morton"):
+        raise ValueError(f"unknown cluster order {cluster!r}")
     device = scene.v0.device if device is None else device
     host = [_np(a) for a in scene]
     sc = Scene(*host)
@@ -155,16 +193,27 @@ def build_accel(
         flag_opaque | override_accept | ~has_override
     )
 
-    perm = _median_split_perm(sc.v0, sc.v1, sc.v2, candidate, valid)
+    if cluster == "median":
+        perm = _median_split_perm(sc.v0, sc.v1, sc.v2, candidate, valid)
+    elif native:
+        perm = _native.morton_perm(sc.v0, sc.v1, sc.v2, candidate, valid)
+    else:
+        perm = _morton_perm(sc.v0, sc.v1, sc.v2, candidate, valid)
     sc = Scene(*[a[perm] for a in host])
     candidate = candidate[perm]
     needs_alpha = needs_alpha[perm]
     v0, v1, v2 = sc.v0, sc.v1, sc.v2
     T = v0.shape[0]
 
-    lo_c, hi_c = cluster_aabbs(v0, v1, v2, candidate)
-    woop_w, _ = build_woop(v0, v1, v2, candidate)
-    anyhit = _anyhit_tables(v0, v1, v2, sc.flags, candidate, needs_alpha, woop_w)
+    if native:
+        aabbs = lambda a, b, c, mask: _native.cluster_aabbs(a, b, c, mask, CLUSTER_SIZE)
+        woop_w, woop_cand = _native.build_woop(v0, v1, v2, candidate, CLUSTER_SIZE)
+        woop_w = bake_candidacy(woop_w, woop_cand)
+    else:
+        aabbs = cluster_aabbs
+        woop_w, _ = build_woop(v0, v1, v2, candidate)
+    lo_c, hi_c = aabbs(v0, v1, v2, candidate)
+    anyhit = _anyhit_tables(v0, v1, v2, sc.flags, candidate, needs_alpha, woop_w, aabbs)
 
     attr = np.zeros((T, 40), np.float32)
     attr[:, 0:3] = v0
@@ -219,10 +268,13 @@ def build_accel(
     )
 
 
-def _anyhit_tables(v0, v1, v2, flags, candidate, needs_alpha, woop_w) -> dict:
+def _anyhit_tables(v0, v1, v2, flags, candidate, needs_alpha, woop_w,
+                   aabbs=cluster_aabbs) -> dict:
     """The shadow, alpha-only and proxy tables of K2 (host arrays; None
     where the scene has no such table). The shadow table *is* ``woop_w``
-    when it zeroes nothing."""
+    when it zeroes nothing. ``aabbs``: the cluster-AABB builder (native
+    or numpy); the proxy's Woop rows are numpy's on both routes, as in
+    the JAX package."""
     T = v0.shape[0]
     shadow_cand = candidate & (flags != materials.MAT_FLAGS_SKY) & ~needs_alpha
     out = dict.fromkeys(
@@ -236,7 +288,7 @@ def _anyhit_tables(v0, v1, v2, flags, candidate, needs_alpha, woop_w) -> dict:
     alpha_cand = candidate & needs_alpha
     if alpha_cand.any():
         out["woop_w_alpha"] = bake_candidacy(woop_w, alpha_cand)
-        out["cluster_lo_alpha"], out["cluster_hi_alpha"] = cluster_aabbs(v0, v1, v2, alpha_cand)
+        out["cluster_lo_alpha"], out["cluster_hi_alpha"] = aabbs(v0, v1, v2, alpha_cand)
     # proxy: the largest shadow candidates (by twice their area), in
     # their cluster order
     n_shadow = int(shadow_cand.sum())
@@ -249,7 +301,7 @@ def _anyhit_tables(v0, v1, v2, flags, candidate, needs_alpha, woop_w) -> dict:
         sel = np.sort(np.argpartition(-area2, n_proxy - 1)[:n_proxy])
         pv0, pv1, pv2 = v0[sel], v1[sel], v2[sel]
         out["woop_w_proxy"], pcand = build_woop(pv0, pv1, pv2, shadow_cand[sel])
-        out["cluster_lo_proxy"], out["cluster_hi_proxy"] = cluster_aabbs(pv0, pv1, pv2, pcand)
+        out["cluster_lo_proxy"], out["cluster_hi_proxy"] = aabbs(pv0, pv1, pv2, pcand)
     return out
 
 

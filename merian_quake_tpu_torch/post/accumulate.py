@@ -44,16 +44,21 @@ def firefly_clamp(img, k=4.0):
 
 
 def accumulate_reprojected(history, hist_len, new, mv, valid_extra=None, alpha=0.0,
-                           firefly_k=0.0):
+                           firefly_k=0.0, gather_fn=lambda x: x, y0=0, rows=None):
     """Accumulate with motion-vector reprojection (merian Accumulate).
 
     history/new: f32[H, W, C]; hist_len: f32[H, W]; mv: f32[H, W, 2];
     valid_extra: optional bool[H, W] additional reprojection gate.
     Returns (accumulated, new_hist_len).
+
+    ``gather_fn``/``y0``/``rows``: the row-slab variant. The history slab
+    is gathered to full height (post.sharded.ShardCtx.gather_rows) and
+    reprojected with global row indices, so a slab's result is the
+    single-device result's rows.
     """
     if firefly_k > 0.0:
         new = firefly_clamp(new, firefly_k)
-    prev, valid = reproject(history, mv)
+    prev, valid = reproject(gather_fn(history), mv, y0=y0, rows=rows)
     if valid_extra is not None:
         valid = valid & valid_extra
     n = torch.where(valid, hist_len, 0.0) + 1.0
@@ -70,16 +75,20 @@ def _cell(s, hi: int):
     return torch.clamp(f, 0.0, float(hi)).to(torch.int64)
 
 
-def reproject(history, mv, fallback=None):
+def reproject(history, mv, fallback=None, y0=0, rows=None):
     """Bilinear history lookup at pixel + mv (mv in pixels, prev - cur).
 
     Out-of-bounds samples fall back to ``fallback`` (or the caller handles
     them through the returned validity). Returns (reprojected, valid).
+    ``y0``/``rows``: evaluate only image rows [y0, y0 + rows) of a
+    full-height ``history`` (``mv`` and ``fallback`` are that slab's), by
+    global row.
     """
     H, W = history.shape[:2]
+    rows = H if rows is None else rows
     dev = history.device
     py, px = torch.meshgrid(
-        torch.arange(H, dtype=torch.float32, device=dev),
+        torch.arange(rows, dtype=torch.float32, device=dev) + float(y0),
         torch.arange(W, dtype=torch.float32, device=dev),
         indexing="ij",
     )

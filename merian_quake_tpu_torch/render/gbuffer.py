@@ -43,12 +43,17 @@ def render_gbuffer(
     uniforms: Uniforms,
     config: RenderConfig,
     schedule=None,
+    y0=0,
+    rows: int | None = None,
 ) -> GBufferOutput:
-    """First hits of the camera rays of the whole image (``schedule``: the
-    card's trace schedule, accel.woop.TraceSchedule)."""
+    """First hits of the camera rays (``schedule``: the card's trace
+    schedule, accel.woop.TraceSchedule). ``y0``/``rows``: render only
+    image rows [y0, y0 + rows), the unit of row-slab rendering across
+    devices (parallel/render.py); the camera keeps the whole frame."""
     W, H = config.width, config.height
+    rows = H if rows is None else rows
     dev = accel.woop_w.device
-    pxi, pyi = layout.gen_pixels(W, H, device=dev)
+    pxi, pyi = layout.gen_pixels(W, rows, y0=y0, device=dev)
     pxf = pxi.float()
     pyf = pyi.float()
     cam = (uniforms.cam_u, uniforms.cam_w, uniforms.fov_tan_half)
@@ -66,12 +71,12 @@ def render_gbuffer(
     ones = torch.ones((n, 1), device=dev)
 
     irradiance = layout.flat_to_image(
-        torch.cat([res.contribution, ones], dim=-1), W, H
+        torch.cat([res.contribution, ones], dim=-1), W, rows
     )
     # albedo zeroed where emissive, × camera throughput (gbuffer.comp:107)
     emissive = (res.contribution >= 1e-5).any(-1)
     albedo = hit.albedo * torch.where(emissive[..., None], 0.0, 1.0) * res.throughput
-    albedo_img = layout.flat_to_image(torch.cat([albedo, ones], dim=-1), W, H)
+    albedo_img = layout.flat_to_image(torch.cat([albedo, ones], dim=-1), W, rows)
 
     # motion vector: reproject prev_pos into the previous camera
     old_px, old_py, _ = cam_ops.project(
@@ -79,7 +84,7 @@ def render_gbuffer(
         uniforms.prev_cam_u, uniforms.prev_cam_w, uniforms.fov_tan_half,
     )
     mv = layout.flat_to_image(
-        torch.stack([old_px - pxf, old_py - pyf], dim=-1), W, H
+        torch.stack([old_px - pxf, old_py - pyf], dim=-1), W, rows
     )
 
     # linear z + gradients from offset-pixel ray dirs
@@ -97,8 +102,8 @@ def render_gbuffer(
         albedo=albedo_img,
         mv=mv,
         hits=compress_hit(hit),
-        normal=layout.flat_to_image(hit.normal, W, H),
-        linear_z=layout.flat_to_image(linear_z, W, H),
-        z_grad=layout.flat_to_image(torch.stack([zg_x, zg_y], dim=-1), W, H),
-        z_vel=layout.flat_to_image(z_vel, W, H),
+        normal=layout.flat_to_image(hit.normal, W, rows),
+        linear_z=layout.flat_to_image(linear_z, W, rows),
+        z_grad=layout.flat_to_image(torch.stack([zg_x, zg_y], dim=-1), W, rows),
+        z_vel=layout.flat_to_image(z_vel, W, rows),
     )

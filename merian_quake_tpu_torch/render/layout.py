@@ -16,13 +16,16 @@ def is_tiled(width: int, height: int) -> bool:
     return width % TILE_W == 0 and height % TILE_H == 0
 
 
-def gen_pixels(width: int, height: int, device="cuda"):
-    """Flat (px, py) int32 tensors in buffer order."""
+def gen_pixels(width: int, height: int, y0: int = 0, rows: int | None = None, device="cuda"):
+    """Flat (px, py) int32 tensors in buffer order for image rows [y0,
+    y0 + rows) (default: every row). The slab is laid out as an image of
+    its own: tile-major where ``rows`` tiles."""
+    rows = height if rows is None else rows
     ar = lambda k: torch.arange(k, dtype=torch.int32, device=device)
-    if not is_tiled(width, height):
-        py, px = torch.meshgrid(ar(height), ar(width), indexing="ij")
-        return px.reshape(-1), py.reshape(-1)
-    nty, ntx = height // TILE_H, width // TILE_W
+    if not is_tiled(width, rows):
+        py, px = torch.meshgrid(ar(rows), ar(width), indexing="ij")
+        return px.reshape(-1), py.reshape(-1) + y0
+    nty, ntx = rows // TILE_H, width // TILE_W
     ty = ar(nty).reshape(nty, 1, 1, 1)
     tx = ar(ntx).reshape(1, ntx, 1, 1)
     iy = ar(TILE_H).reshape(1, 1, TILE_H, 1)
@@ -30,7 +33,7 @@ def gen_pixels(width: int, height: int, device="cuda"):
     shape = (nty, ntx, TILE_H, TILE_W)
     px = (tx * TILE_W + ix).expand(shape)
     py = (ty * TILE_H + iy).expand(shape)
-    return px.reshape(-1), py.reshape(-1)
+    return px.reshape(-1), py.reshape(-1) + y0
 
 
 def flat_to_image(x: torch.Tensor, width: int, height: int):

@@ -196,12 +196,16 @@ def render_mcpg_surface(
     gbuf: GBufferOutput,
     schedule=None,
     packed=None,
+    y0=0,
+    rows: int | None = None,
 ) -> SurfaceResult:
     """``packed``: the frame's (``grids.pack_states_draw``, ``_pack_lc``)
     tables when the caller shares them with the volume pass; built here
-    otherwise."""
+    otherwise. ``y0``/``rows``: the image-row slab; its queue rows carry
+    their GLOBAL row ids, so the gathered queues replay as one image's."""
     W, H = config.width, config.height
-    n = W * H
+    rows = H if rows is None else rows
+    n = W * rows
     K = mcfg.mc_samples
     spp = max(config.spp, 1)
     cam_x = uniforms.cam_x
@@ -211,7 +215,7 @@ def render_mcpg_surface(
 
     # ALL spp samples ride in ONE ray population (ns = spp·n). RNG
     # streams are seeded per (sample, pixel).
-    pxi, pyi = layout.gen_pixels(W, H, device=dev)
+    pxi, pyi = layout.gen_pixels(W, rows, y0=y0, device=dev)
     ns = n * spp
     tile = (lambda x: torch.cat([x] * spp, dim=0)) if spp > 1 else (lambda x: x)
     samp = torch.arange(spp, dtype=torch.int64, device=dev).repeat_interleave(n)
@@ -575,7 +579,7 @@ def render_mcpg_surface(
         gidx = z
         live_in = z
 
-    img = layout.flat_to_image(torch.cat([irr, m2[..., None]], dim=-1), W, H)
+    img = layout.flat_to_image(torch.cat([irr, m2[..., None]], dim=-1), W, rows)
     return SurfaceResult(
         irradiance=img, updates=upq, lc_samples=lcq, zeros=zq,
         live_in=live_in, gidx=gidx,

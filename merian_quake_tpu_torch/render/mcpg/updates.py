@@ -68,13 +68,12 @@ class CompactedQueues(NamedTuple):
 def queue_gidx(m_local, groups, width, rows, y0, height, base=0, device="cuda"):
     """Global row index of each queue row: queues are [group, pixels]-
     ordered, pixels in the TILE-MAJOR flat layout (render/layout.py), so
-    the index of a row is base + group·H·W + flat_index(pixel). One
-    device renders the whole image: ``rows`` = ``height``, ``y0`` = 0."""
-    assert rows == height and y0 == 0, "the port renders whole images"
+    the index of a row is base + group·H·W + flat_index(pixel) of the
+    whole image, for the slab of image rows [y0, y0 + rows)."""
     per = rows * width
     assert m_local == (m_local // per) * per, (m_local, per)
     groups = m_local // per
-    px, py = layout.gen_pixels(width, rows, device=device)
+    px, py = layout.gen_pixels(width, rows, y0=y0, device=device)
     gpix = layout.index_of(px, py, width, height).to(torch.int32)
     goff = torch.arange(groups, dtype=torch.int32, device=device) * (height * width)
     return base + (goff[:, None] + gpix[None, :]).reshape(-1)
@@ -89,8 +88,10 @@ def compact_queues(
 ) -> CompactedQueues:
     """Class-sort + static-prefix compaction of the frame's queues. The
     sorts are stable: the live prefix, the zero requests taken from the
-    TAIL, and which rows drop on overflow are row-order facts."""
-    assert n_shards == 1, "the port runs on one device"
+    TAIL, and which rows drop on overflow are row-order facts.
+    ``n_shards``: the row slabs the frame is split into; each keeps
+    1/n_shards of every capacity, so the gathered queues hold as many
+    rows as one device's."""
     S = mcfg.mc_total_size
     qtab = result.updates.data  # (M, 15)
     M = qtab.shape[0]

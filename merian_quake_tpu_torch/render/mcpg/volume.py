@@ -151,30 +151,40 @@ def render_volume(
     gbuf: GBufferOutput,
     schedule=None,
     packed=None,
+    y0=0,
+    rows: int | None = None,
+    gather_img_fn=lambda x: x,
 ):
-    """One volume pass over the whole image. Returns (volume img [H,W,4],
-    volume mv [H,W,2], new VolumeState, SurfaceResult whose queues feed
-    the replay, with the distance-MC writes in ``.dist``). The volume
-    motion vectors are the forward-projected previous scatter depth.
-    ``packed``: the frame's tables from ``surface.pack_tables``, shared
-    with the surface pass; built here otherwise."""
+    """One volume pass over image rows [y0, y0 + rows) (default: the
+    whole image). Returns (volume img [rows,W,4], volume mv [rows,W,2],
+    new VolumeState, SurfaceResult whose queues feed the replay, with the
+    distance-MC writes in ``.dist``). The volume motion vectors are the
+    forward-projected previous scatter depth. ``packed``: the frame's
+    tables from ``surface.pack_tables``, shared with the surface pass;
+    built here otherwise. ``gather_img_fn``: (rows, W[, C]) slab → full
+    (H, W[, C]) image (post.sharded.ShardCtx.gather_rows; identity on
+    one device): the forward projection scatters into any pixel, so it
+    runs on the whole image and keeps the slab's rows."""
     W, H = config.width, config.height
-    n = W * H
+    rows = H if rows is None else rows
+    n = W * rows
     K = mcfg.mc_samples
     DK = vcfg.distance_mc_samples
     cam_x = uniforms.cam_x
     dev = gbuf.linear_z.device
 
-    pxi, pyi = layout.gen_pixels(W, H, device=dev)
+    pxi, pyi = layout.gen_pixels(W, rows, y0=y0, device=dev)
     pxf = pxi.to(torch.float32)
     pyf = pyi.to(torch.float32)
     rng = rng_ops.seed_pixel(pxi, pyi, uniforms.frame, config.seed + 101)
 
-    linear_z = layout.image_to_flat(gbuf.linear_z, W, H)
+    linear_z = layout.image_to_flat(gbuf.linear_z, W, rows)
     first_wi = cam_ops.ray_dir(pxf, pyf, W, H, uniforms.cam_u, uniforms.cam_w, uniforms.fov_tan_half)
 
-    vol_mv = _forward_project(gbuf.mv, vstate.prev_volume_depth, uniforms, config)
-    mv_flat = layout.image_to_flat(vol_mv, W, H)
+    vol_mv = _forward_project(
+        gather_img_fn(gbuf.mv), gather_img_fn(vstate.prev_volume_depth), uniforms, config
+    )[y0 : y0 + rows]
+    mv_flat = layout.image_to_flat(vol_mv, W, rows)
 
     dmc = vstate.dist_mc
     max_t_pix = torch.minimum(linear_z, uniforms.volume_max_t)
@@ -430,7 +440,7 @@ def render_volume(
         )
 
     spp = max(vcfg.volume_spp, 1)
-    img = layout.flat_to_image(torch.cat([irr_acc / spp, (m2_acc / spp)[..., None]], dim=-1), W, H)
+    img = layout.flat_to_image(torch.cat([irr_acc / spp, (m2_acc / spp)[..., None]], dim=-1), W, rows)
     cat = lambda parts, cls: cls(*[torch.cat(xs) for xs in zip(*parts)])
     extra = SurfaceResult(
         irradiance=img,
@@ -439,7 +449,7 @@ def render_volume(
         zeros=cat(zq_all, ZeroQueue),
         dist=cat(dq_all, DistQueue),
     )
-    depth_img = layout.flat_to_image(expected_depth, W, H)
+    depth_img = layout.flat_to_image(expected_depth, W, rows)
     new_vstate = VolumeState(dist_mc=dmc, volume_depth=depth_img, prev_volume_depth=depth_img)
     return img, vol_mv, new_vstate, extra
 
@@ -447,16 +457,17 @@ def render_volume(
 DIST_QUEUE_CAPACITY = 1 << 18
 
 
-def compact_dist(dq: DistQueue, total: int, gidx) -> torch.Tensor:
+def compact_dist(dq: DistQueue, total: int, gidx, n_shards: int = 1) -> torch.Tensor:
     """Class-sort + static live prefix of a DistQueue: the first
-    ``DIST_QUEUE_CAPACITY`` live rows in row order (a stable sort), each
-    with its global row index ``gidx`` as a 6th column, so the replay's
-    winner per slot is the max-gidx row. ``total`` = number of (tile,
-    slot) states. Returns i32[cap, 6]."""
+    ``DIST_QUEUE_CAPACITY / n_shards`` live rows in row order (a stable
+    sort), each with its global row index ``gidx`` as a 6th column, so the
+    replay's winner per slot is the max-gidx row whatever order the
+    shards' rows are gathered in. ``total`` = number of (tile, slot)
+    states. Returns i32[cap, 6]."""
     M = dq.data.shape[0]
     live = dq.data[:, 4] < total
     ps = torch.sort((~live).to(torch.int8), stable=True).indices
-    cap = int(min(M, max(DIST_QUEUE_CAPACITY, 256)))
+    cap = int(min(M, max(DIST_QUEUE_CAPACITY // n_shards, 256)))
     tab = torch.cat([dq.data, gidx.to(torch.int32)[:, None]], dim=1)
     return tab[ps[:cap]]
 

@@ -43,16 +43,20 @@ def render_pt(
     config: RenderConfig,
     gbuf: GBufferOutput,
     schedule=None,
+    y0=0,
+    rows: int | None = None,
 ) -> torch.Tensor:
     """Returns the irradiance image f32[H, W, 4] (rgb, second moment).
 
     RNG streams are seeded with the pixel coordinates. ``schedule``: the
-    card's trace schedule (accel.woop.TraceSchedule).
+    card's trace schedule (accel.woop.TraceSchedule). ``y0``/``rows``:
+    the image-row slab (the image is then f32[rows, W, 4]).
     """
     W, H = config.width, config.height
-    n = W * H
+    rows = H if rows is None else rows
+    n = W * rows
     dev = accel.woop_w.device
-    pxi, pyi = layout.gen_pixels(W, H, device=dev)
+    pxi, pyi = layout.gen_pixels(W, rows, y0=y0, device=dev)
     state = rng_ops.seed_pixel(pxi, pyi, uniforms.frame, config.seed)
 
     first_hit = decompress_hit(gbuf.hits)
@@ -110,4 +114,4 @@ def render_pt(
     if config.spp > 0:
         irr = irr / config.spp
         m2 = m2 / config.spp
-    return layout.flat_to_image(torch.cat([irr, m2[..., None]], dim=-1), W, H)
+    return layout.flat_to_image(torch.cat([irr, m2[..., None]], dim=-1), W, rows)

@@ -1,4 +1,4 @@
-"""SSMM pass (port of merian_quake_tpu/render/ssmm/ssmm.py, single device).
+"""SSMM pass (port of merian_quake_tpu/render/ssmm/ssmm.py).
 
 Defaults mirror the reference's render_ssmm.hpp. The subgroup shuffle
 that passes tentative chains between lanes is a roll by one over the
@@ -6,6 +6,7 @@ flat pixel buffer, in buffer order (tiled at sizes that tile, see
 render.layout); the previous-frame state buffer is read with
 motion-vector offset plus a ±15 px tent-distributed jitter, gated by an
 SVGF-style normal/depth compatibility score (``read_neighbour_state``).
+A row slab of a multi-device frame reads them from the gathered image.
 """
 from __future__ import annotations
 
@@ -108,26 +109,40 @@ def render_ssmm(
     sstate: SSMMState,
     gbuf: GBufferOutput,
     schedule=None,
+    y0=0,
+    rows: int | None = None,
+    shard_ctx=None,
 ):
-    """SSMM pass over the whole image. Returns (irradiance f32[H, W, 4]
-    (rgb, second moment), new SSMMState). ``schedule``: the card's trace
-    schedule (accel.woop.TraceSchedule; None: the default routes)."""
+    """SSMM pass over image rows [y0, y0 + rows) (default: the whole
+    image). Returns (irradiance f32[rows, W, 4] (rgb, second moment), new
+    SSMMState of the slab). ``schedule``: the card's trace schedule
+    (accel.woop.TraceSchedule; None: the default routes).
+
+    On a row slab (``shard_ctx``, post.sharded.ShardCtx) the previous
+    frame's state and the geometry around the motion vector's target
+    (±15 px jitter) are read from the gathered image, and the lane
+    shuffle stays the whole buffer's roll: each slab passes its last lane
+    to the next (``ShardCtx.roll1``, wrapping at the last slab)."""
     W, H = config.width, config.height
-    n = W * H
+    rows = H if rows is None else rows
+    n = W * rows
     dev = accel.woop_w.device
-    pxf, pyf = layout.gen_pixels(W, H, device=dev)
+    pxf, pyf = layout.gen_pixels(W, rows, y0=y0, device=dev)
     rng = rng_ops.seed_pixel(pxf, pyf, uniforms.frame, config.seed)
+    gf = (lambda x: x) if shard_ctx is None else (lambda x: shard_ctx.gather_flat(x, W))
 
     surf = decompress_hit(gbuf.hits)
     live = (surf.albedo >= 1e-7).any(-1)
-    normal_img = layout.image_to_flat(gbuf.normal, W, H)
-    z_img = layout.image_to_flat(gbuf.linear_z, W, H)
-    mv = layout.image_to_flat(gbuf.mv, W, H)
+    normal_img = gf(layout.image_to_flat(gbuf.normal, W, rows))
+    z_img = gf(layout.image_to_flat(gbuf.linear_z, W, rows))
+    mv = layout.image_to_flat(gbuf.mv, W, rows)
     cam_x = uniforms.cam_x
     alpha_r = bsdf.roughness_to_alpha(surf.roughness)
+    sstate_full = SSMMState(*[gf(x) for x in sstate])
     # the subgroup shuffle: every lane's tentative chain moves one lane on
     # in flat buffer order
-    roll_state = lambda t: SSMMState(*[torch.roll(x, 1, 0) for x in t])
+    roll1 = (lambda x: torch.roll(x, 1, 0)) if shard_ctx is None else shard_ctx.roll1
+    roll_state = lambda t: SSMMState(*[roll1(x) for x in t])
 
     curr = _state_new(n, dev)
     tent = _state_new(n, dev)
@@ -158,7 +173,7 @@ def render_ssmm(
             ox = torch.clamp(bxi + off[:, 0], 0, W - 1)
             oy = torch.clamp(byi + off[:, 1], 0, H - 1)
             oidx = layout.index_of(ox, oy, W, H)
-            cand = SSMMState(*[x[oidx] for x in sstate])
+            cand = SSMMState(*[x[oidx] for x in sstate_full])
             other = _state_score(cand, surf.pos, surf.normal, normal_img, z_img, cam_x, oidx)
             take = (score_sum <= 0.0) | (u_rep < other / (other + score_sum))
             tent = _sel(take, cand, tent)
@@ -258,5 +273,5 @@ def render_ssmm(
     # persist only for live pixels (ssmm.comp:232)
     new_state = _sel(live, curr, sstate)
 
-    img = layout.flat_to_image(torch.cat([irr, m2[..., None]], dim=-1), W, H)
+    img = layout.flat_to_image(torch.cat([irr, m2[..., None]], dim=-1), W, rows)
     return img, new_state

@@ -15,6 +15,12 @@ sites map one to one. ``schedule`` (an accel.woop.TraceSchedule; None:
 the default routes) chooses the card's trace schedule, which the JAX
 package takes from process environment switches; it changes no hit, and
 the CPU oracle ignores it.
+
+``frame_core`` renders an image-row slab when given ``y0``/``rows``, with
+``mean_fn`` (the exposure's global mean), ``gather_fn`` (the guiding
+queues of every slab) and ``shard_ctx`` (the halo exchanges and gathered
+images, post.sharded.ShardCtx): the multi-device frame of
+parallel/render.py. The defaults render the whole image on one device.
 """
 from __future__ import annotations
 
@@ -97,14 +103,18 @@ def init_state(config: RenderConfig, mcpg_config=None, device="cuda") -> FrameSt
 
 
 def _render_mcpg(accel, atlas, uniforms, config, mcfg, mstate, vstate, gbuf, schedule,
-                 _surf=None):
+                 _surf=None, y0=0, rows=None, gather_fn=lambda x, groups=1: x,
+                 shard_ctx=None):
     """The guided surface pass on MCPGState ``mstate``, the volume pass on
     VolumeState ``vstate`` when ``mcfg.volume`` is set, and the replay of
     their queues into the guiding state. Returns (irradiance image, new
     MCPGState, the volume's (new VolumeState, this frame's image, motion
     vectors) or None). ``frame_core`` and the frame graph's
     ``render_markovchain`` node both render through it. ``_surf``: a
-    SurfaceResult to replay instead of rendering one (tests)."""
+    SurfaceResult to replay instead of rendering one (tests). On a row
+    slab (``y0``/``rows``, ``shard_ctx``) each slab compacts its queues to
+    1/n of the capacities and ``gather_fn`` gathers every slab's, so that
+    every rank replays the same rows into its replica of the state."""
     from .render.mcpg.surface import (
         SurfaceResult, _seg_budgets, pack_tables, render_mcpg_surface,
     )
@@ -115,16 +125,20 @@ def _render_mcpg(accel, atlas, uniforms, config, mcfg, mstate, vstate, gbuf, sch
     res = (
         _surf if _surf is not None
         else render_mcpg_surface(
-            accel, atlas, uniforms, config, mcfg, mstate, gbuf, schedule, packed=packed
+            accel, atlas, uniforms, config, mcfg, mstate, gbuf, schedule, packed=packed,
+            y0=y0, rows=rows,
         )
     )
     W, H = config.width, config.height
+    rows = H if rows is None else rows
+    n_shards = shard_ctx.n if shard_ctx is not None else 1
+    gather_img = shard_ctx.gather_rows if shard_ctx is not None else (lambda x: x)
     spp = max(config.spp, 1)
     surf_groups = spp * max(config.max_path_length - 1, 1)
     dev = res.updates.data.device
     gidx = (
         res.gidx if res.gidx is not None
-        else queue_gidx(res.updates.data.shape[0], surf_groups, W, H, 0, H, device=dev)
+        else queue_gidx(res.updates.data.shape[0], surf_groups, W, rows, y0, H, device=dev)
     )
     # live-lane compaction makes each segment's queue rows past its
     # static budget DEAD padding (surface pads the compacted emissions
@@ -134,7 +148,7 @@ def _render_mcpg(accel, atlas, uniforms, config, mcfg, mstate, vstate, gbuf, sch
     # render output stays exact, guiding just learns from fewer samples
     # that frame.
     segs_n = max(config.max_path_length - 1, 0)
-    ns_q = W * H * spp
+    ns_q = W * rows * spp
     buds = _seg_budgets(mcfg, segs_n, ns_q)
     if any(b < ns_q for b in buds) and res.gidx is not None:
         sl = lambda x: torch.cat([x[s * ns_q : s * ns_q + b] for s, b in enumerate(buds)])
@@ -150,11 +164,12 @@ def _render_mcpg(accel, atlas, uniforms, config, mcfg, mstate, vstate, gbuf, sch
 
         vol_img, vol_mv, new_volume, vres = render_volume(
             accel, atlas, uniforms, config, mcfg, mcfg.volume, mstate, vstate, gbuf,
-            schedule, packed=packed,
+            schedule, packed=packed, y0=y0, rows=rows, gather_img_fn=gather_img,
         )
         # the volume's rows follow the surface's in the global row order
         gidx_vol = queue_gidx(
-            vres.updates.data.shape[0], max(mcfg.volume.volume_spp, 1), W, H, 0, H, device=dev
+            vres.updates.data.shape[0], max(mcfg.volume.volume_spp, 1), W, rows, y0, H,
+            device=dev,
         )
         gidx = torch.cat([gidx, gidx_vol + surf_groups * H * W])
         cat = lambda a, b: type(a)(*[torch.cat([x, y]) for x, y in zip(a, b)])
@@ -165,10 +180,11 @@ def _render_mcpg(accel, atlas, uniforms, config, mcfg, mstate, vstate, gbuf, sch
             zeros=cat(res.zeros, vres.zeros),
         )
         dmc = vstate.dist_mc
-        dq = compact_dist(vres.dist, dmc.sum_w.numel(), gidx_vol)
+        dq = gather_fn(compact_dist(vres.dist, dmc.sum_w.numel(), gidx_vol, n_shards), 1)
         new_volume = new_volume._replace(dist_mc=apply_dist_updates(dmc, dq))
         vol = (new_volume, vol_img, vol_mv)
-    cq = compact_queues(res, mcfg, gidx, gidx)
+    cq = compact_queues(res, mcfg, gidx, gidx, n_shards=n_shards)
+    cq = type(cq)(*[gather_fn(x, 1) for x in cq])
     return res.irradiance, apply_updates_compact(config.seed, mstate, cq, uniforms, mcfg), vol
 
 
@@ -181,12 +197,37 @@ def frame_core(
     mcpg_config=None,
     schedule=None,
     _surf=None,
+    y0=0,
+    rows: int | None = None,
+    mean_fn=lambda x: x,
+    gather_fn=lambda x, groups=1: x,
+    shard_ctx=None,
 ):
-    """One frame. Returns (new_state, outputs) with outputs
-    {"hdr", "ldr", "irradiance", "gbuffer"}, and "volume" and
-    "volume_mv" when the volume pass runs."""
+    """One frame over image rows [y0, y0 + rows) (default: the whole
+    image). Returns (new_state, outputs) with outputs {"hdr", "ldr",
+    "irradiance", "gbuffer"}, and "volume" and "volume_mv" when the volume
+    pass runs, all of them the slab's.
+
+    ``mean_fn`` reduces this slab's mean log luminance to the image's
+    (post.sharded.ShardCtx.mean); ``gather_fn(x, groups)`` gathers every
+    slab's guiding-update queue rows, so that every device applies the
+    same update set to its replica of the guiding state; ``shard_ctx``
+    (post.sharded.ShardCtx) switches the cross-pixel reads of ReSTIR and
+    SSMM, the volume's forward projection, the volume accumulation and
+    the denoise chain to their halo and gather routes. A slab needs it
+    for every integrator but ``pt`` and ``mcpg`` without denoise or
+    volume (raises otherwise; the JAX package asserts it for ReSTIR and
+    SSMM)."""
     _check_supported(config)
-    gbuf = render_gbuffer(accel, atlas, uniforms, config, schedule)
+    rows = config.height if rows is None else rows
+    volume = config.integrator == "mcpg" and getattr(mcpg_config, "volume", None) is not None
+    if rows != config.height and shard_ctx is None and (
+        config.integrator in ("restir", "ssmm") or config.denoise or volume
+    ):
+        raise ValueError(f"{config.integrator} (denoise={config.denoise}, volume={volume}) on a "
+                         "row slab needs a shard_ctx")
+    gather_img = shard_ctx.gather_rows if shard_ctx is not None else (lambda x: x)
+    gbuf = render_gbuffer(accel, atlas, uniforms, config, schedule, y0=y0, rows=rows)
     new_restir = state.restir
     new_mcpg = state.mcpg
     new_ssmm = state.ssmm
@@ -196,24 +237,25 @@ def frame_core(
 
         irr, new_mcpg, vol = _render_mcpg(
             accel, atlas, uniforms, config, mcpg_config or MCPGConfig(), state.mcpg,
-            state.volume, gbuf, schedule, _surf,
+            state.volume, gbuf, schedule, _surf, y0=y0, rows=rows, gather_fn=gather_fn,
+            shard_ctx=shard_ctx,
         )
     elif config.integrator == "restir":
         from .render.restir import ReSTIRConfig, render_restir
 
         irr, new_restir = render_restir(
             accel, atlas, uniforms, config, mcpg_config or ReSTIRConfig(),
-            state.restir, gbuf, schedule,
+            state.restir, gbuf, schedule, y0=y0, rows=rows, shard_ctx=shard_ctx,
         )
     elif config.integrator == "ssmm":
         from .render.ssmm import SSMMConfig, render_ssmm
 
         irr, new_ssmm = render_ssmm(
             accel, atlas, uniforms, config, mcpg_config or SSMMConfig(),
-            state.ssmm, gbuf, schedule,
+            state.ssmm, gbuf, schedule, y0=y0, rows=rows, shard_ctx=shard_ctx,
         )
     else:
-        irr = render_pt(accel, atlas, uniforms, config, gbuf, schedule)
+        irr = render_pt(accel, atlas, uniforms, config, gbuf, schedule, y0=y0, rows=rows)
     it = state.iteration
     if config.denoise:
         # the denoise beauty path reads none of the plain accumulators
@@ -233,7 +275,8 @@ def frame_core(
         # vectors: under camera motion it tracks the fog instead of
         # ghosting
         acc_vol, acc_vol_len = accumulate_reprojected(
-            state.accum_volume, state.accum_volume_len, vol[1], vol[2]
+            state.accum_volume, state.accum_volume_len, vol[1], vol[2],
+            gather_fn=gather_img, y0=y0, rows=rows,
         )
         new_state = new_state._replace(
             volume=vol[0], accum_volume=acc_vol, accum_volume_len=acc_vol_len
@@ -242,9 +285,18 @@ def frame_core(
     # SVGF (+ albedo remodulate) → add direct emission (+ the volume's
     # own SVGF) → exposure → tonemap → TAA → FXAA
     if config.denoise:
-        from .post.fxaa import fxaa
-        from .post.svgf import svgf
-        from .post.taa import taa
+        if shard_ctx is not None:
+            from functools import partial
+
+            from .post.sharded import fxaa_sharded, svgf_sharded, taa_sharded
+
+            svgf = partial(svgf_sharded, shard_ctx)
+            taa = partial(taa_sharded, shard_ctx)
+            fxaa = partial(fxaa_sharded, shard_ctx)
+        else:
+            from .post.fxaa import fxaa
+            from .post.svgf import svgf
+            from .post.taa import taa
 
         new_svgf, filtered = svgf(
             state.svgf, irr[..., :3], irr[..., 3], gbuf.mv, gbuf.normal, gbuf.linear_z,
@@ -271,7 +323,7 @@ def frame_core(
             beauty_hdr = beauty_hdr + new_state.accum_volume[..., :3]
     # auto exposure (key / log-average luminance, merian Exposure node)
     lum = color_ops.yuv_luminance(beauty_hdr)
-    log_mean = torch.log(lum + 1e-4).mean()
+    log_mean = mean_fn(torch.log(lum + 1e-4).mean())
     scale = 0.18 / torch.clamp_min(torch.exp(log_mean), 1e-4)
     ldr = tonemap_reinhard_extended(beauty_hdr * scale)
     if config.denoise:

@@ -11,7 +11,10 @@ through the frame graph for one 16×8 frame; boot the live arena
 (``make_arena(device="cpu")``, the game host built from native/game),
 step it twice, refresh its live accel and render one 32×16 frame, then run
 ``python -m merian_quake_tpu_torch.cli play --device cpu --size 32x16
---frames 2``. And the port's entry points run on the card unless the
+--frames 2``; import the demo reader, the .pak/.bsp loaders and the BSP
+extraction, build a Morton-ordered accel with the native builder and
+render one sharded MCPG frame on two gloo ranks (``dryrun_multichip(2,
+device="cpu")``). And the port's entry points run on the card unless the
 caller asks for the CPU: without a CUDA device, a call without
 ``device=`` raises."""
 import os
@@ -89,6 +92,14 @@ try:
     runpy.run_module("merian_quake_tpu_torch.cli", run_name="__main__")
 except SystemExit as e:
     assert e.code == 0, e.code
+import merian_quake_tpu_torch.game.demo, merian_quake_tpu_torch.models.extract, merian_quake_tpu_torch.models.pak
+from merian_quake_tpu_torch.utils import native
+assert native.load().mq_version() == 1
+acc = build_accel(b.scene, b.atlas, device="cpu", cluster="morton")
+assert acc.woop_w.shape[0] == 3 * acc.scene.num_tris
+from merian_quake_tpu_torch.parallel import dryrun_multichip
+dr = dryrun_multichip(2, device="cpu")
+assert dr["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(dr["ldr"]).all()) and dr["live_states"] > 0
 loaded = [m for m, mod in sys.modules.items() if mod is not None]
 assert not [m for m in loaded if m in ("jax", "merian_quake_tpu") or m.startswith(("jax.", "merian_quake_tpu."))]
 print("ok")
@@ -145,3 +156,7 @@ def test_entry_points_default_to_the_card():
                  lambda: cli.main(["play", "--size", "8x4", "--frames", "1"])):
         with pytest.raises((AssertionError, RuntimeError)):
             make()
+    from merian_quake_tpu_torch.parallel import dryrun_multichip
+
+    with pytest.raises(RuntimeError):  # a rank fails: no card to place it on
+        dryrun_multichip(2)
