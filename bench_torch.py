@@ -28,7 +28,12 @@ path length 3, on the first CUDA device:
 
 Each of the other rows renders two settle frames, then a fresh state
 from frame 0, and times windows of frames on the host clock, each ending
-in ``torch.cuda.synchronize()``. Mrays/s = W·H·(1 + spp·(mpl − 1)) /
+in ``torch.cuda.synchronize()``; then the same windows again through the
+captured frame (``renderer.compile_frame``: one CUDA graph, warmed up and
+captured at frame 0, replayed a frame), whose ms/frame, Mrays/s, capture
+seconds and graph pool bytes stand beside the eager ones (``captured_*``
+keys). The live loop is not captured (its refresh makes its tables anew
+a frame), so ``live_scale`` has no captured numbers. Mrays/s = W·H·(1 + spp·(mpl − 1)) /
 frame time, plus W·H·volume_spp for the production row
 (bench.py:236-239). bench.py's ``vs_baseline`` and ``vs_prev`` compare
 against TPU figures and are not computed. Without a CUDA device the
@@ -50,42 +55,52 @@ MAP = {"n_buildings": 28000, "seed": 11}
 LIVE_SETTLE, LIVE_TIMED = 7, 3
 
 
-def phases(bundle, accel, config, mcfg, windows, timed, device):
+def phases(bundle, accel, config, mcfg, windows, timed, device, captured=False):
     """Render one sequence and time ``timed`` frames from each window's
-    start frame (``windows``: name → start). Two settle frames run first
-    on their own state; the timed sequence starts from an empty state at
-    frame 0. Returns ({name: seconds a frame}, peak device bytes)."""
-    from merian_quake_tpu_torch.renderer import init_state, render_frame
+    start frame (``windows``: name → start). Eagerly, two settle frames
+    run first on their own state; ``captured``: the frames run through
+    ``compile_frame``, whose first call warms up and captures. The timed
+    sequence starts from an empty state at frame 0. Returns ({name:
+    seconds a frame}, peak device bytes), and with ``captured`` also
+    {capture seconds, graph pool bytes}."""
+    from merian_quake_tpu_torch.renderer import compile_frame, init_state, render_frame
 
-    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
-    state = init_state(config, mcfg, device=device)
-    for i in range(2):
-        state, _ = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=1000 + i),
-                                config, state, mcfg)
-    del state
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if captured:
+        cf = compile_frame(accel, bundle.atlas, config, init_state(config, mcfg, device=device),
+                           mcfg)
+        step = lambda st, u: cf(u)
+    else:
+        step = lambda st, u: render_frame(accel, bundle.atlas, u, config, st, mcfg)
+        state = init_state(config, mcfg, device=device)
+        for i in range(2):
+            state, _ = step(state, bundle.uniforms._replace(frame=1000 + i))
+        del state
     sync()
-    if torch.device(device).type == "cuda":
+    if cuda:
         torch.cuda.reset_peak_memory_stats()
-    state = init_state(config, mcfg, device=device)
+    state = None if captured else init_state(config, mcfg, device=device)
     out, frame = {}, 0
     for name, start in sorted(windows.items(), key=lambda kv: kv[1]):
         while frame < start:
-            state, _ = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=frame),
-                                    config, state, mcfg)
+            state, _ = step(state, bundle.uniforms._replace(frame=frame))
             frame += 1
         sync()
         t0 = time.perf_counter()
         for _ in range(timed):
-            state, outputs = render_frame(accel, bundle.atlas,
-                                          bundle.uniforms._replace(frame=frame), config, state,
-                                          mcfg)
+            state, outputs = step(state, bundle.uniforms._replace(frame=frame))
             frame += 1
         sync()
         out[name] = (time.perf_counter() - t0) / timed
         if not bool(torch.isfinite(outputs["ldr"]).all()):
             raise RuntimeError(f"frame {frame - 1}: the image is not finite")
-    peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else None
-    return out, peak
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    if not captured:
+        return out, peak
+    cap = cf.captured
+    return out, peak, {"capture_s": None if cap is None else round(cap.capture_seconds, 3),
+                       "graph_pool_bytes": None if cap is None else cap.pool_bytes}
 
 
 def scene(device, **kw):
@@ -169,39 +184,52 @@ def main() -> int:
 
     bundle, accel, config = scene(device)
     mcfg = MCPGConfig()
-    head, head_peak = phases(bundle, accel, config, mcfg, {"cold": 2, "warm12": 12, "steady": 28},
-                             4, device)
+    head_w = {"cold": 2, "warm12": 12, "steady": 28}
+    head, head_peak = phases(bundle, accel, config, mcfg, head_w, 4, device)
+    head_c = phases(bundle, accel, config, mcfg, head_w, 4, device, captured=True)
     prod = production_config()
     rays_prod = rays + W * H * prod.volume.volume_spp
     pr, prod_peak = phases(bundle, accel, config, prod, {"cold": 2, "warm6": 6}, 3, device)
+    pr_c = phases(bundle, accel, config, prod, {"cold": 2, "warm6": 6}, 3, device, captured=True)
     del bundle, accel
     m_bundle, m_accel, m_config = scene(device, **MAP)
     mp, map_peak = phases(m_bundle, m_accel, m_config, mcfg, {"cold": 2, "warm6": 6}, 3, device)
+    mp_c = phases(m_bundle, m_accel, m_config, mcfg, {"cold": 2, "warm6": 6}, 3, device,
+                  captured=True)
     n_map = int(m_accel.scene.num_tris)
     del m_bundle, m_accel
     live = live_scale(device, mcfg)
 
-    row = lambda t, key, r=rays: {"cold_frame_ms": round(t["cold"] * 1e3, 2),
-                                  "cold_mrays_per_s": rate(t["cold"], r),
-                                  "frame_ms": round(t[key] * 1e3, 2),
-                                  "mrays_per_s": rate(t[key], r)}
+    def row(t, key, r=rays, cap=None):
+        out = {"cold_frame_ms": round(t["cold"] * 1e3, 2), "cold_mrays_per_s": rate(t["cold"], r),
+               "frame_ms": round(t[key] * 1e3, 2), "mrays_per_s": rate(t[key], r)}
+        if cap is not None:  # the captured frame's numbers beside the eager ones
+            (tc, peak, extra) = cap
+            out.update({"captured_cold_frame_ms": round(tc["cold"] * 1e3, 2),
+                        "captured_frame_ms": round(tc[key] * 1e3, 2),
+                        "captured_mrays_per_s": rate(tc[key], r),
+                        "captured_peak_device_bytes": peak,
+                        **{f"captured_{k}": v for k, v in extra.items()}})
+        return out
     print(json.dumps({
         "metric": "mcpg_ray_throughput_1080p_17k_tris_single_gpu",
         "value": rate(head["warm12"]),
         "unit": "Mrays/s",
         "detail": {
-            **row(head, "warm12"),
+            **row(head, "warm12", cap=head_c),
             "steady_frame_ms": round(head["steady"] * 1e3, 2),
             "steady_mrays_per_s": rate(head["steady"]),
+            "captured_steady_frame_ms": round(head_c[0]["steady"] * 1e3, 2),
             "peak_device_bytes": head_peak,
             "resolution": f"{W}x{H}", "spp": SPP, "max_path_length": MPL,
             "integrator": "mcpg", "scene": "procedural city (16,640 tris, sky+sun+emissives)",
             "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
             "torch": torch.__version__, "cuda": torch.version.cuda,
-            "map_scale": {**row(mp, "warm6"), "triangles": n_map,
+            "map_scale": {**row(mp, "warm6", cap=mp_c), "triangles": n_map,
                           "peak_device_bytes": map_peak},
             "live_scale": {**live, "mrays_per_s": rate(live["live_ms_per_frame"] / 1e3)},
-            "production_scale": {**row(pr, "warm6", rays_prod), "rays_per_frame": rays_prod,
+            "production_scale": {**row(pr, "warm6", rays_prod, cap=pr_c),
+                                 "rays_per_frame": rays_prod,
                                  "mc_states": prod.mc_total_size, "light_cache": prod.lc_size,
                                  "volume_spp": prod.volume.volume_spp,
                                  "dist_guide_p": prod.volume.dist_guide_p,

@@ -296,7 +296,23 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     slab's live rows pass that (the default capacities at 1080p), its
     guiding learns from other rows than one device's, and only frame 0,
     before any guided draw, is held; the wide capacities must not
-    overflow and are held on every frame.
+    overflow and are held on every frame;
+38. the frame captured in one CUDA graph (``renderer.compile_frame``;
+    ``Graph.compile`` for the flagship graph): city MCPG at 1080p (the
+    main path), the fogged court's MCPG + volume (the alpha loop's test on
+    the device: all 5 rounds), city ReSTIR (K2), denoised city MCPG, map
+    MCPG (K3), config1's PT box at 640x360 (a small, launch-bound frame)
+    and the flagship graph on the fogged court, each from an empty state
+    for 9 frames (frame 0's call warms up, captures and
+    replays; then 8 replays), every frame's state and outputs bit for bit
+    against eager ``frame_core`` (or ``Graph.run``) from the same state,
+    with eager and captured ms/frame (host clock, synced a frame), the
+    capture's seconds, the graph's pool bytes, the device's busy share
+    of each (torch.profiler, over at least 250 ms of frames) and the K1/K2/K3 launches in
+    the graph; then what one alpha round costs once every ray is dead.
+    ``render_sequence`` runs the captured frame on the card too, so the
+    launch counts around it (phases 7 and 19) are the capture's: its
+    warm-up frames and the capture itself.
 
 Each path (PT city, ReSTIR city, dense map, PT map, ReSTIR map, the five
 city(1600) frame runs of phase 14, MCPG city, MCPG map, the two
@@ -305,9 +321,11 @@ court's MCPG + volume, production city, denoised city MCPG, config3's
 denoised ReSTIR box, the denoised fogged court, SSMM city, the denoised
 SSMM court, the three presets run, the two certifications, the three
 graph runs, the live dungeon, the live arena's MCPG and ReSTIR frames and
-the three orbit presets, the Morton city, the .bsp room, and the sharded
-MCPG, ReSTIR and denoised PT frames, counted in each rank) is driven with
-every launch count set to 0 just before it and read just after. The whole run's
+the three orbit presets, the Morton city, the .bsp room, the sharded
+MCPG, ReSTIR and denoised PT frames, counted in each rank, and the six
+captured frames of phase 38, whose counts are the warm-up frames' and
+the capture's: a replay launches the graph, not the wrappers) is driven
+with every launch count set to 0 just before it and read just after. The whole run's
 seconds are printed before the kernels' line. The line before the
 last is the kernels' JSON record (with each kernel's launches by path
 and its bound: the larger of the bytes it must
@@ -320,6 +338,7 @@ once and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -892,6 +911,7 @@ def phase6(dev, bundle, accel, feats, smi):
 def phase7(dev):
     """ReSTIR at 64×36, 3 frames: the CPU oracle against the card."""
     from merian_quake_tpu_torch.accel import woop
+    from merian_quake_tpu_torch.capture import WARMUP_STEPS
     from merian_quake_tpu_torch.models.procedural import city
     from merian_quake_tpu_torch.models.types import RenderConfig
     from merian_quake_tpu_torch.render.restir import ReSTIRConfig
@@ -906,13 +926,16 @@ def phase7(dev):
         _, out_gpu = render_sequence(city(device="cpu"), small, frames=3, mcpg_config=rcfg,
                                      device=dev)
         k2 = woop.woop_any.launches - k2_before
-        expect = 3 * (3 if rcfg.temporal_bias_correction == 2 else 1)
+        # a captured sequence: the wrapper launches in the warm-up frames and
+        # records into the graph once; the replays launch the graph
+        expect = (WARMUP_STEPS + 1) * (3 if rcfg.temporal_bias_correction == 2 else 1)
         if k2 != expect:
             raise AssertionError(f"phase 7 {name}: K2 launched {k2} times, expected {expect}")
         diff = (out_cpu["ldr"] - out_gpu["ldr"].cpu()).abs()
         share = float((diff.amax(-1) <= PIX_TOL).float().mean())
         mean = float(diff.mean())
-        log(f"phase 7 restir {name} cpu vs cuda 64x36 x3 frames: K2 launches {k2}; pixels within "
+        log(f"phase 7 restir {name} cpu vs cuda 64x36 x3 frames (captured on the card): K2 "
+            f"launches through the wrapper {k2} (the capture's warm-up and capture); pixels within "
             f"{PIX_TOL} {share:.5f}, mean |d| {mean:.3e}, max |d| {float(diff.max()):.3e}")
         if share < PIX_SHARE or mean >= MEAN_TOL:
             raise AssertionError(f"ReSTIR {name}: CPU and card LDR images disagree")
@@ -1991,6 +2014,7 @@ def phase19(dev):
     inside PT's tolerance; after 4 frames the LDR, the live chain states
     and the touched light-cache cells inside pinned bounds), and the
     estimator against PT's on the card after 64 accumulated frames."""
+    from merian_quake_tpu_torch.capture import WARMUP_STEPS
     from merian_quake_tpu_torch.models.procedural import city
     from merian_quake_tpu_torch.models.types import RenderConfig
     from merian_quake_tpu_torch.render.mcpg import MCPGConfig
@@ -2005,8 +2029,11 @@ def phase19(dev):
         if launches()["woop_nearest"] != k1:
             raise AssertionError("the CPU MCPG frames launched K1")
         sg, og = render_sequence(city(device="cpu"), small, frames=frames, mcpg_config=mcfg)
-        if launches()["woop_nearest"] != k1 + 3 * frames or og["ldr"].device != dev:
-            raise AssertionError("the card's MCPG frames did not launch K1 3 times a frame")
+        # render_sequence runs a captured frame on the card: the wrappers
+        # launch during its warm-up frames and record into the graph once
+        if launches()["woop_nearest"] != k1 + 3 * (WARMUP_STEPS + 1) or og["ldr"].device != dev:
+            raise AssertionError("the card's MCPG frames did not launch K1 3 times a frame "
+                                 "through the wrapper in the capture's warm-up and capture")
         diff = (oc["ldr"] - og["ldr"].cpu()).abs()
         share = float((diff.amax(-1) <= PIX_TOL).float().mean())
         mean = float(diff.mean())
@@ -3932,6 +3959,218 @@ def phase37(dev, smi, n=RANKS, backend="gloo", frames=None):
     return paths, stats
 
 
+# phase 38: frames captured in a CUDA graph (renderer.compile_frame,
+# Graph.compile): frame 0 (the warm-up, the capture and the first replay)
+# and 8 replays, each held bit for bit against eager frame_core / run
+CAPTURE_FRAMES = 9
+# the least span, ms, of the profiled eager frames and of the replays
+PROFILE_MS = 250.0
+# the trace kernels a captured frame launches
+GRAPH_KERNELS = ("woop_nearest", "woop_any", "woop_stream", "woop_stream_any")
+
+
+def differing_leaves(a, b) -> list:
+    """Indices of the tensors of ``a`` and ``b`` (same structure) that are
+    not equal bit for bit; ["structure"] if the structures differ."""
+    from merian_quake_tpu_torch.capture import skeleton, tree_leaves
+
+    if skeleton(a) != skeleton(b):
+        return ["structure"]
+    return [i for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b)))
+            if not torch.equal(x, y)]
+
+
+def profiled(fn, n):
+    """(device ms a call, wall ms a call, device busy share) of ``n`` calls of
+    ``fn`` under torch.profiler, device activity only: the device time is
+    the sum of the kernels' and copies' own time, the wall the host clock
+    around the calls and a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+    total = sum(dev_us(e) for e in prof.key_averages() if e.device_type.name != "CPU") / 1e3
+    return total / n, wall / n, total / wall
+
+
+def captured_run(path, smi, captured, eager, state0, uniforms, captured_step, strip=lambda o: o,
+                 want=None):
+    """A captured path against its eager frames. ``captured(state, u)`` and
+    ``eager(state, u)`` render one frame; ``captured_step()`` is the
+    capture.CapturedStep after the first call; ``strip`` drops from the
+    outputs what the two forms hold in other types (a graph's ``$frame``
+    inputs). Frame 0's captured call warms up, captures and replays, with
+    the launch counts set to 0 just before and read just after (the warm-up
+    frames and the capture: WARMUP_STEPS + 1 frames' launches); then frames
+    0-8, each captured state and output against eager frame_core (or run)
+    from the same state, bit for bit. ``want``: the trace kernels a
+    captured frame must launch. Returns (the path's launches, its stats)."""
+    from merian_quake_tpu_torch.capture import WARMUP_STEPS, tree_map
+
+    clone = lambda x: tree_map(torch.clone, x)
+    path_t0 = time.perf_counter()
+    reset_launches()
+    ref_in = clone(state0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, out = captured(state0, uniforms._replace(frame=0))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = launches()
+    cap = captured_step()
+    in_graph = {k: v // (WARMUP_STEPS + 1) for k, v in counts.items() if k in GRAPH_KERNELS and v}
+    if any(v % (WARMUP_STEPS + 1) for v in counts.values()) or (want and in_graph != want):
+        raise AssertionError(f"phase 38 {path}: launches {counts} over the warm-up and the capture "
+                             f"are not {WARMUP_STEPS + 1} frames' {want}")
+    eager_ms, cap_ms, eager_launches = [], [], []
+    for i in range(CAPTURE_FRAMES):
+        u = uniforms._replace(frame=i)
+        if i:
+            ref_in = clone(st)
+        torch.cuda.synchronize()
+        before = launches()
+        t0 = time.perf_counter()
+        ref_st, ref_out = eager(ref_in, u)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        eager_launches.append({k: v - before[k] for k, v in launches().items()
+                               if k in GRAPH_KERNELS and v - before[k]})
+        if i:
+            t0 = time.perf_counter()
+            st, out = captured(st, u)
+            torch.cuda.synchronize()
+            cap_ms.append((time.perf_counter() - t0) * 1e3)
+        bad_state, bad_out = differing_leaves(st, ref_st), differing_leaves(strip(out), strip(ref_out))
+        if bad_state or bad_out:
+            raise AssertionError(f"phase 38 {path} frame {i}: the captured frame differs from the "
+                                 f"eager one in state leaves {bad_state}, output leaves {bad_out}")
+        del ref_in, ref_st, ref_out
+    if not bool(torch.isfinite(out["ldr"] if "ldr" in out else out[("hud", "out")]).all()):
+        raise AssertionError(f"phase 38 {path}: the image is not finite")
+    # the device's busy share on the profiler: eager frames and replays over
+    # at least PROFILE_MS each (one 1080p frame; its processing of a frame's
+    # kernels takes seconds), so that a short frame's window is not the
+    # profiler's own start and flush
+    fixed = clone(st)
+    u = uniforms._replace(frame=CAPTURE_FRAMES)
+    t0 = time.perf_counter()
+    frames_for = lambda ms: max(1, math.ceil(PROFILE_MS / np.mean(ms[1:])))
+    e_dev, e_wall, e_busy = profiled(lambda: eager(fixed, u), frames_for(eager_ms))
+    c_dev, c_wall, c_busy = profiled(lambda: captured(st, u), frames_for(cap_ms))
+    profile_s = time.perf_counter() - t0
+    stats = {"eager_ms": float(np.mean(eager_ms[2:])), "captured_ms": float(np.mean(cap_ms[1:])),
+             "first_call_s": first_s, "capture_s": cap.capture_seconds,
+             "graph_pool_bytes": cap.pool_bytes, "replays": len(cap_ms) + 1,
+             "eager_busy": e_busy, "captured_busy": c_busy, "eager_device_ms": e_dev,
+             "captured_device_ms": c_dev, "launches_in_graph": in_graph,
+             "eager_launches_per_frame": eager_launches[-1]}
+    log(f"phase 38 {path} [{smi}]: eager {stats['eager_ms']:.2f} ms/frame (frames 2-8, busy "
+        f"{e_busy:.3f}, device {e_dev:.2f} ms), captured {stats['captured_ms']:.2f} ms/frame "
+        f"(replays 2-8, busy {c_busy:.3f}, device {c_dev:.2f} ms); capture {cap.capture_seconds:.3f} s "
+        f"(first call with the {WARMUP_STEPS} warm-up frames {first_s:.2f} s); graph pool "
+        f"{cap.pool_bytes} bytes; launches in the graph {in_graph} (eager frame "
+        f"{eager_launches[-1]}); {CAPTURE_FRAMES} frames bit-identical to eager "
+        f"({time.perf_counter() - path_t0:.1f} s, the profiler {profile_s:.1f} s of it)")
+    return counts, stats
+
+
+def dead_round(dev, bundle, accel, smi):
+    """What a round of the alpha loop costs once every ray is dead (the
+    captured loop runs all MAX_INTERSECTIONS rounds): the fogged court's
+    2,073,600 primary rays, a dead round (K1 on empty intervals plus the
+    round's glue) beside a live first round and K1 alone on the dead rays,
+    CUDA events."""
+    import importlib
+
+    from merian_quake_tpu_torch.accel import woop
+    from merian_quake_tpu_torch.models import materials
+
+    imod = importlib.import_module("merian_quake_tpu_torch.accel.intersect")
+    o, d = primary_rays(bundle, accel, dev)
+    n = o.shape[0]
+    full = lambda v, dt=torch.float32: torch.full((n,), v, dtype=dt, device=dev)
+    t_min, t_max = full(0.0), full(materials.T_MAX)
+    result = imod.HitRecord(full(3e38), full(-1, torch.int32), full(0.0), full(0.0))
+    rnd = lambda active: imod._alpha_round(accel, bundle.atlas, o, d, active, t_min, t_max, result)
+    dead_mask, live_mask = full(False, torch.bool), full(True, torch.bool)
+    rnd(dead_mask), rnd(live_mask)
+    dead_ms, live_ms = cuda_time(lambda: rnd(dead_mask), 10), cuda_time(lambda: rnd(live_mask), 10)
+    args = woop.k1_inputs(accel, o, d, t_min, full(imod._DEAD_T_MAX))
+    k1_ms = cuda_time(lambda: woop.woop_nearest(*args), 10)
+    log(f"phase 38 court alpha loop, one round on {n} rays [{smi}]: every ray dead "
+        f"{dead_ms:.3f} ms (K1 on the empty intervals alone {k1_ms:.3f}), every ray live "
+        f"{live_ms:.3f} ms")
+    return {"dead_round_ms": dead_ms, "dead_round_k1_ms": k1_ms, "live_round_ms": live_ms}
+
+
+def phase38(dev, bundle, accel, config, m_bundle, m_accel, m_config, smi):
+    """Captured frames (renderer.compile_frame; Graph.compile for the
+    flagship graph): city MCPG (the main path), city ReSTIR (K2), denoised
+    city MCPG, map MCPG (K3), config1's small PT frame, the fogged court's
+    MCPG + volume (the alpha loop on the device) and the flagship graph on
+    the fogged court, each bit for bit against eager for 9 frames; then a
+    dead alpha round's cost."""
+    from merian_quake_tpu_torch.graph import Graph
+    from merian_quake_tpu_torch.graph.nodes import GraphContext, flagship_graph_config
+    from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+    from merian_quake_tpu_torch.render.mcpg.volume import VolumeConfig
+    from merian_quake_tpu_torch.render.restir import ReSTIRConfig
+    from merian_quake_tpu_torch.renderer import compile_frame, frame_core, init_state
+
+    def frame_path(path, b, acc, cfg, icfg, want):
+        state0 = init_state(cfg, icfg, device=dev)
+        cf = compile_frame(acc, b.atlas, cfg, state0, icfg)
+        return captured_run(
+            path, smi, lambda st, u: cf(u),
+            lambda st, u: frame_core(acc, b.atlas, u, cfg, st, mcpg_config=icfg),
+            state0, b.uniforms, lambda: cf.captured, want=want)
+
+    paths, stats = {}, {}
+    k1 = {"woop_nearest": 3}
+    for path, b, acc, cfg, icfg, want in (
+            ("mcpg", bundle, accel, config._replace(integrator="mcpg"), MCPGConfig(), k1),
+            ("restir", bundle, accel, config._replace(integrator="restir"), ReSTIRConfig(),
+             {"woop_nearest": 2, "woop_any": 1}),
+            ("mcpg_denoise", bundle, accel, config._replace(integrator="mcpg", denoise=True),
+             MCPGConfig(), k1),
+            ("mcpg_map", m_bundle, m_accel, m_config._replace(integrator="mcpg"), MCPGConfig(),
+             {"woop_stream": 3})):
+        paths[f"{path}_captured"], stats[path] = frame_path(path, b, acc, cfg, icfg, want)
+    # a small frame (config1's: the box, PT, 1 spp, 640x360), launch-bound
+    # when eager (PR 12)
+    from merian_quake_tpu_torch.models.procedural import cornell_box
+
+    box = cornell_box(device=dev)
+    b_accel, b_cfg = scene_1080(box, spp=1, max_path_length=MPL)
+    paths["pt_box_640x360_captured"], stats["pt_box_640x360"] = frame_path(
+        "pt_box_640x360", box, b_accel, b_cfg._replace(width=640, height=360), None,
+        {"woop_nearest": 1 + (MPL - 1)})
+    c_bundle, c_accel, c_cfg = court(dev, FOG_MU_T)
+    mcfg = MCPGConfig(volume=VolumeConfig())
+    paths["mcpg_court_volume_captured"], stats["mcpg_court_volume"] = frame_path(
+        "mcpg_court_volume", c_bundle, c_accel, c_cfg._replace(integrator="mcpg"), mcfg, None)
+
+    g = Graph.from_config(flagship_graph_config(), GraphContext(
+        c_accel, c_bundle.atlas, c_cfg._replace(integrator="mcpg", denoise=True),
+        mcpg_config=MCPGConfig(volume=VolumeConfig(volume_spp=1)), device=dev))
+    step = g.compile()
+    frame_in = lambda u: {"uniforms": u}
+    no_inputs = lambda o: {k: v for k, v in o.items() if k[0] != "$frame"}
+    paths["graph_flagship_court_captured"], stats["graph_flagship_court"] = captured_run(
+        "graph_flagship_court", smi, lambda st, u: step(st, frame_in(u)),
+        lambda st, u: g.run(st, frame_in(u)), g.init_state(), c_bundle.uniforms,
+        lambda: step.captured, strip=no_inputs)
+    stats["court_dead_round"] = dead_round(dev, c_bundle, c_accel, smi)
+    return paths, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -4213,6 +4452,11 @@ def main() -> int:
     mark(36)
     shard_paths, shard_stats = phase37(dev, smi)
     mark(37)
+
+    # ---- phase 38: the frame captured in one CUDA graph ----
+    capture_paths, capture_stats = phase38(dev, bundle, accel, config, m_bundle, m_accel, m_config,
+                                           smi)
+    mark(38)
     log(f"chip_smoke: every phase passed in {time.perf_counter() - run_t0:.1f} s (phase 1 "
         f"{marks[0][1] - run_t0:.1f} s, " + ", ".join(
             f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:])) + ")")
@@ -4225,7 +4469,7 @@ def main() -> int:
              "mcpg_court_volume_denoise": court_dn_path, "ssmm": ssmm_path,
              "ssmm_court_denoise": ssmm_court_path, **preset_paths, **graph_paths,
              **live_paths, **arena_paths, **orbit_paths, **native_paths, **bsp_paths,
-             **shard_paths}
+             **shard_paths, **capture_paths}
     by_path = lambda k: {p: v[k] for p, v in paths.items()}
     total = lambda k: sum(by_path(k).values())
     # a PT frame's 1 primary + 4 bounce traces, the bounce rays as they lie
@@ -4253,7 +4497,7 @@ def main() -> int:
             k: v for k, v in refresh_stats.items() if k != "k3"},
         "orbit_presets_ms": orbit_stats, "live_cpu_vs_card": live_cpu_stats,
         "cli_play_bigmap": cli_stats, "native_builder": native_stats, "bsp_frame": bsp_stats,
-        "sharded_3_gloo_ranks_one_card": shard_stats,
+        "sharded_3_gloo_ranks_one_card": shard_stats, "captured_frames": capture_stats,
     }, {
         "name": "woop_any", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": total("woop_any"),

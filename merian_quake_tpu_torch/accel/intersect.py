@@ -17,6 +17,8 @@ as it ignores ``sort_rays``.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import NamedTuple
 
 import torch
@@ -29,6 +31,24 @@ from .dense import mt_nearest
 
 _BIG = 3e38
 _ADVANCE = 1e-3  # re-trace offset past a rejected surface (quake units)
+# the t_max a dead ray is traced to: an empty interval, as a padding
+# ray's (woop._pack_rays); a warp of such rays walks nothing
+_DEAD_T_MAX = -1.0
+_ON_DEVICE = contextvars.ContextVar("merian_alpha_loop_on_device", default=False)
+
+
+@contextlib.contextmanager
+def alpha_loop_on_device():
+    """Within this block :func:`trace_nearest` keeps its alpha loop's test
+    on the device, as the JAX package's ``lax.while_loop`` does: it runs
+    all ``max_intersections`` rounds and reads nothing from the host. A
+    captured frame (renderer.compile_frame, Graph.compile) runs in it:
+    a capture may not read the device, and its replays run every round."""
+    token = _ON_DEVICE.set(True)
+    try:
+        yield
+    finally:
+        _ON_DEVICE.reset(token)
 
 
 class HitRecord(NamedTuple):
@@ -93,6 +113,13 @@ def trace_nearest(
     ``tex``: TextureAtlas, or None to skip alpha testing (a single
     intersect sweep; callers pass None when SceneFeatures.has_alpha_tris
     says no triangle can alpha-reject).
+
+    Each round (:func:`_alpha_round`) traces the rays still live; a dead
+    ray is traced over an empty interval and does no triangle work. The
+    eager loop stops after the round that leaves no ray live (one host
+    read a round); inside :func:`alpha_loop_on_device` it runs all
+    ``max_intersections`` rounds with no host read. A round after the
+    last live ray changes nothing, so both give the same bits.
     """
     if tex is None:
         return intersect(accel, o, d, t_min, t_max, sort_rays=sort_rays, schedule=schedule)
@@ -106,20 +133,34 @@ def trace_nearest(
         v=torch.zeros((n,), device=o.device),
     )
     active = torch.ones((n,), dtype=torch.bool, device=o.device)
+    on_device = _ON_DEVICE.get()
     for _ in range(max_intersections):
-        if not bool(active.any()):
+        if not on_device and not bool(active.any()):
             break
-        hr = intersect(accel, o, d, cur_tmin, t_max, sort_rays=sort_rays, schedule=schedule)
-        tri = torch.clamp_min(hr.tri, 0).long()
-        needs = accel.needs_alpha[tri] & hr.hit
-        uv = _hit_uv(accel, hr)
-        a = atlas_mod.sample_nearest(tex, accel.scene.texnum[tri], uv)[..., 3]
-        reject = needs & (a < materials.ALPHA_THRESHOLD)
-        accept = active & ~reject
-        result = HitRecord(*[torch.where(accept, x, r) for x, r in zip(hr, result)])
-        cur_tmin = torch.where(reject & active, hr.t + _ADVANCE, cur_tmin)
-        active = active & reject
+        active, cur_tmin, result = _alpha_round(accel, tex, o, d, active, cur_tmin, t_max, result,
+                                                sort_rays, schedule)
     return result
+
+
+def _alpha_round(accel, tex, o, d, active, cur_tmin, t_max, result, sort_rays=False,
+                 schedule=None):
+    """One round of the alpha loop: the nearest hit of each live ray past
+    ``cur_tmin``; a hit that the texel's alpha rejects moves that ray's
+    ``cur_tmin`` past it and keeps it live, any other result (a miss
+    included) is taken and ends it. A dead ray is traced to
+    ``_DEAD_T_MAX`` (an empty interval: no triangle work) and its result
+    is discarded. Returns (active, cur_tmin, result)."""
+    hr = intersect(accel, o, d, cur_tmin, torch.where(active, t_max, _DEAD_T_MAX),
+                   sort_rays=sort_rays, schedule=schedule)
+    tri = torch.clamp_min(hr.tri, 0).long()
+    needs = accel.needs_alpha[tri] & hr.hit
+    uv = _hit_uv(accel, hr)
+    a = atlas_mod.sample_nearest(tex, accel.scene.texnum[tri], uv)[..., 3]
+    reject = needs & (a < materials.ALPHA_THRESHOLD)
+    accept = active & ~reject
+    result = HitRecord(*[torch.where(accept, x, r) for x, r in zip(hr, result)])
+    cur_tmin = torch.where(reject & active, hr.t + _ADVANCE, cur_tmin)
+    return active & reject, cur_tmin, result
 
 
 def trace_visibility(accel: AccelScene, tex, from_pos, to_pos, offset: float = 1e-3,

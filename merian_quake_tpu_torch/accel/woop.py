@@ -427,7 +427,10 @@ def _kernel_lib(name, entry, argtypes):
 
 def _call(fn, device, *args):
     """Call a kernel's C entry point on ``device``'s current stream (the
-    last argument); raise on a refused launch."""
+    last argument); raise on a refused launch. The entry points launch,
+    query (occupancy, a function attribute) and read the launch error:
+    none synchronizes or allocates, so a CUDA graph captures them as
+    they are, on the capture's stream."""
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

@@ -1,13 +1,18 @@
 """Graph core: node registry, topological order, delayed edges, JSON IO.
 
 Port of merian_quake_tpu/graph/graph.py. The JAX package traces the
-whole frame graph into one jitted program; PyTorch runs eagerly, so
-``Graph.run`` is the frame step and ``compile`` returns it.
+whole frame graph into one jitted program; ``compile`` captures it in
+one CUDA graph on the card (capture.CapturedStep) and runs ``run`` as it
+is on the CPU.
 """
 from __future__ import annotations
 
 import json
 from typing import Any, NamedTuple
+
+import torch
+
+from ..accel.intersect import alpha_loop_on_device
 
 
 class InputSpec(NamedTuple):
@@ -143,18 +148,29 @@ class Graph:
         return order
 
     def init_state(self) -> dict:
+        """Every node's state, no delayed values yet, and the frame counter:
+        an i32 device scalar on the context's device (a Python int without
+        a context), as in the JAX package's traced step."""
         states = {n: node.init_state(self.ctx) for n, node in self.nodes.items()}
-        return {"nodes": states, "delayed": {}, "iteration": 0}
+        iteration = (0 if self.ctx is None
+                     else torch.zeros((), dtype=torch.int32, device=self.ctx.device))
+        return {"nodes": states, "delayed": {}, "iteration": iteration}
 
     def compile(self):
         """Returns the frame step(state, frame_inputs) → (state, outputs).
 
-        PyTorch runs eagerly: the step is ``run``, launched op by op, as
-        the JAX package's graph runs outside ``jax.jit``. Capturing a
-        whole frame in a CUDA graph (the counterpart of the JAX package's
-        one XLA program) is ROADMAP queue 1, item 8 (f); until then the
-        step only keeps the JAX package's contract: a graph with an
-        enabled image_write (a host-side node) is refused.
+        The whole frame graph runs as ONE program, as the JAX package's
+        ``jax.jit`` of the step does (the analog of the reference
+        recording all node dispatches into one command buffer,
+        merian-quake.cpp:273-275): on a CUDA context the step's first call
+        warms up on a clone of the state and captures ``run`` in one CUDA
+        graph, and every call replays it (capture.CapturedStep). The
+        state and outputs a call returns are the graph's static buffers,
+        which the next call overwrites. Without a context, or on the CPU,
+        the step is ``run``. Either way the alpha loop's test stays on the
+        device (accel.intersect.alpha_loop_on_device). As in the JAX
+        package, all nodes must be pure: a graph with an enabled
+        image_write (a host-side node) is refused.
         """
         for node in self.nodes.values():
             if node.TYPE == "image_write" and node.props.get("path"):
@@ -164,9 +180,11 @@ class Graph:
                 )
 
         def step(state, frame_inputs):
-            return self.run(state, frame_inputs)
+            with alpha_loop_on_device():
+                return self.run(state, frame_inputs)
 
-        return step
+        device = torch.device("cpu" if self.ctx is None else self.ctx.device)
+        return step if device.type == "cpu" else _CompiledGraphStep(step)
 
     def run(self, state: dict, frame_inputs: dict | None = None):
         """Execute one frame (topological order; ≈ graph.run(),
@@ -220,3 +238,24 @@ class Graph:
             "iteration": state["iteration"] + 1,
         }
         return new_state, produced
+
+
+class _CompiledGraphStep:
+    """A graph's step captured at its first call (capture.CapturedStep),
+    replayed at every call; the uniforms' ``frame`` and ``player`` become
+    device scalars in the static inputs."""
+
+    def __init__(self, step):
+        self._step = step
+        self.captured = None
+
+    def __call__(self, state, frame_inputs):
+        from ..capture import CapturedStep
+        from ..models.types import Uniforms, device_scalars
+
+        frame_inputs = dict(frame_inputs or {})
+        if self.captured is None:
+            static = {k: device_scalars(v) if isinstance(v, Uniforms) else v
+                      for k, v in frame_inputs.items()}
+            self.captured = CapturedStep(self._step, state, static)
+        return self.captured(state, frame_inputs)

@@ -197,7 +197,7 @@ class AccumulateNode(Node):
         return {
             "history": torch.zeros((H, W, 4), device=ctx.device),
             "hist_len": torch.zeros((H, W), device=ctx.device),
-            "iteration": 0,
+            "iteration": torch.zeros((), dtype=torch.int32, device=ctx.device),
         }
 
     def process(self, ctx, state, src, mv=None):
@@ -373,27 +373,32 @@ class ImageWriteNode(Node):
         return ["out"]
 
     def init_state(self, ctx):
-        return {"count": 0}
+        """The frame count: a device scalar on the context's device (a
+        Python int without a context), so that a captured graph counts."""
+        if ctx is None:
+            return {"count": 0}
+        return {"count": torch.zeros((), dtype=torch.int64, device=ctx.device)}
 
     def process(self, ctx, state, src):
         from ..utils.image import save_pfm, save_png
 
-        count = state["count"]
         path = self.props.get("path", "")
-        trigger = self.props.get("trigger", "every")
-        if trigger == "pow2":
-            # power-of-2 iteration trigger (reference HDR reference-render
-            # workflow, default_config.json:536-567): frames 1, 2, 4, 8...
-            due = count > 0 and (count & (count - 1)) == 0
-        else:
-            due = count % int(self.props.get("every", 1)) == 0
-        if path and due:
-            p = path.format(i=count)
-            if p.endswith(".pfm"):
-                save_pfm(p, src)
+        if path:
+            count = int(state["count"])
+            trigger = self.props.get("trigger", "every")
+            if trigger == "pow2":
+                # power-of-2 iteration trigger (reference HDR reference-render
+                # workflow, default_config.json:536-567): frames 1, 2, 4, 8...
+                due = count > 0 and (count & (count - 1)) == 0
             else:
-                save_png(p, src)
-        return {"count": count + 1}, {"out": src}
+                due = count % int(self.props.get("every", 1)) == 0
+            if due:
+                p = path.format(i=count)
+                if p.endswith(".pfm"):
+                    save_pfm(p, src)
+                else:
+                    save_png(p, src)
+        return {"count": state["count"] + 1}, {"out": src}
 
 
 @register_node_type

@@ -7,8 +7,9 @@ container with every tensor on ``device``. Nothing here imports JAX:
 a JAX array is read through ``np.asarray`` like any other array.
 
 Types follow the port's conventions: u32 values (octahedral codes,
-reservoir flags, the uniforms' ``frame`` and ``player``) become int64
-tensors or Python ints, bfloat16 stays bfloat16 (through float32, which
+reservoir flags) become int64 tensors, the uniforms' ``frame`` and
+``player`` Python ints, the frame state's ``iteration`` an int32 0-d
+tensor (as in the JAX package), bfloat16 stays bfloat16 (through float32, which
 holds every bfloat16 value exactly).
 """
 from __future__ import annotations
@@ -152,7 +153,7 @@ def frame_state_from_numpy(state, device="cuda"):
         accum_irradiance=tensor(state.accum_irradiance, device),
         accum_direct=tensor(state.accum_direct, device),
         accum_albedo=tensor(state.accum_albedo, device),
-        iteration=int(np.asarray(state.iteration)),
+        iteration=torch.tensor(int(np.asarray(state.iteration)), dtype=torch.int32, device=device),
         restir=opt_with(restir_state_from_numpy, get("restir")),
         mcpg=opt_with(mcpg_state_from_numpy, get("mcpg")),
         volume=opt_with(volume_state_from_numpy, get("volume")),

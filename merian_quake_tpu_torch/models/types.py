@@ -101,8 +101,12 @@ class Scene(NamedTuple):
 
 
 class Uniforms(NamedTuple):
-    """Per-frame uniform data. ``frame`` and ``player`` are Python ints
-    (u32 values); everything else is an f32/i32 tensor."""
+    """Per-frame uniform data. ``frame`` and ``player`` are u32 values:
+    each a Python int or, as in the JAX package, a device scalar (an
+    int64 0-d tensor in [0, 2^32), :func:`device_scalars`), which a
+    frame reads without a host round trip and a captured frame
+    (renderer.compile_frame) takes anew on every replay; both forms give
+    the same bits. Everything else is an f32/i32 tensor."""
 
     cam_x: torch.Tensor  # f32[3] camera position
     cam_w: torch.Tensor  # f32[3] forward
@@ -116,15 +120,25 @@ class Uniforms(NamedTuple):
     volume_max_t: torch.Tensor  # f32[] fog truncation distance
     cl_time: torch.Tensor  # f32[] game time
     time_diff: torch.Tensor  # f32[]
-    frame: int  # u32 value
+    frame: int | torch.Tensor  # u32 value
     sun_w: torch.Tensor  # f32[3] sun direction (toward the sun)
     sun_color: torch.Tensor  # f32[3]
     sky_classic: torch.Tensor  # i32[2] (back, front) texture ids; -1 = cubemap
     sky_cube: torch.Tensor  # i32[6] cubemap face ids
-    player: int  # u32 PLAYER_FLAGS_*
+    player: int | torch.Tensor  # u32 PLAYER_FLAGS_*
 
     def to(self, device) -> "Uniforms":
         return to_device(self, device)
+
+
+def device_scalars(uniforms: Uniforms) -> Uniforms:
+    """``uniforms`` with ``frame`` and ``player`` as u32 device scalars
+    (int64 0-d tensors masked to 32 bits) on the camera's device. A
+    Python int becomes a device-side fill, not a host copy."""
+    from ..ops.rng import _u32
+
+    return uniforms._replace(frame=_u32(uniforms.frame, uniforms.cam_x),
+                             player=_u32(uniforms.player, uniforms.cam_x))
 
 
 def default_uniforms(

@@ -1,6 +1,6 @@
-"""Phase functions: Henyey–Greenstein and Draine.
+"""Phase functions: isotropic, Henyey–Greenstein and Draine.
 
-Port of merian_quake_tpu/ops/phase.py, the parts the volume pass uses.
+Port of merian_quake_tpu/ops/phase.py, every public function of it.
 The Draine phase is parameterized by (g, alpha), which the volume pass
 computes from a fog particle size (``VolumeConfig.draine_g`` /
 ``draine_a``). Scalar parameters are rounded to f32 and combined in f32
@@ -20,11 +20,35 @@ INV_4PI = 1.0 / (4.0 * math.pi)
 DRAINE_TABLE_SIZE = 1024
 
 
+def isotropic_pdf(shape=(), device="cuda"):
+    return torch.full(shape, INV_4PI, dtype=torch.float32, device=device)
+
+
+def sample_isotropic(u: torch.Tensor) -> torch.Tensor:
+    """Uniform sphere direction from u: [..., 2]."""
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
 def hg_pdf(cos_theta, g):
     g = np.float32(g)
     c0, c1 = float(np.float32(1.0) + g * g), float(np.float32(2.0) * g)
     scale = float(np.float32(INV_4PI) * (np.float32(1.0) - g * g))
     return scale / torch.pow(torch.clamp_min(c0 - c1 * cos_theta, 1e-12), 1.5)
+
+
+def hg_sample_cos(u1, g):
+    """Sample cos(theta) ~ HG(g); ``g`` a number or an f32 tensor that
+    broadcasts with ``u1``. Near-isotropic g (|g| < 1e-3) samples the
+    sphere uniformly."""
+    g = linalg.as_f32(g, u1)
+    small = g.abs() < 1e-3
+    safe_g = torch.where(small, 0.5, g)
+    sqr = (1.0 - safe_g * safe_g) / (1.0 - safe_g + 2.0 * safe_g * u1)
+    cos_t = (1.0 + safe_g * safe_g - sqr * sqr) / (2.0 * safe_g)
+    return torch.clamp(torch.where(small, 1.0 - 2.0 * u1, cos_t), -1.0, 1.0)
 
 
 def draine_pdf(cos_theta, g, alpha):
@@ -88,3 +112,15 @@ def sample_dir(w: torch.Tensor, cos_theta, u_phi) -> torch.Tensor:
     phi = 2.0 * math.pi * u_phi
     local = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_theta], dim=-1)
     return linalg.frame_to_world(w, local)
+
+
+def draine_params_from_particle_size(d):
+    """Fog/cloud droplet diameter d (µm) → (g_hg_unused, g_d, alpha, w_d),
+    host floats: the Mie fit for small water droplets (0.1 <= d <= 1.5)
+    of Jendersie & d'Eon 2023 (render_mcpg.cpp:134-135)."""
+    d = float(d)
+    g_hg = np.exp(-0.0990567 / (d - 1.67154))
+    g_d = np.exp(-2.20679 / (d + 3.91029) - 0.428934)
+    a = np.exp(3.62489 - 8.29288 / (d + 5.52825))
+    w_d = np.exp(-0.599085 / (d - 0.641583) - 0.665888)
+    return g_hg, g_d, a, w_d

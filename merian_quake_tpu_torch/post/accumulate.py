@@ -6,15 +6,19 @@ from __future__ import annotations
 import torch
 
 from ..ops import color as color_ops
+from ..ops.linalg import as_f32
 
 
-def accumulate(history, new, iteration: int, alpha=0.0):
-    """history, new: f32[H, W, C]; iteration: 0-based frame counter.
+def accumulate(history, new, iteration, alpha=0.0):
+    """history, new: f32[H, W, C]; iteration: 0-based frame counter, a
+    device scalar (as the frame state carries it) or a Python int.
     ``alpha == 0`` gives the cumulative average; otherwise an
-    exponentially weighted average with warm-up 1/(iteration + 1)."""
-    w_new = 1.0 / (float(iteration) + 1.0)
+    exponentially weighted average with warm-up 1/(iteration + 1). The
+    weight is the JAX package's f32 1 / (it + 1), computed on the
+    device: no host read."""
+    w_new = 1.0 / (as_f32(iteration, history) + 1.0)
     if alpha > 0.0:
-        w_new = max(float(alpha), w_new)
+        w_new = torch.clamp_min(w_new, float(alpha))
     return history + (new - history) * w_new
 
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import color as color_ops
+from ..ops.linalg import as_f32
 
 
 def auto_exposure(img, key=0.18, eps=1e-4):
@@ -22,5 +23,8 @@ def auto_exposure(img, key=0.18, eps=1e-4):
 
 
 def manual_exposure(img, iso_scale=1.0):
-    return img[..., :3] * iso_scale, torch.tensor(iso_scale, dtype=torch.float32,
-                                                  device=img.device)
+    """img scaled by ``iso_scale``; returns (scaled rgb, scale) with the
+    scale a 0-d tensor on the image's device, made by a fill (no
+    host-to-device copy inside a frame)."""
+    scale = as_f32(iso_scale, img)
+    return img[..., :3] * scale, scale

@@ -15,6 +15,7 @@ values in int64 tensors (ops/hashgrid.py).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -119,9 +120,11 @@ def adaptive_target_level(pos, cam_x, cfg: MCPGConfig):
     )
 
 
+@functools.lru_cache(maxsize=64)
 def _log_f32(x: float) -> float:
     """log of a config constant as the f32 value the JAX package's f32
-    graph divides by (a Python double would divide by another number)."""
+    graph divides by (a Python double would divide by another number).
+    Computed once a value: a frame reads no tensor on the host for it."""
     return float(torch.log(torch.tensor(x, dtype=torch.float32)))
 
 

@@ -241,7 +241,8 @@ def render_restir(
         prev_surf = None
     tvalid = (
         inb
-        & (uniforms.frame > 0)
+        # a device test, so a captured frame reads each replay's number
+        & (rng_ops._u32(uniforms.frame, inb) > 0)
         & _reproj_valid(
             normal, prev_n, rcfg.temporal_normal_reject_cos,
             linear_z, vel_z, prev_z, rcfg.temporal_depth_reject,

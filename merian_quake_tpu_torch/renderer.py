@@ -16,6 +16,14 @@ the default routes) chooses the card's trace schedule, which the JAX
 package takes from process environment switches; it changes no hit, and
 the CPU oracle ignores it.
 
+``compile_frame`` is the counterpart of the JAX package's jitted
+``render_frame``: on the card it captures ``frame_core`` in one CUDA
+graph (capture.CapturedStep) and replays it a frame; ``render_sequence``
+renders through it. The per-frame values a captured frame reads are
+device scalars (``Uniforms.frame``, ``FrameState.iteration``), and its
+alpha loop keeps its test on the device (accel.intersect.
+alpha_loop_on_device).
+
 ``frame_core`` renders an image-row slab when given ``y0``/``rows``, with
 ``mean_fn`` (the exposure's global mean), ``gather_fn`` (the guiding
 queues of every slab) and ``shard_ctx`` (the halo exchanges and gathered
@@ -24,13 +32,15 @@ parallel/render.py. The defaults render the whole image on one device.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import torch
 
 from .accel.build import AccelScene, build_accel, scene_features
+from .accel.intersect import alpha_loop_on_device
 from .models.procedural import SceneBundle
-from .models.types import RenderConfig, TextureAtlas, Uniforms
+from .models.types import RenderConfig, TextureAtlas, Uniforms, device_scalars
 from .ops import color as color_ops
 from .post.accumulate import accumulate, accumulate_reprojected
 from .post.svgf import init_svgf_state
@@ -47,7 +57,10 @@ class FrameState(NamedTuple):
     accum_irradiance: torch.Tensor  # f32[H, W, 4] path irradiance
     accum_direct: torch.Tensor  # f32[H, W, 4] first-hit emission
     accum_albedo: torch.Tensor  # f32[H, W, 4]
-    iteration: int
+    # i32[] frames accumulated, a device scalar as in the JAX package, so
+    # that a captured frame reads and advances it on the device (a Python
+    # int is still taken by frame_core, which then returns one)
+    iteration: torch.Tensor
     restir: object = None  # ReSTIRState when integrator == "restir"
     mcpg: object = None  # MCPGState when integrator == "mcpg"
     volume: object = None  # VolumeState when MCPGConfig.volume is set
@@ -95,7 +108,8 @@ def init_state(config: RenderConfig, mcpg_config=None, device="cuda") -> FrameSt
         svgf = init_svgf_state(H, W, device=device)
         taa_prev = torch.zeros((H, W, 3), device=device)
     return FrameState(
-        accum_irradiance=z(), accum_direct=z(), accum_albedo=z(), iteration=0,
+        accum_irradiance=z(), accum_direct=z(), accum_albedo=z(),
+        iteration=torch.zeros((), dtype=torch.int32, device=device),
         restir=restir, mcpg=mcpg, volume=volume, accum_volume=accum_volume,
         accum_volume_len=accum_volume_len, ssmm=ssmm, svgf=svgf, taa_prev=taa_prev,
         volume_svgf=volume_svgf,
@@ -351,24 +365,83 @@ def render_frame(
                       schedule=schedule)
 
 
+def _frame_step(accel, atlas, config, mcpg_config, schedule, state, uniforms):
+    """``frame_core`` with the alpha loop's test on the device: the step a
+    compiled frame runs, on the card captured, on the CPU as it is."""
+    with alpha_loop_on_device():
+        return frame_core(accel, atlas, uniforms, config, state, mcpg_config=mcpg_config,
+                          schedule=schedule)
+
+
+class CompiledFrame:
+    """The frame compiled once and run a frame at a time: ``cf(uniforms)``
+    renders one frame from ``cf.state`` and returns (new state, outputs),
+    the new state becoming ``cf.state``.
+
+    On the card the first call warms up on a clone of the state (the
+    caller's sequence does not advance), captures one ``frame_core`` in a
+    CUDA graph into static buffers (the uniforms, with ``frame`` and
+    ``player`` as device scalars, and the state) and every call replays
+    it; the state is carried in place, copied into its static buffers at
+    the graph's end (capture.CapturedStep). The state and the outputs a
+    call returns ARE those static buffers: the next call overwrites them,
+    so clone what must outlive it. A failed capture raises; nothing falls
+    back to the eager frame. ``captured`` is the capture.CapturedStep
+    after the first call on the card (None before, and on the CPU).
+
+    On the CPU, which has no graphs, each call runs ``frame_core`` as it
+    is, with the same interface and the alpha loop's test kept on the
+    device, as the captured frame keeps it."""
+
+    def __init__(self, accel, atlas, config, state, mcpg_config=None, schedule=None):
+        _check_supported(config)
+        dev = state.accum_irradiance.device
+        if dev.type != "cpu" and (dev.type != "cuda" or not torch.cuda.is_available()):
+            raise RuntimeError(f"compile_frame: a frame on {dev} is captured in a CUDA graph, "
+                               "which needs a CUDA device")
+        self.state = state
+        self.captured = None
+        self._on_card = dev.type == "cuda"
+        self._step = partial(_frame_step, accel, atlas, config, mcpg_config, schedule)
+
+    def __call__(self, uniforms: Uniforms):
+        if not self._on_card:
+            self.state, outputs = self._step(self.state, uniforms)
+            return self.state, outputs
+        from .capture import CapturedStep
+
+        if self.captured is None:
+            self.captured = CapturedStep(self._step, self.state, device_scalars(uniforms))
+        self.state, outputs = self.captured(self.captured.state, uniforms)
+        return self.state, outputs
+
+
+def compile_frame(accel: AccelScene, atlas: TextureAtlas, config: RenderConfig,
+                  state: FrameState, mcpg_config=None, schedule=None) -> CompiledFrame:
+    """The frame compiled for ``state``'s device, the port's counterpart of
+    the JAX package's jitted ``render_frame``: a CompiledFrame, whose call
+    on the uniforms renders a frame (on the card one CUDA graph's replay).
+    Raises on a device that is neither the CPU nor an available card."""
+    return CompiledFrame(accel, atlas, config, state, mcpg_config, schedule)
+
+
 def render_sequence(
     bundle: SceneBundle, config: RenderConfig, frames: int = 1, mcpg_config=None,
     device="cuda", schedule=None,
 ):
     """Render ``frames`` frames of a static scene on ``device``,
-    returning the final (state, outputs)."""
+    returning the final (state, outputs). The frames run through
+    :func:`compile_frame` (on the card one captured graph, replayed a
+    frame), as the JAX package's run the jitted ``render_frame``."""
     _check_supported(config)
     bundle = SceneBundle(*[x.to(device) for x in bundle])
     accel = build_accel(bundle.scene, bundle.atlas, device=device)
     config = config._replace(
         features=scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
     )
-    state = init_state(config, mcpg_config, device=device)
-    uniforms = bundle.uniforms
-    outputs = None
+    step = compile_frame(accel, bundle.atlas, config, init_state(config, mcpg_config, device=device),
+                         mcpg_config, schedule)
+    state, outputs = step.state, None
     for i in range(frames):
-        uniforms = uniforms._replace(frame=i)
-        state, outputs = render_frame(
-            accel, bundle.atlas, uniforms, config, state, mcpg_config, schedule
-        )
+        state, outputs = step(bundle.uniforms._replace(frame=i))
     return state, outputs

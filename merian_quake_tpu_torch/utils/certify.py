@@ -99,7 +99,7 @@ def _run(bundle, config, integ_config, frames, frame_offset=0,
                 accum_irradiance=torch.zeros_like(state.accum_irradiance),
                 accum_direct=torch.zeros_like(state.accum_direct),
                 accum_albedo=torch.zeros_like(state.accum_albedo),
-                iteration=0,
+                iteration=torch.zeros_like(state.iteration),
             )
         uniforms = uniforms._replace(frame=frame_offset + i)
         t0 = time.perf_counter()

@@ -1,7 +1,8 @@
 """merian_quake_tpu_torch.interop carries the JAX package's objects into
 the port's containers: same field names, same shapes, the same values,
 and the port's types (u32 → int64, bfloat16 kept, ``frame``/``player``
-and ``iteration`` as Python ints)."""
+as Python ints, ``iteration`` as an int32 0-d tensor, as the JAX
+package's i32[])."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -85,6 +86,7 @@ def test_frame_and_restir_state_round_trip(jax_run):
     _, state, _ = jax_run
     ours = interop.frame_state_from_numpy(state, device="cpu")
     assert ours.iteration == int(state.iteration) == 1
+    assert ours.iteration.dtype == torch.int32 and ours.iteration.dim() == 0
     for f in ("accum_irradiance", "accum_direct", "accum_albedo"):
         _same(getattr(ours, f), getattr(state, f))
     _same_fields(ours.restir.reservoirs, state.restir.reservoirs)

@@ -14,7 +14,9 @@ step it twice, refresh its live accel and render one 32×16 frame, then run
 --frames 2``; import the demo reader, the .pak/.bsp loaders and the BSP
 extraction, build a Morton-ordered accel with the native builder and
 render one sharded MCPG frame on two gloo ranks (``dryrun_multichip(2,
-device="cpu")``). And the port's entry points run on the card unless the
+device="cpu")``); compile the fogged court's MCPG + volume frame
+(``compile_frame``) and the PT graph (``Graph.compile``) and step each
+twice. And the port's entry points run on the card unless the
 caller asks for the CPU: without a CUDA device, a call without
 ``device=`` raises."""
 import os
@@ -100,6 +102,18 @@ assert acc.woop_w.shape[0] == 3 * acc.scene.num_tris
 from merian_quake_tpu_torch.parallel import dryrun_multichip
 dr = dryrun_multichip(2, device="cpu")
 assert dr["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(dr["ldr"]).all()) and dr["live_states"] > 0
+from merian_quake_tpu_torch.renderer import compile_frame
+court = outdoor_court(0.002, device="cpu")
+cfg = RenderConfig(width=32, height=16, integrator="mcpg")
+mcfg = MCPGConfig(volume=VolumeConfig())
+cf = compile_frame(build_accel(court.scene, court.atlas), court.atlas, cfg, init_state(cfg, mcfg, device="cpu"), mcfg)
+for i in range(2):
+    st, out = cf(court.uniforms._replace(frame=i))
+assert int(st.iteration) == 2 and cf.captured is None and bool(torch.isfinite(out["hdr"]).all())
+step = g.compile()
+st, out = step(g.init_state(), {"uniforms": b.uniforms})
+st, out = step(st, {"uniforms": b.uniforms._replace(frame=1)})
+assert int(st["iteration"]) == 2 and out[("tonemap", "out")].shape == (8, 16, 3)
 loaded = [m for m, mod in sys.modules.items() if mod is not None]
 assert not [m for m in loaded if m in ("jax", "merian_quake_tpu") or m.startswith(("jax.", "merian_quake_tpu."))]
 print("ok")

@@ -99,3 +99,52 @@ def test_xi_max_with_0d_mu_t_and_pixel_max_t(mu_t):
     assert got.dtype == torch.float32 and got.shape == max_t.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
     assert (got.numpy() == 0).all() if mu_t == 0.0 else (got[2:] > 0).all()
+
+
+# ------------------------------------------------ the rest of the module
+
+
+def test_isotropic_pdf_and_sampling_match():
+    for shape in ((), (7,), (3, 5)):
+        got = phase.isotropic_pdf(shape, device="cpu")
+        want = np.asarray(j_phase.isotropic_pdf(shape))
+        assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+    r = np.random.default_rng(11)
+    u = r.uniform(0, 1, (4096, 2)).astype(np.float32)
+    u[:4] = [[0.0, 0.0], [0.5, 0.25], [0.99999994, 0.5], [1.0, 0.99999994]]  # poles, equator
+    got = phase.sample_isotropic(torch.from_numpy(u)).numpy()
+    want = np.asarray(j_phase.sample_isotropic(jnp.asarray(u)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("g", [0.0, 5e-4, -5e-4, 0.3, -0.7, 0.95, 0.999])
+def test_hg_sample_cos_matches(g):
+    """The closed-form inversion, scalar g and a per-sample g, against the
+    JAX function; the near-isotropic branch (|g| < 1e-3) bit for bit.
+    (1 + g² - s²) / 2g cancels where cos ≈ ±1, so the bound is absolute:
+    XLA contracts the multiply-adds, PyTorch rounds each."""
+    r = np.random.default_rng(int(abs(g) * 1000) + 1)
+    u = np.concatenate([r.uniform(0, 1, 4096), [0.0, 0.5, 0.99999994]]).astype(np.float32)
+    got = phase.hg_sample_cos(torch.from_numpy(u), g).numpy()
+    want = np.asarray(j_phase.hg_sample_cos(jnp.asarray(u), g))
+    if abs(g) < 1e-3:
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+    assert np.abs(got).max() <= 1.0
+    # the samples follow HG: the mean cosine is g
+    assert abs(float(got.mean()) - g) < 0.03
+    gs = r.uniform(-0.9, 0.9, u.shape).astype(np.float32)
+    got = phase.hg_sample_cos(torch.from_numpy(u), torch.from_numpy(gs)).numpy()
+    want = np.asarray(j_phase.hg_sample_cos(jnp.asarray(u), jnp.asarray(gs)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("d", [0.1, 0.5, 1.0, 1.5])
+def test_draine_params_from_particle_size_match(d):
+    got = phase.draine_params_from_particle_size(d)
+    want = j_phase.draine_params_from_particle_size(d)
+    assert len(got) == len(want) == 4
+    for a, b in zip(got, want):
+        assert float(a) == float(b)
