@@ -205,15 +205,23 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     denoised frame's images printed), and 64 accumulated SSMM frames on
     the card within 15% of PT's mean irradiance (tests/test_ssmm.py's
     check);
-26. presets and certification: ``run_preset`` for config1 and config6 at
-    their 640x360 and config3 at 1080p, each for its preset's frames,
-    with the launches those frames make (config1 and config6 3 K1 a
-    frame, config3 2 K1 + 1 K2) and ms/frame; ``certify_presets`` of
-    config1 and config6 at their named 640x360 with certify's default
-    budgets (64 frames, 4 truth runs of 256), every frame's 3 K1 counted:
-    config1's ratio exactly 1, config6's (the guiding-bound preset) below
-    1, every relMSE finite, each convergence series lower at 64 frames than
-    at 1;
+26. presets and certification, every frame through
+    ``renderer.compile_frame`` (one CUDA graph a run): ``run_preset`` for
+    config1 and config6 at their 640x360 and config3 at 1080p, each for
+    its preset's frames, captured and then eager (``frame_core`` a frame),
+    every frame's ldr and hdr bit for bit, each compiled frame captured and
+    ``frame_core`` run only in its warm-up and capture; the launches in
+    the graph (config1 and config6 3 K1 a frame, config3 2 K1 + 1 K2;
+    those of WARMUP_STEPS + 1 frames: a replay counts none) and the eager
+    run's; ms/frame and the device's busy share of each;
+    ``certify_presets`` of config1 and config6 at their named 640x360
+    with certify's default budgets (64 frames, 4 truth runs of 256) and
+    the equal-time columns, captured: config1's ratio exactly 1,
+    config6's (the guiding-bound preset) below 1, every relMSE finite,
+    each convergence series lower at 64 frames than at 1; then config1,
+    config6 and config3 (its steady skip restarting the graph's static
+    accumulators in place) at small budgets captured against eager, each
+    relMSE equal to the bit, with each side's ms/frame;
 27. the frame graph at 1080p: res/pt_graph.json on city against
     ``frame_core`` (6 frames, 5 K1 a frame, the tonemap output within
     tests/test_graph.py's 1e-5); ``flagship_graph_config()`` on the fogged
@@ -240,14 +248,22 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     pass: the repair's cost a frame;
 30. the live dungeon at full width: the game host library built with g++
     from native/game (seconds), ``make_bigmap()`` at its defaults (grid
-    8, 32 monsters, dynamic capacity 4,096) and ``build_accel_live``
-    (static triangles, seconds), 10 frames of the slice's path
-    (``step_dynamic``, ``refresh_dynamic``, ``render_frame`` MCPG at
-    1080p, 2 spp, mpl 3, the entities' features forced on): frames 5-7's
-    step, refresh and render ms, bench.py's live ms/frame of 3 timed
-    frames, K3 launches and host reads a frame (only the alpha loop's),
-    the bytes the refresh copies, peak bytes; finite outputs, entities
-    drawn;
+    8, 32 monsters, dynamic capacity 4,096), then the live loop
+    captured against eager (``live_pair``): 14 moving frames
+    (``step_dynamic``) recorded once and fed to two ``build_accel_live``
+    copies, one refreshed and rendered eagerly (``render_frame`` MCPG at
+    1080p, 2 spp, mpl 3, the entities' features forced on), one
+    refreshed and rendered through ``compile_frame``: 10 frames' state and
+    outputs bit for bit, every refresh of the captured copy with no host
+    read and every derived table (padded bounds, walk boxes) kept in its
+    storage and equal to a fresh one; then 4 frames whose refresh leaves
+    the derived tables as they were (the stale-cache mutant), which must
+    differ from eager; step, refresh and render ms (eager and captured),
+    busy shares, the capture, K3 in the graph and an eager frame, host
+    reads of an eager frame (only the alpha loop's), the bytes the
+    refresh copies and its split (numpy rows, the whole refresh, the
+    in-place rewrite of the derived tables), peak bytes; finite outputs,
+    entities drawn;
 31. the refresh against fresh tables on the card, after those moving
     steps: K3 and its any-hit form on the dungeon's refreshed tables
     bit-equal to their plain versions on 65,536-ray subsets of the frame's
@@ -255,14 +271,18 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     table's packed rows, padded bounds and walk boxes equal to a fresh
     computation; the hits of a from-scratch ``build_accel`` of the same
     frame's full scene (hit/miss, t); the same on the live arena for K1
-    and K2, after 6 live frames each of MCPG (K1) and ReSTIR (K1 + K2) at
+    and K2, after its live loop captured against eager (``live_pair``, 10
+    moving frames bit for bit) with MCPG (K1) and ReSTIR (K1 + K2) at
     1080p; a refresh that leaves the packed rows as they were (the
     mutant) fails the K3 check;
 32. the live dungeon at grid 3, 4 monsters, after 3 steps, on the CPU and
     on the card: PT (mpl 2) and MCPG frames at 64x40, LDR within the
     slice test's tolerance;
 33. ``run_preset`` for the orbit presets config2, config4 and config5 at
-    their named sizes and frames, with ms/frame and launches;
+    their named sizes and frames, captured (each frame's accel written
+    into the tables the frame was compiled on) against eager (the accel
+    built for the frame), every frame's ldr and hdr bit for bit, with
+    ms/frame, busy shares and launches as in phase 26;
 34. ``python -m merian_quake_tpu_torch.cli play --map bigmap --frames 3``
     at 1080p MCPG in a subprocess on the card: it writes its PNG.
 35. the native accel builder (``utils/native.py``: g++ builds
@@ -337,6 +357,7 @@ once and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -2760,61 +2781,212 @@ GRAPH_PT_ATOL = 1e-5
 VIEW_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
+@contextlib.contextmanager
+def frames_seen(eager=False):
+    """While open, every ``renderer.CompiledFrame`` is watched: each one made
+    gets an entry in ``captures``, which its first call on the card fills
+    with its capture's (seconds, pool bytes) (None: never captured); each
+    call's ``ldr`` and ``hdr`` are cloned on the device into ``images``
+    while ``keep`` is set; ``last`` and ``uniforms`` are the last frame
+    made and the last uniforms given (for a profile); ``core_calls``
+    counts ``frame_core``'s calls through the compiled step (its warm-up
+    and capture frames: a replay calls nothing). ``eager``: each call
+    renders eager ``frame_core`` (the alpha loop reading the host) on the
+    frame's state instead, the reference, on the accel built for the frame
+    where an orbit preset writes one in (``accel.build.write_accel``
+    records it, writing nothing)."""
+    import types
+
+    from merian_quake_tpu_torch import renderer
+    from merian_quake_tpu_torch.accel import build
+
+    seen = types.SimpleNamespace(captures=[], images=[], keep=True, core_calls=0, last=None,
+                                 uniforms=None, accel=None)
+    cls = renderer.CompiledFrame
+    plain_init, plain_call, plain_core, plain_write = (cls.__init__, cls.__call__,
+                                                       renderer.frame_core, build.write_accel)
+
+    def init(self, *a, **k):
+        plain_init(self, *a, **k)
+        self.seen_index = len(seen.captures)
+        seen.captures.append(None)
+        seen.last = self
+
+    def call(self, uniforms):
+        if eager:
+            accel, atlas, config, mcfg, schedule = self._step.args
+            accel = accel if seen.accel is None else seen.accel
+            self.state, out = plain_core(accel, atlas, uniforms, config, self.state,
+                                         mcpg_config=mcfg, schedule=schedule)
+        else:
+            _, out = plain_call(self, uniforms)
+            seen.captures[self.seen_index] = (self.captured.capture_seconds,
+                                              self.captured.pool_bytes)
+        if seen.keep:
+            seen.images.append((out["ldr"].clone(), out["hdr"].clone()))
+        seen.uniforms = uniforms
+        return self.state, out
+
+    def core(*a, **k):
+        seen.core_calls += 1
+        return plain_core(*a, **k)
+
+    def record(dst, src):
+        seen.accel = src
+        return dst
+
+    cls.__init__, cls.__call__, renderer.frame_core = init, call, core
+    if eager:
+        build.write_accel = record
+    try:
+        yield seen
+    finally:
+        cls.__init__, cls.__call__, renderer.frame_core = plain_init, plain_call, plain_core
+        build.write_accel = plain_write
+
+
+def check_captured(phase, what, seen):
+    """Every compiled frame of a captured run captured on its first call, and
+    frame_core ran only in the warm-ups and the captures (no eager frame
+    among the timed ones). Returns (capture seconds, pool bytes) summed."""
+    from merian_quake_tpu_torch.capture import WARMUP_STEPS
+
+    if not seen.captures or any(c is None for c in seen.captures):
+        raise AssertionError(f"phase {phase} {what}: a compiled frame did not capture: "
+                             f"{seen.captures}")
+    if seen.core_calls != (WARMUP_STEPS + 1) * len(seen.captures):
+        raise AssertionError(f"phase {phase} {what}: frame_core ran {seen.core_calls} times for "
+                             f"{len(seen.captures)} captures: an eager frame among the replays")
+    return sum(c[0] for c in seen.captures), sum(c[1] for c in seen.captures)
+
+
+def preset_pair(phase, name, dev, smi, per_frame=None):
+    """``run_preset(name)`` captured, then eager (``frames_seen``): every
+    frame's ldr and hdr bit for bit; the captured run's launches are its
+    graph's (WARMUP_STEPS + 1 frames': ``per_frame`` each where given, K1
+    and K2 only otherwise), the eager run's ``per_frame`` a frame; ms/frame
+    (run_preset's, frames 1 on) and the device's busy share (torch.profiler,
+    at least PROFILE_MS of further calls) of each. Returns (the captured
+    run's launches, stats)."""
+    from merian_quake_tpu_torch.capture import WARMUP_STEPS
+    from merian_quake_tpu_torch.presets import PRESETS, run_preset
+
+    p = PRESETS[name]
+    runs = {}
+    for mode in ("captured", "eager"):
+        reset_launches()
+        with frames_seen(eager=mode == "eager") as seen:
+            _, out, spf = run_preset(name, device=dev)
+            got = launches()
+            for key in ("ldr", "hdr"):
+                if not bool(torch.isfinite(out[key]).all()):
+                    raise AssertionError(f"run_preset({name!r}) {mode}: {key} is not finite")
+            if tuple(out["ldr"].shape) != (p.config.height, p.config.width, 3):
+                raise AssertionError(f"run_preset({name!r}) ldr has the shape "
+                                     f"{tuple(out['ldr'].shape)}")
+            seen.keep = False
+            cf, u = seen.last, seen.uniforms
+            busy = profiled(lambda: cf(u), max(1, math.ceil(PROFILE_MS / (spf * 1e3))))
+            del cf
+            seen.last = None
+        runs[mode] = (seen, got, spf, busy)
+    (c_seen, c_got, c_spf, c_busy), (e_seen, e_got, e_spf, e_busy) = runs["captured"], runs["eager"]
+    cap_s, pool = check_captured(phase, f"run_preset({name!r})", c_seen)
+    in_graph = {k: v // (WARMUP_STEPS + 1) for k, v in c_got.items() if v}
+    if per_frame is not None:
+        want_c = {**{k: 0 for k in c_got}, **{k: v * (WARMUP_STEPS + 1) for k, v in per_frame.items()}}
+        want_e = {**{k: 0 for k in e_got}, **{k: v * p.frames for k, v in per_frame.items()}}
+        if c_got != want_c or e_got != want_e:
+            raise AssertionError(f"run_preset({name!r}) launched {c_got} captured, {e_got} eager; "
+                                 f"expected {want_c}, {want_e}")
+    elif (any(v % (WARMUP_STEPS + 1) for v in c_got.values()) or not c_got["woop_nearest"]
+          or any(v for k, v in {**c_got, **e_got}.items() if k not in ("woop_nearest", "woop_any"))):
+        raise AssertionError(f"run_preset({name!r}) launched {c_got} captured, {e_got} eager")
+    if len(c_seen.images) != p.frames or len(e_seen.images) != p.frames:
+        raise AssertionError(f"run_preset({name!r}): {len(c_seen.images)} captured and "
+                             f"{len(e_seen.images)} eager frames, not {p.frames}")
+    bad = [i for i, (a, b) in enumerate(zip(c_seen.images, e_seen.images))
+           if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))]
+    if bad:
+        raise AssertionError(f"run_preset({name!r}): captured frames {bad} differ from eager")
+    stats = {"eager_ms": e_spf * 1e3, "captured_ms": c_spf * 1e3, "eager_busy": e_busy[2],
+             "captured_busy": c_busy[2], "eager_device_ms": e_busy[0],
+             "captured_device_ms": c_busy[0], "capture_s": cap_s, "graph_pool_bytes": pool,
+             "launches_in_graph": in_graph, "eager_launches": {k: v for k, v in e_got.items() if v},
+             "frames": p.frames}
+    log(f"phase {phase} run_preset {name} {p.config.width}x{p.config.height} "
+        f"{p.config.integrator} denoise={p.config.denoise} x{p.frames} frames [{smi}]: eager "
+        f"{stats['eager_ms']:.2f} ms/frame (busy {e_busy[2]:.3f}, device {e_busy[0]:.2f} ms), "
+        f"captured "
+        f"{stats['captured_ms']:.2f} ms/frame (busy {c_busy[2]:.3f}, device {c_busy[0]:.2f} ms); "
+        f"capture {cap_s:.3f} s, graph pool {pool} bytes; launches in the graph {in_graph} (eager "
+        f"run {stats['eager_launches']}); all {p.frames} frames' ldr and hdr bit-identical to "
+        f"eager; ldr mean {float(out['ldr'].mean()):.4f}")
+    return c_got, stats
+
+
+# certification captured against eager, each relMSE equal to the bit, at
+# budgets a tenth of the default (the static presets at their named sizes;
+# config3's steady skip, at a quarter of 1080p, restarts the accumulators
+# of the graph's static state in place)
+CERTIFY_PAIR = {"config1": dict(scale=1.0, frames=16, ref_frames=32, ref_runs=2),
+                "config6": dict(scale=1.0, frames=16, ref_frames=32, ref_runs=2),
+                "config3": dict(scale=0.25, frames=16, ref_frames=16, ref_runs=1, steady_skip=8)}
+CERTIFY_KEYS = ("relmse", "relmse_pt_equal_budget", "relmse_trimmed", "relmse_trimmed_pt",
+                "ratio_vs_pt")
+
+
 def phase26(dev, smi):
-    """Presets and certification: ``run_preset`` for config1 and config6
-    (640x360) and config3 (1080p) at their frame counts, the launches
-    those frames make; ``certify_presets`` of config1 and config6 at their
-    named 640x360 with certify's default budgets, each truth, candidate
-    and equal-budget frame counted (the orbit presets: phase 33)."""
+    """Presets and certification, each frame captured in a CUDA graph:
+    ``run_preset`` for config1 and config6 (640x360) and config3 (1080p)
+    against eager, every frame bit for bit; ``certify_presets`` of config1
+    and config6 at their named 640x360 with certify's default budgets and
+    the equal-time columns, then config1, config6 and config3 (its steady
+    skip) at small budgets captured against eager, each relMSE equal to
+    the bit (the orbit presets: phase 33)."""
     import csv
     import tempfile
 
-    from merian_quake_tpu_torch.presets import PRESETS, run_preset
+    from merian_quake_tpu_torch.capture import WARMUP_STEPS
     from merian_quake_tpu_torch.utils.certify import certify_presets
 
-    paths, stats = {}, {"preset_ms": {}, "certify": {}}
+    paths, stats = {}, {"presets": {}, "certify": {}, "certify_pair": {}}
     for name, per_frame in PRESET_FRAME.items():
-        p = PRESETS[name]
-        reset_launches()
-        _, out, spf = run_preset(name, device=dev)
-        got = launches()
-        want = {**{k: 0 for k in got}, **{k: v * p.frames for k, v in per_frame.items()}}
-        if got != want:
-            raise AssertionError(f"run_preset({name!r}) launched {got}, expected {want}")
-        for key in ("ldr", "hdr"):
-            if not bool(torch.isfinite(out[key]).all()):
-                raise AssertionError(f"run_preset({name!r}) {key} is not finite")
-        if tuple(out["ldr"].shape) != (p.config.height, p.config.width, 3):
-            raise AssertionError(f"run_preset({name!r}) ldr has the shape {tuple(out['ldr'].shape)}")
-        paths[f"preset_{name}"] = got
-        stats["preset_ms"][name] = spf * 1e3
-        log(f"phase 26 run_preset {name} {p.config.width}x{p.config.height} {p.config.integrator} "
-            f"denoise={p.config.denoise} x{p.frames} frames [{smi}]: {spf * 1e3:.2f} ms/frame (frames "
-            f"1-{p.frames - 1}); launches { {k: v for k, v in got.items() if v} }; ldr mean "
-            f"{float(out['ldr'].mean()):.4f}")
+        paths[f"preset_{name}"], stats["presets"][name] = preset_pair(26, name, dev, smi, per_frame)
 
     with tempfile.TemporaryDirectory() as tmp:
         for name in CERTIFY:
             reset_launches()
             t0 = time.perf_counter()
-            r = certify_presets([name], scale=1.0, convergence_dir=tmp, device=dev)[name]
+            with frames_seen() as seen:
+                seen.keep = False
+                r = certify_presets([name], scale=1.0, convergence_dir=tmp, device=dev,
+                                    equal_time=True)[name]
+                seen.last = None
             secs = time.perf_counter() - t0
             got = launches()
-            frames = r["ref_frames"] * r["ref_runs"] + r["frames"] * (1 if r["integrator"] == "pt" else 2)
-            want = {**{k: 0 for k in got}, "woop_nearest": 3 * frames}
-            if got != want:
-                raise AssertionError(f"certify {name} launched {got}, expected {want}")
+            cap_s, pool = check_captured(26, f"certify {name}", seen)
+            runs = len(seen.captures)
+            want_runs = r["ref_runs"] + (1 if r["integrator"] == "pt" else 3)
+            want = {**{k: 0 for k in got}, "woop_nearest": 3 * (WARMUP_STEPS + 1) * runs}
+            if got != want or runs != want_runs:
+                raise AssertionError(f"certify {name} launched {got} in {runs} compiled runs, "
+                                     f"expected {want} in {want_runs}")
             with open(r["convergence_csv"]) as f:
                 series = [(int(row["frames"]), float(row["relmse"]), float(row["relmse_trimmed"]))
                           for row in csv.DictReader(f)]
             values = [r[k] for k in ("relmse", "relmse_pt_equal_budget", "relmse_trimmed",
                                      "relmse_trimmed_pt")] + [x for s in series for x in s[1:]]
+            frames = r["ref_frames"] * r["ref_runs"] + r["frames"] * (1 if r["integrator"] == "pt" else 2)
             log(f"phase 26 certify {name} {r['resolution']} {r['integrator']} frames {r['frames']}, "
-                f"truth {r['ref_runs']} x {r['ref_frames']} [{smi}]: relmse {r['relmse']:.6g}, equal-"
-                f"budget reference {r['relmse_pt_equal_budget']:.6g}, ratio_vs_pt "
-                f"{r['ratio_vs_pt']:.6g}, trimmed ratio {r['ratio_trimmed_vs_pt']:.6g}; convergence "
-                f"(frames, relmse, trimmed) {series}; {frames} frames in {secs:.1f} s; launches "
-                f"{ {k: v for k, v in got.items() if v} }")
+                f"truth {r['ref_runs']} x {r['ref_frames']}, captured [{smi}]: relmse "
+                f"{r['relmse']!r}, equal-budget reference {r['relmse_pt_equal_budget']!r}, "
+                f"ratio_vs_pt {r['ratio_vs_pt']!r}, trimmed ratio {r['ratio_trimmed_vs_pt']!r}; "
+                f"{r['ms_per_frame']:.3f} ms/frame, the truth's {r['ref_ms_per_frame']:.3f}; at "
+                f"equal time the reference {r['pt_equal_time_frames']} frames, ratio "
+                f"{r['ratio_vs_pt_equal_time']!r}; convergence (frames, relmse, trimmed) {series}; "
+                f"{frames}+ frames in {runs} compiled runs (capture {cap_s:.2f} s, pools {pool} "
+                f"bytes) in {secs:.1f} s; launches in the graphs { {k: v for k, v in got.items() if v} }")
             if not all(np.isfinite(v) for v in values):
                 raise AssertionError(f"certify {name}: a relMSE is not finite")
             if series[0][0] != 1 or series[-1][0] != 64 or not series[-1][1] < series[0][1]:
@@ -2826,8 +2998,40 @@ def phase26(dev, smi):
             paths[f"certify_{name}"] = got
             stats["certify"][name] = {**{k: r[k] for k in (
                 "resolution", "relmse", "relmse_pt_equal_budget", "ratio_vs_pt",
-                "ratio_trimmed_vs_pt")}, "convergence": series, "seconds": secs}
+                "ratio_trimmed_vs_pt", "ms_per_frame", "ref_ms_per_frame",
+                "ratio_vs_pt_equal_time")}, "convergence": series, "seconds": secs,
+                "capture_s": cap_s, "graph_pool_bytes": pool}
 
+    for name, kw in CERTIFY_PAIR.items():
+        rows = {}
+        for mode in ("captured", "eager"):
+            with frames_seen(eager=mode == "eager") as seen:
+                seen.keep = False
+                rows[mode] = certify_presets([name], device=dev, equal_time=True, **kw)[name]
+                # the last run's frame: the reference's (PT; for config1 the
+                # truth's and the candidate's too)
+                cf, u = seen.last, seen.uniforms
+                busy = profiled(lambda: cf(u), max(1, math.ceil(
+                    PROFILE_MS / rows[mode]["ref_ms_per_frame"])))
+                del cf
+                seen.last = None
+            if mode == "captured":
+                check_captured(26, f"certify {name} (pair)", seen)
+            rows[mode]["busy"] = busy[2]
+        c, e = rows["captured"], rows["eager"]
+        differ = [k for k in CERTIFY_KEYS if c[k] != e[k]]
+        stats["certify_pair"][name] = {
+            "resolution": c["resolution"], **{k: c[k] for k in CERTIFY_KEYS},
+            **{f"{m}_{k}": rows[m][k] for m in rows for k in ("ms_per_frame", "ref_ms_per_frame",
+                                                               "busy")}}
+        log(f"phase 26 certify {name} {c['resolution']} {c['integrator']} {kw} captured against "
+            f"eager [{smi}]: relMSEs {[c[k] for k in CERTIFY_KEYS]} captured, "
+            f"{[e[k] for k in CERTIFY_KEYS]} eager, differing {differ or 'none'}; the candidate "
+            f"{e['ms_per_frame']:.3f} -> {c['ms_per_frame']:.3f} ms/frame, the truth "
+            f"{e['ref_ms_per_frame']:.3f} -> {c['ref_ms_per_frame']:.3f} ms/frame (eager -> "
+            f"captured), the reference's frame busy {e['busy']:.3f} -> {c['busy']:.3f}")
+        if differ:
+            raise AssertionError(f"certify {name}: captured relMSEs differ from eager: {differ}")
     return paths, stats
 
 
@@ -3075,7 +3279,9 @@ def phase28(dev, bundle, accel, mcpg_city, restir_city, smi):
 F7_FRAMES, F7_TURNS = 6, ("parent", "change", "change", "parent")
 # the live dungeon at full width (make_bigmap's defaults) and its frames,
 # as bench.py's live_scale row: 7 settle frames (5-7 steady), 3 timed
-LIVE_SETTLE, LIVE_TIMED = 7, 3
+# the live loop captured against eager (phases 30-31): moving frames,
+# then (the dungeon) the stale-cache mutant's frames
+LIVE_FRAMES, LIVE_MUTANT = 10, 4
 # rays aimed at the live entities start this far from a triangle's centroid
 AIM_DIST = 48.0
 # the incremental accel against a full build of the same frame:
@@ -3197,78 +3403,238 @@ def live_config(live, integrator="mcpg", width=W, height=H, mpl=MPL, spp=SPP):
                         integrator=integrator, features=live_features(live.gs.static_bundle))
 
 
-def phase30(dev, smi):
-    """The live dungeon at full width: the host library's build, the map
-    and its live accel, 10 frames of the slice's path (bench.py's
-    live_scale frames), K3 launches and host reads a frame, peak bytes."""
+def derived_tensors(acc) -> dict:
+    """Every tensor kept on the accel's tables (``woop._cached``: padded
+    bounds, the walk boxes on them, K8's table), by where it is kept."""
+    out = {}
+
+    def walk(owner, where):
+        for key, (_, value, _) in owner.__dict__.get("_mq_cache", {}).items():
+            for j, t in enumerate(value if isinstance(value, tuple) else (value,)):
+                out[f"{where}/{key}/{j}"] = t
+                walk(t, f"{where}/{key}/{j}")
+
+    for field in ("cluster_lo", "cluster_lo_alpha", "cluster_lo_proxy"):
+        if getattr(acc, field) is not None:
+            walk(getattr(acc, field), field)
+    walk(acc.scene.v0, "scene.v0")
+    return out
+
+
+def live_pair(phase, path, dev, smi, live, config, mcfg, frames=LIVE_FRAMES, mutant=0, yaw0=25.0):
+    """The live loop captured against eager. ``frames + mutant`` frames of
+    ``live`` (``step_dynamic``: the player walks and turns, the entities
+    move) are recorded once, then fed to two ``build_accel_live`` copies of
+    its static map, in turns, each frame synced: one refreshed and rendered
+    eagerly (``render_frame``), one refreshed and rendered through
+    ``compile_frame`` (frame 0's call warms up, captures and replays; then a
+    replay a frame). Every frame's state and outputs bit for bit; each
+    refresh of the captured copy after the first reads no device value
+    (``sync_sites``; the first's are logged) and keeps the storage of
+    every table derived from the tables, each
+    equal to a fresh computation (``table_invariants``). Then ``mutant``
+    frames whose refresh of the captured copy leaves the derived tables as
+    they were (``woop.rewrite_cached`` a no-op): the captured frames must
+    differ from eager. Last, the device's busy share of each (profiler).
+    Returns (a LiveRun on the eager copy, the graph's launches, stats)."""
+    from merian_quake_tpu_torch.accel import woop
     from merian_quake_tpu_torch.accel.build import build_accel_live, refresh_dynamic
+    from merian_quake_tpu_torch.capture import WARMUP_STEPS, tree_map
+    from merian_quake_tpu_torch.renderer import compile_frame, init_state, render_frame
+
+    bundle = live.gs.static_bundle
+    t0 = time.perf_counter()
+    rec = [live.step_dynamic(dt=1.0 / 30.0, forward=120.0, yaw=yaw0 + 2.0 * i)
+           for i in range(frames + mutant)]
+    step_ms = (time.perf_counter() - t0) / len(rec) * 1e3
+    t0 = time.perf_counter()
+    la_e = build_accel_live(bundle, dyn_cap=live.gs.dynamic_capacity, device=dev)
+    torch.cuda.synchronize()
+    accel_s = time.perf_counter() - t0
+    la_c = build_accel_live(bundle, dyn_cap=live.gs.dynamic_capacity, device=dev)
+    kernel = "woop_stream" if woop.streamed(la_c.accel.woop_w) else "woop_nearest"
+    state_e, cf, held = init_state(config, mcfg, device=dev), None, None
+    e_ms, c_ms, e_refresh, c_refresh, e_launch, differs = [], [], [], [], [], []
+    plain_rewrite = woop.rewrite_cached
+    for i, (dyn, u) in enumerate(rec):
+        torch.cuda.synchronize()
+        before = launches()
+        t0 = time.perf_counter()
+        la_e = refresh_dynamic(la_e, dyn)
+        t1 = time.perf_counter()
+        state_e, out_e = render_frame(la_e.accel, bundle.atlas, u, config, state_e, mcfg)
+        torch.cuda.synchronize()
+        e_refresh.append((t1 - t0) * 1e3)
+        e_ms.append((time.perf_counter() - t1) * 1e3)
+        e_launch.append({k: v - before[k] for k, v in launches().items() if v - before[k]})
+        if i >= frames:  # the stale-cache mutant
+            woop.rewrite_cached = lambda owner: None
+        try:
+            t0 = time.perf_counter()
+            la_c, sites = sync_sites(lambda: refresh_dynamic(la_c, dyn))
+            c_refresh.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            woop.rewrite_cached = plain_rewrite
+        if i == 0:
+            # the process's first pinned copies in the "warn" mode may add a
+            # synchronizing call of torch's own (torch/cuda/__init__.py):
+            # logged, and every later refresh, the same code, is held
+            first_sites = sites
+        elif sites:
+            raise AssertionError(f"phase {phase} {path} frame {i}: the refresh reads the device: "
+                                 f"{sites}")
+        if cf is None:
+            before = launches()
+            cf = compile_frame(la_c.accel, bundle.atlas, config, init_state(config, mcfg, device=dev),
+                               mcfg)
+            t0 = time.perf_counter()
+            state_c, out_c = cf(u)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts = {k: v - before[k] for k, v in launches().items() if v - before[k]}
+            if any(v % (WARMUP_STEPS + 1) for v in counts.values()):
+                raise AssertionError(f"phase {phase} {path}: {counts} over the warm-up and the "
+                                     f"capture are not {WARMUP_STEPS + 1} frames' launches")
+            in_graph = {k: v // (WARMUP_STEPS + 1) for k, v in counts.items()}
+        else:
+            t0 = time.perf_counter()
+            state_c, out_c = cf(u)
+            torch.cuda.synchronize()
+            c_ms.append((time.perf_counter() - t0) * 1e3)
+        bad = differing_leaves(state_c, state_e) + differing_leaves(out_c, out_e)
+        if i < frames:
+            if bad:
+                raise AssertionError(f"phase {phase} {path} frame {i}: the captured frame differs "
+                                     f"from the eager one in leaves {bad}")
+            stale = table_invariants(la_c.accel, woop.node_sizes(kernel))
+            now = derived_tensors(la_c.accel)
+            if held is None:
+                held = now
+            moved = sorted(k for k in set(held) | set(now)
+                           if k not in held or k not in now or now[k].data_ptr() != held[k].data_ptr())
+            if stale or moved:
+                raise AssertionError(f"phase {phase} {path} frame {i}: refreshed tables {stale} "
+                                     f"differ from fresh ones, {moved} moved")
+        else:
+            differs.append(bool(bad))
+    if mutant and not any(differs):
+        raise AssertionError(f"phase {phase} {path}: the stale-cache mutant's captured frames equal "
+                             "the eager ones")
+    fixed = tree_map(torch.clone, state_e)
+    u = rec[-1][1]
+    e_busy = profiled(lambda: render_frame(la_e.accel, bundle.atlas, u, config, fixed, mcfg),
+                      max(1, math.ceil(PROFILE_MS / np.mean(e_ms[2:]))))
+    c_busy = profiled(lambda: cf(u), max(1, math.ceil(PROFILE_MS / np.mean(c_ms[1:]))))
+    cap = cf.captured
+    stats = {"frames": frames, "step_ms": step_ms, "refresh_ms": float(np.mean(e_refresh[2:frames])),
+             "captured_refresh_synced_ms": float(np.mean(c_refresh[2:frames])),
+             "eager_ms": float(np.mean(e_ms[2:frames])), "captured_ms": float(np.mean(c_ms[1:frames - 1])),
+             "eager_busy": e_busy[2], "captured_busy": c_busy[2], "eager_device_ms": e_busy[0],
+             "captured_device_ms": c_busy[0], "first_call_s": first_s,
+             "capture_s": cap.capture_seconds, "graph_pool_bytes": cap.pool_bytes,
+             "launches_in_graph": in_graph, "eager_launches_per_frame": e_launch[:frames],
+             "build_accel_live_s": accel_s, "h2d_bytes_per_frame": refresh_dynamic.h2d_bytes,
+             "derived_tables_kept": len(held), "mutant_frames_differ": differs,
+             "refresh_frame0_sync_sites": first_sites}
+    stats["eager_live_ms"] = step_ms + stats["refresh_ms"] + stats["eager_ms"]
+    stats["captured_live_ms"] = step_ms + stats["refresh_ms"] + stats["captured_ms"]
+    log(f"phase {phase} {path} {config.integrator} {config.width}x{config.height} spp {config.spp} "
+        f"mpl {config.max_path_length}, {frames} moving frames recorded once, two live accels "
+        f"[{smi}]: step {step_ms:.2f} ms, refresh {stats['refresh_ms']:.2f} ms (the captured copy's, "
+        f"synced and checked for host reads, {stats['captured_refresh_synced_ms']:.2f}); render "
+        f"eager {stats['eager_ms']:.2f} ms (frames 2-{frames - 1}, busy {e_busy[2]:.3f}, device "
+        f"{e_busy[0]:.2f}), captured {stats['captured_ms']:.2f} ms (busy {c_busy[2]:.3f}, device "
+        f"{c_busy[0]:.2f}); live ms/frame {stats['eager_live_ms']:.2f} -> "
+        f"{stats['captured_live_ms']:.2f}; capture {cap.capture_seconds:.3f} s (first call "
+        f"{first_s:.2f} s), graph pool {cap.pool_bytes} bytes; launches in the graph {in_graph}, "
+        f"eager a frame {e_launch[frames - 1]}; the refreshes' synchronizing calls: frame 0 "
+        f"{first_sites or 'none'}, frames 1-{len(rec) - 1} none; {frames} frames bit-identical "
+        f"to eager, "
+        f"{len(held)} derived tables kept in place and equal to fresh ones each frame"
+        + (f"; the stale-cache mutant's {mutant} frames differ from eager: {differs}" if mutant
+           else ""))
+    run = LiveRun(dev, live, la_e, config, mcfg)
+    run.state, run.out, run.i = state_e, out_e, frames + mutant
+    run.dyn, run.uniforms = rec[-1]
+    return run, in_graph, stats
+
+
+def refresh_split(la, dyn, reps=5) -> dict:
+    """Where a refresh's time goes, on ``la`` (whose derived tables the
+    frames made): host ms of ``dynamic_rows`` (numpy) and of the whole
+    refresh ended by a synchronize, and the in-place rewrite of the derived
+    tables alone (``build._rewrite_derived``: host ms, synced, and device
+    ms by CUDA events), each a mean over ``reps`` calls."""
+    from merian_quake_tpu_torch.accel import build
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    return {"dynamic_rows_ms": host_ms(lambda: build.dynamic_rows(la, dyn)),
+            "refresh_synced_ms": host_ms(lambda: build.refresh_dynamic(la, dyn)),
+            "rewrite_derived_ms": host_ms(lambda: build._rewrite_derived(la.accel)),
+            "rewrite_derived_device_ms": cuda_time(lambda: build._rewrite_derived(la.accel), reps)}
+
+
+def phase30(dev, smi):
+    """The live dungeon at full width: the host library's build, the map,
+    its live loop captured against eager over 10 moving frames (bench.py's
+    live_scale frames) and the stale-cache mutant (``live_pair``), K3
+    launches and host reads a frame, peak bytes."""
     from merian_quake_tpu_torch.game import host
     from merian_quake_tpu_torch.game.bigmap import make_bigmap
     from merian_quake_tpu_torch.render.mcpg import MCPGConfig
-    from merian_quake_tpu_torch.renderer import render_frame
 
     marks = [time.perf_counter()]
     lib = host.build_library()
     marks.append(time.perf_counter())
     live, _ = make_bigmap(device=dev)
     marks.append(time.perf_counter())
-    la = build_accel_live(live.gs.static_bundle, dyn_cap=live.gs.dynamic_capacity, device=dev)
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
-    host_s, map_s, accel_s = np.diff(marks)
+    host_s, map_s = np.diff(marks)
     log(f"phase 30 live dungeon: game host built with g++ in {host_s:.2f} s "
-        f"({lib.rsplit('/', 1)[-1]}); make_bigmap() {map_s:.2f} s, {la.n_static} static "
-        f"triangles, dynamic capacity {la.dyn_cap}; build_accel_live {accel_s:.2f} s")
-    run = LiveRun(dev, live, la, live_config(live), MCPGConfig())
+        f"({lib.rsplit('/', 1)[-1]}); make_bigmap() {map_s:.2f} s")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    per_frame, times = [], []
-    for i in range(LIVE_SETTLE):
-        before = launches()["woop_stream"]
-        step_s, refresh_s, render_s, out = run.step()
-        per_frame.append(launches()["woop_stream"] - before)
-        times.append((step_s, refresh_s, render_s))
-    t0 = time.perf_counter()
-    for i in range(LIVE_TIMED):
-        before = launches()["woop_stream"]
-        run.dyn, run.uniforms = live.step_dynamic(dt=1.0 / 30.0, forward=120.0, yaw=40.0 + 2.0 * i)
-        run.la = refresh_dynamic(run.la, run.dyn)
-        run.state, out = render_frame(run.la.accel, live.gs.static_bundle.atlas, run.uniforms,
-                                      run.config, run.state, run.mcfg)
-        per_frame.append(launches()["woop_stream"] - before)
-    torch.cuda.synchronize()
-    live_ms = (time.perf_counter() - t0) / LIVE_TIMED * 1e3
+    run, in_graph, stats = live_pair(30, "live dungeon", dev, smi, live, live_config(live),
+                                     MCPGConfig(), mutant=LIVE_MUTANT)
     path = launches()
     peak = torch.cuda.max_memory_allocated()
-    others = {k: v for k, v in path.items() if v and k not in ("woop_stream",)}
-    if others or min(per_frame) < 3:
-        raise AssertionError(f"the live dungeon launched {path} (K3 a frame {per_frame})")
-    check_mcpg_finite("live dungeon", run.state, out)
+    per_frame = [e.get("woop_stream", 0) for e in stats["eager_launches_per_frame"]]
+    others = {k: v for k, v in path.items() if v and k != "woop_stream"}
+    if others or min(per_frame) < 3 or set(in_graph) != {"woop_stream"}:
+        raise AssertionError(f"the live dungeon launched {path} (K3 a frame {per_frame}, in the "
+                             f"graph {in_graph})")
+    check_mcpg_finite("live dungeon", run.state, run.out)
     valid = int(run.dyn["valid"].sum())
     if valid <= 0:
         raise AssertionError("the live dungeon draws no entity")
-    # two more frames' host reads (the alpha loop's, one a round, are the
-    # only ones a live frame may have); the first frame read takes the
-    # synchronizing call torch adds to a process's first call in the
-    # "warn" mode (phase 27), the second is held
+    # two more eager frames' host reads (the alpha loop's, one a round, are
+    # the only ones an eager live frame may have); the first frame read
+    # takes the synchronizing call torch adds to a process's first call in
+    # the "warn" mode (phase 27), the second is held
     sync_sites(lambda: run.step(sync=False))
     _, sites = sync_sites(lambda: run.step(sync=False))
     if not sites or any(not s.startswith("intersect.py:") for s in sites):
         raise AssertionError(f"a live frame synchronizes outside the alpha loop: {sites}")
-    steady = np.mean(np.asarray(times[4:7]), axis=0) * 1e3
-    stats = {"static_triangles": la.n_static, "dynamic_triangles": valid,
-             "host_build_s": float(host_s), "make_bigmap_s": float(map_s),
-             "build_accel_live_s": float(accel_s),
-             "step_ms": float(steady[0]), "refresh_ms": float(steady[1]),
-             "render_ms": float(steady[2]), "live_ms_per_frame": live_ms,
-             "k3_per_frame": per_frame, "host_reads_per_frame": len(sites),
-             "h2d_bytes_per_frame": refresh_dynamic.h2d_bytes, "peak_device_bytes": peak}
-    log(f"phase 30 live dungeon mcpg {W}x{H} spp {SPP} mpl {MPL} [{smi}]: frames 5-7 step "
-        f"{steady[0]:.2f} ms, refresh {steady[1]:.2f} ms, render {steady[2]:.1f} ms (synced); "
-        f"{LIVE_TIMED} timed frames {live_ms:.1f} ms/frame (bench.py's timing); K3 a frame "
-        f"{per_frame}; host reads a frame {len(sites)} ({sorted(set(sites))}); refresh copies "
-        f"{refresh_dynamic.h2d_bytes} bytes to the card a frame; {valid} dynamic triangles; "
-        f"peak {peak} bytes; ldr mean {float(out['ldr'].mean()):.4f}")
+    split = refresh_split(run.la, run.dyn)
+    log(f"phase 30 live dungeon refresh [{smi}], {len(derived_tensors(run.la.accel))} derived "
+        f"tables: dynamic_rows (numpy) {split['dynamic_rows_ms']:.2f} ms, the whole refresh synced "
+        f"{split['refresh_synced_ms']:.2f} ms, of which the in-place rewrite of the derived tables "
+        f"{split['rewrite_derived_ms']:.3f} ms (device {split['rewrite_derived_device_ms']:.3f} ms)")
+    stats.update({"static_triangles": run.la.n_static, "dynamic_triangles": valid,
+                  "host_build_s": float(host_s), "make_bigmap_s": float(map_s),
+                  "k3_per_frame": per_frame, "host_reads_per_frame": len(sites),
+                  "peak_device_bytes": peak, "refresh_split": split})
+    log(f"phase 30 live dungeon [{smi}]: {run.la.n_static} static triangles, dynamic capacity "
+        f"{run.la.dyn_cap}, {valid} dynamic triangles drawn; K3 an eager frame {per_frame}, in the "
+        f"captured frame's graph {in_graph['woop_stream']}; host reads an eager frame {len(sites)} "
+        f"({sorted(set(sites))}); refresh copies {stats['h2d_bytes_per_frame']} bytes to the card "
+        f"a frame; peak {peak} bytes; ldr mean {float(run.out['ldr'].mean()):.4f}")
     return run, {"live_dungeon": path}, stats
 
 
@@ -3373,10 +3739,10 @@ def dungeon_populations(run, dev):
 def phase31(dev, dungeon, smi):
     """The refresh against fresh tables on the card, after the moving
     steps of phase 30 (the dungeon, K3) and of the live arena (K1, K2);
-    the arena's live frames (MCPG: K1; ReSTIR: K1 + K2) at 1080p; the
-    rows4 mutant must fail the dungeon's check."""
+    the arena's live frames (MCPG: K1; ReSTIR: K1 + K2) at 1080p captured
+    against eager over 10 moving frames (``live_pair``); the rows4 mutant
+    must fail the dungeon's check."""
     from merian_quake_tpu_torch.accel import build, woop
-    from merian_quake_tpu_torch.accel.build import build_accel_live
     from merian_quake_tpu_torch.game.mod import make_arena
     from merian_quake_tpu_torch.render.mcpg import MCPGConfig
     from merian_quake_tpu_torch.render.restir import ReSTIRConfig
@@ -3390,17 +3756,15 @@ def phase31(dev, dungeon, smi):
     for integ, icfg, expect in (("mcpg", MCPGConfig(), ("woop_nearest",)),
                                 ("restir", ReSTIRConfig(), ("woop_nearest", "woop_any"))):
         live = make_arena(dynamic_capacity=1024, device=dev)
-        la = build_accel_live(live.gs.static_bundle, dyn_cap=live.gs.dynamic_capacity, device=dev)
-        run = LiveRun(dev, live, la, live_config(live, integ), icfg)
         reset_launches()
-        ms = [run.step()[2] * 1e3 for _ in range(6)]
+        run, in_graph, st = live_pair(31, f"live arena {integ}", dev, smi, live,
+                                      live_config(live, integ), icfg)
         got = launches()
-        if any(got[k] == 0 for k in expect) or any(v for k, v in got.items() if k not in expect):
-            raise AssertionError(f"the live arena ({integ}) launched {got}")
+        if (any(got[k] == 0 for k in expect) or any(v for k, v in got.items() if k not in expect)
+                or set(in_graph) != set(expect)):
+            raise AssertionError(f"the live arena ({integ}) launched {got}, in the graph {in_graph}")
         paths[f"live_arena_{integ}"] = got
-        arena_stats[f"{integ}_render_ms"] = float(np.mean(ms[2:]))
-        log(f"phase 31 live arena {integ} {W}x{H} [{smi}]: 6 frames, render frames 2-5 "
-            f"{np.mean(ms[2:]):.1f} ms/frame; launches { {k: v for k, v in got.items() if v} }")
+        arena_stats[integ] = st
     if woop.streamed(run.la.accel.woop_w):
         raise AssertionError("the live arena's table is streamed: K1/K2 expected")
     o, d = aimed_rays(run.la.accel, run.la.n_static, SUBSET, 17)
@@ -3471,29 +3835,13 @@ ORBIT_PRESETS = ("config2", "config4", "config5")
 
 
 def phase33(dev, smi):
-    """run_preset for the orbit presets at their named sizes and frames."""
-    from merian_quake_tpu_torch.presets import PRESETS, run_preset
-
+    """run_preset for the orbit presets at their named sizes and frames,
+    captured against eager (``preset_pair``; the eager frames render the
+    accel built for each frame, the captured ones the tables it is written
+    into), every frame bit for bit."""
     paths, stats = {}, {}
     for name in ORBIT_PRESETS:
-        p = PRESETS[name]
-        reset_launches()
-        state, out, spf = run_preset(name, device=dev)
-        got = launches()
-        if not got["woop_nearest"] or any(v for k, v in got.items()
-                                           if k not in ("woop_nearest", "woop_any")):
-            raise AssertionError(f"run_preset({name!r}) launched {got}")
-        for key in ("ldr", "hdr"):
-            if not bool(torch.isfinite(out[key]).all()):
-                raise AssertionError(f"run_preset({name!r}) {key} is not finite")
-        if tuple(out["ldr"].shape) != (p.config.height, p.config.width, 3):
-            raise AssertionError(f"run_preset({name!r}) ldr has the shape {tuple(out['ldr'].shape)}")
-        paths[f"preset_{name}"] = got
-        stats[name] = spf * 1e3
-        log(f"phase 33 run_preset {name} {p.config.width}x{p.config.height} {p.config.integrator} "
-            f"denoise={p.config.denoise} x{p.frames} frames, orbit camera [{smi}]: "
-            f"{spf * 1e3:.2f} ms/frame (frames 1-{p.frames - 1}, the accel rebuilt each frame "
-            f"outside the timing); launches { {k: v for k, v in got.items() if v} }")
+        paths[f"preset_{name}"], stats[name] = preset_pair(33, name, dev, smi)
     return paths, stats
 
 
@@ -4495,7 +4843,7 @@ def main() -> int:
         "presets": preset_stats, "graph": graph_stats, "debug_views": debug_stats,
         "f7_replay_scan": f7_stats, "live_arena": {
             k: v for k, v in refresh_stats.items() if k != "k3"},
-        "orbit_presets_ms": orbit_stats, "live_cpu_vs_card": live_cpu_stats,
+        "orbit_presets": orbit_stats, "live_cpu_vs_card": live_cpu_stats,
         "cli_play_bigmap": cli_stats, "native_builder": native_stats, "bsp_frame": bsp_stats,
         "sharded_3_gloo_ranks_one_card": shard_stats, "captured_frames": capture_stats,
     }, {

@@ -470,14 +470,18 @@ def refresh_dynamic(la: LiveAccel, dyn: dict) -> LiveAccel:
     cost is a row write of the suffix of every table, in place, a few MB
     over the host-to-device link. The JAX package makes new tables with
     donated buffers instead (``_apply_dyn_jit``, build.py:514-571); here
-    each table keeps its identity, so what the tracers derived and kept
-    from a table is made anew: the packed rows of the three Woop tables
-    are rewritten with them, and the padded bounds, node and cluster
-    boxes (kept on ``cluster_lo`` and ``cluster_lo_alpha``) and K8's
-    triangle table (kept on ``scene.v0``) are forgotten, to be made at
-    the next trace. No device value is read. Returns ``la``, whose tables
-    now hold this frame; ``refresh_dynamic.h2d_bytes`` is what the last
-    call copied to the device."""
+    each table keeps its storage, and so does what the tracers derived
+    and kept from it, which is made anew in place: the packed rows of the
+    three Woop tables are rewritten with them, and the padded bounds, the
+    node, sub-node and cluster boxes (kept on ``cluster_lo`` and
+    ``cluster_lo_alpha``) and K8's triangle table (kept on ``scene.v0``)
+    are computed again into the tensors that hold them
+    (:func:`_rewrite_derived`). A frame captured on these tables
+    (renderer.compile_frame) therefore reads this refresh's values on its
+    next replay: the copies are ordered before it on the current stream.
+    No device value is read. Returns ``la``, whose tables now hold this
+    frame; ``refresh_dynamic.h2d_bytes`` is what the last call copied to
+    the device."""
     u = dynamic_rows(la, dyn)
     t0 = la.n_static
     c0 = t0 // CLUSTER_SIZE
@@ -498,13 +502,70 @@ def refresh_dynamic(la: LiveAccel, dyn: dict) -> LiveAccel:
     n += _write(a.cluster_hi_alpha, c0, u["hi_a"])
     for w, key in ((a.woop_w, "w"), (a.woop_w_shadow, "w_shadow"), (a.woop_w_alpha, "w_alpha")):
         n += _write_table(w, 3 * t0, u[key])
-    for owner in (a.cluster_lo, a.cluster_lo_alpha, sc.v0):
-        woop.drop_cached(owner)
+    _rewrite_derived(a)
     refresh_dynamic.h2d_bytes = n
     return la
 
 
 refresh_dynamic.h2d_bytes = 0
+
+
+def _rewrite_derived(a: AccelScene) -> None:
+    """What the tracers keep on ``a``'s tables (woop.padded_bounds,
+    woop.walk_boxes, dense.scene_table), made anew in place after the
+    tables were written."""
+    for owner in (a.cluster_lo, a.cluster_lo_alpha, a.cluster_lo_proxy, a.scene.v0):
+        if owner is not None:
+            woop.rewrite_cached(owner)
+
+
+# the Woop tables of an accel: each carries its packed rows (woop.pack_table)
+WOOP_TABLES = ("woop_w", "woop_w_shadow", "woop_w_alpha", "woop_w_proxy")
+
+
+def _fields(a: AccelScene) -> list:
+    """(name, value) of every field of ``a``, the scene's fields inlined."""
+    return ([(f"scene.{k}", v) for k, v in zip(Scene._fields, a.scene)]
+            + [(k, v) for k, v in zip(AccelScene._fields, a) if k != "scene"])
+
+
+def _layout(a: AccelScene) -> list:
+    """``a``'s structure: each field None, or its shape, dtype, device and
+    the first field it is the same tensor as (the shadow table is
+    ``woop_w`` where it zeroes nothing)."""
+    fields = _fields(a)
+    first = lambda v: next(k for k, x in fields if x is v)
+    return [(k, None if v is None else (tuple(v.shape), v.dtype, v.device, first(v)))
+            for k, v in fields]
+
+
+def write_accel(dst: AccelScene, src: AccelScene) -> AccelScene:
+    """Write every table of ``src`` into ``dst``'s, in place, so that a
+    frame compiled on ``dst`` (renderer.compile_frame) renders ``src``: the
+    tensors of the accel, the packed rows ``rows4`` of each Woop table (an
+    attribute, which capture.tree_map does not carry, so written here by
+    name) and what the tracers derived and kept from the tables
+    (:func:`_rewrite_derived`). A preset whose content moves builds a new
+    accel each frame (``build_accel``, the JAX package's triangle order)
+    and writes it into the one its frame was compiled on. Raises
+    ValueError where the two differ in structure (a table present in one
+    and None in the other, another shape, dtype or device, a table that
+    is another table in one and not in the other). Reads no device value.
+    Returns ``dst``."""
+    want, got = _layout(dst), _layout(src)
+    if want != got:
+        diff = [f"{k}: {a} != {b}" for (k, a), (_, b) in zip(want, got) if a != b]
+        raise ValueError("write_accel: the accels differ in structure, which a compiled frame "
+                         f"cannot follow: {diff}")
+    for (_, d), (_, s) in zip(_fields(dst), _fields(src)):
+        if d is not None and d is not s:
+            d.copy_(s)
+    for k in WOOP_TABLES:
+        d, s = getattr(dst, k), getattr(src, k)
+        if d is not None and d is not s:
+            woop.packed_rows(d).copy_(woop.packed_rows(s))
+    _rewrite_derived(dst)
+    return dst
 
 
 def scene_features(scene: Scene, uniforms=None, atlas=None) -> SceneFeatures:

@@ -185,19 +185,33 @@ def packed_rows(w: torch.Tensor) -> torch.Tensor:
 
 def _cached(owner, key, partner, make):
     """``make()``, computed once and kept on the tensor ``owner`` under
-    ``key`` for as long as ``partner`` is the same tensor."""
+    ``key`` for as long as ``partner`` is the same tensor (a tensor or a
+    tuple of tensors; :func:`rewrite_cached` makes it anew in place)."""
     cache = owner.__dict__.setdefault("_mq_cache", {})
     hit = cache.get(key)
     if hit is None or hit[0] is not partner:
-        hit = cache[key] = (partner, make())
+        hit = cache[key] = (partner, make(), make)
     return hit[1]
 
 
-def drop_cached(owner):
-    """Forget what :func:`_cached` keeps on ``owner``: a table written in
-    place keeps its identity, so what was derived from it must be made
-    anew."""
-    owner.__dict__.pop("_mq_cache", None)
+def _tensors(value):
+    return value if isinstance(value, tuple) else (value,)
+
+
+def rewrite_cached(owner):
+    """Make anew, in place, what :func:`_cached` keeps on ``owner`` after
+    ``owner`` (or the partner of an entry) was written in place: each
+    entry is computed again and copied into the tensors it already holds,
+    then what those tensors keep in turn. Every derived table keeps its
+    storage, so a captured frame (renderer.compile_frame), which holds
+    their addresses, reads this refresh's values. Only device work: no
+    value is read to the host."""
+    for _, value, make in owner.__dict__.get("_mq_cache", {}).values():
+        held = _tensors(value)
+        for dst, src in zip(held, _tensors(make())):
+            dst.copy_(src)
+        for dst in held:
+            rewrite_cached(dst)
 
 
 def padded_bounds(lo, hi):

@@ -128,13 +128,17 @@ def _cmd_play(args) -> int:
     """Live-simulated game: game host + renderer + HUD, headless.
 
     The frame loop is the reference's main loop (merian-quake.cpp:
-    273-275) with PNG frames standing in for the swapchain."""
+    273-275) with PNG frames standing in for the swapchain. Each frame
+    refreshes the live accel in place, then runs the compiled frame (on
+    the card one CUDA graph's replay, after the refresh on the same
+    stream); a props patch that changes the config or re-inits the state,
+    and a changelevel reboot, make a new compiled frame."""
     import numpy as np
 
     from .accel.build import refresh_dynamic
     from .game.hud import apply_hud
     from .models.types import RenderConfig
-    from .renderer import init_state, render_frame
+    from .renderer import compile_frame, init_state
     from .utils.image import save_png
 
     w, h = _size(args.size)
@@ -150,6 +154,7 @@ def _cmd_play(args) -> int:
     )
     mcfg = None
     state = init_state(cfg, device=args.device)
+    step = None  # the compiled frame, made on the first frame to render
     mixer = None
     if args.wav:
         from .game.audio import AudioMixer
@@ -175,6 +180,7 @@ def _cmd_play(args) -> int:
                 applied = {k: v for k, v in patches.items() if k not in unknown}
                 if applied:
                     print(f"[props] applied {applied}" + (" (state re-init)" if reinit else ""))
+                    step = None
                 if mcfg is None and cfg.integrator != "pt":
                     if cfg.integrator == "mcpg":
                         from .render.mcpg import MCPGConfig as _C
@@ -186,6 +192,7 @@ def _cmd_play(args) -> int:
                     reinit = True
                 if reinit:
                     state = init_state(cfg, mcfg, device=args.device)
+                    step = None
         # scripted input: wander toward the room center, then orbit
         yaw = 20.0 + 1.2 * i
         dyn, uniforms = live.step_dynamic(dt=dt, forward=180.0, yaw=yaw)
@@ -202,6 +209,7 @@ def _cmd_play(args) -> int:
                          np.zeros((h, w, 3), np.float32))
             live, la = boot_live(args.map, args.device)
             state = init_state(cfg, mcfg, device=args.device)
+            step = None
             continue
         if mixer is not None:
             from .game.live import angle_vectors
@@ -211,8 +219,9 @@ def _cmd_play(args) -> int:
             mixer.frame(live.host.time, live.host.frame_sound_events(),
                         ps.origin + ps.view_ofs, right)
         la = refresh_dynamic(la, dyn)
-        state, out = render_frame(la.accel, live.gs.static_bundle.atlas, uniforms, cfg, state,
-                                  mcfg)
+        if step is None:
+            step = compile_frame(la.accel, live.gs.static_bundle.atlas, cfg, state, mcfg)
+        state, out = step(uniforms)
         for msg in live.messages:
             print(f"[game] {msg}")
         if args.save_all:

@@ -8,3 +8,4 @@ live dungeon (``bigmap``), particles, font, audio, the QuakeC assembler
 (``qcasm``) and the HUD compositor (``hud``). Scenes and uniforms land
 on the state's ``device``.
 """
+from .state import Entity, GameState  # noqa: F401

@@ -10,7 +10,8 @@ animated entities) faithful.
 config2, config4 and config5 move their camera along an orbit (config5
 also animates an alias model): ``OrbitGame`` holds the orbit and makes
 the ``game.state.GameState`` that ``run_preset`` steps, rebuilding the
-accel each frame, as the JAX package does. Certification
+accel each frame, as the JAX package does, into the tables of the one
+compiled frame every preset runs through. Certification
 (``utils/certify.py``) renders every preset with a still camera by design
 and runs all six.
 """
@@ -167,16 +168,23 @@ PRESETS = {
 
 def run_preset(name: str, frames: int | None = None, out: str | None = None, device="cuda"):
     """Run a preset on ``device``; returns (state, outputs,
-    seconds_per_frame), the mean over the frames after the first. On the
-    card each timed frame ends in ``torch.cuda.synchronize()``. A preset
-    with moving content steps its GameState and rebuilds the accel each
-    frame, outside the timed render (merian_quake_tpu/presets.py:175-181)."""
+    seconds_per_frame), the mean over the frames after the first. Every
+    frame runs through one ``renderer.compile_frame`` (the JAX package
+    runs the jitted ``render_frame``): on the card the first call warms up
+    on a clone of the state, captures the frame in a CUDA graph and
+    replays it, and each later frame is one replay, ended in
+    ``torch.cuda.synchronize()``. The state and outputs returned are the
+    compiled frame's buffers (on the card, the graph's static buffers,
+    which alias its state and outputs). A preset with moving content
+    steps its GameState and builds the accel each frame, outside the
+    timed render (merian_quake_tpu/presets.py:175-181), and writes it
+    into the tables the frame was compiled on (accel.build.write_accel)."""
     import time
 
     import torch
 
-    from .accel.build import build_accel, scene_features
-    from .renderer import init_state, render_frame
+    from .accel.build import build_accel, scene_features, write_accel
+    from .renderer import compile_frame, init_state
 
     p = PRESETS[name]
     frames = frames if frames is not None else p.frames
@@ -187,26 +195,28 @@ def run_preset(name: str, frames: int | None = None, out: str | None = None, dev
     game = p.make_game(bundle) if p.make_game is not None else None
     sync = torch.device(device).type == "cuda"
     state = init_state(config, p.integ_config, device=device)
+    uniforms, atlas = bundle.uniforms, bundle.atlas
+    accel = step = None
     if game is None:
-        accel = build_accel(bundle.scene, bundle.atlas, device=device)
+        accel = build_accel(bundle.scene, atlas, device=device)
+    else:
+        atlas = game.static_bundle.atlas
     outputs = None
     t_total = 0.0
-    uniforms = bundle.uniforms
-    atlas = bundle.atlas
     for i in range(frames):
         if game is not None:
             scene, uniforms = game.step(1.0 / 30.0)
-            atlas = game.static_bundle.atlas
-            accel = build_accel(scene, atlas, device=device)
+            frame_accel = build_accel(scene, atlas, device=device)
+            accel = write_accel(accel, frame_accel) if accel is not None else frame_accel
         else:
             uniforms = uniforms._replace(frame=i)
+        if step is None:
+            step = compile_frame(accel, atlas, config, state, p.integ_config)
         t0 = time.perf_counter()
-        state, outputs = render_frame(
-            accel, atlas, uniforms, config, state, p.integ_config
-        )
+        state, outputs = step(uniforms)
         if sync:
             torch.cuda.synchronize(device)
-        if i > 0:  # skip the cold frame
+        if i > 0:  # skip the cold frame (on the card: the warm-up and the capture)
             t_total += time.perf_counter() - t0
     spf = t_total / max(frames - 1, 1)
     if out:

@@ -389,6 +389,13 @@ class CompiledFrame:
     back to the eager frame. ``captured`` is the capture.CapturedStep
     after the first call on the card (None before, and on the CPU).
 
+    ``set_state(state)`` makes ``state`` the one the next call renders
+    from (after the capture: copied into the static state, in place).
+
+    The accel and the atlas are those given here: a frame whose tables
+    change renders them from the same tensors, written in place
+    (accel.build.refresh_dynamic, accel.build.write_accel).
+
     On the CPU, which has no graphs, each call runs ``frame_core`` as it
     is, with the same interface and the alpha loop's test kept on the
     device, as the captured frame keeps it."""
@@ -414,6 +421,18 @@ class CompiledFrame:
             self.captured = CapturedStep(self._step, self.state, device_scalars(uniforms))
         self.state, outputs = self.captured(self.captured.state, uniforms)
         return self.state, outputs
+
+    def set_state(self, state: FrameState) -> None:
+        """Render the next frame from ``state``. After the capture it is
+        written into the static state (capture.assign: a tensor the static
+        state holds is kept as it is, another copied in; another structure,
+        shape or Python value raises), which ``self.state`` stays."""
+        if self.captured is None:
+            self.state = state
+        else:
+            from .capture import assign
+
+            assign(self.captured.state, state)
 
 
 def compile_frame(accel: AccelScene, atlas: TextureAtlas, config: RenderConfig,

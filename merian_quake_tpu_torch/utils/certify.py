@@ -33,9 +33,13 @@ at equal cost) adds to each row the steady ms/frame of the candidate and
 of its reference integrator (host clock, each frame ended by a device
 sync) and the reference accumulated for as many frames as the
 candidate's time buys, with its relMSE and the ratio at equal time.
+Every run (the truth's, the candidate's, the references') goes through
+its own compiled frame (``renderer.compile_frame``; on the card one CUDA
+graph), so those times are captured frames', not the host's launch rate.
 """
 from __future__ import annotations
 
+import gc
 import json
 import time
 
@@ -68,10 +72,26 @@ def _unguided_config(cfg, integ_config):
     return cfg._replace(integrator="pt"), None
 
 
+def _restart_accumulation(state):
+    """``state`` with its accumulators and frame counter zeroed, the
+    integrator's state kept: the steady skip's restart."""
+    zero = torch.zeros_like
+    return state._replace(
+        accum_irradiance=zero(state.accum_irradiance), accum_direct=zero(state.accum_direct),
+        accum_albedo=zero(state.accum_albedo), iteration=zero(state.iteration),
+    )
+
+
 def _run(bundle, config, integ_config, frames, frame_offset=0,
          snapshots=None, steady_skip=0, device="cuda", times=None):
     """Accumulated beauty INCLUDING the volume term (fog-aware truth:
     both sides estimate the same transport), as a host array.
+
+    The frames run through one ``renderer.compile_frame`` (the JAX
+    package's jitted ``render_frame``): on the card one CUDA graph,
+    captured at the first frame and replayed a frame. Its graph and pool
+    are freed before the call returns, so that the next run's capture
+    does not stack on them.
 
     ``snapshots``: optional sorted list of frame counts at which to also
     record the accumulated image (the reference's power-of-2 ImageWrite
@@ -80,32 +100,27 @@ def _run(bundle, config, integ_config, frames, frame_offset=0,
     ``steady_skip``: restart ACCUMULATION (not the integrator state) at
     this frame index — the steady-state window for temporal-reuse
     integrators: the reported image averages frames [steady_skip,
-    frames) only, with reservoirs / chains already at steady state.
+    frames) only, with reservoirs / chains already at steady state. The
+    compiled frame's state is zeroed in place (CompiledFrame.set_state).
 
     ``times``: a list that gets each frame's host ms, the frame ended
     by a device sync (None: no sync, no timing)."""
     from ..accel.build import build_accel
-    from ..renderer import init_state, render_frame
+    from ..renderer import compile_frame, init_state
 
-    sync = times is not None and torch.device(device).type == "cuda"
+    on_card = torch.device(device).type == "cuda"
+    sync = times is not None and on_card
     accel = build_accel(bundle.scene, bundle.atlas, device=device)
-    state = init_state(config, integ_config, device=device)
+    step = compile_frame(accel, bundle.atlas, config, init_state(config, integ_config, device=device),
+                         integ_config)
     uniforms = bundle.uniforms
     outputs = None
     snaps = {}
     for i in range(frames):
         if steady_skip and i == steady_skip:
-            state = state._replace(
-                accum_irradiance=torch.zeros_like(state.accum_irradiance),
-                accum_direct=torch.zeros_like(state.accum_direct),
-                accum_albedo=torch.zeros_like(state.accum_albedo),
-                iteration=torch.zeros_like(state.iteration),
-            )
-        uniforms = uniforms._replace(frame=frame_offset + i)
+            step.set_state(_restart_accumulation(step.state))
         t0 = time.perf_counter()
-        state, outputs = render_frame(
-            accel, bundle.atlas, uniforms, config, state, integ_config
-        )
+        _, outputs = step(uniforms._replace(frame=frame_offset + i))
         if times is not None:
             if sync:
                 torch.cuda.synchronize(device)
@@ -113,6 +128,10 @@ def _run(bundle, config, integ_config, frames, frame_offset=0,
         if snapshots and (i + 1) in snapshots:
             snaps[i + 1] = outputs["hdr"].cpu().numpy()
     final = outputs["hdr"].cpu().numpy()
+    del step, outputs
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
     if snapshots:
         return final, snaps
     return final

@@ -5,6 +5,7 @@
         [--frames 64] [--ref-frames 256] [--ref-runs 4] [--realtime-frames 8]
         [--steady-skip 16] [--out CERT_relmse_torch.json]
         [--convergence-dir DIR] [--device cuda] [--equal-time]
+        [--row-suffix SUFFIX]
 
 The port's counterpart of the JAX package's ``cli certify`` (same
 arguments and defaults, plus ``--device``, ``--steady-skip`` and
@@ -19,7 +20,11 @@ them. ``--steady-skip 0`` is the real-time regime of a reuse preset
 (ReSTIR, SSMM: ``--realtime-frames`` frames, no steady window): its rows
 are named ``<preset>_realtime`` and carry CERT_relmse.json's note for
 that regime. ``--equal-time`` adds each integrator's ms/frame and the
-reference's relMSE at equal time.
+reference's relMSE at equal time; every run goes through one compiled
+frame (on the card one CUDA graph a run), so those are captured frames'
+times. ``--row-suffix`` appends to each row's name (a run at another
+scale beside the named-size rows: ``--presets config3 --scale 0.5
+--row-suffix _960x536``, the TPU row's size).
 
 On the card, every preset at its named resolution (about 18 minutes on
 an H100): ``python3 scripts/certify_torch.py --scale 1.0 --equal-time
@@ -75,6 +80,8 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     p.add_argument("--equal-time", action="store_true",
                    help="add ms/frame and the reference's relMSE at equal time")
+    p.add_argument("--row-suffix", default="",
+                   help="appended to each row's name in --out")
     args = p.parse_args(argv)
 
     import torch
@@ -104,6 +111,7 @@ def main(argv=None) -> int:
             key = name + "_realtime"
             row["note"] = REALTIME_NOTE.format(
                 name=name, realtime_frames=args.realtime_frames, frames=args.frames)
+        key += args.row_suffix
         rows[key] = row
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=2)

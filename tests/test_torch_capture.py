@@ -26,8 +26,10 @@ what it rests on, on the CPU:
   bits as ``frame_core`` and ``Graph.run``; a frame on a device that is
   neither the CPU nor an available card is refused.
 - The capture's helpers: the copy of the new state into the static
-  state reads every value before it is overwritten, and a call whose
-  Python value differs from the capture's is refused.
+  state reads every value before it is overwritten, a call whose
+  Python value differs from the capture's is refused, and
+  ``CompiledFrame.set_state`` writes a state into the static one in
+  place (certification's steady skip).
 - (f) the captures themselves need the card: the ``cuda``-marked tests
   skip here and name chip_smoke.py's phase 38, which makes them there.
 """
@@ -417,6 +419,38 @@ def test_assign_refuses_a_changed_python_value():
     with pytest.raises(ValueError, match="shape"):
         capture.assign(static, {"x": torch.ones(4), "n": 7, "k": 4})
     assert capture.skeleton({"x": torch.zeros(2), "k": 1}) != capture.skeleton({"x": torch.zeros(3), "k": 1})
+
+
+def test_set_state_writes_the_static_state_in_place():
+    """CompiledFrame.set_state before the capture replaces the state; after
+    it (here a stand-in with the static state) it writes the given state
+    into the static buffers: a restarted accumulator is zeroed in place,
+    the tensors the static state holds are kept as they are, and another
+    shape raises."""
+    import types
+
+    from merian_quake_tpu_torch.utils.certify import _restart_accumulation
+
+    bundle, accel, config, icfg = _scene("mcpg")
+    step = compile_frame(accel, bundle.atlas, config, init_state(config, icfg, device="cpu"), icfg)
+    for i in range(2):
+        step(bundle.uniforms._replace(frame=i))
+    fresh = init_state(config, icfg, device="cpu")
+    step.set_state(fresh)
+    assert step.state is fresh
+    for i in range(2):
+        step(bundle.uniforms._replace(frame=i))
+    static = step.state
+    step.captured = types.SimpleNamespace(state=static)
+    held = {id(x): x.data_ptr() for x in capture.tree_leaves(static)}
+    mc_before = static.mcpg.mc.f.clone()
+    step.set_state(_restart_accumulation(static))
+    assert step.state is static and int(static.iteration) == 0
+    assert float(static.accum_irradiance.abs().sum()) == 0.0
+    assert {id(x): x.data_ptr() for x in capture.tree_leaves(static)} == held
+    assert torch.equal(static.mcpg.mc.f, mc_before)
+    with pytest.raises(ValueError, match="shape"):
+        step.set_state(static._replace(accum_direct=torch.zeros(2, 2, 4)))
 
 
 # ------------------------------------------------------------ (f) on the card

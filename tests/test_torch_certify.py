@@ -23,10 +23,18 @@ the test, from the JAX package itself.
   reads 1.66e-3, and 7.7e-8 against the op-by-op run) of its jitted
   value, the equal-budget PT relMSE within rtol 1e-6 (spread 3.6e-8).
 
+Every run goes through ``renderer.compile_frame`` (on the card one CUDA
+graph): ``_run`` equals the eager ``frame_core`` loop bit for bit on the
+CPU (PT, ReSTIR with the steady skip, MCPG; frame numbers from
+4,000,000), one compiled frame a run, a call a frame. The card's side
+(captured against eager, relMSEs equal to the bit) is chip_smoke.py's
+phase 26.
+
 Mutants, each failing its bound: the truth's frame numbers kept in 19
 bits (1,000,000 → 475,712, so the truth's streams are other streams),
-and a steady skip that keeps the frame counter (the accumulators
-restart, their 1/N weights do not).
+a steady skip that keeps the frame counter (the accumulators restart,
+their 1/N weights do not), and one that never reaches the compiled
+frame (the accumulators keep accumulating).
 """
 import csv
 
@@ -123,6 +131,90 @@ def test_equal_time_keys():
     assert r["ratio_vs_pt_equal_time"] == 1.0 and r["pt_equal_time_frames"] == 2
 
 
+def _eager_run(bundle, config, integ, frames, frame_offset, steady_skip):
+    """What ``_run`` computed before it compiled its frame: frame_core a
+    frame (the eager alpha loop), the steady skip by ``_replace``."""
+    from merian_quake_tpu_torch.accel.build import build_accel
+    from merian_quake_tpu_torch.renderer import frame_core, init_state
+
+    accel = build_accel(bundle.scene, bundle.atlas, device="cpu")
+    state = init_state(config, integ, device="cpu")
+    for i in range(frames):
+        if steady_skip and i == steady_skip:
+            z = torch.zeros_like
+            state = state._replace(accum_irradiance=z(state.accum_irradiance),
+                                   accum_direct=z(state.accum_direct),
+                                   accum_albedo=z(state.accum_albedo),
+                                   iteration=z(state.iteration))
+        state, out = frame_core(accel, bundle.atlas,
+                                bundle.uniforms._replace(frame=frame_offset + i), config, state,
+                                mcpg_config=integ)
+    return out["hdr"].numpy()
+
+
+@pytest.mark.parametrize("name,skip", [("config1", 0), ("config3", 3), ("config6", 0)])
+def test_run_compiled_equals_eager_loop(name, skip, monkeypatch):
+    """``_run`` through one compiled frame equals the eager loop bit for
+    bit, the snapshots too, at frame numbers 4,000,000 on (certify's
+    truth offsets reach 4,000,000 + frames)."""
+    from merian_quake_tpu_torch import renderer
+    from merian_quake_tpu_torch.accel.build import scene_features
+    from merian_quake_tpu_torch.presets import PRESETS
+
+    p = PRESETS[name]
+    bundle = p.make_bundle(device="cpu")
+    cfg = p.config._replace(width=32, height=16, denoise=False, features=scene_features(
+        bundle.scene, bundle.uniforms, bundle.atlas))
+    made, calls = [], []
+    plain_init, plain_call = renderer.CompiledFrame.__init__, renderer.CompiledFrame.__call__
+    monkeypatch.setattr(renderer.CompiledFrame, "__init__",
+                        lambda self, *a, **k: (made.append(self), plain_init(self, *a, **k))[1])
+    monkeypatch.setattr(renderer.CompiledFrame, "__call__",
+                        lambda self, u: (calls.append(u.frame), plain_call(self, u))[1])
+    final, snaps = t_certify._run(bundle, cfg, p.integ_config, 6, frame_offset=4_000_000,
+                                  snapshots=[1, 2, 4], steady_skip=skip, device="cpu")
+    assert len(made) == 1 and calls == [4_000_000 + i for i in range(6)]
+    np.testing.assert_array_equal(final, _eager_run(bundle, cfg, p.integ_config, 6, 4_000_000,
+                                                    skip))
+    assert sorted(snaps) == [1, 2, 4]
+    np.testing.assert_array_equal(snaps[4], _eager_run(bundle, cfg, p.integ_config, 4, 4_000_000,
+                                                       skip))
+
+
+def test_certify_script_row_suffix(tmp_path):
+    """scripts/certify_torch.py merges each row into --out under the
+    preset's name plus --row-suffix, keeping the rows already there."""
+    import importlib.util
+    import json
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts",
+                        "certify_torch.py")
+    spec = importlib.util.spec_from_file_location("certify_torch", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    out = tmp_path / "cert.json"
+    out.write_text(json.dumps({"config1": {"kept": True}}))
+    args = ["--presets", "config1", "--scale", "0.05", "--frames", "2", "--ref-frames", "4",
+            "--ref-runs", "1", "--device", "cpu", "--out", str(out)]
+    assert script.main(args + ["--row-suffix", "_small"]) == 0
+    rows = json.loads(out.read_text())
+    assert rows["config1"] == {"kept": True} and rows["config1_small"]["resolution"] == "32x16"
+
+
+@pytest.mark.cuda
+def test_certify_captured_equals_eager_on_the_card():
+    """certify_presets captured against eager on the card, each relMSE
+    equal to the bit (config1, config6 and config3's steady skip): the
+    card's machine has no JAX, so chip_smoke.py phase 26 makes this
+    comparison."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA graph has no CPU mode")
+    r = t_certify.certify_presets(["config1"], scale=0.08, frames=4, ref_frames=8, ref_runs=1,
+                                  device="cuda")["config1"]
+    assert r["ratio_vs_pt"] == 1.0
+
+
 def test_mutant_frame_offsets_fail(jax_config1, monkeypatch):
     """The truth's frame numbers kept in 19 bits."""
     plain = t_certify._run
@@ -133,16 +225,21 @@ def test_mutant_frame_offsets_fail(jax_config1, monkeypatch):
 
 
 def test_mutant_steady_skip_fails(monkeypatch):
-    """The steady skip keeps the frame counter."""
+    """The steady skip keeps the frame counter (the accumulators restart,
+    their 1/N weights do not)."""
+    plain = t_certify._restart_accumulation
+    monkeypatch.setattr(t_certify, "_restart_accumulation",
+                        lambda state: plain(state)._replace(iteration=state.iteration))
+    with pytest.raises(AssertionError):
+        config3_agrees(config3_skip())
+
+
+def test_mutant_steady_skip_ignored_fails(monkeypatch):
+    """A restart that never reaches the compiled frame (a new state made
+    with ``_replace`` that the frame does not render from): the
+    accumulators silently keep accumulating."""
     import merian_quake_tpu_torch.renderer as renderer
 
-    plain = renderer.render_frame
-
-    def keeps_counter(accel, atlas, uniforms, config, state, *a, **k):
-        if state.iteration == 0 and uniforms.frame == 16:  # the skip's frame
-            state = state._replace(iteration=16)
-        return plain(accel, atlas, uniforms, config, state, *a, **k)
-
-    monkeypatch.setattr(renderer, "render_frame", keeps_counter)
+    monkeypatch.setattr(renderer.CompiledFrame, "set_state", lambda self, state: None)
     with pytest.raises(AssertionError):
         config3_agrees(config3_skip())

@@ -5,7 +5,8 @@ tests/test_torch_slice.py's frames do (≥ 99.5% of pixels within 1e-3 in
 LDR), widened by the 8-bit quantization of the file (one step, 1/255);
 a run with another seed (the mutant) does not. ``play --device cpu``
 runs the live arena and writes its PNG and a savegame that a second
-``play --load`` resumes; ``error`` prints the JAX CLI's numbers.
+``play --load`` resumes; ``play`` renders through the compiled frame
+(a new one after a props patch); ``error`` prints the JAX CLI's numbers.
 """
 import numpy as np
 import pytest
@@ -64,6 +65,34 @@ def test_play_on_the_cpu_saves_and_loads(tmp_path, capsys):
     assert cli.main(["--device", "cpu", "play", "--size", "32x16", "--frames", "2",
                      "--integrator", "mcpg", "--load", str(sav), "--out", str(out)]) == 0
     assert "loaded savegame" in capsys.readouterr().out
+
+
+def test_play_runs_the_compiled_frame(tmp_path, monkeypatch, capsys):
+    """``play`` renders through renderer.compile_frame, a call a frame, and
+    never the eager render_frame; a props patch between frames (spp 1 →
+    2, polled at the second frame) makes a new compiled frame."""
+    from merian_quake_tpu_torch import renderer
+    from merian_quake_tpu_torch.utils import props
+
+    made, calls = [], []
+    plain_init, plain_call = renderer.CompiledFrame.__init__, renderer.CompiledFrame.__call__
+    monkeypatch.setattr(renderer.CompiledFrame, "__init__",
+                        lambda self, acc, atlas, cfg, *a, **k: (
+                            made.append(cfg.spp), plain_init(self, acc, atlas, cfg, *a, **k))[1])
+    monkeypatch.setattr(renderer.CompiledFrame, "__call__",
+                        lambda self, u: (calls.append(u.frame), plain_call(self, u))[1])
+
+    def eager(*a, **k):
+        raise AssertionError("play rendered an eager frame")
+
+    monkeypatch.setattr(renderer, "render_frame", eager)
+    polls = iter([{}, {"spp": 2}, {}])
+    monkeypatch.setattr(props.PropertyConsole, "poll", lambda self: next(polls))
+    out = tmp_path / "play.png"
+    assert cli.main(["--device", "cpu", "play", "--size", "32x16", "--frames", "3",
+                     "--props", str(tmp_path / "props.json"), "--out", str(out)]) == 0
+    assert made == [1, 2] and len(calls) == 3
+    assert "[props] applied {'spp': 2}" in capsys.readouterr().out
 
 
 def test_error_matches_jax_cli(renders, capsys):

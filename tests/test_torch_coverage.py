@@ -1,9 +1,13 @@
 """The port covers the JAX package: every module of ``merian_quake_tpu/``
 has its counterpart (same name, same place) in ``merian_quake_tpu_torch/``
 or is named in ROADMAP.md's "Not carried over" (read from the files,
-without importing the JAX package); and every pass that renders a row
-slab takes the JAX function's slab arguments (``y0``, ``rows``,
-``mean_fn``, ``gather_fn``, ``shard_ctx``, ``n_shards``, ...)."""
+without importing the JAX package); every package's ``__init__.py``
+exports at least the public names of the JAX package's (read from the
+files too: ``merian_quake_tpu/game/__init__.py`` imports JAX); and every
+pass that renders a row slab takes the JAX function's slab arguments
+(``y0``, ``rows``, ``mean_fn``, ``gather_fn``, ``shard_ctx``,
+``n_shards``, ...)."""
+import ast
 import importlib
 import inspect
 import os
@@ -44,6 +48,39 @@ def test_not_carried_over_names_existing_modules():
     assert "`accel/pallas_intersect.py`" in named and "`accel/dense.py`" in named
     assert "accel/pallas_intersect.py" in _modules("merian_quake_tpu")
     assert "accel/dense.py" in _modules("merian_quake_tpu_torch")
+
+
+def _exports(path):
+    """The public names an ``__init__.py`` binds at its top level: what it
+    imports from its modules and what it defines."""
+    names = set()
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
+
+
+INITS = [m for m in _modules("merian_quake_tpu") if os.path.basename(m) == "__init__.py"]
+
+
+@pytest.mark.parametrize("init", INITS)
+def test_package_exports(init):
+    """Each package of the port exports what the JAX package's exports
+    (``from merian_quake_tpu_torch.game import Entity, GameState``)."""
+    want = _exports(os.path.join(REPO, "merian_quake_tpu", init))
+    got = _exports(os.path.join(REPO, "merian_quake_tpu_torch", init))
+    assert want <= got, f"{init}: the port does not export {sorted(want - got)}"
+
+
+def test_game_exports_import():
+    from merian_quake_tpu_torch.game import Entity, GameState
+    from merian_quake_tpu_torch.game.state import Entity as E, GameState as G
+
+    assert (Entity, GameState) == (E, G)
 
 
 # (module, function) whose slab parameters the port's must take

@@ -12,8 +12,16 @@ fail them. ``tests/test_live.py::test_live_accel_matches_full_build``
 is held on the CPU oracle, and one live dungeon frame (PT, mpl 2, and
 MCPG) of the port, fed the JAX package's live tables through
 ``interop.live_accel_from_numpy``, is held to the JAX package's frame
-within tests/test_torch_slice.py's bound. The card's side (K1, K2, K3
-on refreshed tables, the rows4 mutant) is chip_smoke.py's phase 31.
+within tests/test_torch_slice.py's bound, eagerly and through
+``renderer.compile_frame``. The refresh rewrites the derived tables in
+place, so each keeps its storage (a captured frame holds its address):
+the invariant test checks that after every refresh, and a mutant that
+drops them to be made anew fails it. A compiled live step
+(refresh, then the compiled frame) over moving frames of the arena,
+recorded once and fed to two live accels, equals the eager step bit for
+bit. The card's side (K1, K2, K3 on refreshed tables, the rows4 mutant;
+the captured live dungeon and arena against eager, the stale-cache
+mutant) is chip_smoke.py's phases 30-31.
 """
 import jax
 import numpy as np
@@ -24,7 +32,7 @@ from merian_quake_tpu.accel.build import build_accel_live as j_build_accel_live
 from merian_quake_tpu.accel.build import refresh_dynamic as j_refresh_dynamic
 from merian_quake_tpu.game.bigmap import make_bigmap as j_make_bigmap
 from merian_quake_tpu.game.mod import make_arena as j_make_arena
-from merian_quake_tpu_torch import interop
+from merian_quake_tpu_torch import capture, interop
 from merian_quake_tpu_torch.accel import build, dense, woop
 from merian_quake_tpu_torch.accel.build import build_accel, build_accel_live, refresh_dynamic
 from merian_quake_tpu_torch.accel.intersect import trace_nearest
@@ -127,13 +135,26 @@ def _fresh_caches(acc):
     return got
 
 
-def _refreshed(live, la, steps):
+def _derived(acc) -> dict:
+    """Every tensor the tracers keep on the live accel's tables, by name
+    (the padded bounds, the walk boxes on them, K8's table)."""
+    got = {}
+    for table, pairs in _fresh_caches(acc).items():
+        for key, (cached, _) in pairs.items():
+            if key != "rows4":
+                got[f"{table}.{key}"] = cached
+    return got
+
+
+def _refreshed(live, la, steps, check=None):
     """``la`` with its caches made (as a trace makes them), then ``steps``
-    more moving steps refreshed in."""
+    more moving steps refreshed in; ``check(la)`` after each."""
     _fresh_caches(la.accel)
     for i in range(steps):
         dyn, _ = _step(live, 10 + i)
         la = refresh_dynamic(la, dyn)
+        if check is not None:
+            check(la)
     return la
 
 
@@ -146,10 +167,18 @@ def _invariants(acc):
     return bad
 
 
+def _moved(acc, before) -> list:
+    """The derived tensors whose storage is not that of the same tensor in
+    ``before`` (which holds them, so that their storage is not reused)."""
+    return [k for k, x in _derived(acc).items() if x.data_ptr() != before[k].data_ptr()]
+
+
 def test_refresh_invariants():
-    """After refreshes: every table's packed rows equal its columns 0-3,
-    the cached padded bounds, walk boxes and K8 table equal a fresh
-    computation, and no two Woop tables share storage (the static arena
+    """After each of several refreshes: every table's packed rows equal
+    its columns 0-3, the cached padded bounds, walk boxes and K8 table
+    equal a fresh computation, and each of them keeps the storage it had
+    before the first refresh (a captured frame holds their addresses), as
+    every table does; no two Woop tables share storage (the static arena
     has neither sky nor alpha, so build_accel's shadow table is woop_w
     itself and it has no alpha table)."""
     live = make_arena(dynamic_capacity=256, device="cpu")
@@ -158,28 +187,116 @@ def test_refresh_invariants():
     la = build_accel_live(live.gs.static_bundle, dyn_cap=256, device="cpu")
     ptrs = {name: getattr(la.accel, name).data_ptr() for name, _, _ in TABLES}
     assert len(set(ptrs.values())) == 3
-    la = _refreshed(live, la, 3)
+    derived = _derived(la.accel)
+    # woop_w and the shadow table share their bounds, so their caches too
+    assert len(derived) == 10 and len({x.data_ptr() for x in derived.values()}) == 7
+    seen = []
+
+    def check(la):
+        assert _invariants(la.accel) == []
+        assert _moved(la.accel, derived) == []
+        seen.append(int(la.accel.scene.valid[la.n_static:].sum()))
+
+    la = _refreshed(live, la, 3, check)
+    assert len(seen) == 3 and min(seen) > 0
     assert {name: getattr(la.accel, name).data_ptr() for name, _, _ in TABLES} == ptrs
-    assert _invariants(la.accel) == []
-    assert int(la.accel.scene.valid[la.n_static:].sum()) > 0
 
 
-@pytest.mark.parametrize("mutant", ["rows4", "caches"])
+@pytest.mark.parametrize("mutant", ["rows4", "caches", "drop"])
 def test_refresh_mutants_fail_the_invariants(monkeypatch, mutant):
     """A refresh that writes in place but leaves the packed rows, or the
-    kept bounds and boxes, as they were fails the invariants."""
+    kept bounds and boxes, as they were fails the invariants; one that
+    drops the kept tables where it should rewrite them (what the refresh
+    did before a frame could be captured on them) makes them anew in new
+    storage, which a captured frame would never read: it fails the storage
+    check."""
     live = make_arena(dynamic_capacity=256, device="cpu")
     la = build_accel_live(live.gs.static_bundle, dyn_cap=256, device="cpu")
     if mutant == "rows4":
         monkeypatch.setattr(build, "_write_table", build._write)
-    else:
-        monkeypatch.setattr(woop, "drop_cached", lambda owner: None)
+    elif mutant == "caches":
+        monkeypatch.setattr(woop, "rewrite_cached", lambda owner: None)
+    else:  # the refresh before the derived tables were rewritten in place
+        monkeypatch.setattr(woop, "rewrite_cached", lambda owner: owner.__dict__.pop("_mq_cache", None))
+    derived = _derived(la.accel)
     la = _refreshed(live, la, 3)
     bad = _invariants(la.accel)
     if mutant == "rows4":
         assert bad == ["woop_w.rows4", "woop_w_shadow.rows4"], bad
-    else:
+    elif mutant == "caches":
         assert {"woop_w.padded_lo", "woop_w.walk_boxes", "mt_table.mt_table"} <= set(bad), bad
+    else:
+        assert bad == [] and set(_moved(la.accel, derived)) == set(derived)
+
+
+LIVE_W, LIVE_H, LIVE_FRAMES = 32, 16, 4
+
+
+def _live_steps(integ, compiled, recording, frames_out):
+    """The arena's live step over ``recording`` (each frame's (dyn,
+    uniforms)) on a live accel of its own: refresh, then the eager frame
+    or the compiled one; each frame's (state, outputs) cloned into
+    ``frames_out``."""
+    from merian_quake_tpu_torch.cli import live_features
+    from merian_quake_tpu_torch.models.types import RenderConfig
+    from merian_quake_tpu_torch.render.restir import ReSTIRConfig
+    from merian_quake_tpu_torch.render.mcpg import MCPGConfig
+    from merian_quake_tpu_torch.renderer import compile_frame, frame_core, init_state
+
+    live, bundle = recording["live"], recording["live"].gs.static_bundle
+    cfg = RenderConfig(width=LIVE_W, height=LIVE_H, spp=1, integrator=integ,
+                       features=live_features(bundle))
+    icfg = MCPGConfig() if integ == "mcpg" else ReSTIRConfig()
+    la = build_accel_live(bundle, dyn_cap=live.gs.dynamic_capacity, device="cpu")
+    state, step = init_state(cfg, icfg, device="cpu"), None
+    for dyn, u in recording["frames"]:
+        la = refresh_dynamic(la, dyn)
+        if compiled:
+            step = step or compile_frame(la.accel, bundle.atlas, cfg, state, icfg)
+            state, out = step(u)
+        else:
+            state, out = frame_core(la.accel, bundle.atlas, u, cfg, state, mcpg_config=icfg)
+        frames_out.append(capture.tree_map(torch.clone, (state, out)))
+
+
+@pytest.fixture(scope="module")
+def arena_recording():
+    """The arena's (dyn, uniforms) for LIVE_FRAMES moving frames, recorded
+    once (the player walks and turns, fires in frame 1)."""
+    live = make_arena(dynamic_capacity=512, device="cpu")
+    return {"live": live, "frames": [_step(live, i) for i in range(LIVE_FRAMES)]}
+
+
+@pytest.mark.parametrize("integ", ["mcpg", "restir"])
+def test_compiled_live_step_equals_eager(arena_recording, integ):
+    """The compiled live step (refresh, then the compiled frame, as cli
+    play runs it) equals the eager one bit for bit on every frame, state
+    and outputs, while the entities move."""
+    eager, compiled = [], []
+    _live_steps(integ, False, arena_recording, eager)
+    _live_steps(integ, True, arena_recording, compiled)
+    dyn = [d["v"] for d, _ in arena_recording["frames"]]
+    assert any(not np.array_equal(a, b) for a, b in zip(dyn, dyn[1:]))  # the entities move
+    assert len(eager) == len(compiled) == LIVE_FRAMES
+    for (es, eo), (cs, co) in zip(eager, compiled):
+        assert capture.skeleton(es) == capture.skeleton(cs)
+        for a, b in zip(capture.tree_leaves((es, eo)), capture.tree_leaves((cs, co))):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_captured_live_loop_equals_eager_on_the_card():
+    """The live dungeon (K3) and the arena's MCPG and ReSTIR frames
+    captured against eager on the card over 10 moving frames, the
+    stale-cache mutant differing: the card's machine has no JAX, so
+    chip_smoke.py phases 30-31 make these comparisons."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA graph has no CPU mode")
+    live = make_arena(dynamic_capacity=512, device="cuda")
+    la = build_accel_live(live.gs.static_bundle, dyn_cap=512, device="cuda")
+    derived = _derived(la.accel)
+    la = refresh_dynamic(la, _step(live, 0)[0])
+    assert _moved(la.accel, derived) == []
 
 
 def test_live_accel_matches_full_build():
@@ -234,7 +351,7 @@ def dungeon_frames():
     from merian_quake_tpu_torch.cli import live_features
     from merian_quake_tpu_torch.models.types import RenderConfig
     from merian_quake_tpu_torch.render.mcpg import MCPGConfig
-    from merian_quake_tpu_torch.renderer import init_state, render_frame
+    from merian_quake_tpu_torch.renderer import compile_frame, init_state, render_frame
 
     j, _ = j_make_bigmap(grid=3, monsters=4, dynamic_capacity=512)
     t, _ = make_bigmap(grid=3, monsters=4, dynamic_capacity=512, device="cpu")
@@ -262,7 +379,9 @@ def dungeon_frames():
         mcfg = MCPGConfig() if integ == "mcpg" else None
         render = lambda acc, tc=tc, mcfg=mcfg: render_frame(
             acc, atlas, t_u, tc, init_state(tc, mcfg, device="cpu"), mcfg)[1]
-        out[integ] = (np.asarray(j_out["ldr"]), render(la.accel), render)
+        compiled = compile_frame(la.accel, atlas, tc, init_state(tc, mcfg, device="cpu"),
+                                 mcfg)(t_u)[1]
+        out[integ] = (np.asarray(j_out["ldr"]), render(la.accel), render, compiled)
     return out, la, t_dyn, j_dyn, t_u, j_u
 
 
@@ -280,17 +399,31 @@ def test_live_frame_matches_jax(dungeon_frames, integ):
     for f in ("cam_x", "cam_w", "cam_u", "prev_cam_x", "cl_time", "time_diff"):
         np.testing.assert_array_equal(_np(getattr(t_u, f)), np.asarray(getattr(j_u, f)))
     assert t_u.frame == int(j_u.frame)
-    ref, ours, _ = out[integ]
+    ref, ours, _, _ = out[integ]
     ok, share, mean = _ldr_agrees(ours["ldr"], ref)
     assert ok, (share, mean)
     assert float(ours["ldr"].max()) > 0.01
+
+
+@pytest.mark.parametrize("integ", ["pt", "mcpg"])
+def test_compiled_live_frame_matches_jax(dungeon_frames, integ):
+    """The same frame through compile_frame (the alpha loop's test on the
+    device; live_features forces the alpha loop): the eager frame's bits,
+    so the JAX package's frame within the same bound."""
+    out, *_ = dungeon_frames
+    ref, ours, _, compiled = out[integ]
+    for k in ours:
+        for a, b in zip(capture.tree_leaves(ours[k]), capture.tree_leaves(compiled[k])):
+            assert torch.equal(a, b), k
+    ok, share, mean = _ldr_agrees(compiled["ldr"], ref)
+    assert ok, (share, mean)
 
 
 def test_live_frame_mutant_fails(dungeon_frames):
     """The frame's dynamic suffix left out (the entities' triangles not
     candidates): the PT frame falls outside the bound."""
     out, la, *_ = dungeon_frames
-    ref, _, render = out["pt"]
+    ref, _, render, _ = out["pt"]
     cand = la.accel.candidate.clone()
     cand[la.n_static:] = False
     ok, share, mean = _ldr_agrees(render(la.accel._replace(candidate=cand))["ldr"], ref)
