@@ -22,12 +22,14 @@ building and checking their hand-written kernels: K1
 (csrc/woop_stream.cu, both for tables above 65,536 triangles), K4 and K5
 (csrc/woop_keys.cu, target keys, block union entries and the visit list
 they make with its row sort), the list
-walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
+walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits), K8
 (csrc/mt_dense.cu, the dense Möller–Trumbore sweep of
-``accel.dense.intersect_dense``). Phases, one line each or more:
+``accel.dense.intersect_dense``) and the alpha walk (csrc/woop_alpha.cu,
+trace_nearest's whole alpha loop on K1's or K3's walk). Phases, one line
+each or more:
 
 1. device: the card's name and power limit (nvidia-smi), and the time to
-   build the six kernel sources with nvcc for sm_90a (all started
+   build the seven kernel sources with nvcc for sm_90a (all started
    together), with each kernel's ptxas lines;
 2. K1 against its plain PyTorch version on the card, bit for bit: a
    random soup with half misses, the same with one or two live rays a
@@ -161,12 +163,13 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     the live chain states and the touched light-cache cells within
     pinned bounds; then 64 accumulated frames of ``mcpg`` and of ``pt``
     on the card agree in mean irradiance (guiding is unbiased);
-20. the court at 1080p: 6 PT, 6 ReSTIR and 6 MCPG frames; every frame's
-    K1 launches equal its ``intersect`` calls (each alpha re-trace round
-    is one; K2 on ReSTIR's visibility), the alpha loops' rounds and host
-    reads counted and timed (CUDA events and the host clock around each
-    loop), one more frame's synchronizing calls counted
-    (``set_sync_debug_mode("warn")``); 64×36 CPU against card;
+20. the court at 1080p: 6 PT, 6 ReSTIR and 6 MCPG frames; every frame
+    launches one alpha walk a ``trace_nearest`` call (its alpha loop), K1
+    for each other ``intersect`` call (none) and K2 on ReSTIR's
+    visibility, the loops timed (CUDA events and the host clock around
+    each); one more frame's synchronizing calls read
+    (``set_sync_debug_mode("warn")``): none in the alpha loop; 64×36 CPU
+    against card;
 21. the fogged court (``fog_mu_t`` 0.002), MCPG + ``VolumeConfig()``, at
     1080p: 9 frames as phase 20's, cold and frames 6-8 with Mrays/s
     counting the volume rays, the distance-MC states with sum_w > 0 per
@@ -227,8 +230,9 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     tests/test_graph.py's 1e-5); ``flagship_graph_config()`` on the fogged
     court with config5's render setup (MCPG + ``VolumeConfig(volume_spp=
     1)``, 2 spp, denoise, still camera) against ``frame_core`` (9
-    frames): the same K1 launches and the same synchronizing calls a frame
-    (the alpha loop's reads), and in the default mode the HUD and add
+    frames): the same launches (4 alpha walks) and the same synchronizing
+    calls a frame (none in the alpha loop), and in the default mode the
+    HUD and add
     outputs and both SVGF histories bit for bit (the MCPG replay's scan
     repeats itself since F7's repair); the
     flagship on city (MCPG, denoise) with a steady frame under
@@ -259,8 +263,9 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     storage and equal to a fresh one; then 4 frames whose refresh leaves
     the derived tables as they were (the stale-cache mutant), which must
     differ from eager; step, refresh and render ms (eager and captured),
-    busy shares, the capture, K3 in the graph and an eager frame, host
-    reads of an eager frame (only the alpha loop's), the bytes the
+    busy shares, the capture, the alpha walks (K3's, one a trace: 3) in
+    the graph and in an eager frame, an eager frame with no host read, the
+    bytes the
     refresh copies and its split (numpy rows, the whole refresh, the
     in-place rewrite of the derived tables), peak bytes; finite outputs,
     entities drawn;
@@ -272,8 +277,8 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     computation; the hits of a from-scratch ``build_accel`` of the same
     frame's full scene (hit/miss, t); the same on the live arena for K1
     and K2, after its live loop captured against eager (``live_pair``, 10
-    moving frames bit for bit) with MCPG (K1) and ReSTIR (K1 + K2) at
-    1080p; a refresh that leaves the packed rows as they were (the
+    moving frames bit for bit) with MCPG (alpha walks, K1's) and ReSTIR
+    (alpha walks and K2) at 1080p; a refresh that leaves the packed rows as they were (the
     mutant) fails the K3 check;
 32. the live dungeon at grid 3, 4 monsters, after 3 steps, on the CPU and
     on the card: PT (mpl 2) and MCPG frames at 64x40, LDR within the
@@ -319,8 +324,8 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     overflow and are held on every frame;
 38. the frame captured in one CUDA graph (``renderer.compile_frame``;
     ``Graph.compile`` for the flagship graph): city MCPG at 1080p (the
-    main path), the fogged court's MCPG + volume (the alpha loop's test on
-    the device: all 5 rounds), city ReSTIR (K2), denoised city MCPG, map
+    main path), the fogged court's MCPG + volume (4 alpha walks, one a
+    trace), city ReSTIR (K2), denoised city MCPG, map
     MCPG (K3), config1's PT box at 640x360 (a small, launch-bound frame)
     and the flagship graph on the fogged court, each from an empty state
     for 9 frames (frame 0's call warms up, captures and
@@ -329,10 +334,24 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits) and K8
     with eager and captured ms/frame (host clock, synced a frame), the
     capture's seconds, the graph's pool bytes, the device's busy share
     of each (torch.profiler, over at least 250 ms of frames) and the K1/K2/K3 launches in
-    the graph; then what one alpha round costs once every ray is dead.
-    ``render_sequence`` runs the captured frame on the card too, so the
-    launch counts around it (phases 7 and 19) are the capture's: its
-    warm-up frames and the capture itself.
+    the graph; then what one round of the round loop (the list walker's
+    route) costs once every ray is dead, beside the alpha walk on the same
+    rays. ``render_sequence`` runs the captured frame on the card too, so
+    the launch counts around it (phases 7 and 19) are the capture's: its
+    warm-up frames and the capture itself;
+39. the alpha walk (run after phase 31, on its live dungeon): both
+    instances (K1's walk, K3's walk) bit for bit in (t, tri, u, v) against
+    ``woop.woop_alpha_reference`` (on 65,536-ray slices) and against
+    trace_nearest's round loop run eagerly over K1 or K3 (on every ray):
+    the grate soup with a dead warp and padding; seven planes that reject
+    every hit (every ray unhit, every warp walking 5 rounds); the court's
+    1080p primary rays and one bounce population; the live dungeon's
+    refreshed tables (its frame's primary and bounce rays and rays aimed at
+    the monsters); each instance timed on the court and the dungeon in
+    turns against the round loop, eager and on the device (all rounds),
+    by CUDA events, with its bound (the pairs its lanes tested over all
+    rounds, 42 operations each, or the bytes) and the rounds its warps
+    walked.
 
 Each path (PT city, ReSTIR city, dense map, PT map, ReSTIR map, the five
 city(1600) frame runs of phase 14, MCPG city, MCPG map, the two
@@ -449,6 +468,7 @@ def reset_launches() -> None:
     woop.visit_list.launches = 0
     woop.woop_list.node_launches = woop.woop_list.compact_launches = 0
     woop.woop_list.anyhit_launches = 0
+    woop.woop_nearest_alpha.launches = woop.woop_stream_alpha.launches = 0
 
 
 def launches() -> dict:
@@ -462,7 +482,9 @@ def launches() -> dict:
             "woop_list": woop.woop_list.launches,
             "woop_list_nodes": woop.woop_list.node_launches,
             "woop_list_compact": woop.woop_list.compact_launches,
-            "woop_list_any": woop.woop_list.anyhit_launches}
+            "woop_list_any": woop.woop_list.anyhit_launches,
+            "woop_nearest_alpha": woop.woop_nearest_alpha.launches,
+            "woop_stream_alpha": woop.woop_stream_alpha.launches}
 
 
 def bound_ms(ops: float, nbytes: float):
@@ -786,8 +808,8 @@ def phase5(dev, rng, acc_soup, bundle, accel, config, smi):
         f"threads an SM" + first_design_ms("K2", "shadow") + f"; on the proxy table {p1:.3f} / "
         f"{p2:.3f} ms, bound {bound_ms(ops_p, bytes_p)[0]:.4f} ms" + first_design_ms("K2", "proxy"))
 
-    # trace_visibility: the card (K2 + alpha table through K1) against the
-    # CPU oracle, on an alpha-grate soup
+    # trace_visibility: the card (K2 + alpha table through the alpha walk)
+    # against the CPU oracle, on an alpha-grate soup
     scene, atlas = grate_soup("cpu")
     acc_cpu = build_accel(scene, atlas)
     if acc_cpu.woop_w_alpha is None:
@@ -797,10 +819,11 @@ def phase5(dev, rng, acc_soup, bundle, accel, config, smi):
     a = rng.uniform([2, 2, 2], [198, 98, 98], (m, 3)).astype(np.float32)
     bb = rng.uniform([2, 2, 2], [198, 98, 98], (m, 3)).astype(np.float32)
     cpu = trace_visibility(acc_cpu, atlas, torch.from_numpy(a), torch.from_numpy(bb))
-    k1_before, k2_before = woop.woop_nearest.launches, woop.woop_any.launches
+    aw_before, k2_before = woop.woop_nearest_alpha.launches, woop.woop_any.launches
     gpu = trace_visibility(acc_gpu, atlas.to(dev), t(a), t(bb)).cpu()
-    if woop.woop_any.launches == k2_before or woop.woop_nearest.launches == k1_before:
-        raise AssertionError("trace_visibility on the card did not launch K2 and K1")
+    if (woop.woop_any.launches - k2_before, woop.woop_nearest_alpha.launches - aw_before) != (1, 1):
+        raise AssertionError("trace_visibility on the card did not launch K2 and the alpha walk "
+                             "once each")
     agree = float((cpu == gpu).float().mean())
     log(f"phase 5 trace_visibility grate soup {m} segments: visible cpu {float(cpu.float().mean()):.4f} "
         f"card {float(gpu.float().mean()):.4f}, agree {agree:.5f}")
@@ -2105,13 +2128,12 @@ COURT_LDR = (0.98, 3.9e-4)
 
 
 class AlphaLoop:
-    """Counts and times ``trace_nearest``'s alpha re-trace loop on the card:
-    while installed, every ``intersect`` call (one K1 or K3 launch on the
-    card) and every ``trace_nearest`` call given a texture atlas (the
-    loop) is counted; each loop reads one device value a round on the
-    host (``bool(active.any())``), so its host reads are its rounds plus
-    one where it stopped early. CUDA events and the host clock around
-    each loop give its device and host time."""
+    """Counts and times ``trace_nearest``'s alpha loops on the card: while
+    installed, every ``intersect`` call (one K1 or K3 launch on the card)
+    and every ``trace_nearest`` call given a texture atlas (the loop: one
+    alpha walk on the default routes, no ``intersect`` call) is counted;
+    CUDA events and the host clock around each loop give its device and
+    host time."""
 
     def __init__(self):
         import importlib
@@ -2124,7 +2146,7 @@ class AlphaLoop:
         self.reset()
 
     def reset(self):
-        self.intersects = self.loops = self.rounds = self.reads = 0
+        self.intersects = self.loops = 0
         self.events, self.host_s = [], 0.0
 
     def _intersect(self, *a, **k):
@@ -2134,9 +2156,6 @@ class AlphaLoop:
     def _nearest(self, accel, tex, *a, **k):
         if tex is None:
             return self.plain_nearest(accel, tex, *a, **k)
-        from merian_quake_tpu_torch.models import materials
-
-        n0 = self.intersects
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         e0.record()
@@ -2144,10 +2163,7 @@ class AlphaLoop:
         e1.record()
         self.host_s += time.perf_counter() - t0
         self.events.append((e0, e1))
-        rounds = self.intersects - n0
         self.loops += 1
-        self.rounds += rounds
-        self.reads += rounds + (rounds < materials.MAX_INTERSECTIONS)
         return out
 
     def __enter__(self):
@@ -2203,12 +2219,13 @@ def court(dev, fog=0.0):
 
 def court_frames(phase, path, dev, bundle, accel, config, mcfg, frames, window, rays, smi):
     """``frames`` frames of a court path at 1080p with the launch counts set
-    to 0 just before and read just after; every frame's K1 launches equal
-    its ``intersect`` calls (the alpha loop's rounds among them) and it
-    launches nothing else but K2 on ReSTIR's visibility; then one more
-    frame whose synchronizing calls are counted against the alpha loop's
-    host reads. Returns (state, out, the path's launches, {"ms", "cold",
-    the per-frame loop numbers})."""
+    to 0 just before and read just after; every frame launches one alpha
+    walk a ``trace_nearest`` call (its alpha loop), K1 for each other
+    ``intersect`` call (none on the court) and nothing else but K2 on
+    ReSTIR's visibility; then one more frame whose synchronizing calls are
+    read: none may be in the alpha loop (intersect.py, woop.py). Returns
+    (state, out, the path's launches, {"ms", "cold", the per-frame loop
+    numbers})."""
     from merian_quake_tpu_torch.renderer import init_state, render_frame
 
     state = init_state(config, mcfg, device=dev)
@@ -2223,7 +2240,6 @@ def court_frames(phase, path, dev, bundle, accel, config, mcfg, frames, window, 
                                         config, state, mcfg)
             if i == frames:  # the extra frame: its synchronizing calls
                 (state, out), sites = sync_sites(step)
-                syncs = len(sites)
                 loop_dev = probe.device_ms()
             else:
                 torch.cuda.synchronize()
@@ -2233,14 +2249,16 @@ def court_frames(phase, path, dev, bundle, accel, config, mcfg, frames, window, 
                 frame_ms.append((time.perf_counter() - t0) * 1e3)
             got = {k: v - before[k] for k, v in launches().items()}
             k2 = got.pop("woop_any")
-            if (got["woop_nearest"] != probe.intersects or any(v for k, v in got.items()
-                                                               if k != "woop_nearest")
-                    or (k2 > 0) != (config.integrator == "restir") or probe.rounds <= probe.loops):
+            if (got["woop_nearest"] != probe.intersects or probe.loops == 0
+                    or got["woop_nearest_alpha"] != probe.loops
+                    or any(v for k, v in got.items() if k not in ("woop_nearest",
+                                                                  "woop_nearest_alpha"))
+                    or (k2 > 0) != (config.integrator == "restir")):
                 raise AssertionError(f"{path} frame {i}: launched {got} and K2 {k2} for "
-                                     f"{probe.intersects} intersect calls, {probe.loops} alpha "
-                                     f"loops of {probe.rounds} rounds")
+                                     f"{probe.intersects} intersect calls and {probe.loops} "
+                                     f"alpha loops")
             if i < frames:
-                per.append((got["woop_nearest"], k2, probe.loops, probe.rounds, probe.reads,
+                per.append((got["woop_nearest"], got["woop_nearest_alpha"], k2, probe.loops,
                             probe.host_s * 1e3, probe.device_ms()))
     counts = launches()
     for name, x in (("ldr", out["ldr"]), ("hdr", out["hdr"]),
@@ -2249,37 +2267,40 @@ def court_frames(phase, path, dev, bundle, accel, config, mcfg, frames, window, 
             raise AssertionError(f"{path} {name} is not finite")
     if tuple(out["ldr"].shape) != (H, W, 3) or float(out["ldr"].std()) <= 0.0:
         raise AssertionError(f"{path} ldr has the wrong shape or is constant")
-    if syncs < probe.reads:
-        raise AssertionError(f"{path}: {syncs} synchronizing calls, fewer than the alpha "
-                             f"loop's {probe.reads} host reads")
+    in_loop = [x for x in sites if x.split(":")[0] in ("intersect.py", "woop.py")]
+    if in_loop:
+        raise AssertionError(f"{path}: the alpha loop synchronizes: {in_loop}")
     lo, hi = window
     steady = float(np.mean(frame_ms[lo:hi]))
-    k1, k2, loops, rounds, reads, host_ms, dev_ms = (float(np.mean(c)) for c in zip(*per[lo:hi]))
+    k1, walks, k2, loops, host_ms, dev_ms = (float(np.mean(c)) for c in zip(*per[lo:hi]))
     log(f"phase {phase} {path} {W}x{H} spp {config.spp} mpl {config.max_path_length} [{smi}]: "
         f"launches { {k: v for k, v in counts.items() if v} }; cold {frame_ms[0]:.1f} ms, mean of "
         f"frames {lo}-{hi - 1} {steady:.1f} ms/frame, {rays / steady / 1e3:.2f} Mrays/s (frames "
         f"{', '.join(f'{x:.1f}' for x in frame_ms)}); a frame (mean of the same): K1 {k1:.1f}, "
-        f"K2 {k2:.1f}, alpha loops {loops:.1f} of {rounds:.1f} rounds, {reads:.1f} host reads, "
-        f"the loops {host_ms:.2f} ms on the host clock and {dev_ms:.2f} ms between their CUDA "
-        f"events; frame {frames}: {syncs} synchronizing calls, the loops' reads {probe.reads} "
-        f"(loops {loop_dev:.2f} ms on the device); ldr mean {float(out['ldr'].mean()):.4f}")
+        f"alpha walks {walks:.1f} for {loops:.1f} alpha loops, K2 {k2:.1f}, the loops "
+        f"{host_ms:.2f} ms on the host clock and {dev_ms:.2f} ms between their CUDA events; "
+        f"frame {frames}: {len(sites)} synchronizing calls ({sorted(set(sites))}), none in the "
+        f"alpha loop (loops {loop_dev:.2f} ms on the device); ldr mean "
+        f"{float(out['ldr'].mean()):.4f}")
     return state, out, counts, {"ms": steady, "cold": frame_ms[0], "k1_per_frame": k1,
-                                "alpha_loops": loops, "alpha_rounds": rounds,
-                                "host_reads": reads, "loop_host_ms": host_ms,
-                                "loop_device_ms": dev_ms, "syncs": syncs}
+                                "alpha_walks_per_frame": walks, "alpha_loops": loops,
+                                "loop_host_ms": host_ms, "loop_device_ms": dev_ms,
+                                "syncs": len(sites)}
 
 
 def cpu_vs_card(phase, name, bundle_fn, config, mcfg, frames, bounds, report=()):
     """``frames`` frames of a small ``config`` on the CPU (oracle) and on
-    the card: each output of ``bounds`` ({key: (share within 1e-3, mean |d|)})
+    the card (K1, or the alpha walk on a scene with alpha tests): each
+    output of ``bounds`` ({key: (share within 1e-3, mean |d|)})
     within its bound; the outputs in ``report`` printed beside them."""
     from merian_quake_tpu_torch.renderer import render_sequence
 
-    k1 = launches()["woop_nearest"]
+    k1 = lambda: launches()["woop_nearest"] + launches()["woop_nearest_alpha"]
+    before = k1()
     _, oc = render_sequence(bundle_fn(), config, frames=frames, mcpg_config=mcfg, device="cpu")
     _, og = render_sequence(bundle_fn(), config, frames=frames, mcpg_config=mcfg)
-    if launches()["woop_nearest"] == k1 or og["ldr"].device.type != "cuda":
-        raise AssertionError(f"{name}: the card's frames did not launch K1")
+    if k1() == before or og["ldr"].device.type != "cuda":
+        raise AssertionError(f"{name}: the card's frames did not launch K1 or the alpha walk")
     for key, (share_min, mean_max) in bounds.items():
         diff = (oc[key] - og[key].cpu()).abs()
         share = float((diff.amax(-1) <= PIX_TOL).float().mean())
@@ -2899,8 +2920,10 @@ def preset_pair(phase, name, dev, smi, per_frame=None):
         if c_got != want_c or e_got != want_e:
             raise AssertionError(f"run_preset({name!r}) launched {c_got} captured, {e_got} eager; "
                                  f"expected {want_c}, {want_e}")
-    elif (any(v % (WARMUP_STEPS + 1) for v in c_got.values()) or not c_got["woop_nearest"]
-          or any(v for k, v in {**c_got, **e_got}.items() if k not in ("woop_nearest", "woop_any"))):
+    elif (any(v % (WARMUP_STEPS + 1) for v in c_got.values())
+          or not (c_got["woop_nearest"] or c_got["woop_nearest_alpha"])
+          or any(v for k, v in {**c_got, **e_got}.items()
+                 if k not in ("woop_nearest", "woop_any", "woop_nearest_alpha"))):
         raise AssertionError(f"run_preset({name!r}) launched {c_got} captured, {e_got} eager")
     if len(c_seen.images) != p.frames or len(e_seen.images) != p.frames:
         raise AssertionError(f"run_preset({name!r}): {len(c_seen.images)} captured and "
@@ -3038,17 +3061,19 @@ def phase26(dev, smi):
 def graph_or_core(step, frames, uniforms):
     """``frames`` frames of ``step(state, uniforms) -> (state, out)`` from
     ``step(None, None)``'s initial state; returns (state, out, host ms a
-    frame with each frame synced, K1 launches a frame)."""
+    frame with each frame synced, K1 launches a frame, its alpha walks
+    among them)."""
+    k1_walks = lambda: launches()["woop_nearest"] + launches()["woop_nearest_alpha"]
     state = step(None, None)
     ms, k1, out = [], [], None
     for i in range(frames):
-        before = launches()["woop_nearest"]
+        before = k1_walks()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, out = step(state, uniforms._replace(frame=i))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        k1.append(launches()["woop_nearest"] - before)
+        k1.append(k1_walks() - before)
     return state, out, ms, k1
 
 
@@ -3116,7 +3141,8 @@ def phase27(dev, bundle, accel, config, smi):
                         "max_abs_ldr": d}
 
     # the flagship graph on the fogged court, config5's render setup, in
-    # the default mode: the same launches and host reads a frame, and the
+    # the default mode: the same launches (4 alpha walks) and host reads a
+    # frame (none in the alpha loop), and the
     # HUD, add and both SVGF histories equal frame_core's bit for bit (the
     # replay's scan repeats itself since F7's repair, ops/segments.py::
     # scan_rows)
@@ -3140,13 +3166,17 @@ def phase27(dev, bundle, accel, config, smi):
     sync_sites(lambda: core(fst, u9))
     _, g_sync = sync_sites(lambda: g.run(gst, {"uniforms": u9}))
     _, f_sync = sync_sites(lambda: core(fst, u9))
-    if g_k1 != f_k1 or sorted(set(g_sync)) != sorted(set(f_sync)) or len(g_sync) != len(f_sync):
-        raise AssertionError(f"the flagship graph's launches or host reads differ from frame_core's: "
+    in_loop = [x for x in g_sync + f_sync if x.split(":")[0] in ("intersect.py", "woop.py")]
+    if (g_k1 != f_k1 or g_k1 != [4] * 9 or sorted(set(g_sync)) != sorted(set(f_sync))
+            or len(g_sync) != len(f_sync) or in_loop):
+        raise AssertionError(f"the flagship graph's launches or host reads differ from frame_core's "
+                             f"or are not 4 alpha walks and no read in the alpha loop: "
                              f"K1 {g_k1} against {f_k1}, synchronizing calls at {g_sync} against "
                              f"{f_sync}")
     log(f"phase 27 graph flagship court fog mcpg + volume denoise {W}x{H} spp {c_cfg.spp} [{smi}]: "
         f"frames 6-8 {np.mean(g_ms[6:]):.1f} ms/frame against frame_core's {np.mean(f_ms[6:]):.1f}; "
-        f"K1 a frame {g_k1} (frame_core {f_k1}); synchronizing calls in frame 9: graph "
+        f"K1 and alpha walks a frame {g_k1} (frame_core {f_k1}); synchronizing calls in frame 9: "
+        f"graph "
         f"{len(g_sync)}, frame_core {len(f_sync)}; in the default mode the HUD, add and both SVGF "
         f"histories ({len(pairs)} tensors) bit-identical: {not unequal} (within {PIX_TOL}, "
         f"mean |d|: " + ", ".join(f"{k} {a:.5f} {m:.3e}" for k, (a, m) in spread.items()) + ")")
@@ -3584,8 +3614,9 @@ def refresh_split(la, dyn, reps=5) -> dict:
 def phase30(dev, smi):
     """The live dungeon at full width: the host library's build, the map,
     its live loop captured against eager over 10 moving frames (bench.py's
-    live_scale frames) and the stale-cache mutant (``live_pair``), K3
-    launches and host reads a frame, peak bytes."""
+    live_scale frames) and the stale-cache mutant (``live_pair``), alpha
+    walks a frame (K3's: one a trace, eager and in the graph), an eager
+    frame with no host read, peak bytes."""
     from merian_quake_tpu_torch.game import host
     from merian_quake_tpu_torch.game.bigmap import make_bigmap
     from merian_quake_tpu_torch.render.mcpg import MCPGConfig
@@ -3604,23 +3635,24 @@ def phase30(dev, smi):
                                      MCPGConfig(), mutant=LIVE_MUTANT)
     path = launches()
     peak = torch.cuda.max_memory_allocated()
-    per_frame = [e.get("woop_stream", 0) for e in stats["eager_launches_per_frame"]]
-    others = {k: v for k, v in path.items() if v and k != "woop_stream"}
-    if others or min(per_frame) < 3 or set(in_graph) != {"woop_stream"}:
-        raise AssertionError(f"the live dungeon launched {path} (K3 a frame {per_frame}, in the "
-                             f"graph {in_graph})")
+    # MCPG's 3 traces a frame, each one alpha walk on K3's walk
+    per_frame = [e.get("woop_stream_alpha", 0) for e in stats["eager_launches_per_frame"]]
+    others = {k: v for k, v in path.items() if v and k != "woop_stream_alpha"}
+    if others or set(per_frame) != {3} or in_graph != {"woop_stream_alpha": 3}:
+        raise AssertionError(f"the live dungeon launched {path} (alpha walks a frame {per_frame}, "
+                             f"in the graph {in_graph})")
     check_mcpg_finite("live dungeon", run.state, run.out)
     valid = int(run.dyn["valid"].sum())
     if valid <= 0:
         raise AssertionError("the live dungeon draws no entity")
-    # two more eager frames' host reads (the alpha loop's, one a round, are
-    # the only ones an eager live frame may have); the first frame read
-    # takes the synchronizing call torch adds to a process's first call in
-    # the "warn" mode (phase 27), the second is held
+    # two more eager frames' host reads: the first frame read takes the
+    # synchronizing call torch adds to a process's first call in the "warn"
+    # mode (phase 27), the second is held: an eager live frame reads nothing
+    # (the alpha loop, the only reader before the alpha walk, reads nothing)
     sync_sites(lambda: run.step(sync=False))
     _, sites = sync_sites(lambda: run.step(sync=False))
-    if not sites or any(not s.startswith("intersect.py:") for s in sites):
-        raise AssertionError(f"a live frame synchronizes outside the alpha loop: {sites}")
+    if sites:
+        raise AssertionError(f"an eager live frame synchronizes: {sites}")
     split = refresh_split(run.la, run.dyn)
     log(f"phase 30 live dungeon refresh [{smi}], {len(derived_tensors(run.la.accel))} derived "
         f"tables: dynamic_rows (numpy) {split['dynamic_rows_ms']:.2f} ms, the whole refresh synced "
@@ -3628,12 +3660,12 @@ def phase30(dev, smi):
         f"{split['rewrite_derived_ms']:.3f} ms (device {split['rewrite_derived_device_ms']:.3f} ms)")
     stats.update({"static_triangles": run.la.n_static, "dynamic_triangles": valid,
                   "host_build_s": float(host_s), "make_bigmap_s": float(map_s),
-                  "k3_per_frame": per_frame, "host_reads_per_frame": len(sites),
+                  "alpha_walks_per_frame": per_frame, "host_reads_per_frame": len(sites),
                   "peak_device_bytes": peak, "refresh_split": split})
     log(f"phase 30 live dungeon [{smi}]: {run.la.n_static} static triangles, dynamic capacity "
-        f"{run.la.dyn_cap}, {valid} dynamic triangles drawn; K3 an eager frame {per_frame}, in the "
-        f"captured frame's graph {in_graph['woop_stream']}; host reads an eager frame {len(sites)} "
-        f"({sorted(set(sites))}); refresh copies {stats['h2d_bytes_per_frame']} bytes to the card "
+        f"{run.la.dyn_cap}, {valid} dynamic triangles drawn; alpha walks (K3's) an eager frame "
+        f"{per_frame}, in the captured frame's graph {in_graph['woop_stream_alpha']}; host reads "
+        f"an eager frame {len(sites)}; refresh copies {stats['h2d_bytes_per_frame']} bytes to the card "
         f"a frame; peak {peak} bytes; ldr mean {float(run.out['ldr'].mean()):.4f}")
     return run, {"live_dungeon": path}, stats
 
@@ -3753,8 +3785,10 @@ def phase31(dev, dungeon, smi):
                                   woop.woop_stream, smi)
 
     paths, arena_stats = {}, {}
-    for integ, icfg, expect in (("mcpg", MCPGConfig(), ("woop_nearest",)),
-                                ("restir", ReSTIRConfig(), ("woop_nearest", "woop_any"))):
+    # live_features forces the alpha loop on: every nearest-hit trace is an
+    # alpha walk (K1's), ReSTIR's visibility K2 and an alpha walk
+    for integ, icfg, expect in (("mcpg", MCPGConfig(), ("woop_nearest_alpha",)),
+                                ("restir", ReSTIRConfig(), ("woop_nearest_alpha", "woop_any"))):
         live = make_arena(dynamic_capacity=1024, device=dev)
         reset_launches()
         run, in_graph, st = live_pair(31, f"live arena {integ}", dev, smi, live,
@@ -3830,8 +3864,11 @@ def phase32(dev, smi):
     return stats
 
 
-# the orbit presets' frames through run_preset: only K1 (small scenes)
+# the orbit presets' frames through run_preset: only K1 (small scenes); on
+# the court (config4's SSMM, 1 spp: 2 traces a frame; config5's fogged MCPG
+# + volume: 4) each trace is one alpha walk, K1's
 ORBIT_PRESETS = ("config2", "config4", "config5")
+ORBIT_LAUNCHES = {"config4": {"woop_nearest_alpha": 2}, "config5": {"woop_nearest_alpha": 4}}
 
 
 def phase33(dev, smi):
@@ -3841,7 +3878,8 @@ def phase33(dev, smi):
     into), every frame bit for bit."""
     paths, stats = {}, {}
     for name in ORBIT_PRESETS:
-        paths[f"preset_{name}"], stats[name] = preset_pair(33, name, dev, smi)
+        paths[f"preset_{name}"], stats[name] = preset_pair(33, name, dev, smi,
+                                                           ORBIT_LAUNCHES.get(name))
     return paths, stats
 
 
@@ -4314,7 +4352,8 @@ CAPTURE_FRAMES = 9
 # the least span, ms, of the profiled eager frames and of the replays
 PROFILE_MS = 250.0
 # the trace kernels a captured frame launches
-GRAPH_KERNELS = ("woop_nearest", "woop_any", "woop_stream", "woop_stream_any")
+GRAPH_KERNELS = ("woop_nearest", "woop_any", "woop_stream", "woop_stream_any",
+                 "woop_nearest_alpha", "woop_stream_alpha")
 
 
 def differing_leaves(a, b) -> list:
@@ -4430,11 +4469,12 @@ def captured_run(path, smi, captured, eager, state0, uniforms, captured_step, st
 
 
 def dead_round(dev, bundle, accel, smi):
-    """What a round of the alpha loop costs once every ray is dead (the
-    captured loop runs all MAX_INTERSECTIONS rounds): the fogged court's
-    2,073,600 primary rays, a dead round (K1 on empty intervals plus the
-    round's glue) beside a live first round and K1 alone on the dead rays,
-    CUDA events."""
+    """What a round of the round loop (which the list walker's route keeps
+    under ``alpha_loop_on_device``) costs once every ray is dead, on the
+    fogged court's 2,073,600 primary rays: a dead round (K1 on empty
+    intervals plus the round's glue) beside a live first round and K1
+    alone on the dead rays; beside them the alpha walk, the whole loop in
+    one launch, on the same rays dead and live. CUDA events."""
     import importlib
 
     from merian_quake_tpu_torch.accel import woop
@@ -4452,19 +4492,26 @@ def dead_round(dev, bundle, accel, smi):
     dead_ms, live_ms = cuda_time(lambda: rnd(dead_mask), 10), cuda_time(lambda: rnd(live_mask), 10)
     args = woop.k1_inputs(accel, o, d, t_min, full(imod._DEAD_T_MAX))
     k1_ms = cuda_time(lambda: woop.woop_nearest(*args), 10)
+    tables = woop.alpha_tables(accel, bundle.atlas)
+    live_args = woop.k1_inputs(accel, o, d, t_min, t_max)
+    walk_dead = cuda_time(lambda: woop.woop_nearest_alpha(*args, tables, n=n), 10)
+    walk_live = cuda_time(lambda: woop.woop_nearest_alpha(*live_args, tables, n=n), 10)
     log(f"phase 38 court alpha loop, one round on {n} rays [{smi}]: every ray dead "
         f"{dead_ms:.3f} ms (K1 on the empty intervals alone {k1_ms:.3f}), every ray live "
-        f"{live_ms:.3f} ms")
-    return {"dead_round_ms": dead_ms, "dead_round_k1_ms": k1_ms, "live_round_ms": live_ms}
+        f"{live_ms:.3f} ms; the alpha walk (the whole loop) on the same rays dead {walk_dead:.3f} "
+        f"ms, live {walk_live:.3f} ms")
+    return {"dead_round_ms": dead_ms, "dead_round_k1_ms": k1_ms, "live_round_ms": live_ms,
+            "alpha_walk_dead_ms": walk_dead, "alpha_walk_live_ms": walk_live}
 
 
 def phase38(dev, bundle, accel, config, m_bundle, m_accel, m_config, smi):
     """Captured frames (renderer.compile_frame; Graph.compile for the
     flagship graph): city MCPG (the main path), city ReSTIR (K2), denoised
     city MCPG, map MCPG (K3), config1's small PT frame, the fogged court's
-    MCPG + volume (the alpha loop on the device) and the flagship graph on
-    the fogged court, each bit for bit against eager for 9 frames; then a
-    dead alpha round's cost."""
+    MCPG + volume (the alpha walk: one launch a trace) and the flagship
+    graph on the fogged court, each bit for bit against eager for 9
+    frames; then a dead round's cost in the round loop beside the alpha
+    walk's."""
     from merian_quake_tpu_torch.graph import Graph
     from merian_quake_tpu_torch.graph.nodes import GraphContext, flagship_graph_config
     from merian_quake_tpu_torch.render.mcpg import MCPGConfig
@@ -4500,10 +4547,13 @@ def phase38(dev, bundle, accel, config, m_bundle, m_accel, m_config, smi):
     paths["pt_box_640x360_captured"], stats["pt_box_640x360"] = frame_path(
         "pt_box_640x360", box, b_accel, b_cfg._replace(width=640, height=360), None,
         {"woop_nearest": 1 + (MPL - 1)})
+    # the fogged court's 3 surface traces and 1 volume sample a frame, each
+    # one alpha walk
     c_bundle, c_accel, c_cfg = court(dev, FOG_MU_T)
     mcfg = MCPGConfig(volume=VolumeConfig())
+    walks = {"woop_nearest_alpha": 3 + mcfg.volume.volume_spp}
     paths["mcpg_court_volume_captured"], stats["mcpg_court_volume"] = frame_path(
-        "mcpg_court_volume", c_bundle, c_accel, c_cfg._replace(integrator="mcpg"), mcfg, None)
+        "mcpg_court_volume", c_bundle, c_accel, c_cfg._replace(integrator="mcpg"), mcfg, walks)
 
     g = Graph.from_config(flagship_graph_config(), GraphContext(
         c_accel, c_bundle.atlas, c_cfg._replace(integrator="mcpg", denoise=True),
@@ -4514,9 +4564,254 @@ def phase38(dev, bundle, accel, config, m_bundle, m_accel, m_config, smi):
     paths["graph_flagship_court_captured"], stats["graph_flagship_court"] = captured_run(
         "graph_flagship_court", smi, lambda st, u: step(st, frame_in(u)),
         lambda st, u: g.run(st, frame_in(u)), g.init_state(), c_bundle.uniforms,
-        lambda: step.captured, strip=no_inputs)
+        lambda: step.captured, strip=no_inputs, want={"woop_nearest_alpha": 4})
     stats["court_dead_round"] = dead_round(dev, c_bundle, c_accel, smi)
     return paths, stats
+
+
+# ---------------------------------------------------------------- phase 39: the alpha walk
+
+ALPHA_SOURCE = "merian_quake_tpu_torch/csrc/woop_alpha.cu"
+ALPHA_REPLACES = "merian_quake_tpu/accel/intersect.py:180-241"
+# the alpha walk's instances: K1's walk (index order) and K3's (node lists)
+ALPHA_WALKS = ("woop_nearest_alpha", "woop_stream_alpha")
+
+
+@contextlib.contextmanager
+def trace_route(stream):
+    """While open, every nearest-hit trace goes to K3 (``stream``) or to K1,
+    whatever its table's size (``woop.streamed`` answers ``stream``)."""
+    from merian_quake_tpu_torch.accel import woop
+
+    plain = woop.streamed
+    woop.streamed = lambda w: stream
+    try:
+        yield
+    finally:
+        woop.streamed = plain
+
+
+def round_loop(accel, atlas, o, d, t_min, t_max, stream, on_device=False):
+    """trace_nearest's round loop on the card, the one the list walker's
+    route keeps: ``intersect._alpha_round`` a round over K1, or K3 with
+    ``stream``. Eagerly it stops after the round that leaves no ray live
+    (a host read a round); ``on_device`` runs all MAX_INTERSECTIONS rounds
+    and reads nothing, as under ``alpha_loop_on_device``. Returns the
+    HitRecord."""
+    import importlib
+
+    from merian_quake_tpu_torch.models import materials
+
+    imod = importlib.import_module("merian_quake_tpu_torch.accel.intersect")
+    n = o.shape[0]
+    full = lambda v, dt=torch.float32: torch.full((n,), v, dtype=dt, device=o.device)
+    res = imod.HitRecord(full(3e38), full(-1, torch.int32), full(0.0), full(0.0))
+    active, cur = full(True, torch.bool), t_min
+    with trace_route(stream):
+        for _ in range(materials.MAX_INTERSECTIONS):
+            if not on_device and not bool(active.any()):
+                break
+            active, cur, res = imod._alpha_round(accel, atlas, o, d, active, cur, t_max, res)
+    return res
+
+
+def plane_stack(dev):
+    """Seven two-sided planes across a box, every texel of their texture
+    transparent: a ray along +x is rejected by each plane it meets, so
+    after MAX_INTERSECTIONS rounds it ends unhit."""
+    from merian_quake_tpu_torch.models.atlas import pack_textures
+    from merian_quake_tpu_torch.models.procedural import _const_tex, _SoupBuilder
+
+    b = _SoupBuilder()
+    for k in range(7):
+        x = 10.0 + 10.0 * k
+        b.quad((x, 0, 0), (0, 100.0, 0), (0, 0, 100.0), texnum=1)
+        b.quad((x, 0, 0), (0, 0, 100.0), (0, 100.0, 0), texnum=1)
+    atlas = pack_textures([_const_tex((255, 255, 255), 1), _const_tex((90, 90, 90), alpha=0)],
+                          device=dev)
+    return b.build(dev), atlas
+
+
+def same_hits(name, got, refs, n):
+    """Hold an alpha walk's (t, tri, u, v) against each reference of
+    ``refs`` ({name: (t, tri, u, v)}) bit for bit on the first ``n`` rays
+    (the floats by their bits). Returns the largest |t difference| (0)."""
+    torch.cuda.synchronize()
+    bits = lambda x: x[:n].view(torch.int32)
+    for rname, ref in refs.items():
+        differ = [int((bits(a) != bits(b)).sum()) for a, b in zip(got, ref)]
+        log(f"phase 39 {name} against {rname}: rays={n} hits={int((got[1][:n] >= 0).sum())} "
+            f"t, tri, u, v differ={differ}")
+        if any(differ):
+            raise AssertionError(f"phase 39 {name}: differs from {rname} on {differ} rays")
+    return max(float((got[0][:n] - ref[0][:n]).abs().max()) for ref in refs.values())
+
+
+def alpha_work(kernel, args, tables):
+    """Run an alpha walk once with its per-warp counts; returns (ops, bytes,
+    rounds a warp i64[n_pad / 32]): the pairs its lanes tested over all
+    rounds times the FP32 operations a pair, and the rays in, results out,
+    table rows (48 B a triangle), boxes, the alpha test's columns (the
+    vertices, st, texnum, needs_alpha: 65 B a triangle), the atlas's rect
+    table and its texels' alpha, each read once."""
+    rays, w, lo = args[0], args[1], args[2]
+    n = rays.shape[1]
+    counts = torch.zeros((n // 32, 2), dtype=torch.int64, device=rays.device)
+    kernel(*args, tables, counts=counts)
+    T = w.shape[0] // 3
+    atlas = tables.atlas
+    nbytes = (n * 32 + n * 16 + T * 48 + lo.shape[0] * 24 + T * 65 + atlas.table.numel() * 4
+              + atlas.data.shape[0] * atlas.data.shape[1] * 4)
+    return float(counts[:, 1].sum()) * OPS_NEAREST, nbytes, counts[:, 0]
+
+
+def alpha_population(label, accel, atlas, o, d, t_min, t_max, smi, timed=False):
+    """Both alpha walks on one population: against the plain version on a
+    SUBSET-ray slice (its middle) and against the eager round loop over K1
+    (the resident instance) and over K3 (the streamed one) on every ray.
+    ``timed``: each instance timed in turns with its round loop, eager and
+    on the device, by CUDA events, with its bound and the rounds its warps
+    walked. Returns ({instance: reading}, the largest |t difference|)."""
+    from merian_quake_tpu_torch.accel import woop
+
+    n = o.shape[0]
+    tables = woop.alpha_tables(accel, atlas)
+    args = woop.k1_inputs(accel, o, d, t_min, t_max)
+    s0 = max(0, n // 2 - SUBSET // 2)
+    sub = slice(s0, min(n, s0 + SUBSET))
+    m = sub.stop - sub.start
+    sub_args = woop.k1_inputs(accel, o[sub].contiguous(), d[sub].contiguous(),
+                              t_min[sub].contiguous(), t_max[sub].contiguous())
+    plain, plain_ms = timed_call(lambda: woop.woop_alpha_reference(sub_args[0], sub_args[1],
+                                                                   tables, n=m))
+    plain = plain[0]
+    out, errs = {}, []
+    for name, stream in zip(ALPHA_WALKS, (False, True)):
+        kernel = getattr(woop, name)
+        errs.append(same_hits(f"{label} {m} {name}", kernel(*sub_args, tables, n=m),
+                              {"woop_alpha_reference": plain}, m))
+        walk = lambda: kernel(*args, tables, n=n)
+        eager = lambda: round_loop(accel, atlas, o, d, t_min, t_max, stream)
+        errs.append(same_hits(f"{label} {n} {name}", walk(),
+                              {f"the eager round loop over {'K3' if stream else 'K1'}": eager()},
+                              n))
+        rec = {"rays": n, "plain_ms": plain_ms, "plain_rays": m}
+        if timed:
+            on_dev = lambda: round_loop(accel, atlas, o, d, t_min, t_max, stream, on_device=True)
+            k1, e1, v1, v2, e2, k2 = (cuda_time(f, 5) for f in (walk, eager, on_dev, on_dev,
+                                                                eager, walk))
+            # the same walk's kernel alone, one round without the alpha test
+            one = woop.woop_stream if stream else woop.woop_nearest
+            one_ms = cuda_time(lambda: one(*args), 5)
+            ops, nbytes, rounds = alpha_work(kernel, args, tables)
+            live = rounds[: -(-n // 32)]
+            hist = [int((live == r).sum()) for r in range(int(live.max()) + 1)]
+            rec.update(ms=(k1 + k2) / 2, eager_loop_ms=(e1 + e2) / 2,
+                       on_device_loop_ms=(v1 + v2) / 2, one_round_kernel_ms=one_ms,
+                       pairs=ops / OPS_NEAREST,
+                       warp_rounds_mean=float(live.float().mean()), warp_rounds_hist=hist)
+            rec["bound_ms"], rec["bound_by"] = bound_ms(ops, nbytes)
+            log(f"phase 39 timing {label} {n} rays {name} [{smi}]: alpha walk {k1:.3f} / {k2:.3f} "
+                f"ms, the round loop over {'K3' if stream else 'K1'} eager {e1:.3f} / {e2:.3f} ms, "
+                f"on the device (all rounds) {v1:.3f} / {v2:.3f} ms; {'K3' if stream else 'K1'} "
+                f"alone (one round, no alpha test) {one_ms:.3f} ms; plain version {plain_ms:.1f} "
+                f"ms on {m} rays; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+                f"{ops / OPS_NEAREST:.4g} pairs over all rounds); rounds a warp: mean "
+                f"{rec['warp_rounds_mean']:.3f}, warps by rounds walked {hist}")
+        out[name] = rec
+    return out, max(errs)
+
+
+def phase39(dev, dungeon, smi):
+    """The alpha walk: both instances bit for bit against the plain version
+    and the eager round loop on the grate soup (with a dead warp and
+    padding), a stack of seven rejecting planes (every ray unhit after the
+    cap, every warp walking MAX_INTERSECTIONS rounds), the court's 1080p
+    primary rays and one bounce population, and the live dungeon's
+    refreshed tables (``dungeon``, phase 31's); timed on the court (K1's
+    walk) and the dungeon (K3's) against the round loop, eager and on the
+    device. Returns the kernels' readings."""
+    import types
+
+    from merian_quake_tpu_torch.accel import build_accel, woop
+    from merian_quake_tpu_torch.models import materials
+
+    full = lambda v, k: torch.full((k,), v, device=dev)
+    errs, readings = [], {}
+    rng = np.random.default_rng(39)
+    # the grate soup: random rays in the room, warp 2 dead, padding
+    scene, atlas = grate_soup(dev)
+    acc = build_accel(scene, atlas)
+    n = 4096 + 37
+    o = torch.from_numpy(rng.uniform([2, 2, 2], [198, 98, 98], (n, 3)).astype(np.float32)).to(dev)
+    d = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(n, 3)).astype(np.float32)).to(dev), dim=-1)
+    t_max = full(1e4, n)
+    t_max[64:96] = -1.0
+    r, e = alpha_population("grate soup", acc, atlas, o, d, full(0.0, n), t_max, smi)
+    errs.append(e)
+    # seven rejecting planes: every ray unhit after MAX_INTERSECTIONS rounds
+    scene, atlas = plane_stack(dev)
+    acc = build_accel(scene, atlas)
+    n = 1024
+    yz = torch.from_numpy(rng.uniform(2.0, 98.0, (n, 2)).astype(np.float32)).to(dev)
+    o = torch.cat([torch.zeros((n, 1), device=dev), yz], 1).contiguous()
+    d = torch.tensor([[1.0, 0.0, 0.0]], device=dev).expand(n, 3).contiguous()
+    _, e = alpha_population("seven planes", acc, atlas, o, d, full(0.0, n), full(1e4, n), smi)
+    errs.append(e)
+    args = woop.k1_inputs(acc, o, d, full(0.0, n), full(1e4, n))
+    tables = woop.alpha_tables(acc, atlas)
+    for name in ALPHA_WALKS:
+        kernel = getattr(woop, name)
+        hit = kernel(*args, tables, n=n)[1]
+        rounds = alpha_work(kernel, args, tables)[2]
+        if bool((hit >= 0).any()) or bool((rounds != materials.MAX_INTERSECTIONS).any()):
+            raise AssertionError(f"phase 39 seven planes {name}: {int((hit >= 0).sum())} hits, "
+                                 f"rounds a warp {rounds.unique().tolist()}")
+    log(f"phase 39 seven planes: every ray unhit, every warp walked "
+        f"{materials.MAX_INTERSECTIONS} rounds, both instances")
+
+    # the court at 1080p: primary rays and one bounce population as it lies
+    c_bundle, c_accel, c_cfg = court(dev)
+    po, pd = primary_rays(c_bundle, c_accel, dev)
+    bo, bd, bt = bounce_rays(c_bundle, c_accel, c_cfg, dev)
+    nf = po.shape[0]
+    court_pops = {}
+    for pop, (o, d, t_max) in (("primary", (po, pd, full(materials.T_MAX, nf))),
+                               ("bounce", (bo, bd, bt))):
+        court_pops[pop], e = alpha_population(f"court {pop}", c_accel, c_bundle.atlas, o, d,
+                                         full(0.0, nf), t_max, smi, timed=True)
+        errs.append(e)
+    # the live dungeon's refreshed tables (K3's route): its frame's primary
+    # and bounce rays and rays aimed at the monsters
+    la, bundle = dungeon.la, types.SimpleNamespace(uniforms=dungeon.uniforms,
+                                                   atlas=dungeon.live.gs.static_bundle.atlas)
+    if not woop.streamed(la.accel.woop_w):
+        raise AssertionError("the live dungeon's table is not streamed (K3)")
+    po, pd = primary_rays(bundle, la.accel, dev)
+    bo, bd, bt = bounce_rays(bundle, la.accel, dungeon.config._replace(integrator="pt"), dev)
+    ao, ad = aimed_rays(la.accel, la.n_static, SUBSET, 39)
+    live_pops = {}
+    for pop, (o, d, t_max) in (("primary", (po, pd, full(materials.T_MAX, nf))),
+                               ("bounce", (bo, bd, bt)),
+                               ("aimed at the monsters", (ao, ad, full(1e4, SUBSET)))):
+        live_pops[pop], e = alpha_population(f"live dungeon {pop}", la.accel, bundle.atlas, o, d,
+                                        full(0.0, o.shape[0]), t_max, smi,
+                                        timed=pop != "aimed at the monsters")
+        errs.append(e)
+    for name, pops, scene, nc in ((ALPHA_WALKS[0], court_pops, "court", c_accel.num_clusters),
+                                  (ALPHA_WALKS[1], live_pops, "live dungeon",
+                                   la.accel.num_clusters)):
+        mix = lambda key: (pops["primary"][name][key] + 4 * pops["bounce"][name][key]) / 5
+        readings[name] = {
+            "ms": mix("ms"), "plain_ms": mix("plain_ms"), "plain_rays": SUBSET,
+            "bound_ms": mix("bound_ms"), "bound_by": pops["bounce"][name]["bound_by"],
+            "eager_loop_ms": mix("eager_loop_ms"), "on_device_loop_ms": mix("on_device_loop_ms"),
+            "rays": nf, "scene": scene, "ctas_per_sm": woop.ctas_per_sm(name, nc),
+            "court": {p: v[name] for p, v in court_pops.items()},
+            "live_dungeon": {p: v[name] for p, v in live_pops.items()}}
+    readings["max_abs_err"] = max(errs)
+    return readings
 
 
 def main() -> int:
@@ -4563,7 +4858,8 @@ def main() -> int:
     native_build_s = time.perf_counter() - t0
     log(f"phase 1 device: {kind} x{count} [{smi}] torch {torch.__version__} "
         f"cuda {torch.version.cuda}; the native accel builder (g++ {' '.join(native.CXXFLAGS)}) "
-        f"{native_build_s:.2f} s; K1, K2, K3, K4 + K5, K6 + K7, K8 build {build_s:.2f} s; "
+        f"{native_build_s:.2f} s; K1, K2, K3, K4 + K5, K6 + K7, K8 and the alpha walk build "
+        f"{build_s:.2f} s; "
         f"spill bytes {spills}; " + "; ".join(f"{k} ({ptxas[k]})" for k in kernels.KERNELS))
 
     # seconds each phase took, printed with the whole run's
@@ -4784,8 +5080,11 @@ def main() -> int:
     dungeon, live_paths, live_stats = phase30(dev, smi)
     mark(30)
     arena_paths, refresh_stats = phase31(dev, dungeon, smi)
-    del dungeon
     mark(31)
+    # ---- phase 39: the alpha walk (on phase 31's refreshed live dungeon) ----
+    alpha = phase39(dev, dungeon, smi)
+    del dungeon
+    mark(39)
     live_cpu_stats = phase32(dev, smi)
     mark(32)
     orbit_paths, orbit_stats = phase33(dev, smi)
@@ -4938,7 +5237,14 @@ def main() -> int:
             "guided_ms": walk["guided P=8 compact=32"]["ms"],
             "guided_k1_ms": walk["guided P=8 compact=32"]["k1_ms"],
             "guided_rays": walk["guided P=8 compact=32"]["rays"]}),
-    )]}))
+    )] + [{
+        # the alpha walk's two instances: K1's walk on the court (every trace
+        # of its frames), K3's on the live dungeon's refreshed tables
+        "name": name, "route": "cuda", "source": ALPHA_SOURCE, "replaces": ALPHA_REPLACES,
+        "launches": total(name), "launches_by_path": by_path(name),
+        "max_abs_err": alpha["max_abs_err"], **alpha[name], "library_ms": None,
+        "spill_bytes": spills["woop_alpha"],
+    } for name in ALPHA_WALKS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

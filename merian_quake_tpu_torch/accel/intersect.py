@@ -12,8 +12,10 @@ tensors run the Woop kernels of accel/woop.py: K1 (csrc/woop_nearest.cu)
 and, for visibility, K2 (csrc/woop_any.cu), or K3 (csrc/woop_stream.cu)
 for tables of more than RESIDENT_MAX_TRIS triangles, or, as a
 ``schedule`` (woop.TraceSchedule) asks, K4 and K5 (csrc/woop_keys.cu)
-and the list walker (csrc/woop_list.cu). The oracle ignores ``schedule``,
-as it ignores ``sort_rays``.
+and the list walker (csrc/woop_list.cu). The alpha loop runs on the card
+in one launch of the alpha walk (csrc/woop_alpha.cu, K1's or K3's walk)
+on those two routes, and round by round on the walker's and on the CPU.
+The oracle ignores ``schedule``, as it ignores ``sort_rays``.
 """
 from __future__ import annotations
 
@@ -23,14 +25,14 @@ from typing import NamedTuple
 
 import torch
 
-from ..models import atlas as atlas_mod
 from ..models import materials
 from ..ops.linalg import as_f32
+from . import woop
 from .build import AccelScene
 from .dense import mt_nearest
 
 _BIG = 3e38
-_ADVANCE = 1e-3  # re-trace offset past a rejected surface (quake units)
+_ADVANCE = woop.ALPHA_ADVANCE
 # the t_max a dead ray is traced to: an empty interval, as a padding
 # ray's (woop._pack_rays); a warp of such rays walks nothing
 _DEAD_T_MAX = -1.0
@@ -39,11 +41,15 @@ _ON_DEVICE = contextvars.ContextVar("merian_alpha_loop_on_device", default=False
 
 @contextlib.contextmanager
 def alpha_loop_on_device():
-    """Within this block :func:`trace_nearest` keeps its alpha loop's test
+    """Within this block :func:`trace_nearest`'s round loop keeps its test
     on the device, as the JAX package's ``lax.while_loop`` does: it runs
     all ``max_intersections`` rounds and reads nothing from the host. A
     captured frame (renderer.compile_frame, Graph.compile) runs in it:
-    a capture may not read the device, and its replays run every round."""
+    a capture may not read the device, and its replays run every round.
+    It matters only where the round loop runs on the card, the list
+    walker's route (a schedule's node level, compaction or target key):
+    the default routes run the whole loop in the alpha walk, which reads
+    nothing from the host in or out of this block."""
     token = _ON_DEVICE.set(True)
     try:
         yield
@@ -73,9 +79,8 @@ def intersect(
     ``schedule`` change nothing.
     """
     if o.is_cuda:
-        from .woop import intersect_woop
-
-        return intersect_woop(accel, o, d, t_min, t_max, sort_rays=sort_rays, schedule=schedule)
+        return woop.intersect_woop(accel, o, d, t_min, t_max, sort_rays=sort_rays,
+                                   schedule=schedule)
     if o.device.type != "cpu":
         raise ValueError(f"intersect: unsupported device {o.device}")
     return _intersect_oracle(accel, o, d, t_min, t_max)
@@ -92,9 +97,7 @@ def _intersect_oracle(accel: AccelScene, o, d, t_min, t_max) -> HitRecord:
 
 def _hit_uv(accel: AccelScene, hr: HitRecord) -> torch.Tensor:
     """Interpolated texture UV at the hit (st * barycentrics)."""
-    st = accel.scene.st[torch.clamp_min(hr.tri, 0).long()]  # (N, 3, 2)
-    w0 = (1.0 - hr.u - hr.v)[..., None]
-    return st[:, 0] * w0 + st[:, 1] * hr.u[..., None] + st[:, 2] * hr.v[..., None]
+    return woop.hit_uv(accel.scene.st, hr.tri, hr.u, hr.v)
 
 
 def trace_nearest(
@@ -114,16 +117,23 @@ def trace_nearest(
     intersect sweep; callers pass None when SceneFeatures.has_alpha_tris
     says no triangle can alpha-reject).
 
-    Each round (:func:`_alpha_round`) traces the rays still live; a dead
-    ray is traced over an empty interval and does no triangle work. The
-    eager loop stops after the round that leaves no ray live (one host
+    On the card, where the trace goes to K1 or K3 (no list walker:
+    ``woop.walks_list``), the whole loop is one launch of the alpha walk
+    (``woop.intersect_woop_alpha``): each warp stops after its last live
+    ray, and nothing is read on the host. Otherwise each round
+    (:func:`_alpha_round`) traces the rays still live; a dead ray is
+    traced over an empty interval and does no triangle work. The eager
+    round loop stops after the round that leaves no ray live (one host
     read a round); inside :func:`alpha_loop_on_device` it runs all
     ``max_intersections`` rounds with no host read. A round after the
-    last live ray changes nothing, so both give the same bits.
+    last live ray changes nothing, so all three give the same bits.
     """
     if tex is None:
         return intersect(accel, o, d, t_min, t_max, sort_rays=sort_rays, schedule=schedule)
     n = o.shape[0]
+    if o.is_cuda and not woop.walks_list(accel, n, sort_rays, schedule):
+        return woop.intersect_woop_alpha(accel, tex, o, d, t_min, t_max, max_intersections,
+                                         sort_rays)
     cur_tmin = as_f32(t_min, o).expand(n)
     t_max = as_f32(t_max, o).expand(n)
     result = HitRecord(
@@ -152,11 +162,7 @@ def _alpha_round(accel, tex, o, d, active, cur_tmin, t_max, result, sort_rays=Fa
     is discarded. Returns (active, cur_tmin, result)."""
     hr = intersect(accel, o, d, cur_tmin, torch.where(active, t_max, _DEAD_T_MAX),
                    sort_rays=sort_rays, schedule=schedule)
-    tri = torch.clamp_min(hr.tri, 0).long()
-    needs = accel.needs_alpha[tri] & hr.hit
-    uv = _hit_uv(accel, hr)
-    a = atlas_mod.sample_nearest(tex, accel.scene.texnum[tri], uv)[..., 3]
-    reject = needs & (a < materials.ALPHA_THRESHOLD)
+    reject = woop.alpha_rejects(woop.alpha_tables(accel, tex), hr.tri, hr.u, hr.v)
     accept = active & ~reject
     result = HitRecord(*[torch.where(accept, x, r) for x, r in zip(hr, result)])
     cur_tmin = torch.where(reject & active, hr.t + _ADVANCE, cur_tmin)
@@ -198,10 +204,9 @@ def _visible_anyhit(accel: AccelScene, tex, o, d, offset, t_max, sort_rays=False
     """The card's visibility: K2, K3 or the walker on the shadow table, then
     alpha-tested triangles resolved by a nearest + alpha-loop trace on
     the alpha-only table (the woop rows and AABBs swapped in; it goes
-    through K1 or K3)."""
-    from .woop import intersect_woop_any
-
-    vis = ~intersect_woop_any(accel, o, d, offset, t_max, sort_rays=sort_rays, schedule=schedule)
+    through the alpha walk, or the walker's round loop)."""
+    vis = ~woop.intersect_woop_any(accel, o, d, offset, t_max, sort_rays=sort_rays,
+                                   schedule=schedule)
     if tex is not None and accel.woop_w_alpha is not None:
         aacc = accel._replace(
             woop_w=accel.woop_w_alpha,

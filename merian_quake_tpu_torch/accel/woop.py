@@ -69,6 +69,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..models import atlas as atlas_mod
+from ..models import materials
 from ..models.types import CLUSTER_SIZE
 from ..ops.linalg import as_f32
 
@@ -267,23 +269,39 @@ def _sort_keys(accel, o, d):
     return (octant << 26) | (fine << 24) | (morton & 0xFFFFFF)
 
 
-def _recompute_tuv(accel, o, d, t_approx, tri):
+def _dot(a, b):
+    """Row-wise dot product of (N, 3) tensors, ((a0·b0 + a1·b1) + a2·b2)
+    with each step rounded: the alpha walk's order (csrc/woop_common.cuh
+    ``dot3``), where a reduction's order would be the library's."""
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def _cross(a, b):
+    """Row-wise cross product of (N, 3) tensors, each term rounded on its
+    own (csrc/woop_common.cuh ``cross_term``)."""
+    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=-1)
+
+
+def _recompute_tuv(tri_attr, o, d, t_approx, tri):
     """Exact (t, u, v) at the committed hit, from the winning triangle's
-    vertices — O(rays) instead of tracking u/v through the sweep."""
-    vattr = accel.tri_attr[torch.clamp_min(tri, 0).long(), 0:9]
+    vertices (``tri_attr`` columns 0-8) — O(rays) instead of tracking u/v
+    through the sweep. The alpha walk computes the same bit for bit."""
+    vattr = tri_attr[torch.clamp_min(tri, 0).long(), 0:9]
     v0, v1, v2 = vattr[:, 0:3], vattr[:, 3:6], vattr[:, 6:9]
     e1 = v1 - v0
     e2 = v2 - v0
-    nrm = torch.linalg.cross(e1, e2, dim=-1)
-    dn = (d * nrm).sum(-1)
-    t = ((v0 - o) * nrm).sum(-1) / torch.where(dn.abs() > 1e-20, dn, 1.0)
+    nrm = _cross(e1, e2)
+    dn = _dot(d, nrm)
+    t = _dot(v0 - o, nrm) / torch.where(dn.abs() > 1e-20, dn, 1.0)
     p = o + t[:, None] * d
     q = p - v0
-    d00 = (e1 * e1).sum(-1)
-    d01 = (e1 * e2).sum(-1)
-    d11 = (e2 * e2).sum(-1)
-    d20 = (q * e1).sum(-1)
-    d21 = (q * e2).sum(-1)
+    d00 = _dot(e1, e1)
+    d01 = _dot(e1, e2)
+    d11 = _dot(e2, e2)
+    d20 = _dot(q, e1)
+    d21 = _dot(q, e2)
     denom = d00 * d11 - d01 * d01
     inv = 1.0 / torch.where(denom.abs() > 1e-18, denom, 1.0)
     u = (d11 * d20 - d01 * d21) * inv
@@ -465,10 +483,12 @@ PROF_FIELDS = ("list", "search", "visit", "wait", "pairs_cycles", "total", "pair
 
 def ctas_per_sm(name, nc):
     """CTAs of kernel ``name`` (``woop_nearest``, ``woop_any``,
-    ``woop_stream`` or ``woop_list``, the nearest-hit frame instance) that
+    ``woop_stream`` or ``woop_list``, the nearest-hit frame instance, or
+    an alpha walk, ``woop_nearest_alpha`` or ``woop_stream_alpha``) that
     fit one SM for a table of ``nc`` clusters
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    return _kernel_lib(name, f"mq_{name}_ctas_per_sm", (_INT,))(nc)
+    lib = "woop_alpha" if name.endswith("_alpha") else name
+    return _kernel_lib(lib, f"mq_{name}_ctas_per_sm", (_INT,))(nc)
 
 
 def node_sizes(name):
@@ -1091,6 +1111,25 @@ def intersect_woop_any(accel, o, d, t_min, t_max, sort_rays: bool = False, sched
     return sweep_any(rays, *shadow, sched)[:n]
 
 
+def _target_sorted(accel, n, sort_rays, sched) -> bool:
+    """Are the rays sorted by K4's target key (a resident table of at most
+    MAX_KEY_CLUSTERS clusters, sorted rays, a schedule with target_key)?"""
+    return (sort_rays and n >= RAY_BLOCK and sched.target_key and not streamed(accel.woop_w)
+            and accel.cluster_lo.shape[0] <= MAX_KEY_CLUSTERS)
+
+
+def walks_list(accel, n, sort_rays=False, schedule=None) -> bool:
+    """Does a nearest-hit trace of ``n`` rays through ``accel`` go to the
+    list walker (:func:`woop_list`) rather than K1 or K3: a resident table
+    under a schedule whose node level applies, that compacts, or whose
+    target key sorts the rays?"""
+    sched = check_schedule(schedule)
+    if streamed(accel.woop_w):
+        return False
+    return (schedule_nodes(sched, accel.cluster_lo.shape[0]) > 1 or sched.compact > 0
+            or _target_sorted(accel, n, sort_rays, sched))
+
+
 def intersect_woop(accel, o, d, t_min, t_max, sort_rays: bool = False, schedule=None):
     """HitRecord-level nearest-hit trace through K1, K3 or the walker.
 
@@ -1112,13 +1151,11 @@ def intersect_woop(accel, o, d, t_min, t_max, sort_rays: bool = False, schedule=
     t_min_b = as_f32(t_min, o).expand(n).contiguous()
     t_max_b = as_f32(t_max, o).expand(n).contiguous()
     resident = not streamed(accel.woop_w)
-    nc = accel.cluster_lo.shape[0]
-    walk = resident and (schedule_nodes(sched, nc) > 1 or sched.compact > 0)
+    walk = walks_list(accel, n, sort_rays, sched)
     perm = None
     if sort_rays and n >= RAY_BLOCK:
-        if sched.target_key and resident and nc <= MAX_KEY_CLUSTERS:
+        if _target_sorted(accel, n, sort_rays, sched):
             perm = torch.sort(target_sort_key(accel, o, d, t_max_b), stable=True).indices
-            walk = True
         else:
             perm = sort_perm(accel, o, d, t_max_b)
         o, d, t_min_b, t_max_b = o[perm], d[perm], t_min_b[perm], t_max_b[perm]
@@ -1130,8 +1167,220 @@ def intersect_woop(accel, o, d, t_min, t_max, sort_rays: bool = False, schedule=
     else:
         t, tri = woop_nearest(*args)
     t, tri = t[:n], tri[:n]
-    t, u, v = _recompute_tuv(accel, o, d, t, tri)
+    t, u, v = _recompute_tuv(accel.tri_attr, o, d, t, tri)
     hr = HitRecord(t=t, tri=tri, u=u, v=v)
+    if perm is None:
+        return hr
+    return HitRecord(*[torch.empty_like(x).index_copy_(0, perm, x) for x in hr])
+
+
+# ---------------------------------------------------------------- the alpha walk
+
+ALPHA_ADVANCE = 1e-3  # re-trace offset past a rejected surface (quake units)
+
+
+class AlphaTables(NamedTuple):
+    """What the alpha test of a committed hit reads (:func:`alpha_tables`):
+    the scene's own tensors, never copies, since the live loop rewrites them
+    in place (accel.build.refresh_dynamic) and a captured frame keeps their
+    addresses."""
+
+    tri_attr: torch.Tensor  # f32[T, 40], columns 0-8 the vertices
+    st: torch.Tensor  # f32[T, 3, 2]
+    texnum: torch.Tensor  # i32[T]
+    needs_alpha: torch.Tensor  # bool[T]
+    atlas: object  # models.types.TextureAtlas: table i32[ntex, 4], data f32[H, W, 4]
+
+
+def alpha_tables(accel, atlas) -> AlphaTables:
+    return AlphaTables(accel.tri_attr, accel.scene.st, accel.scene.texnum, accel.needs_alpha, atlas)
+
+
+def hit_uv(st, tri, u, v):
+    """Interpolated texture UV at a hit (st · barycentrics), f32[N, 2]."""
+    s = st[torch.clamp_min(tri, 0).long()]  # (N, 3, 2)
+    w0 = (1.0 - u - v)[..., None]
+    return s[:, 0] * w0 + s[:, 1] * u[..., None] + s[:, 2] * v[..., None]
+
+
+def alpha_rejects(tables: AlphaTables, tri, u, v):
+    """Does the alpha test reject each hit (tri, u, v): a hit on a
+    ``needs_alpha`` triangle whose texel alpha (nearest sample at the
+    interpolated UV) is below ALPHA_THRESHOLD? bool[N]; False on a miss."""
+    tri_c = torch.clamp_min(tri, 0).long()
+    needs = tables.needs_alpha[tri_c] & (tri >= 0)
+    a = atlas_mod.sample_nearest(tables.atlas, tables.texnum[tri_c],
+                                 hit_uv(tables.st, tri, u, v))[..., 3]
+    return needs & (a < materials.ALPHA_THRESHOLD)
+
+
+def woop_alpha_reference(rays, w, tables: AlphaTables,
+                         max_intersections: int = materials.MAX_INTERSECTIONS, n=None):
+    """Plain PyTorch version of the alpha walk: the nearest accepted hit of
+    each ray, (t f32, tri i32, u f32, v f32) each [n_pad]. Rounds of
+    :func:`intersect_woop_reference` with the round loop's glue
+    (intersect._alpha_round): each live ray traced over its current
+    [t_min, t_max], the hit's exact (t, u, v), its alpha test; a rejected
+    hit moves the ray's t_min past it and keeps it live, any other result
+    is taken and ends it; a ray still live after ``max_intersections``
+    rounds misses. Rays ``n`` on (padding) start dead. A round sweeps the
+    live rays alone: the round loop traces a dead ray over an empty
+    interval and discards its result, and a ray's sweep does not depend on
+    the others'. The arguments are the kernel's, without the boxes, which
+    only steer its walk."""
+    n_pad = rays.shape[1]
+    n = n_pad if n is None else n
+    dev = rays.device
+    cur_tmin = rays[6].clone()
+    live = torch.arange(n_pad, device=dev) < n
+    out_t = torch.full((n_pad,), BIG, dtype=torch.float32, device=dev)
+    out_tri = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+    out_u = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
+    out_v = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
+    for _ in range(max_intersections):
+        idx = live.nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        r = rays[:, idx]
+        r[6] = cur_tmin[idx]
+        t_k, tri = intersect_woop_reference(r, w)
+        t, u, v = _recompute_tuv(tables.tri_attr, r[0:3].T, r[3:6].T, t_k, tri)
+        reject = alpha_rejects(tables, tri, u, v)
+        take = idx[~reject]
+        for out, x in zip((out_t, out_tri, out_u, out_v), (t, tri, u, v)):
+            out[take] = x[~reject]
+        cur_tmin[idx[reject]] = t[reject] + ALPHA_ADVANCE
+        live[take] = False
+    return out_t, out_tri, out_u, out_v
+
+
+# the alpha walk's entry points: (rays, n_pad, rows4, boxes, nc, block, out_t,
+# out_tri, out_u, out_v, attr, attr_stride, st, texnum, needs, rect, ntex,
+# texels, width, n, rounds, prof, stream)
+_ALPHA_ARGS = (_P, _I64, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P, _INT, _P,
+               _INT, _I64, _INT, _P, _P)
+# the alpha walk's ``counts`` columns, per warp of 32 rays: the rounds it
+# walked and the (ray, triangle) pairs its lanes tested over them
+ALPHA_COUNTS = ("rounds", "pairs")
+
+
+def _check_alpha_tables(tables: AlphaTables, T, device):
+    nt = tables.atlas.table.shape[0]
+    H, W = tables.atlas.data.shape[:2]
+    _check("tri_attr", tables.tri_attr, torch.float32, (T, tables.tri_attr.shape[1]), device)
+    if tables.tri_attr.shape[1] < 9:
+        raise ValueError("tri_attr: columns 0-8 must hold the vertices")
+    _check("st", tables.st, torch.float32, (T, 3, 2), device)
+    _check("texnum", tables.texnum, torch.int32, (T,), device)
+    _check("needs_alpha", tables.needs_alpha, torch.bool, (T,), device)
+    _check("atlas.table", tables.atlas.table, torch.int32, (nt, 4), device)
+    _check("atlas.data", tables.atlas.data, torch.float32, (H, W, 4), device)
+    if nt <= 0:
+        raise ValueError("atlas.table: no texture")
+
+
+def _woop_alpha(entry, rays, w, cluster_lo, cluster_hi, tables, max_intersections, n, counts):
+    """The alpha walks' checks, CPU route and launch of ``entry`` (a C
+    entry point of csrc/woop_alpha.cu); returns (t, tri, u, v)."""
+    n_pad = _check_k_inputs(rays, w, cluster_lo, cluster_hi)
+    n = n_pad if n is None else n
+    if not 0 <= n <= n_pad or max_intersections < 0:
+        raise ValueError(f"{entry}: n={n} of {n_pad} rays, max_intersections={max_intersections}")
+    _check_alpha_tables(tables, w.shape[0] // 3, rays.device)
+    if rays.device.type == "cpu":
+        _refuse_counts_on_cpu(counts)
+        return woop_alpha_reference(rays, w, tables, max_intersections, n)
+    if counts is not None:
+        _check("counts", counts, torch.int64, (n_pad // 32, len(ALPHA_COUNTS)), rays.device)
+        counts.zero_()
+    dev = rays.device
+    out = (torch.empty(n_pad, dtype=torch.float32, device=dev),
+           torch.empty(n_pad, dtype=torch.int32, device=dev),
+           torch.empty(n_pad, dtype=torch.float32, device=dev),
+           torch.empty(n_pad, dtype=torch.float32, device=dev))
+    rows4 = _aligned_rows(entry, w)
+    boxes = walk_boxes(cluster_lo, cluster_hi, *node_sizes("woop_alpha"))
+    atlas = tables.atlas
+    _call(_kernel_lib("woop_alpha", entry, _ALPHA_ARGS), dev, rays.data_ptr(), n_pad,
+          rows4.data_ptr(), boxes.data_ptr(), cluster_lo.shape[0], RAY_BLOCK,
+          *(x.data_ptr() for x in out),
+          tables.tri_attr.data_ptr(), tables.tri_attr.shape[1], tables.st.data_ptr(),
+          tables.texnum.data_ptr(), tables.needs_alpha.data_ptr(), atlas.table.data_ptr(),
+          atlas.table.shape[0], atlas.data.data_ptr(), atlas.data.shape[1], n,
+          max_intersections, None if counts is None else counts.data_ptr())
+    return out
+
+
+def woop_nearest_alpha(rays, w, cluster_lo, cluster_hi, tables: AlphaTables,
+                       max_intersections: int = materials.MAX_INTERSECTIONS, n=None,
+                       counts=None):
+    """The alpha walk on K1's walk: the whole alpha loop of
+    ``intersect.trace_nearest`` in one launch, for a table of up to
+    RESIDENT_MAX_TRIS triangles. Returns (t f32, tri i32, u f32, v f32),
+    each [n_pad]: each ray's nearest hit that the alpha test accepts
+    (BIG, -1, 0, 0 on a miss and after ``max_intersections`` rejecting
+    rounds).
+
+    rays, w, cluster_lo, cluster_hi as :func:`woop_nearest`'s; ``tables``
+    (:func:`alpha_tables`) the alpha test's; ``n`` the rays that are not
+    padding (all when None). On CUDA tensors this launches
+    csrc/woop_alpha.cu and counts the launch in
+    ``woop_nearest_alpha.launches``; on CPU tensors it runs
+    :func:`woop_alpha_reference`. ``counts``: None (the frame path), or an
+    int64 CUDA tensor [n_pad / 32, 2] that gets per warp ALPHA_COUNTS (the
+    rounds walked, the pairs tested)."""
+    out = _woop_alpha("mq_woop_nearest_alpha", rays, w, cluster_lo, cluster_hi, tables,
+                      max_intersections, n, counts)
+    if rays.is_cuda:
+        woop_nearest_alpha.launches += 1
+    return out
+
+
+woop_nearest_alpha.launches = 0
+
+
+def woop_stream_alpha(rays, w, cluster_lo, cluster_hi, tables: AlphaTables,
+                      max_intersections: int = materials.MAX_INTERSECTIONS, n=None,
+                      counts=None):
+    """The alpha walk on K3's walk (node lists): :func:`woop_nearest_alpha`'s
+    result for a table of any size up to MAX_STREAM_CLUSTERS clusters,
+    arguments as its. Counts its launches in
+    ``woop_stream_alpha.launches``."""
+    nc = cluster_lo.shape[0]
+    if nc > MAX_STREAM_CLUSTERS:
+        raise ValueError(f"woop_stream_alpha: {nc} clusters, at most {MAX_STREAM_CLUSTERS}")
+    out = _woop_alpha("mq_woop_stream_alpha", rays, w, cluster_lo, cluster_hi, tables,
+                      max_intersections, n, counts)
+    if rays.is_cuda:
+        woop_stream_alpha.launches += 1
+    return out
+
+
+woop_stream_alpha.launches = 0
+
+
+def intersect_woop_alpha(accel, atlas, o, d, t_min, t_max,
+                         max_intersections: int = materials.MAX_INTERSECTIONS,
+                         sort_rays: bool = False):
+    """HitRecord-level alpha loop in one launch: K1's or K3's alpha walk,
+    by the table's size (:func:`streamed`). ``sort_rays`` bins the rays
+    once as :func:`intersect_woop` does (by their starting t_max) and
+    scatters the results back; the walk's result for a ray does not
+    depend on its neighbours, so this equals the round loop, which sorts
+    every round. Reads nothing from the host."""
+    from .intersect import HitRecord
+
+    n = o.shape[0]
+    t_min_b = as_f32(t_min, o).expand(n).contiguous()
+    t_max_b = as_f32(t_max, o).expand(n).contiguous()
+    perm = None
+    if sort_rays and n >= RAY_BLOCK:
+        perm = sort_perm(accel, o, d, t_max_b)
+        o, d, t_min_b, t_max_b = o[perm], d[perm], t_min_b[perm], t_max_b[perm]
+    walk = woop_stream_alpha if streamed(accel.woop_w) else woop_nearest_alpha
+    out = walk(*k1_inputs(accel, o, d, t_min_b, t_max_b), alpha_tables(accel, atlas),
+               max_intersections, n)
+    hr = HitRecord(*(x[:n] for x in out))
     if perm is None:
         return hr
     return HitRecord(*[torch.empty_like(x).index_copy_(0, perm, x) for x in hr])

@@ -175,6 +175,95 @@ __device__ __forceinline__ bool any_pair(float4 r0, float4 r1, float4 r2, float 
          (__fsub_rn(__fmul_rn(t_max, dzz), z0n) >= 0.0f);
 }
 
+// ---- the alpha test of a committed hit (the alpha walk, csrc/woop_alpha.cu) ----
+
+// The tables the alpha test reads, as the scene holds them (the live loop
+// rewrites them in place, so they are read from their own storage): attr
+// f32[T, attr_stride] (columns 0-8: v0, v1, v2), st f32[T, 3, 2], texnum
+// i32[T], needs u8[T] (bool), rect i32[ntex, 4] (x, y, w, h), texels
+// f32[H, width, 4]; n the rays that are not padding, rounds the alpha
+// loop's cap; out_u, out_v f32[n_pad] get the accepted hit's barycentrics.
+struct AlphaTables {
+  const float* attr;
+  const float* st;
+  const int* texnum;
+  const uint8_t* needs;
+  const int* rect;
+  const float* texels;
+  float* out_u;
+  float* out_v;
+  int64_t n;
+  int attr_stride, ntex, width, rounds;
+};
+
+constexpr float kAlphaThreshold = 0.666f;  // materials.ALPHA_THRESHOLD
+constexpr float kAdvance = 1e-3f;          // re-trace offset past a rejected surface
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by, float bz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
+}
+
+__device__ __forceinline__ float cross_term(float a, float b, float c, float d) {
+  return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
+}
+
+// Triangle tri's hit by the ray (o, d): the exact (t, u, v) of
+// woop._recompute_tuv, then the texel alpha at the interpolated UV
+// (intersect._hit_uv, atlas.sample_nearest); returns whether the alpha
+// test rejects it (needs_alpha and alpha below the threshold). Every
+// operation in the plain version's order, each rounded on its own, so the
+// two agree bit for bit.
+__device__ __forceinline__ bool alpha_rejects(const AlphaTables& al, int tri, float ox, float oy,
+                                              float oz, float dx, float dy, float dz, float* t,
+                                              float* u, float* v) {
+  const float* a = al.attr + (int64_t)tri * al.attr_stride;
+  const float v0x = __ldg(a + 0), v0y = __ldg(a + 1), v0z = __ldg(a + 2);
+  const float e1x = __fsub_rn(__ldg(a + 3), v0x), e1y = __fsub_rn(__ldg(a + 4), v0y),
+              e1z = __fsub_rn(__ldg(a + 5), v0z);
+  const float e2x = __fsub_rn(__ldg(a + 6), v0x), e2y = __fsub_rn(__ldg(a + 7), v0y),
+              e2z = __fsub_rn(__ldg(a + 8), v0z);
+  const float nx = cross_term(e1y, e2z, e1z, e2y), ny = cross_term(e1z, e2x, e1x, e2z),
+              nz = cross_term(e1x, e2y, e1y, e2x);
+  const float dn = dot3(dx, dy, dz, nx, ny, nz);
+  const float th = __fdiv_rn(dot3(__fsub_rn(v0x, ox), __fsub_rn(v0y, oy), __fsub_rn(v0z, oz), nx,
+                                  ny, nz),
+                             fabsf(dn) > 1e-20f ? dn : 1.0f);
+  const float qx = __fsub_rn(__fadd_rn(ox, __fmul_rn(th, dx)), v0x);
+  const float qy = __fsub_rn(__fadd_rn(oy, __fmul_rn(th, dy)), v0y);
+  const float qz = __fsub_rn(__fadd_rn(oz, __fmul_rn(th, dz)), v0z);
+  const float d00 = dot3(e1x, e1y, e1z, e1x, e1y, e1z);
+  const float d01 = dot3(e1x, e1y, e1z, e2x, e2y, e2z);
+  const float d11 = dot3(e2x, e2y, e2z, e2x, e2y, e2z);
+  const float d20 = dot3(qx, qy, qz, e1x, e1y, e1z);
+  const float d21 = dot3(qx, qy, qz, e2x, e2y, e2z);
+  const float denom = cross_term(d00, d11, d01, d01);
+  const float inv = __fdiv_rn(1.0f, fabsf(denom) > 1e-18f ? denom : 1.0f);
+  const float hu = __fmul_rn(cross_term(d11, d20, d01, d21), inv);
+  const float hv = __fmul_rn(cross_term(d00, d21, d01, d20), inv);
+  *t = th;
+  *u = hu;
+  *v = hv;
+  if (__ldg(al.needs + tri) == 0) return false;
+  // the UV: st[0]·(1 − u − v) + st[1]·u + st[2]·v
+  const float* s = al.st + (int64_t)tri * 6;
+  const float w0 = __fsub_rn(__fsub_rn(1.0f, hu), hv);
+  const float su = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(s + 0), w0), __fmul_rn(__ldg(s + 2), hu)),
+                             __fmul_rn(__ldg(s + 4), hv));
+  const float sv = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(s + 1), w0), __fmul_rn(__ldg(s + 3), hu)),
+                             __fmul_rn(__ldg(s + 5), hv));
+  // the texel: GL_REPEAT wrap in the texture's rect, texnum clamped to the
+  // table; (u·w) truncated toward zero (a NaN gives 0, as torch's cast)
+  const int id = min(max(__ldg(al.texnum + tri), 0), al.ntex - 1);
+  const int* r = al.rect + 4 * id;
+  const int w = max(__ldg(r + 2), 1), h = max(__ldg(r + 3), 1);
+  const float fu = __fsub_rn(su, floorf(su)), fv = __fsub_rn(sv, floorf(sv));
+  const int cx = __float2int_rz(__fmul_rn(fu, __int2float_rn(w)));
+  const int cy = __float2int_rz(__fmul_rn(fv, __int2float_rn(h)));
+  const int tx = __ldg(r + 0) + min(max(cx, 0), w - 1), ty = __ldg(r + 1) + min(max(cy, 0), h - 1);
+  const float alpha = __ldg(al.texels + ((int64_t)ty * al.width + tx) * 4 + 3);
+  return alpha < kAlphaThreshold;
+}
+
 // ---- asynchronous copies (the walk's tile ring, K8's) and ordered keys ----
 
 constexpr unsigned kFull = 0xffffffffu;

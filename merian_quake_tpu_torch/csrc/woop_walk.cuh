@@ -79,6 +79,10 @@
 // __syncwarp() and one mbarrier wait; a skipped cluster, sub-node or node
 // one vote.
 //
+// The alpha instance (kAlpha, csrc/woop_alpha.cu) repeats the walk in rounds
+// of the alpha loop, each lane's limits its ray's current interval, and runs
+// the alpha test of each committed hit between them (see there).
+//
 // The profile instance (kProf) adds clock64 readings at the phase
 // boundaries and counters, per CTA into prof[kProfFields * CTA + 0..9]
 // summed over its warps: 0 cycles in the list (build, selection, horizon),
@@ -87,7 +91,9 @@
 // pair loops, 5 the whole kernel, 6 (ray, triangle) pairs tested, 7
 // warp-issued pairs (warp iterations of a pair loop: 64 a ray-per-lane
 // visit, 2k a compacted one), 8 tile visits (tests that some lane reached),
-// 9 compacted visits. The frame path launches the instance without it.
+// 9 compacted visits; the alpha instance's instead per warp into
+// prof[2 * warp + 0..1]: the rounds it walked and the pairs its lanes tested.
+// The frame path launches the instance without it.
 #pragma once
 
 #include "woop_common.cuh"
@@ -131,15 +137,16 @@ constexpr size_t walk_smem_bytes(int nc, int P, bool list) {
 
 // P, S: the node and sub-node sizes (compile-time; with kBlockList they
 // come from `bl` at run time and P, S are unused)
-template <int P, int S, int kSrc, bool kAny, bool kProf>
+template <int P, int S, int kSrc, bool kAny, bool kProf, bool kAlpha>
 __global__ void __launch_bounds__(kBlock, kMinCtas)
 woop_walk_kernel(const float* __restrict__ rays, int64_t n_pad, const float4* __restrict__ rows4,
                  const float4* __restrict__ boxes, int nc, const uint8_t* __restrict__ occ_in,
                  float* __restrict__ out_t, int* __restrict__ out_tri,
                  uint8_t* __restrict__ out_occ, BlockList bl,
-                 unsigned long long* __restrict__ prof) {
+                 unsigned long long* __restrict__ prof, AlphaTables al) {
   constexpr bool kList = kSrc == kNodeList, kBlk = kSrc == kBlockList;
   static_assert(P % S == 0 && S <= 32 && P / S <= 32, "sub-nodes tile a node; votes fill a word");
+  static_assert(!(kAlpha && (kAny || kSrc == kBlockList)), "the alpha walk: K1's or K3's nodes");
   // dynamic shared memory: each warp's ring | each warp's node keys (kList)
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) unsigned long long bars_all[kWarps * kRing];
@@ -159,13 +166,15 @@ woop_walk_kernel(const float* __restrict__ rays, int64_t n_pad, const float4* __
   const int64_t i = (int64_t)blockIdx.x * kBlock + tid;
   const float4 o = make_float4(rays[i], rays[n_pad + i], rays[2 * n_pad + i], 0.0f);
   const float dx = rays[3 * n_pad + i], dy = rays[4 * n_pad + i], dz = rays[5 * n_pad + i];
-  const float t_min = rays[6 * n_pad + i], t_max = rays[7 * n_pad + i];
+  // the interval a walk tests: the ray's, or (kAlpha) its round's
+  float t_min = rays[6 * n_pad + i], t_max = rays[7 * n_pad + i];
   const float4 inv = make_float4(safe_inv(dx), safe_inv(dy), safe_inv(dz), 0.0f);
 
   bool occ = kAny && occ_in != nullptr && occ_in[i] != 0;
   float best = kBig;
   int best_tri = -1;
   int issued = 0, pending = -1;
+  bool ready = false;  // the ring's barriers initialised
 
   // kProf only
   unsigned long long pairs = 0, wpairs = 0, visits = 0, cvisits = 0;
@@ -356,110 +365,163 @@ woop_walk_kernel(const float* __restrict__ rays, int64_t n_pad, const float4* __
     }
   };
 
-  // a warp whose rays are all dead (t_max < 0) or occluded walks nothing
-  if (__any_sync(kFull, limit() >= 0.0f)) {
-    if (lane == 0) {
-      for (int s = 0; s < kRing; ++s) mbar_init(bars + s, 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    }
-    __syncwarp();
-    if (kList) {
-      // ---- the node list: reached nodes' keys, entry rounded down | node ----
-      const float lim0 = limit();
-      int len = 0;
-#pragma unroll 4
-      for (int nd = 0; nd < nn; ++nd) {
-        float tn;
-        const bool r = reaches(nd, lim0, &tn);
-        const unsigned m =
-            __reduce_min_sync(kFull, r ? __float_as_uint(__fadd_rn(tn, 0.0f)) : ~0u);
-        if (m != ~0u) {
-          if (lane == 0) keys[len] = ((m >> 13) << kIdBits) | (unsigned)nd;
-          ++len;
+  // the walk of the warp for its lanes' current limits; a warp whose rays
+  // are all dead (t_max < 0) or occluded walks nothing. The ring's barriers
+  // are initialised once: their phases, and `issued`, carry over from one
+  // walk to the next (every copy is waited for before a walk ends)
+  auto walk = [&]() {
+    if (__any_sync(kFull, limit() >= 0.0f)) {
+      if (!ready) {
+        if (lane == 0) {
+          for (int s = 0; s < kRing; ++s) mbar_init(bars + s, 1);
+          asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         }
+        ready = true;
       }
       __syncwarp();
-      unsigned horizon = __reduce_max_sync(kFull, float_key(limit()));
-      for (;;) {
-        // the least key left
-        unsigned kmin = ~0u;
-        int pos = 0;
-        for (int q = lane; q < len; q += 32) {
-          const unsigned key = keys[q];
-          if (key < kmin) {
-            kmin = key;
-            pos = q;
+      if (kList) {
+        // ---- the node list: reached nodes' keys, entry rounded down | node ----
+        const float lim0 = limit();
+        int len = 0;
+#pragma unroll 4
+        for (int nd = 0; nd < nn; ++nd) {
+          float tn;
+          const bool r = reaches(nd, lim0, &tn);
+          const unsigned m =
+              __reduce_min_sync(kFull, r ? __float_as_uint(__fadd_rn(tn, 0.0f)) : ~0u);
+          if (m != ~0u) {
+            if (lane == 0) keys[len] = ((m >> 13) << kIdBits) | (unsigned)nd;
+            ++len;
           }
         }
-        const unsigned m = __reduce_min_sync(kFull, kmin);
-        if (m == ~0u) break;
-        // no lane can reach a node entered beyond the horizon, nor a later one
-        if (float_key(__uint_as_float((m >> kIdBits) << 13)) > horizon) break;
-        if (kmin == m) keys[pos] = ~0u;
         __syncwarp();
-        lap(t_list);
-        // the list's gate saw the starting limits: gate again with today's
-        const int nd = (int)(m & (unsigned)(kMaxClusters - 1));
-        float tn;
-        if (__any_sync(kFull, reaches(nd, limit(), &tn))) visit_node(nd);
-        lap(t_skip);
-        // limits only fall, and the tile still pending can only lower them
-        // further: this horizon is larger, never smaller, than the true one
-        horizon = __reduce_max_sync(kFull, float_key(limit()));
-      }
-      lap(t_list);
-    } else if (kBlk) {
-      // ---- the block's list, near to far, kBatch entries a step ----
-      const float* te_row = bl.te_s + (int64_t)blockIdx.x * bl.m;
-      const int* id_row = bl.order + (int64_t)blockIdx.x * bl.m;
-      for (int j0 = 0; j0 < bl.m; j0 += 32) {
-        // lane l holds entry j0 + l: the order-preserving key of its entry
-        // and its box
-        const int j = j0 + lane;
-        const unsigned key = j < bl.m ? float_key(__ldg(te_row + j)) : ~0u;
-        const int id = j < bl.m ? __ldg(id_row + j) : 0;
-        int n = 32;  // entries of this chunk within the horizon: a prefix
-        for (int q0 = 0;; q0 += kBatch) {
-          // the warp's horizon, the largest current limit over its lanes:
-          // no lane reaches an entry beyond it, nor a later one
-          const float lim = limit();
-          const unsigned horizon = __reduce_max_sync(kFull, float_key(lim));
-          n = min(n, __popc(__ballot_sync(kFull, key <= horizon)));
-          lap(t_list);
-          if (q0 >= n) break;
-          // the gates of entries q0 .. q0 + kBatch - 1, then their votes
-          bool r[kBatch];
-#pragma unroll
-          for (int q = 0; q < kBatch; ++q) {
-            const int b = __shfl_sync(kFull, id, (q0 + q) & 31);
-            float tn;
-            r[q] = q0 + q < n && reaches(b, lim, &tn);
-          }
-          unsigned bits = 0;
-#pragma unroll
-          for (int q = 0; q < kBatch; ++q) bits |= (__any_sync(kFull, r[q]) ? 1u : 0u) << q;
-          lap(t_skip);
-          for (; bits; bits &= bits - 1) {
-            const int b = __shfl_sync(kFull, id, q0 + __ffs(bits) - 1);
-            if (np > 1) {
-              visit_node(b);
-            } else if (!fetch(b)) {
-              break;
+        unsigned horizon = __reduce_max_sync(kFull, float_key(limit()));
+        for (;;) {
+          // the least key left
+          unsigned kmin = ~0u;
+          int pos = 0;
+          for (int q = lane; q < len; q += 32) {
+            const unsigned key = keys[q];
+            if (key < kmin) {
+              kmin = key;
+              pos = q;
             }
           }
+          const unsigned m = __reduce_min_sync(kFull, kmin);
+          if (m == ~0u) break;
+          // no lane can reach a node entered beyond the horizon, nor a later one
+          if (float_key(__uint_as_float((m >> kIdBits) << 13)) > horizon) break;
+          if (kmin == m) keys[pos] = ~0u;
+          __syncwarp();
+          lap(t_list);
+          // the list's gate saw the starting limits: gate again with today's
+          const int nd = (int)(m & (unsigned)(kMaxClusters - 1));
+          float tn;
+          if (__any_sync(kFull, reaches(nd, limit(), &tn))) visit_node(nd);
+          lap(t_skip);
+          // limits only fall, and the tile still pending can only lower them
+          // further: this horizon is larger, never smaller, than the true one
+          horizon = __reduce_max_sync(kFull, float_key(limit()));
         }
-        if (n < 32) break;
+        lap(t_list);
+      } else if (kBlk) {
+        // ---- the block's list, near to far, kBatch entries a step ----
+        const float* te_row = bl.te_s + (int64_t)blockIdx.x * bl.m;
+        const int* id_row = bl.order + (int64_t)blockIdx.x * bl.m;
+        for (int j0 = 0; j0 < bl.m; j0 += 32) {
+          // lane l holds entry j0 + l: the order-preserving key of its entry
+          // and its box
+          const int j = j0 + lane;
+          const unsigned key = j < bl.m ? float_key(__ldg(te_row + j)) : ~0u;
+          const int id = j < bl.m ? __ldg(id_row + j) : 0;
+          int n = 32;  // entries of this chunk within the horizon: a prefix
+          for (int q0 = 0;; q0 += kBatch) {
+            // the warp's horizon, the largest current limit over its lanes:
+            // no lane reaches an entry beyond it, nor a later one
+            const float lim = limit();
+            const unsigned horizon = __reduce_max_sync(kFull, float_key(lim));
+            n = min(n, __popc(__ballot_sync(kFull, key <= horizon)));
+            lap(t_list);
+            if (q0 >= n) break;
+            // the gates of entries q0 .. q0 + kBatch - 1, then their votes
+            bool r[kBatch];
+#pragma unroll
+            for (int q = 0; q < kBatch; ++q) {
+              const int b = __shfl_sync(kFull, id, (q0 + q) & 31);
+              float tn;
+              r[q] = q0 + q < n && reaches(b, lim, &tn);
+            }
+            unsigned bits = 0;
+#pragma unroll
+            for (int q = 0; q < kBatch; ++q) bits |= (__any_sync(kFull, r[q]) ? 1u : 0u) << q;
+            lap(t_skip);
+            for (; bits; bits &= bits - 1) {
+              const int b = __shfl_sync(kFull, id, q0 + __ffs(bits) - 1);
+              if (np > 1) {
+                visit_node(b);
+              } else if (!fetch(b)) {
+                break;
+              }
+            }
+          }
+          if (n < 32) break;
+        }
+      } else {
+        for (int g = 0; g < nn; g += 32) {
+          unsigned bits = reached(g, min(32, nn - g), nn);
+          lap(t_skip);
+          for (; bits; bits &= bits - 1) visit_node(g + __ffs(bits) - 1);
+        }
       }
-    } else {
-      for (int g = 0; g < nn; g += 32) {
-        unsigned bits = reached(g, min(32, nn - g), nn);
-        lap(t_skip);
-        for (; bits; bits &= bits - 1) visit_node(g + __ffs(bits) - 1);
+      if (pending >= 0) test(pending, issued - 1);
+    }
+  };
+
+  if (kAlpha) {
+    // the alpha loop: while some lane of the warp is live, a round walks
+    // the live lanes' [t_min, t_max] (a dead lane's limit is -1: it gates
+    // nothing), then each live lane tests its hit's texel alpha; a rejected
+    // hit moves the lane's t_min past it and keeps it live, any other
+    // result (a miss included) is written and ends it. A lane live after
+    // the last round keeps the miss.
+    const float t_max0 = t_max;
+    bool live = i < al.n;
+    unsigned rounds = 0;
+    for (int r = 0; r < al.rounds && __any_sync(kFull, live); ++r) {
+      ++rounds;
+      t_max = live ? t_max0 : -1.0f;
+      best = kBig;
+      best_tri = -1;
+      pending = -1;
+      walk();
+      if (live) {
+        float t = best, u = 0.0f, v = 0.0f;
+        if (best_tri >= 0 && alpha_rejects(al, best_tri, o.x, o.y, o.z, dx, dy, dz, &t, &u, &v)) {
+          t_min = __fadd_rn(t, kAdvance);
+        } else {
+          out_t[i] = t;
+          out_tri[i] = best_tri;
+          al.out_u[i] = u;
+          al.out_v[i] = v;
+          live = false;
+        }
       }
     }
-    if (pending >= 0) test(pending, issued - 1);
+    if (live) {
+      out_t[i] = kBig;
+      out_tri[i] = -1;
+      al.out_u[i] = 0.0f;
+      al.out_v[i] = 0.0f;
+    }
+    if (kProf) {
+      unsigned long long* p = prof + 2 * (i >> 5);
+      if (lane == 0) p[0] = rounds;
+      if (pairs) atomicAdd(p + 1, pairs);
+    }
+    return;
   }
+  walk();
 
   if (kAny) {
     out_occ[i] = occ ? 1 : 0;
@@ -489,10 +551,10 @@ woop_walk_kernel(const float* __restrict__ rays, int64_t n_pad, const float4* __
 // launches the instance without the profile. `boxes` must be packed for the
 // instance's P and S (kBlockList: for bl.node and bl.sub, which the caller
 // checks). No rays (n_pad = 0): nothing is launched.
-template <int P, int S, int kSrc, bool kAny>
+template <int P, int S, int kSrc, bool kAny, bool kAlpha = false>
 int launch_walk(const float* rays, int64_t n_pad, const float* rows4, const float* boxes, int nc,
                 int block, const uint8_t* occ_in, float* out_t, int* out_tri, uint8_t* out_occ,
-                unsigned long long* prof, void* stream, BlockList bl = {}) {
+                unsigned long long* prof, void* stream, BlockList bl = {}, AlphaTables al = {}) {
   if (block != kBlock || n_pad < 0 || n_pad % kBlock != 0 || nc < 0 ||
       (kSrc == kNodeList && nc > kMaxClusters)) {
     return (int)cudaErrorInvalidValue;
@@ -503,21 +565,22 @@ int launch_walk(const float* rays, int64_t n_pad, const float* rows4, const floa
   const float4* r4 = reinterpret_cast<const float4*>(rows4);
   const float4* b4 = reinterpret_cast<const float4*>(boxes);
   if (prof != nullptr) {
-    woop_walk_kernel<P, S, kSrc, kAny, true><<<nb, kBlock, bytes, (cudaStream_t)stream>>>(
-        rays, n_pad, r4, b4, nc, occ_in, out_t, out_tri, out_occ, bl, prof);
+    woop_walk_kernel<P, S, kSrc, kAny, true, kAlpha><<<nb, kBlock, bytes, (cudaStream_t)stream>>>(
+        rays, n_pad, r4, b4, nc, occ_in, out_t, out_tri, out_occ, bl, prof, al);
   } else {
-    woop_walk_kernel<P, S, kSrc, kAny, false><<<nb, kBlock, bytes, (cudaStream_t)stream>>>(
-        rays, n_pad, r4, b4, nc, occ_in, out_t, out_tri, out_occ, bl, nullptr);
+    woop_walk_kernel<P, S, kSrc, kAny, false, kAlpha><<<nb, kBlock, bytes, (cudaStream_t)stream>>>(
+        rays, n_pad, r4, b4, nc, occ_in, out_t, out_tri, out_occ, bl, nullptr, al);
   }
   return (int)cudaGetLastError();
 }
 
 // CTAs of the frame instance that fit one SM for a table of nc clusters
-template <int P, int S, int kSrc, bool kAny>
+template <int P, int S, int kSrc, bool kAny, bool kAlpha = false>
 int walk_ctas_per_sm(int nc) {
   int n = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, woop_walk_kernel<P, S, kSrc, kAny, false>,
-                                                kBlock, walk_smem_bytes(nc, P, kSrc == kNodeList));
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, woop_walk_kernel<P, S, kSrc, kAny, false, kAlpha>, kBlock,
+      walk_smem_bytes(nc, P, kSrc == kNodeList));
   return n;
 }
 

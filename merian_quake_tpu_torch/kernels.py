@@ -19,8 +19,9 @@ import shutil
 import subprocess
 
 # every kernel source under csrc/: K1, K2, K3, K4 + K5 (woop_keys), the
-# list walker K6 + K7 (woop_list) and K8
-KERNELS = ("woop_nearest", "woop_any", "woop_stream", "woop_keys", "woop_list", "mt_dense")
+# list walker K6 + K7 (woop_list), K8 and the alpha walk (woop_alpha)
+KERNELS = ("woop_nearest", "woop_any", "woop_stream", "woop_keys", "woop_list", "mt_dense",
+           "woop_alpha")
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")

@@ -21,8 +21,9 @@ the CPU oracle ignores it.
 graph (capture.CapturedStep) and replays it a frame; ``render_sequence``
 renders through it. The per-frame values a captured frame reads are
 device scalars (``Uniforms.frame``, ``FrameState.iteration``), and its
-alpha loop keeps its test on the device (accel.intersect.
-alpha_loop_on_device).
+alpha loop reads nothing from the host: one alpha walk a trace on the
+default routes, and under a schedule's list walker a round loop that keeps
+its test on the device (accel.intersect.alpha_loop_on_device).
 
 ``frame_core`` renders an image-row slab when given ``y0``/``rows``, with
 ``mean_fn`` (the exposure's global mean), ``gather_fn`` (the guiding
