@@ -1,0 +1,198 @@
+"""Light cache: adaptive hash grid of EWA irradiance estimates.
+
+Port of merian_quake_tpu/render/mcpg/light_cache.py: one EWA step per
+cell per frame, from the MEAN of the frame's samples for that cell.
+Hash-mismatch cells are re-initialized from one coarser level.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...ops import hashgrid, linalg, rng as rng_ops, segments
+from ...ops.hashgrid import u32_to_i32
+from ...ops.rng import _M32
+from .config import LightCache, MCPGConfig
+from .grids import _log_f32, gather_rows
+
+
+def pack_f16_pair(a, b):
+    """Two f32 columns, clipped to [0, 6e4], as an f16 pair in one i32
+    lane (round to nearest even)."""
+
+    def u16(x):
+        h = torch.clamp(x, 0.0, 6e4).to(torch.float16).contiguous()
+        return h.view(torch.int16).to(torch.int64) & 0xFFFF
+
+    return u32_to_i32(u16(a) | (u16(b) << 16))
+
+
+def unpack_f16_pair(p):
+    p = p.to(torch.int64) & _M32
+
+    def f16(x):
+        # 16 bits → int16 with the same bits → f16
+        return ((x ^ 0x8000) - 0x8000).to(torch.int16).view(torch.float16).to(torch.float32)
+
+    return f16(p & 0xFFFF), f16(p >> 16)
+
+
+def _lc_width_for_level(level, cfg: MCPGConfig):
+    return cfg.lc_min_width * torch.pow(cfg.lc_power, level / cfg.lc_steps_per_unit)
+
+
+def _lc_level(pos, cam_x, cfg: MCPGConfig):
+    width = 2.0 * cfg.lc_tan_alpha_half * linalg.distance(cam_x, pos)
+    return torch.round(
+        cfg.lc_steps_per_unit
+        * torch.log(torch.clamp_min(width, cfg.lc_min_width) / cfg.lc_min_width)
+        / _log_f32(cfg.lc_power)
+    )
+
+
+def _lc_cell(rng_state, pos, normal, level, cfg: MCPGConfig):
+    rng_state, u3 = rng_ops.uniform3(rng_state)
+    idx = hashgrid.grid_idx_interpolate(
+        pos, _lc_width_for_level(level, cfg)[..., None], u3
+    )
+    lvl = level.to(torch.int32)
+    buf = hashgrid.hash_grid_normal_level(
+        idx, normal, lvl, cfg.lc_size, tile_bits=cfg.grid_tile_bits
+    )
+    h = hashgrid.hash2_grid_level(idx, lvl)
+    return rng_state, buf, h
+
+
+def _pack_lc(lc: LightCache) -> torch.Tensor:
+    """(L, 5) i32 table [hash, irr(3 bitcast), N]: ONE row-gather per
+    lookup instead of three."""
+    return torch.cat(
+        [
+            lc.hash.to(torch.int32)[:, None],
+            lc.irr.contiguous().view(torch.int32),
+            lc.N[:, None],
+        ],
+        dim=1,
+    )
+
+
+def _get_level(rng_state, lc: LightCache, pos, normal, level, cfg: MCPGConfig,
+               packed=None, dead=None):
+    rng_state, buf, h = _lc_cell(rng_state, pos, normal, level, cfg)
+    tab = _pack_lc(lc) if packed is None else packed
+    idx = buf
+    if dead is not None:
+        # dead lanes read row 0 (result discarded by the caller)
+        idx = torch.where(dead, 0, idx)
+    rows = gather_rows(tab, idx)  # (..., 5)
+    stored_h = rows[..., 0].to(torch.int64) & _M32
+    irr = rows[..., 1:4].contiguous().view(torch.float32)
+    n = rows[..., 4]
+    ok = (stored_h == h) & torch.isfinite(irr).all(-1)
+    return rng_state, torch.where(ok[..., None], irr, 0.0), torch.where(ok, n, 0)
+
+
+def lc_get(rng_state, lc: LightCache, pos, normal, cam_x, cfg: MCPGConfig,
+           packed=None, dead=None):
+    """Returns (rng, irradiance [..., 3]).
+
+    ``packed``: optional _pack_lc(lc) table — pass it when calling in a
+    loop so the (L, 5) pack is built once, not per call. ``dead``:
+    optional bool mask of lanes whose result the caller discards."""
+    level = _lc_level(pos, cam_x, cfg)
+    rng_state, irr, _ = _get_level(
+        rng_state, lc, pos, normal, level, cfg, packed=packed, dead=dead
+    )
+    return rng_state, irr
+
+
+def lc_update_batch(
+    rng_state,
+    lc: LightCache,
+    pos,
+    normal,
+    irr,
+    mask,
+    cam_x,
+    cfg: MCPGConfig,
+    tiebreak=None,
+):
+    """Batched light-cache update over M samples.
+
+    pos/normal/irr: [M, 3]; mask: bool[M]. Returns
+    (rng, new lc, applied_cells, merged_samples), the counts as 0-d
+    int64 tensors.
+
+    Aggregation is sort-based and COMPACT-FIRST (ops/segments.py): after
+    one sort the per-cell math runs on the compacted segment-end rows
+    (≤ update_cell_capacity), and only capacity-row scatters touch the
+    cache. Per-cell mean irradiance comes from cumulative-sum differences
+    at compacted end rows; the representative sample (→ coarse-level
+    re-init site) is the segment-end row. The irradiance and the count
+    ride the sort as f16 pairs, as in the JAX package (the mean is taken
+    over f16-rounded samples).
+    """
+    mask = mask & torch.isfinite(irr).all(-1)
+    level = _lc_level(pos, cam_x, cfg)
+    rng_state, buf, h = _lc_cell(rng_state, pos, normal, level, cfg)
+    L = cfg.lc_size
+    bi = torch.where(mask, buf, L)
+    mf = mask.to(torch.float32)
+    # sanitize non-finite rows BEFORE the cumulative sum (0*inf = NaN)
+    irr = torch.where(mask[:, None], irr, 0.0)
+
+    m = bi.shape[0]
+    iota = torch.arange(m, dtype=torch.int64, device=bi.device)
+    # ``tiebreak`` (the global row index) makes the within-cell order —
+    # and so the segment-end representative and the f32 sum order —
+    # independent of how the rows were concatenated
+    segs, cols = segments.sort_segments(
+        bi,
+        [pack_f16_pair(irr[:, 0], irr[:, 1]), pack_f16_pair(irr[:, 2], mf), iota],
+        tiebreak=tiebreak,
+    )
+    ix, iy = unpack_f16_pair(cols[0])
+    iz, mf_s = unpack_f16_pair(cols[1])
+    idx_s = cols[2]
+
+    cap = int(min(L + 1, cfg.update_cell_capacity))
+    comp = segments.compact_indices(segs, cap)
+    cell_c = segments.take_compact(comp, segs.cell, fill=L).to(torch.int64)
+    acc = segments.compact_sums(
+        comp, torch.stack([mf_s, ix, iy, iz], dim=1)
+    )  # (cap, 4): count + irr sum per touched cell
+    rep_idx = torch.clamp_min(segments.take_compact(comp, idx_s), 0)
+    rep_pos, rep_norm, rep_level = pos[rep_idx], normal[rep_idx], level[rep_idx]
+    new_hash = h[rep_idx]
+    count, sum_irr = acc[:, 0], acc[:, 1:4]
+
+    touched = comp.valid & (cell_c < L) & (count > 0.0)
+    cell_r = torch.clamp_max(cell_c, L - 1)
+    mean_irr = sum_irr / torch.clamp_min(count, 1.0)[..., None]
+
+    old_hash = lc.hash[cell_r].to(torch.int64) & _M32
+    old_irr = lc.irr[cell_r]
+    old_n = lc.N[cell_r]
+
+    # cells whose stored hash mismatches: re-init from one coarser level
+    mismatch = (old_hash != new_hash) | ~torch.isfinite(old_irr).all(-1)
+    # per-CELL rng stream for the coarse-level jitter
+    cell_rng = rng_ops.seed_pixel(cell_r, 2, 0, rng_state[0])
+    _, coarse_irr, coarse_n = _get_level(
+        cell_rng, lc, rep_pos, rep_norm, rep_level + 1.0, cfg
+    )
+    base_irr = torch.where(mismatch[..., None], coarse_irr, old_irr)
+    base_n = torch.where(mismatch, coarse_n, old_n)
+
+    new_n = torch.clamp_max(base_n + 1, cfg.lc_max_n)
+    alpha = torch.clamp_min(1.0 / torch.clamp_min(new_n, 1), cfg.lc_min_alpha)
+    new_irr = base_irr + (mean_irr - base_irr) * alpha[..., None]
+
+    idx = torch.where(touched, cell_c, L)
+    out = LightCache(
+        hash=segments.scatter_rows(lc.hash, idx, new_hash.to(lc.hash.dtype)),
+        irr=segments.scatter_rows(lc.irr, idx, new_irr),
+        N=segments.scatter_rows(lc.N, idx, new_n.to(lc.N.dtype)),
+    )
+    applied = touched.sum()
+    merged = mask.sum() - applied
+    return rng_state, out, applied, merged
