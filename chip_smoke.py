@@ -241,8 +241,9 @@ each or more:
 28. debug views: the 9 MCPG views on phase 16's 1080p city state and the 5
     ReSTIR views on phase 6's, finite, (1080, 1920, 3), with ms a view;
     64x36 states made on the CPU and moved to the card: view 3 and its
-    cell keys bit for bit, the others within rtol 1e-5; a ``Profiler``
-    device span around one 1080p MCPG frame;
+    cell keys bit for bit, the others within rtol 1e-5; the tracer on a
+    captured 1080p MCPG frame: bit-equal recorded and not, every stage
+    recorded, the lead and the top-level stages tiling the replay;
 29. F7: two ``frame_core`` runs of 6 city MCPG frames from one state are
     bit-equal in the default mode (the guiding table, the light cache,
     the images), beside two runs with the parent's ``torch.cumsum`` in
@@ -3227,8 +3228,8 @@ def phase28(dev, bundle, accel, mcpg_city, restir_city, smi):
     """Debug views: all 9 MCPG views on phase 16's city state and every
     ReSTIR view on phase 6's at 1080p, finite and of the image's shape; at
     64x36 states made on the CPU, moved to the card: each view the same on
-    both (view 3 and its cell keys bit for bit); a Profiler device span
-    around one frame."""
+    both (view 3 and its cell keys bit for bit); the port's tracer on a
+    captured MCPG frame."""
     from merian_quake_tpu_torch.models.procedural import city
     from merian_quake_tpu_torch.models.types import RenderConfig
     from merian_quake_tpu_torch.render.hit import decompress_hit
@@ -3238,8 +3239,9 @@ def phase28(dev, bundle, accel, mcpg_city, restir_city, smi):
     from merian_quake_tpu_torch.render.restir import ReSTIRConfig
     from merian_quake_tpu_torch.render.restir.debug import DEBUG_VIEWS as RESTIR_VIEWS
     from merian_quake_tpu_torch.render.restir.debug import render_restir_debug
-    from merian_quake_tpu_torch.renderer import render_frame, render_sequence
-    from merian_quake_tpu_torch.utils.profiler import Profiler
+    from merian_quake_tpu_torch.capture import tree_leaves, tree_map
+    from merian_quake_tpu_torch.renderer import compile_frame, render_sequence
+    from merian_quake_tpu_torch.utils import profiler
 
     m_cfg, mcfg, m_uni, m_state, m_out = mcpg_city
     r_cfg, r_state, r_out = restir_city
@@ -3289,18 +3291,45 @@ def phase28(dev, bundle, accel, mcpg_city, restir_city, smi):
     log(f"phase 28 debug views 64x36, a CPU state on the CPU and on the card: view 3 and its "
         f"cell keys bit for bit, the others within {VIEW_TOL}; " + "; ".join(readings))
 
-    prof = Profiler(report_every=1)
-    with prof.device("mcpg city frame") as held:
-        _, out = render_frame(accel, bundle.atlas, m_uni._replace(frame=m_uni.frame + 1), m_cfg,
-                              m_state, mcfg)
-        held.append(out["ldr"])
-    report = prof.frame_done()
-    span_ms = prof._acc["mcpg city frame"] * 1e3
-    log(f"phase 28 Profiler device span around one 1080p city MCPG frame: {span_ms:.2f} ms; "
-        f"report: {report!r}")
-    if not (report and span_ms > 0.0):
-        raise AssertionError("the Profiler's device span reported no time")
-    return {"view_ms": ms, "profiler_span_ms": span_ms}
+    # the port's tracer on the captured frame: two compiled frames from one
+    # state, the second's replays recorded, stay bit-equal, and the recorded
+    # lead and top-level stages tile each replay
+    clone = lambda x: tree_map(torch.clone, x)
+    runs = {}
+    for recording in (False, True):
+        cf = compile_frame(accel, bundle.atlas, m_cfg, clone(m_state), mcfg)
+        cf(m_uni._replace(frame=m_uni.frame + 1))
+        torch.cuda.synchronize()
+        prev = profiler.install(profiler.Profiler(enabled=recording))
+        try:
+            for k in range(2, 5):
+                st, out = cf(m_uni._replace(frame=m_uni.frame + k))
+                torch.cuda.synchronize()
+            summary = profiler.summary()
+        finally:
+            profiler.install(prev)
+        runs[recording] = (clone(st), {k: v for k, v in out.items() if k != "gbuffer"}, summary)
+        del cf
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(runs[False][:2]),
+                                                 tree_leaves(runs[True][:2])))
+    summary = runs[True][2]
+    spans = summary["spans"]
+    n = max(summary["frames"], 1)
+    tops = [k for k, v in spans.items() if v["parent"] is None]
+    tiled = sum(spans[k]["ms"] for k in tops) / n
+    replay = summary["replays"]["ms"] / max(summary["replays"]["frames"], 1)
+    stages = {k: round(v["ms"] / n, 3) for k, v in spans.items()}
+    log(f"phase 28 tracer on a captured 1080p city MCPG frame [{smi}]: {summary['frames']} "
+        f"frames recorded, recorded and not bit-equal {same}; ms a frame {stages}; replay call "
+        f"to graph end {replay:.3f} ms, lead + top-level {tiled:.3f} ms; counters a frame "
+        + ", ".join(f"{k} {v / n:.1f}" for k, v in sorted(summary["counters"].items())))
+    want = {"replay.lead", "replay.inputs", "replay.launch", "gbuffer", "mcpg.pack",
+            "mcpg.surface", "mcpg.surface.seg0", "mcpg.update", "post", "carry"}
+    if not (same and summary["frames"] == 3 and want <= set(spans)
+            and abs(tiled - replay) < 0.1 and runs[False][2]["frames"] == 0):
+        raise AssertionError("the tracer changed the captured frame, missed a stage or does "
+                             "not tile the replay")
+    return {"view_ms": ms, "tracer_ms": stages, "tracer_replay_ms": replay}
 
 
 # ---------------------------------------------------------------- F7, the live loop, the CLI

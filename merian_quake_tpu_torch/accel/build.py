@@ -35,6 +35,7 @@ import torch
 from ..models import materials
 from ..models.types import CLUSTER_SIZE, Scene, SceneFeatures, TextureAtlas
 from ..utils import native as _native
+from ..utils import profiler
 from . import woop
 from .woop import bake_candidacy, build_woop, pack_table
 
@@ -482,27 +483,30 @@ def refresh_dynamic(la: LiveAccel, dyn: dict) -> LiveAccel:
     No device value is read. Returns ``la``, whose tables now hold this
     frame; ``refresh_dynamic.h2d_bytes`` is what the last call copied to
     the device."""
-    u = dynamic_rows(la, dyn)
-    t0 = la.n_static
-    c0 = t0 // CLUSTER_SIZE
-    a = la.accel
-    sc = a.scene
-    n = 0
-    for field, key in (("v0", "v0"), ("v1", "v1"), ("v2", "v2"), ("pv0", "pv0"),
-                       ("pv1", "pv1"), ("pv2", "pv2"), ("st", "st"), ("texnum", "texnum"),
-                       ("fb_texnum", "fb"), ("flags", "flags"), ("solid_albedo", "salb"),
-                       ("solid_emission", "semm"), ("valid", "valid")):
-        n += _write(getattr(sc, field), t0, u[key])
-    n += _write(a.candidate, t0, u["cand"])
-    n += _write(a.needs_alpha, t0, u["needs_alpha"])
-    n += _write(a.cluster_lo, c0, u["lo"])
-    n += _write(a.cluster_hi, c0, u["hi"])
-    n += _write(a.tri_attr, t0, u["attr"])
-    n += _write(a.cluster_lo_alpha, c0, u["lo_a"])
-    n += _write(a.cluster_hi_alpha, c0, u["hi_a"])
-    for w, key in ((a.woop_w, "w"), (a.woop_w_shadow, "w_shadow"), (a.woop_w_alpha, "w_alpha")):
-        n += _write_table(w, 3 * t0, u[key])
-    _rewrite_derived(a)
+    with profiler.span("refresh.rows"):
+        u = dynamic_rows(la, dyn)
+    with profiler.span("refresh.write"):
+        t0 = la.n_static
+        c0 = t0 // CLUSTER_SIZE
+        a = la.accel
+        sc = a.scene
+        n = 0
+        for field, key in (("v0", "v0"), ("v1", "v1"), ("v2", "v2"), ("pv0", "pv0"),
+                           ("pv1", "pv1"), ("pv2", "pv2"), ("st", "st"), ("texnum", "texnum"),
+                           ("fb_texnum", "fb"), ("flags", "flags"), ("solid_albedo", "salb"),
+                           ("solid_emission", "semm"), ("valid", "valid")):
+            n += _write(getattr(sc, field), t0, u[key])
+        n += _write(a.candidate, t0, u["cand"])
+        n += _write(a.needs_alpha, t0, u["needs_alpha"])
+        n += _write(a.cluster_lo, c0, u["lo"])
+        n += _write(a.cluster_hi, c0, u["hi"])
+        n += _write(a.tri_attr, t0, u["attr"])
+        n += _write(a.cluster_lo_alpha, c0, u["lo_a"])
+        n += _write(a.cluster_hi_alpha, c0, u["hi_a"])
+        for w, key in ((a.woop_w, "w"), (a.woop_w_shadow, "w_shadow"),
+                       (a.woop_w_alpha, "w_alpha")):
+            n += _write_table(w, 3 * t0, u[key])
+        _rewrite_derived(a)
     refresh_dynamic.h2d_bytes = n
     return la
 

@@ -34,6 +34,8 @@ import time
 
 import torch
 
+from .utils import profiler
+
 # eager frames run on a clone of the state before the capture
 WARMUP_STEPS = 2
 
@@ -109,7 +111,10 @@ class CapturedStep:
     ``self.state`` / ``self.outputs``: the static buffers a call returns.
     ``self.capture_seconds``: the capture's host time (the warm-up not
     counted). ``self.pool_bytes``: the device memory the capture reserved
-    (the graph's private pool, held for as long as the graph lives)."""
+    (the graph's private pool, held for as long as the graph lives).
+    ``self.stages``: the step's spans and counters as the capture recorded
+    them (utils/profiler.py ``StageTable``), read after each recorded call;
+    the copy of the new state is the span ``carry``."""
 
     def __init__(self, step, state, inputs):
         leaves = tree_leaves(state)
@@ -135,13 +140,15 @@ class CapturedStep:
         reserved = torch.cuda.memory_reserved(dev)
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph), profiler.active().capture(leaves[0]) as stages:
             new_state, outputs = step(self.state, self.inputs)
             if skeleton(new_state) != skeleton(self.state):
                 raise ValueError("a captured step must return its state's structure, shapes and "
                                  "Python values unchanged (a Python value that changes per frame "
                                  "would be frozen by the capture)")
             self.outputs = _carry(self.state, new_state, outputs)
+        self.stages = stages
+        self._like = leaves[0]
         torch.cuda.synchronize(dev)
         self.capture_seconds = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
@@ -149,10 +156,13 @@ class CapturedStep:
     def __call__(self, state, inputs):
         """One replay from ``state`` (copied into the static state unless it
         is that state) on ``inputs``; returns (self.state, self.outputs)."""
-        if state is not self.state:
-            assign(self.state, state)
-        assign(self.inputs, inputs)
-        self.graph.replay()
+
+        def load():
+            if state is not self.state:
+                assign(self.state, state)
+            assign(self.inputs, inputs)
+
+        profiler.active().replay(self.stages, load, self.graph.replay, self._like)
         return self.state, self.outputs
 
 
@@ -164,9 +174,10 @@ def _carry(static_state, new_state, outputs):
     pairs = list(zip(tree_leaves(static_state), tree_leaves(new_state)))
     written = {_ptr(dst) for dst, src in pairs if src is not dst}
     keep = lambda t: t.clone() if _ptr(t) in written else t
-    pairs = [(dst, src if src is dst else keep(src)) for dst, src in pairs]
-    outputs = tree_map(keep, outputs)
-    for dst, src in pairs:
-        if src is not dst:
-            dst.copy_(src)
+    with profiler.span("carry", pairs[0][0]):
+        pairs = [(dst, src if src is dst else keep(src)) for dst, src in pairs]
+        outputs = tree_map(keep, outputs)
+        for dst, src in pairs:
+            if src is not dst:
+                dst.copy_(src)
     return outputs

@@ -27,6 +27,7 @@ from ...accel.build import AccelScene
 from ...models.types import RenderConfig, TextureAtlas, Uniforms
 from ...ops import bsdf, color as color_ops, linalg, rng as rng_ops, vmf
 from ...ops.hashgrid import u32_to_i32
+from ...utils import profiler
 from .. import layout
 from ..gbuffer import GBufferOutput
 from ..hit import Hit, decompress_hit
@@ -510,40 +511,43 @@ def render_mcpg_surface(
         )
 
     for seg_idx in range(segs_n):
-        live_cnt = (~done).sum()
-        live_list.append(live_cnt.to(torch.int32))
-        B = buds[seg_idx]
-        if B >= ns:
-            rng_state, cur, throughput, f, p, done, ys = segment_body(
-                seg_idx, rng_state, cur, throughput, f, p, done, first_lane
+        with profiler.span(f"mcpg.surface.seg{seg_idx}", f):
+            live_cnt = (~done).sum()
+            live_list.append(live_cnt.to(torch.int32))
+            B = buds[seg_idx]
+            if B >= ns:
+                profiler.count("mcpg.lanes_run", ns)
+                rng_state, cur, throughput, f, p, done, ys = segment_body(
+                    seg_idx, rng_state, cur, throughput, f, p, done, first_lane
+                )
+                ys_list.append(ys)
+                gidx_list.append(seg_idx * spp * H * W + row_l)
+                continue
+            # live lanes first; stable, so each class keeps its lane order
+            perm = torch.sort(done.to(torch.int8), stable=True).indices
+            srt = lambda x: x[perm]
+            rng_state, iota_l, row_l, first_lane = (
+                srt(rng_state), srt(iota_l), srt(row_l), srt(first_lane)
             )
-            ys_list.append(ys)
-            gidx_list.append(seg_idx * spp * H * W + row_l)
-            continue
-        # live lanes first; stable, so each class keeps its lane order
-        perm = torch.sort(done.to(torch.int8), stable=True).indices
-        srt = lambda x: x[perm]
-        rng_state, iota_l, row_l, first_lane = (
-            srt(rng_state), srt(iota_l), srt(row_l), srt(first_lane)
-        )
-        cur = Hit(*[srt(x) for x in cur])
-        throughput, f, p, done = srt(throughput), srt(f), srt(p), srt(done)
-        # the one host read of this pass: which width runs
-        width = B if bool(live_cnt <= B) else ns
-        pre = lambda x: x[:width]
-        rng_s, cur_s, thr_s, f_s, p_s, done_s, ys = segment_body(
-            seg_idx, pre(rng_state), Hit(*[pre(x) for x in cur]), pre(throughput),
-            pre(f), pre(p), pre(done), pre(first_lane),
-        )
-        mrg = lambda a, b: torch.cat([a, b[width:]])
-        rng_state = mrg(rng_s, rng_state)
-        cur = Hit(*[mrg(a, b) for a, b in zip(cur_s, cur)])
-        throughput, f, p, done = (
-            mrg(thr_s, throughput), mrg(f_s, f), mrg(p_s, p), mrg(done_s, done)
-        )
-        sorted_mode = True
-        ys_list.append(_pad_ys(ys, ns, mcfg.mc_total_size))
-        gidx_list.append(_pad_rows(seg_idx * spp * H * W + row_l[:width], ns, 0))
+            cur = Hit(*[srt(x) for x in cur])
+            throughput, f, p, done = srt(throughput), srt(f), srt(p), srt(done)
+            # the one host read of this pass: which width runs
+            width = B if bool(live_cnt <= B) else ns
+            profiler.count("mcpg.lanes_run", width)
+            pre = lambda x: x[:width]
+            rng_s, cur_s, thr_s, f_s, p_s, done_s, ys = segment_body(
+                seg_idx, pre(rng_state), Hit(*[pre(x) for x in cur]), pre(throughput),
+                pre(f), pre(p), pre(done), pre(first_lane),
+            )
+            mrg = lambda a, b: torch.cat([a, b[width:]])
+            rng_state = mrg(rng_s, rng_state)
+            cur = Hit(*[mrg(a, b) for a, b in zip(cur_s, cur)])
+            throughput, f, p, done = (
+                mrg(thr_s, throughput), mrg(f_s, f), mrg(p_s, p), mrg(done_s, done)
+            )
+            sorted_mode = True
+            ys_list.append(_pad_ys(ys, ns, mcfg.mc_total_size))
+            gidx_list.append(_pad_rows(seg_idx * spp * H * W + row_l[:width], ns, 0))
 
     if sorted_mode:
         # one final unsort of the per-lane contribution (queues carry
@@ -569,6 +573,9 @@ def render_mcpg_surface(
         lcq, upq, zq = cat(0, LCQueue), cat(1, UpdateQueue), cat(2, ZeroQueue)
         gidx = torch.cat(gidx_list)
         live_in = torch.stack(live_list)
+        if profiler.counting():
+            # the lanes that entered a segment alive, against those it ran
+            profiler.count("mcpg.lanes_live", live_in.sum())
     else:  # max_path_length < 2: no bounce segments
         z = torch.zeros((0,), dtype=torch.int32, device=dev)
         z3 = torch.zeros((0, 3), device=dev)

@@ -33,6 +33,7 @@ import torch
 from ...ops import linalg, octahedral, rng as rng_ops, segments
 from ...ops.hashgrid import u32_to_i32
 from ...ops.rng import _M32
+from ...utils import profiler
 from .. import layout
 from .config import MCPGConfig, MCPGState, MCStates
 from . import grids
@@ -100,6 +101,11 @@ def compact_queues(
     ks, ps = torch.sort(cls, stable=True)
 
     capu = int(min(M, max(mcfg.update_queue_capacity // n_shards, 1024)))
+    if profiler.counting():
+        # the live rows, and those past the capacity, which drop
+        n_live = live.sum()
+        profiler.count("mcpg.update_rows_live", n_live)
+        profiler.count("mcpg.update_rows_dropped", torch.clamp_min(n_live - capu, 0))
     pu = ps[:capu]
     upd = torch.cat([qtab[pu], gidx_upd.to(torch.int32)[pu][:, None]], dim=1)
     # rows past the live prefix already carry the sentinel cell (the

@@ -21,6 +21,7 @@ from ...accel.build import AccelScene
 from ...accel.intersect import trace_visibility
 from ...models.types import RenderConfig, TextureAtlas, Uniforms
 from ...ops import bsdf, color as color_ops, linalg, rng as rng_ops
+from ...utils import profiler
 from .. import layout
 from ..gbuffer import GBufferOutput
 from ..hit import Hit, decompress_hit
@@ -182,105 +183,108 @@ def render_restir(
     vel_z = layout.image_to_flat(gbuf.z_vel, W, rows)
     surf_cols = [surf.pos, surf.normal, surf.wi, surf.roughness]
     alpha = bsdf.roughness_to_alpha(surf.roughness)
+    like = gbuf.normal
 
     # ---------- pass 1: generate (BSDF candidates) ----------
-    rng = _seed(pxf, pyf, uniforms.frame, 0, config.seed)
-    r = rsv.reservoir_init(n, dev)
-    for _ in range(rcfg.spp):
-        rng, u3 = rng_ops.uniform3(rng)
-        wo = bsdf.sample(surf.wi, surf.normal, alpha, u3)
-        wodotn = linalg.dot(wo, surf.normal)
-        ok = pixel_live & (wodotn > 1e-3) & (linalg.dot(wo, surf.geo_normal) > 1e-3)
-        origin = surf.pos - surf.wi * 1e-3
-        res = trace_ray(
-            accel, atlas, uniforms, origin, wo,
-            bilinear=config.bilinear, features=config.features, schedule=schedule,
-        )
-        nh = res.hit
-        d2 = torch.clamp_min(torch.square(nh.pos - surf.pos).sum(-1), 1e-12)
-        geo = torch.clamp_min(linalg.dot(nh.normal, -wo), 0.0) / d2
-        p_sample = geo * bsdf.pdf(surf.wi, wo, surf.normal, alpha)
-        p_tgt = target_pdf(nh.pos, nh.normal, res.contribution, surf)
-        rng, r, _ = rsv.add_sample(
-            r, rng, ok & (p_sample > 0.0), nh.pos, nh.normal,
-            (nh.pos - nh.prev_pos) / uniforms.time_diff,
-            uniforms.cl_time.expand(n), res.contribution,
-            torch.full((n,), rsv.FLAG_VALID, dtype=torch.int64, device=dev),
-            p_sample, p_tgt,
-        )
-    r = rsv.finalize(r)
+    with profiler.span("restir.generate", like):
+        rng = _seed(pxf, pyf, uniforms.frame, 0, config.seed)
+        r = rsv.reservoir_init(n, dev)
+        for _ in range(rcfg.spp):
+            rng, u3 = rng_ops.uniform3(rng)
+            wo = bsdf.sample(surf.wi, surf.normal, alpha, u3)
+            wodotn = linalg.dot(wo, surf.normal)
+            ok = pixel_live & (wodotn > 1e-3) & (linalg.dot(wo, surf.geo_normal) > 1e-3)
+            origin = surf.pos - surf.wi * 1e-3
+            res = trace_ray(
+                accel, atlas, uniforms, origin, wo,
+                bilinear=config.bilinear, features=config.features, schedule=schedule,
+            )
+            nh = res.hit
+            d2 = torch.clamp_min(torch.square(nh.pos - surf.pos).sum(-1), 1e-12)
+            geo = torch.clamp_min(linalg.dot(nh.normal, -wo), 0.0) / d2
+            p_sample = geo * bsdf.pdf(surf.wi, wo, surf.normal, alpha)
+            p_tgt = target_pdf(nh.pos, nh.normal, res.contribution, surf)
+            rng, r, _ = rsv.add_sample(
+                r, rng, ok & (p_sample > 0.0), nh.pos, nh.normal,
+                (nh.pos - nh.prev_pos) / uniforms.time_diff,
+                uniforms.cl_time.expand(n), res.contribution,
+                torch.full((n,), rsv.FLAG_VALID, dtype=torch.int64, device=dev),
+                p_sample, p_tgt,
+            )
+        r = rsv.finalize(r)
 
     # ---------- pass 2: temporal reuse ----------
-    rng = _seed(pxf, pyf, uniforms.frame, 1, config.seed)
-    cur = r
-    r = rsv.reservoir_init(n, dev)
-    rng, r, _ = rsv.combine_finalized(r, rng, cur, cur.p_target)
+    with profiler.span("restir.temporal", like):
+        rng = _seed(pxf, pyf, uniforms.frame, 1, config.seed)
+        cur = r
+        r = rsv.reservoir_init(n, dev)
+        rng, r, _ = rsv.combine_finalized(r, rng, cur, cur.p_target)
 
-    mv = layout.image_to_flat(gbuf.mv, W, rows)
-    ppx = torch.round(pxf.float() + mv[:, 0]).to(torch.int32)
-    ppy = torch.round(pyf.float() + mv[:, 1]).to(torch.int32)
-    inb = (ppx >= 0) & (ppx < W) & (ppy >= 0) & (ppy < H)
-    if use_halo:
-        read_t = _halo_reader(
-            shard_ctx,
-            [*rstate.reservoirs, rstate.prev_normal, rstate.prev_linear_z, *surf_cols],
-            W, rows, r_halo,
+        mv = layout.image_to_flat(gbuf.mv, W, rows)
+        ppx = torch.round(pxf.float() + mv[:, 0]).to(torch.int32)
+        ppy = torch.round(pyf.float() + mv[:, 1]).to(torch.int32)
+        inb = (ppx >= 0) & (ppx < W) & (ppy >= 0) & (ppy < H)
+        if use_halo:
+            read_t = _halo_reader(
+                shard_ctx,
+                [*rstate.reservoirs, rstate.prev_normal, rstate.prev_linear_z, *surf_cols],
+                W, rows, r_halo,
+            )
+            tvals, ok_h = read_t(ppx.clamp(0, W - 1), ppy.clamp(0, H - 1))
+            prev = Reservoir(*tvals[:9])
+            prev_n, prev_z = tvals[9], tvals[10]
+            prev_surf = types.SimpleNamespace(
+                pos=tvals[11], normal=tvals[12], wi=tvals[13], roughness=tvals[14]
+            )
+            inb = inb & ok_h
+        else:
+            pidx = layout.index_of(ppx.clamp(0, W - 1), ppy.clamp(0, H - 1), W, H).long()
+            prev_n = gf(rstate.prev_normal).index_select(0, pidx)
+            prev_z = gf(rstate.prev_linear_z).index_select(0, pidx)
+            prev = Reservoir(*[gf(x).index_select(0, pidx) for x in rstate.reservoirs])
+            prev_surf = None
+        tvalid = (
+            inb
+            # a device test, so a captured frame reads each replay's number
+            & (rng_ops._u32(uniforms.frame, inb) > 0)
+            & _reproj_valid(
+                normal, prev_n, rcfg.temporal_normal_reject_cos,
+                linear_z, vel_z, prev_z, rcfg.temporal_depth_reject,
+            )
         )
-        tvals, ok_h = read_t(ppx.clamp(0, W - 1), ppy.clamp(0, H - 1))
-        prev = Reservoir(*tvals[:9])
-        prev_n, prev_z = tvals[9], tvals[10]
-        prev_surf = types.SimpleNamespace(
-            pos=tvals[11], normal=tvals[12], wi=tvals[13], roughness=tvals[14]
-        )
-        inb = inb & ok_h
-    else:
-        pidx = layout.index_of(ppx.clamp(0, W - 1), ppy.clamp(0, H - 1), W, H).long()
-        prev_n = gf(rstate.prev_normal).index_select(0, pidx)
-        prev_z = gf(rstate.prev_linear_z).index_select(0, pidx)
-        prev = Reservoir(*[gf(x).index_select(0, pidx) for x in rstate.reservoirs])
-        prev_surf = None
-    tvalid = (
-        inb
-        # a device test, so a captured frame reads each replay's number
-        & (rng_ops._u32(uniforms.frame, inb) > 0)
-        & _reproj_valid(
-            normal, prev_n, rcfg.temporal_normal_reject_cos,
-            linear_z, vel_z, prev_z, rcfg.temporal_depth_reject,
-        )
-    )
-    if rcfg.apply_mv:
-        dt = (uniforms.cl_time - prev.y_T)[..., None]
-        prev = prev._replace(
-            y_pos=prev.y_pos + prev.y_mv * dt, y_T=uniforms.cl_time.expand(n)
-        )
-    if rcfg.temporal_clamp_m > 0:
-        prev = prev._replace(M=torch.clamp_max(prev.M, rcfg.temporal_clamp_m))
-    p_tgt_prev = target_pdf(prev.y_pos, prev.y_normal, prev.y_radiance, surf)
-    rng, combined, sel_prev = rsv.combine_finalized(r, rng, prev, p_tgt_prev, mask=tvalid)
-    # lanes that early-return in the reference keep the current-only
-    # reservoir (finalized below with M from `cur` only)
-    if rcfg.temporal_bias_correction == 0:
-        r = rsv.finalize(combined)
-    else:
-        pi = combined.p_target
-        pi_sum = combined.p_target * cur.M.float()
-        if prev_surf is None:
-            prev_surf = Hit(*[gf(x).index_select(0, pidx) for x in surf])
-        temporal_p = target_pdf(
-            combined.y_pos, combined.y_normal, combined.y_radiance, prev_surf
-        )
-        if rcfg.temporal_bias_correction == 2:
-            vis = trace_visibility(accel, tex, surf.pos, combined.y_pos, schedule=schedule)
-            temporal_p = torch.where(vis, temporal_p, 0.0)
-        temporal_p = torch.where(tvalid, temporal_p, 0.0)
-        pi = torch.where(sel_prev, temporal_p, pi)
-        pi_sum = pi_sum + temporal_p * prev.M.float()
-        r = rsv.finalize_custom(combined, pi, pi_sum)
+        if rcfg.apply_mv:
+            dt = (uniforms.cl_time - prev.y_T)[..., None]
+            prev = prev._replace(
+                y_pos=prev.y_pos + prev.y_mv * dt, y_T=uniforms.cl_time.expand(n)
+            )
+        if rcfg.temporal_clamp_m > 0:
+            prev = prev._replace(M=torch.clamp_max(prev.M, rcfg.temporal_clamp_m))
+        p_tgt_prev = target_pdf(prev.y_pos, prev.y_normal, prev.y_radiance, surf)
+        rng, combined, sel_prev = rsv.combine_finalized(r, rng, prev, p_tgt_prev, mask=tvalid)
+        # lanes that early-return in the reference keep the current-only
+        # reservoir (finalized below with M from `cur` only)
+        if rcfg.temporal_bias_correction == 0:
+            r = rsv.finalize(combined)
+        else:
+            pi = combined.p_target
+            pi_sum = combined.p_target * cur.M.float()
+            if prev_surf is None:
+                prev_surf = Hit(*[gf(x).index_select(0, pidx) for x in surf])
+            temporal_p = target_pdf(
+                combined.y_pos, combined.y_normal, combined.y_radiance, prev_surf
+            )
+            if rcfg.temporal_bias_correction == 2:
+                vis = trace_visibility(accel, tex, surf.pos, combined.y_pos, schedule=schedule)
+                temporal_p = torch.where(vis, temporal_p, 0.0)
+            temporal_p = torch.where(tvalid, temporal_p, 0.0)
+            pi = torch.where(sel_prev, temporal_p, pi)
+            pi_sum = pi_sum + temporal_p * prev.M.float()
+            r = rsv.finalize_custom(combined, pi, pi_sum)
 
-    if rcfg.boiling_filter_strength > 1e-6:
-        r = rsv.discard(
-            r, _boiling_mask(r.w, gf(r.w), W, H, y0, rows, rcfg.boiling_filter_strength)
-        )
+        if rcfg.boiling_filter_strength > 1e-6:
+            r = rsv.discard(
+                r, _boiling_mask(r.w, gf(r.w), W, H, y0, rows, rcfg.boiling_filter_strength)
+            )
 
     # ---------- pass 3: spatial reuse ----------
     rng = _seed(pxf, pyf, uniforms.frame, 2, config.seed)
@@ -298,37 +302,38 @@ def render_restir(
     neighbors = []
     sel_idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
     for i in range(rcfg.spatial_reuse_iterations):
-        rng, u2 = rng_ops.uniform2(rng)
-        nx = torch.round(
-            pxf.float() + rcfg.spatial_radius * (2 * u2[:, 0] - 1)
-        ).to(torch.int32)
-        ny = torch.round(
-            pyf.float() + rcfg.spatial_radius * (2 * u2[:, 1] - 1)
-        ).to(torch.int32)
-        inb_s = (nx >= 0) & (nx < W) & (ny >= 0) & (ny < H)
-        nx_c, ny_c = nx.clamp(0, W - 1), ny.clamp(0, H - 1)
-        if use_halo:
-            svals, ok_s = read_s(nx_c, ny_c)
-            nb = Reservoir(*svals[:9])
-            nb_normal, nb_z = svals[9], svals[10]
-            nb_surf = types.SimpleNamespace(
-                pos=svals[11], normal=svals[12], wi=svals[13], roughness=svals[14]
+        with profiler.span(f"restir.spatial{i}", like):
+            rng, u2 = rng_ops.uniform2(rng)
+            nx = torch.round(
+                pxf.float() + rcfg.spatial_radius * (2 * u2[:, 0] - 1)
+            ).to(torch.int32)
+            ny = torch.round(
+                pyf.float() + rcfg.spatial_radius * (2 * u2[:, 1] - 1)
+            ).to(torch.int32)
+            inb_s = (nx >= 0) & (nx < W) & (ny >= 0) & (ny < H)
+            nx_c, ny_c = nx.clamp(0, W - 1), ny.clamp(0, H - 1)
+            if use_halo:
+                svals, ok_s = read_s(nx_c, ny_c)
+                nb = Reservoir(*svals[:9])
+                nb_normal, nb_z = svals[9], svals[10]
+                nb_surf = types.SimpleNamespace(
+                    pos=svals[11], normal=svals[12], wi=svals[13], roughness=svals[14]
+                )
+                inb_s = inb_s & ok_s
+            else:
+                nidx = layout.index_of(nx_c, ny_c, W, H).long()
+                nb = Reservoir(*[x.index_select(0, nidx) for x in sp_full])
+                nb_normal = normal_full.index_select(0, nidx)
+                nb_z = z_full.index_select(0, nidx)
+                nb_surf = nidx
+            nvalid = inb_s & _reproj_valid(
+                normal, nb_normal, rcfg.spatial_normal_reject_cos,
+                linear_z, vel_z, nb_z, rcfg.spatial_depth_reject,
             )
-            inb_s = inb_s & ok_s
-        else:
-            nidx = layout.index_of(nx_c, ny_c, W, H).long()
-            nb = Reservoir(*[x.index_select(0, nidx) for x in sp_full])
-            nb_normal = normal_full.index_select(0, nidx)
-            nb_z = z_full.index_select(0, nidx)
-            nb_surf = nidx
-        nvalid = inb_s & _reproj_valid(
-            normal, nb_normal, rcfg.spatial_normal_reject_cos,
-            linear_z, vel_z, nb_z, rcfg.spatial_depth_reject,
-        )
-        p_tgt_nb = target_pdf(nb.y_pos, nb.y_normal, nb.y_radiance, surf)
-        rng, r, took = rsv.combine_finalized(r, rng, nb, p_tgt_nb, mask=nvalid)
-        sel_idx = torch.where(took, i, sel_idx)
-        neighbors.append((nb_surf, nvalid, nb.M))
+            p_tgt_nb = target_pdf(nb.y_pos, nb.y_normal, nb.y_radiance, surf)
+            rng, r, took = rsv.combine_finalized(r, rng, nb, p_tgt_nb, mask=nvalid)
+            sel_idx = torch.where(took, i, sel_idx)
+            neighbors.append((nb_surf, nvalid, nb.M))
     if rcfg.spatial_bias_correction == 0 or rcfg.spatial_reuse_iterations == 0:
         r = rsv.finalize(r)
     else:
@@ -349,26 +354,27 @@ def render_restir(
         r = rsv.finalize_custom(r, pi, pi_sum)
 
     # ---------- pass 4: shade ----------
-    yvalid = rsv.valid(r) & pixel_live
-    d = r.y_pos - surf.pos
-    dist_y = torch.sqrt(torch.clamp_min((d * d).sum(-1), 1e-12))
-    wo = d / dist_y[..., None]
-    if rcfg.visibility_shade:
-        # the reference's shade-time shadow ray (restir_di.comp), an
-        # occlusion-only sweep (K2) on the card
-        vis = trace_visibility(accel, tex, surf.pos, r.y_pos, schedule=schedule)
-        occluded = yvalid & ~vis
-        r = rsv.discard(r, occluded)
-        yvalid = yvalid & ~occluded
-    micro = bsdf.eval_times_cos(surf.wi, wo, surf.normal, alpha)
-    w_ok = torch.isfinite(r.w)
-    cos_y = torch.clamp_min(linalg.dot(r.y_normal, -wo), 0.0) / torch.square(dist_y)
-    irr = torch.where(
-        (yvalid & w_ok)[..., None],
-        micro[..., None] * r.y_radiance * r.w[..., None] * cos_y[..., None],
-        0.0,
-    )
-    lum = color_ops.yuv_luminance(irr)
-    img = layout.flat_to_image(torch.cat([irr, (lum * lum)[..., None]], -1), W, rows)
+    with profiler.span("restir.shade", like):
+        yvalid = rsv.valid(r) & pixel_live
+        d = r.y_pos - surf.pos
+        dist_y = torch.sqrt(torch.clamp_min((d * d).sum(-1), 1e-12))
+        wo = d / dist_y[..., None]
+        if rcfg.visibility_shade:
+            # the reference's shade-time shadow ray (restir_di.comp), an
+            # occlusion-only sweep (K2) on the card
+            vis = trace_visibility(accel, tex, surf.pos, r.y_pos, schedule=schedule)
+            occluded = yvalid & ~vis
+            r = rsv.discard(r, occluded)
+            yvalid = yvalid & ~occluded
+        micro = bsdf.eval_times_cos(surf.wi, wo, surf.normal, alpha)
+        w_ok = torch.isfinite(r.w)
+        cos_y = torch.clamp_min(linalg.dot(r.y_normal, -wo), 0.0) / torch.square(dist_y)
+        irr = torch.where(
+            (yvalid & w_ok)[..., None],
+            micro[..., None] * r.y_radiance * r.w[..., None] * cos_y[..., None],
+            0.0,
+        )
+        lum = color_ops.yuv_luminance(irr)
+        img = layout.flat_to_image(torch.cat([irr, (lum * lum)[..., None]], -1), W, rows)
     new_state = ReSTIRState(reservoirs=r, prev_normal=normal, prev_linear_z=linear_z)
     return img, new_state

@@ -48,6 +48,7 @@ from .post.svgf import init_svgf_state
 from .post.tonemap import tonemap_reinhard_extended
 from .render.gbuffer import render_gbuffer
 from .render.pt import render_pt
+from .utils import profiler
 
 _INTEGRATORS = ("pt", "restir", "mcpg", "ssmm")
 
@@ -135,72 +136,86 @@ def _render_mcpg(accel, atlas, uniforms, config, mcfg, mstate, vstate, gbuf, sch
     )
     from .render.mcpg.updates import apply_updates_compact, compact_queues, queue_gidx
 
+    like = mstate.mc.f
     # both passes read the same packed tables: build them once
-    packed = pack_tables(mstate, uniforms)
-    res = (
-        _surf if _surf is not None
-        else render_mcpg_surface(
-            accel, atlas, uniforms, config, mcfg, mstate, gbuf, schedule, packed=packed,
-            y0=y0, rows=rows,
+    with profiler.span("mcpg.pack", like):
+        packed = pack_tables(mstate, uniforms)
+    with profiler.span("mcpg.surface", like):
+        res = (
+            _surf if _surf is not None
+            else render_mcpg_surface(
+                accel, atlas, uniforms, config, mcfg, mstate, gbuf, schedule, packed=packed,
+                y0=y0, rows=rows,
+            )
         )
-    )
     W, H = config.width, config.height
     rows = H if rows is None else rows
     n_shards = shard_ctx.n if shard_ctx is not None else 1
     gather_img = shard_ctx.gather_rows if shard_ctx is not None else (lambda x: x)
-    spp = max(config.spp, 1)
-    surf_groups = spp * max(config.max_path_length - 1, 1)
-    dev = res.updates.data.device
-    gidx = (
-        res.gidx if res.gidx is not None
-        else queue_gidx(res.updates.data.shape[0], surf_groups, W, rows, y0, H, device=dev)
-    )
-    # live-lane compaction makes each segment's queue rows past its
-    # static budget DEAD padding (surface pads the compacted emissions
-    # back to ns rows): slice them off here so that compact_queues sorts
-    # Σbudgets rows instead of segments·ns. In overflow frames the
-    # full-width fallback can emit beyond the budget; those rows drop —
-    # render output stays exact, guiding just learns from fewer samples
-    # that frame.
-    segs_n = max(config.max_path_length - 1, 0)
-    ns_q = W * rows * spp
-    buds = _seg_budgets(mcfg, segs_n, ns_q)
-    if any(b < ns_q for b in buds) and res.gidx is not None:
-        sl = lambda x: torch.cat([x[s * ns_q : s * ns_q + b] for s, b in enumerate(buds)])
-        res = res._replace(
-            updates=type(res.updates)(*[sl(x) for x in res.updates]),
-            lc_samples=type(res.lc_samples)(*[sl(x) for x in res.lc_samples]),
-            zeros=type(res.zeros)(*[sl(x) for x in res.zeros]),
-        )
-        gidx = sl(gidx)
     vol = None
     if mcfg.volume is not None:
         from .render.mcpg.volume import apply_dist_updates, compact_dist, render_volume
 
-        vol_img, vol_mv, new_volume, vres = render_volume(
-            accel, atlas, uniforms, config, mcfg, mcfg.volume, mstate, vstate, gbuf,
-            schedule, packed=packed, y0=y0, rows=rows, gather_img_fn=gather_img,
+        with profiler.span("mcpg.volume", like):
+            vol_img, vol_mv, new_volume, vres = render_volume(
+                accel, atlas, uniforms, config, mcfg, mcfg.volume, mstate, vstate, gbuf,
+                schedule, packed=packed, y0=y0, rows=rows, gather_img_fn=gather_img,
+            )
+    # the queues' replay into the guiding state: their row ids, the
+    # concatenation, the compactions and both replays
+    with profiler.span("mcpg.update", like):
+        spp = max(config.spp, 1)
+        surf_groups = spp * max(config.max_path_length - 1, 1)
+        dev = res.updates.data.device
+        gidx = (
+            res.gidx if res.gidx is not None
+            else queue_gidx(res.updates.data.shape[0], surf_groups, W, rows, y0, H, device=dev)
         )
-        # the volume's rows follow the surface's in the global row order
-        gidx_vol = queue_gidx(
-            vres.updates.data.shape[0], max(mcfg.volume.volume_spp, 1), W, rows, y0, H,
-            device=dev,
-        )
-        gidx = torch.cat([gidx, gidx_vol + surf_groups * H * W])
-        cat = lambda a, b: type(a)(*[torch.cat([x, y]) for x, y in zip(a, b)])
-        res = SurfaceResult(
-            irradiance=res.irradiance,
-            updates=cat(res.updates, vres.updates),
-            lc_samples=cat(res.lc_samples, vres.lc_samples),
-            zeros=cat(res.zeros, vres.zeros),
-        )
-        dmc = vstate.dist_mc
-        dq = gather_fn(compact_dist(vres.dist, dmc.sum_w.numel(), gidx_vol, n_shards), 1)
-        new_volume = new_volume._replace(dist_mc=apply_dist_updates(dmc, dq))
-        vol = (new_volume, vol_img, vol_mv)
-    cq = compact_queues(res, mcfg, gidx, gidx, n_shards=n_shards)
-    cq = type(cq)(*[gather_fn(x, 1) for x in cq])
-    return res.irradiance, apply_updates_compact(config.seed, mstate, cq, uniforms, mcfg), vol
+        # live-lane compaction makes each segment's queue rows past its
+        # static budget DEAD padding (surface pads the compacted emissions
+        # back to ns rows): slice them off here so that compact_queues sorts
+        # Σbudgets rows instead of segments·ns. In overflow frames the
+        # full-width fallback can emit beyond the budget; those rows drop —
+        # render output stays exact, guiding just learns from fewer samples
+        # that frame.
+        segs_n = max(config.max_path_length - 1, 0)
+        ns_q = W * rows * spp
+        buds = _seg_budgets(mcfg, segs_n, ns_q)
+        if any(b < ns_q for b in buds) and res.gidx is not None:
+            sl = lambda x: torch.cat([x[s * ns_q : s * ns_q + b] for s, b in enumerate(buds)])
+            res = res._replace(
+                updates=type(res.updates)(*[sl(x) for x in res.updates]),
+                lc_samples=type(res.lc_samples)(*[sl(x) for x in res.lc_samples]),
+                zeros=type(res.zeros)(*[sl(x) for x in res.zeros]),
+            )
+            gidx = sl(gidx)
+        if mcfg.volume is not None:
+            # the volume's rows follow the surface's in the global row order
+            gidx_vol = queue_gidx(
+                vres.updates.data.shape[0], max(mcfg.volume.volume_spp, 1), W, rows, y0, H,
+                device=dev,
+            )
+            gidx = torch.cat([gidx, gidx_vol + surf_groups * H * W])
+            cat = lambda a, b: type(a)(*[torch.cat([x, y]) for x, y in zip(a, b)])
+            res = SurfaceResult(
+                irradiance=res.irradiance,
+                updates=cat(res.updates, vres.updates),
+                lc_samples=cat(res.lc_samples, vres.lc_samples),
+                zeros=cat(res.zeros, vres.zeros),
+            )
+            dmc = vstate.dist_mc
+            dq = gather_fn(compact_dist(vres.dist, dmc.sum_w.numel(), gidx_vol, n_shards), 1)
+            new_volume = new_volume._replace(dist_mc=apply_dist_updates(dmc, dq))
+            vol = (new_volume, vol_img, vol_mv)
+        cq = compact_queues(res, mcfg, gidx, gidx, n_shards=n_shards)
+        cq = type(cq)(*[gather_fn(x, 1) for x in cq])
+        new_mstate = apply_updates_compact(config.seed, mstate, cq, uniforms, mcfg)
+        if profiler.counting():
+            # the chain states that carry a weight after the replay, of all
+            S = mcfg.mc_total_size
+            profiler.count("mcpg.states_weighted", (new_mstate.mc.f[:S, 3] > 0.0).sum())
+            profiler.count("mcpg.states", S)
+    return res.irradiance, new_mstate, vol
 
 
 def frame_core(
@@ -242,7 +257,9 @@ def frame_core(
         raise ValueError(f"{config.integrator} (denoise={config.denoise}, volume={volume}) on a "
                          "row slab needs a shard_ctx")
     gather_img = shard_ctx.gather_rows if shard_ctx is not None else (lambda x: x)
-    gbuf = render_gbuffer(accel, atlas, uniforms, config, schedule, y0=y0, rows=rows)
+    like = state.accum_irradiance
+    with profiler.span("gbuffer", like):
+        gbuf = render_gbuffer(accel, atlas, uniforms, config, schedule, y0=y0, rows=rows)
     new_restir = state.restir
     new_mcpg = state.mcpg
     new_ssmm = state.ssmm
@@ -258,94 +275,106 @@ def frame_core(
     elif config.integrator == "restir":
         from .render.restir import ReSTIRConfig, render_restir
 
-        irr, new_restir = render_restir(
-            accel, atlas, uniforms, config, mcpg_config or ReSTIRConfig(),
-            state.restir, gbuf, schedule, y0=y0, rows=rows, shard_ctx=shard_ctx,
-        )
+        with profiler.span("restir", like):
+            irr, new_restir = render_restir(
+                accel, atlas, uniforms, config, mcpg_config or ReSTIRConfig(),
+                state.restir, gbuf, schedule, y0=y0, rows=rows, shard_ctx=shard_ctx,
+            )
     elif config.integrator == "ssmm":
         from .render.ssmm import SSMMConfig, render_ssmm
 
-        irr, new_ssmm = render_ssmm(
-            accel, atlas, uniforms, config, mcpg_config or SSMMConfig(),
-            state.ssmm, gbuf, schedule, y0=y0, rows=rows, shard_ctx=shard_ctx,
-        )
-    else:
-        irr = render_pt(accel, atlas, uniforms, config, gbuf, schedule, y0=y0, rows=rows)
-    it = state.iteration
-    if config.denoise:
-        # the denoise beauty path reads none of the plain accumulators
-        # (SVGF integrates its own history): they keep their inputs
-        acc_irr, acc_dir, acc_alb = state.accum_irradiance, state.accum_direct, state.accum_albedo
-    else:
-        acc_irr = accumulate(state.accum_irradiance, irr, it)
-        acc_dir = accumulate(state.accum_direct, gbuf.irradiance, it)
-        acc_alb = accumulate(state.accum_albedo, gbuf.albedo, it)
-    new_state = FrameState(
-        accum_irradiance=acc_irr, accum_direct=acc_dir, accum_albedo=acc_alb,
-        iteration=it + 1, restir=new_restir, mcpg=new_mcpg, ssmm=new_ssmm,
-        volume_svgf=state.volume_svgf,
-    )
-    if vol is not None:
-        # the volume history is reprojected along the volume motion
-        # vectors: under camera motion it tracks the fog instead of
-        # ghosting
-        acc_vol, acc_vol_len = accumulate_reprojected(
-            state.accum_volume, state.accum_volume_len, vol[1], vol[2],
-            gather_fn=gather_img, y0=y0, rows=rows,
-        )
-        new_state = new_state._replace(
-            volume=vol[0], accum_volume=acc_vol, accum_volume_len=acc_vol_len
-        )
-    # beauty path (the reference's wiring): with denoise, irradiance →
-    # SVGF (+ albedo remodulate) → add direct emission (+ the volume's
-    # own SVGF) → exposure → tonemap → TAA → FXAA
-    if config.denoise:
-        if shard_ctx is not None:
-            from functools import partial
-
-            from .post.sharded import fxaa_sharded, svgf_sharded, taa_sharded
-
-            svgf = partial(svgf_sharded, shard_ctx)
-            taa = partial(taa_sharded, shard_ctx)
-            fxaa = partial(fxaa_sharded, shard_ctx)
-        else:
-            from .post.fxaa import fxaa
-            from .post.svgf import svgf
-            from .post.taa import taa
-
-        new_svgf, filtered = svgf(
-            state.svgf, irr[..., :3], irr[..., 3], gbuf.mv, gbuf.normal, gbuf.linear_z,
-            gbuf.z_grad, gbuf.albedo[..., :3],
-        )
-        beauty_hdr = filtered + gbuf.irradiance[..., :3]
-        if vol is not None:
-            # the second SVGF instance, on the volume's history: its
-            # reprojection follows the VOLUME motion vectors, its albedo
-            # is all ones (the reference's 'one' Color node)
-            new_vol_svgf, vol_filtered = svgf(
-                state.volume_svgf, acc_vol[..., :3], acc_vol[..., 3], vol[2], gbuf.normal,
-                gbuf.linear_z, gbuf.z_grad, torch.ones_like(acc_vol[..., :3]),
+        with profiler.span("ssmm", like):
+            irr, new_ssmm = render_ssmm(
+                accel, atlas, uniforms, config, mcpg_config or SSMMConfig(),
+                state.ssmm, gbuf, schedule, y0=y0, rows=rows, shard_ctx=shard_ctx,
             )
-            beauty_hdr = beauty_hdr + vol_filtered
-            new_state = new_state._replace(volume_svgf=new_vol_svgf)
     else:
-        beauty_hdr = (
-            new_state.accum_irradiance[..., :3]
-            * torch.clamp_min(new_state.accum_albedo[..., :3], 0.0)
-            + new_state.accum_direct[..., :3]
-        )
-        if vol is not None:
-            beauty_hdr = beauty_hdr + new_state.accum_volume[..., :3]
-    # auto exposure (key / log-average luminance, merian Exposure node)
-    lum = color_ops.yuv_luminance(beauty_hdr)
-    log_mean = mean_fn(torch.log(lum + 1e-4).mean())
-    scale = 0.18 / torch.clamp_min(torch.exp(log_mean), 1e-4)
-    ldr = tonemap_reinhard_extended(beauty_hdr * scale)
-    if config.denoise:
-        # the TAA history is the LDR before FXAA
-        ldr = taa(state.taa_prev, ldr, gbuf.mv)
-        new_state = new_state._replace(svgf=new_svgf, taa_prev=ldr)
-        ldr = fxaa(ldr)
+        with profiler.span("pt", like):
+            irr = render_pt(accel, atlas, uniforms, config, gbuf, schedule, y0=y0, rows=rows)
+    # everything after the integrator is the span "post": the accumulation,
+    # the denoise chain, the exposure and tonemap, TAA and FXAA
+    with profiler.span("post", like):
+        it = state.iteration
+        with profiler.span("post.accumulate", like):
+            if config.denoise:
+                # the denoise beauty path reads none of the plain accumulators
+                # (SVGF integrates its own history): they keep their inputs
+                acc_irr, acc_dir, acc_alb = (state.accum_irradiance, state.accum_direct,
+                                             state.accum_albedo)
+            else:
+                acc_irr = accumulate(state.accum_irradiance, irr, it)
+                acc_dir = accumulate(state.accum_direct, gbuf.irradiance, it)
+                acc_alb = accumulate(state.accum_albedo, gbuf.albedo, it)
+            new_state = FrameState(
+                accum_irradiance=acc_irr, accum_direct=acc_dir, accum_albedo=acc_alb,
+                iteration=it + 1, restir=new_restir, mcpg=new_mcpg, ssmm=new_ssmm,
+                volume_svgf=state.volume_svgf,
+            )
+            if vol is not None:
+                # the volume history is reprojected along the volume motion
+                # vectors: under camera motion it tracks the fog instead of
+                # ghosting
+                acc_vol, acc_vol_len = accumulate_reprojected(
+                    state.accum_volume, state.accum_volume_len, vol[1], vol[2],
+                    gather_fn=gather_img, y0=y0, rows=rows,
+                )
+                new_state = new_state._replace(
+                    volume=vol[0], accum_volume=acc_vol, accum_volume_len=acc_vol_len
+                )
+        # beauty path (the reference's wiring): with denoise, irradiance →
+        # SVGF (+ albedo remodulate) → add direct emission (+ the volume's
+        # own SVGF) → exposure → tonemap → TAA → FXAA
+        if config.denoise:
+            if shard_ctx is not None:
+                from .post.sharded import fxaa_sharded, svgf_sharded, taa_sharded
+
+                svgf = partial(svgf_sharded, shard_ctx)
+                taa = partial(taa_sharded, shard_ctx)
+                fxaa = partial(fxaa_sharded, shard_ctx)
+            else:
+                from .post.fxaa import fxaa
+                from .post.svgf import svgf
+                from .post.taa import taa
+
+            with profiler.span("post.svgf.surface", like):
+                new_svgf, filtered = svgf(
+                    state.svgf, irr[..., :3], irr[..., 3], gbuf.mv, gbuf.normal,
+                    gbuf.linear_z, gbuf.z_grad, gbuf.albedo[..., :3],
+                )
+                beauty_hdr = filtered + gbuf.irradiance[..., :3]
+            if vol is not None:
+                # the second SVGF instance, on the volume's history: its
+                # reprojection follows the VOLUME motion vectors, its albedo
+                # is all ones (the reference's 'one' Color node)
+                with profiler.span("post.svgf.volume", like):
+                    new_vol_svgf, vol_filtered = svgf(
+                        state.volume_svgf, acc_vol[..., :3], acc_vol[..., 3], vol[2],
+                        gbuf.normal, gbuf.linear_z, gbuf.z_grad,
+                        torch.ones_like(acc_vol[..., :3]),
+                    )
+                    beauty_hdr = beauty_hdr + vol_filtered
+                new_state = new_state._replace(volume_svgf=new_vol_svgf)
+        with profiler.span("post.exposure", like):
+            if not config.denoise:
+                beauty_hdr = (
+                    new_state.accum_irradiance[..., :3]
+                    * torch.clamp_min(new_state.accum_albedo[..., :3], 0.0)
+                    + new_state.accum_direct[..., :3]
+                )
+                if vol is not None:
+                    beauty_hdr = beauty_hdr + new_state.accum_volume[..., :3]
+            # auto exposure (key / log-average luminance, merian Exposure node)
+            lum = color_ops.yuv_luminance(beauty_hdr)
+            log_mean = mean_fn(torch.log(lum + 1e-4).mean())
+            scale = 0.18 / torch.clamp_min(torch.exp(log_mean), 1e-4)
+            ldr = tonemap_reinhard_extended(beauty_hdr * scale)
+        if config.denoise:
+            # the TAA history is the LDR before FXAA
+            with profiler.span("post.taa", like):
+                ldr = taa(state.taa_prev, ldr, gbuf.mv)
+            new_state = new_state._replace(svgf=new_svgf, taa_prev=ldr)
+            with profiler.span("post.fxaa", like):
+                ldr = fxaa(ldr)
     outputs = {"hdr": beauty_hdr, "ldr": ldr, "irradiance": irr, "gbuffer": gbuf}
     if vol is not None:
         outputs["volume"], outputs["volume_mv"] = vol[1], vol[2]
@@ -362,14 +391,15 @@ def render_frame(
     schedule=None,
 ):
     """One full frame on one device. Returns (new_state, outputs)."""
-    return frame_core(accel, atlas, uniforms, config, state, mcpg_config=mcpg_config,
-                      schedule=schedule)
+    with profiler.frame(state.accum_irradiance):
+        return frame_core(accel, atlas, uniforms, config, state, mcpg_config=mcpg_config,
+                          schedule=schedule)
 
 
 def _frame_step(accel, atlas, config, mcpg_config, schedule, state, uniforms):
     """``frame_core`` with the alpha loop's test on the device: the step a
     compiled frame runs, on the card captured, on the CPU as it is."""
-    with alpha_loop_on_device():
+    with alpha_loop_on_device(), profiler.frame(state.accum_irradiance):
         return frame_core(accel, atlas, uniforms, config, state, mcpg_config=mcpg_config,
                           schedule=schedule)
 

@@ -12,8 +12,10 @@ on the same numpy inputs.
   by ``interop``, write the same JSON lines as the JAX package's, byte
   for byte, on a state whose ids and hashes use all 32 bits (read:
   equal). Mutant: the ids read as signed i32 fails.
-- profiler: a device span on CPU tensors reads the clock and syncs
-  nothing; the report is the JAX package's format.
+- profiler: the port's tracer (tests/test_torch_trace.py holds it at the
+  frame's stages): spans and counters of two frames, their parents, its
+  report; off, it records nothing. Its JAX twin's synchronizing spans are
+  not carried over.
 """
 import json
 import types
@@ -84,19 +86,30 @@ def test_metrics_mutant_fails(monkeypatch):
 
 
 def test_profiler_report():
-    p = Profiler(report_every=2)
-    with p.cpu("step"):
-        pass
-    with p.device("trace") as h:
-        h.append(torch.zeros(3))
-    with p.device("frame") as h:
-        h.append({"ldr": torch.ones(2)})
-    assert p.frame_done() is None
-    r = p.frame_done()
-    assert r is not None and "step" in r and "trace" in r and "frame" in r
-    assert r.splitlines()[0] == "profiler report (avg ms over counted scopes):"
+    p = Profiler(enabled=True)
+    for _ in range(2):
+        with p.frame():
+            with p.span("step"):
+                pass
+            with p.span("trace", torch.zeros(3)):
+                with p.span("trace.inner"):
+                    pass
+            p.count("rays", torch.tensor(5))
+            p.count("lanes", 3)
+    s = p.summary()
+    assert s["frames"] == 2 and s["counters"] == {"rays": 10, "lanes": 6}
+    assert s["spans"]["trace.inner"]["parent"] == "trace"
+    assert s["spans"]["step"]["count"] == s["spans"]["trace"]["frames"] == 2
+    r = p.report()
+    assert r.splitlines()[0] == "profiler report (2 frames; ms a frame):"
+    assert "step" in r and "trace.inner" in r and "rays" in r
     p.reset()
     assert p.report().count("\n") == 0
+    # off: nothing recorded, nothing read
+    q = Profiler()
+    with q.frame(), q.span("step"):
+        q.count("rays", torch.tensor(1))
+    assert q.summary()["frames"] == 0 and q.summary()["spans"] == {}
 
 
 def test_image_roundtrip(tmp_path):
