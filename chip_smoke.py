@@ -28,7 +28,7 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits), K8
 trace_nearest's whole alpha loop on K1's or K3's walk) and the SVGF's
 temporal and à-trous kernels (csrc/svgf.cu). Phases, one line each or
 more (``python3 chip_smoke.py --phase 40`` runs phase 40 alone, after
-building its kernels):
+building its kernels; ``--phase 41`` phase 41):
 
 1. device: the card's name and power limit (nvidia-smi), and the time to
    build the eight kernel sources with nvcc for sm_90a (all started
@@ -366,7 +366,16 @@ building its kernels):
     recorded into the graph; 6 replays, every state leaf and output
     against eager ``frame_core`` with the torch SVGF); then each kernel
     timed alone by CUDA events against its bound (bytes / 3.35 TB/s) and
-    the torch path, and the whole SVGF.
+    the torch path, and the whole SVGF;
+41. SSMM on the live dungeon at 1080p with config4's settings (1 spp,
+    ``SSMMConfig()``, the denoise chain; ``--phase 41`` runs it alone):
+    its live loop captured against eager over 10 moving frames, bit for
+    bit, with one K3 alpha walk for the gbuffer and one for the bounce in
+    the graph; the port's tracer on the captured frame: recorded frames
+    bit-equal to unrecorded ones, the lead and top-level stages tiling the
+    replay and SSMM's five stage spans tiling ``ssmm`` within 1%, the
+    counters of a frame equal to an eager ``render_ssmm``'s on the same
+    inputs.
 
 Each path (PT city, ReSTIR city, dense map, PT map, ReSTIR map, the five
 city(1600) frame runs of phase 14, MCPG city, MCPG map, the two
@@ -5150,18 +5159,24 @@ def phase40(dev, smi):
             "max_abs_err": 0.0}
 
 
+def card() -> tuple:
+    """The first CUDA device and nvidia-smi's line of its name and power
+    limit; exits where there is no card."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    return torch.device("cuda", 0), smi
+
+
 def phase40_main() -> int:
     """``python3 chip_smoke.py --phase 40``: the device line, the SVGF
     kernels' build (with their ptxas lines), then phase 40 alone."""
     from merian_quake_tpu_torch import kernels
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    dev, smi = card()
     t0 = time.perf_counter()
     kernels.load_library("svgf")
     with open(kernels.library_path("svgf") + ".log") as f:
@@ -5171,6 +5186,123 @@ def phase40_main() -> int:
     t0 = time.perf_counter()
     phase40(dev, smi)
     log(f"chip_smoke --phase 40: passed in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def phase41(dev, smi):
+    """SSMM on the live dungeon at 1080p with config4's settings (1 spp,
+    ``SSMMConfig()``, the denoise chain): its live loop captured against
+    eager over 10 moving frames (``live_pair``), one K3 alpha walk for the
+    gbuffer and one for SSMM's bounce a frame; then the port's tracer on
+    the captured frame: two compiled runs from one state over the same
+    recorded frames, frames 2-4 of the second recorded, equal bit for bit
+    to the first; the replay's lead and top-level stages tile the replay,
+    ``ssmm``'s five stage spans tile ``ssmm``; the last frame's counters
+    equal to an eager ``render_ssmm``'s on the same state, gbuffer and
+    uniforms (whose image and state equal the captured frame's), and its
+    live pixels to its gbuffer's."""
+    from merian_quake_tpu_torch.accel.build import build_accel_live, refresh_dynamic
+    from merian_quake_tpu_torch.capture import tree_map
+    from merian_quake_tpu_torch.game import host
+    from merian_quake_tpu_torch.game.bigmap import make_bigmap
+    from merian_quake_tpu_torch.models.types import device_scalars
+    from merian_quake_tpu_torch.render.hit import decompress_hit
+    from merian_quake_tpu_torch.render.ssmm import SSMMConfig, render_ssmm
+    from merian_quake_tpu_torch.renderer import compile_frame, init_state
+    from merian_quake_tpu_torch.utils import profiler
+
+    host.build_library()
+    live, _ = make_bigmap(device=dev)
+    config = live_config(live, "ssmm", spp=1)._replace(denoise=True)
+    scfg = SSMMConfig()
+    reset_launches()
+    _, in_graph, stats = live_pair(41, "live dungeon SSMM", dev, smi, live, config, scfg)
+    if in_graph.get("woop_stream_alpha") != 2:
+        raise AssertionError(f"phase 41: the captured SSMM frame launched {in_graph}")
+
+    bundle = live.gs.static_bundle
+    rec = [live.step_dynamic(dt=1.0 / 30.0, forward=180.0, yaw=40.0 + 1.2 * i) for i in range(6)]
+    la = build_accel_live(bundle, dyn_cap=live.gs.dynamic_capacity, device=dev)
+    state0 = init_state(config, scfg, device=dev)
+    clone = lambda x: tree_map(torch.clone, x)
+    runs = {}
+    for recording in (False, True):
+        cf = compile_frame(la.accel, bundle.atlas, config, clone(state0), scfg)
+        frames24, last = profiler.Profiler(enabled=recording), profiler.Profiler(enabled=recording)
+        for i, (dyn, u) in enumerate(rec):
+            if i == 2:
+                prev = profiler.install(frames24)
+            if i == len(rec) - 1:
+                profiler.install(last)
+                before = clone(cf.state)
+            refresh_dynamic(la, dyn)
+            # synced, as the benchmark's live frames are: the lead is the replay's own
+            torch.cuda.synchronize()
+            st, out = cf(u)
+            torch.cuda.synchronize()
+        profiler.install(prev)
+        runs[recording] = (clone(st), {k: v for k, v in out.items() if k != "gbuffer"},
+                           frames24.summary(), last.summary(), before, clone(out["gbuffer"]))
+        del cf
+    same = not (differing_leaves(runs[False][0], runs[True][0])
+                or differing_leaves(runs[False][1], runs[True][1]))
+    st, out, summary, last, before, gbuf = runs[True]
+    spans, n = summary["spans"], max(summary["frames"], 1)
+    tops = ("replay.lead", "gbuffer", "ssmm", "post", "carry")
+    tiled = sum(spans[k]["ms"] for k in tops if k in spans) / n
+    replay = summary["replays"]["ms"] / max(summary["replays"]["frames"], 1)
+    stages = ("ssmm.inputs", "ssmm.exchange", "ssmm.sample", "ssmm.trace", "ssmm.chain",
+              "ssmm.smis")
+    kids = sum(spans[k]["ms"] for k in stages if k in spans) / n
+    ssmm_ms = spans["ssmm"]["ms"] / n if "ssmm" in spans else 0.0
+
+    # the last frame's counters against an eager pass on the same inputs
+    eager = profiler.Profiler(enabled=True)
+    prev = profiler.install(eager)
+    try:
+        irr, new_ssmm = render_ssmm(la.accel, bundle.atlas, device_scalars(rec[-1][1]), config,
+                                    scfg, before.ssmm, gbuf)
+        torch.cuda.synchronize()
+        want = eager.summary()["counters"]
+    finally:
+        profiler.install(prev)
+    got = {k: v for k, v in last["counters"].items() if k.startswith("ssmm.")}
+    live_px = int((decompress_hit(gbuf.hits).albedo >= 1e-7).any(-1).sum())
+    pass_same = torch.equal(irr, out["irradiance"]) and not differing_leaves(new_ssmm, st.ssmm)
+    log(f"phase 41 tracer on the captured 1080p live dungeon SSMM frame [{smi}]: recorded and not "
+        f"bit-equal {same}; ms a frame " + ", ".join(f"{k} {v['ms'] / n:.3f}"
+                                                      for k, v in spans.items())
+        + f"; replay call to graph end {replay:.3f} ms, lead + top-level {tiled:.3f} ms; ssmm "
+        f"{ssmm_ms:.3f} ms, its stages {kids:.3f} ms; last frame's counters {got}, eager pass "
+        f"{want}, live pixels of its gbuffer {live_px}; eager pass equal to the captured frame "
+        f"{pass_same}")
+    if not (same and summary["frames"] == 3 and set(tops) <= set(spans)
+            and set(stages) <= set(spans) and abs(tiled - replay) <= 0.01 * replay
+            and abs(kids - ssmm_ms) <= 0.01 * ssmm_ms and got == want
+            and got.get("ssmm.pixels_live") == live_px and pass_same
+            and runs[False][2]["frames"] == 0):
+        raise AssertionError("phase 41: the tracer changed the captured SSMM frame, missed a "
+                             "stage, does not tile the replay or ssmm, or miscounts")
+    return {**stats, "tracer_ms": {k: v["ms"] / n for k, v in spans.items()},
+            "tracer_replay_ms": replay, "counters": got}
+
+
+def phase41_main() -> int:
+    """``python3 chip_smoke.py --phase 41``: the device line, every
+    kernel's build and the game host's, then phase 41 alone."""
+    from merian_quake_tpu_torch import kernels
+    from merian_quake_tpu_torch.utils import native
+
+    dev, smi = card()
+    t0 = time.perf_counter()
+    kernels.build_libraries(*kernels.KERNELS)
+    native.build_library()
+    log(f"phase 1 device: {torch.cuda.get_device_name(0)} [{smi}] torch {torch.__version__} "
+        f"cuda {torch.version.cuda}; kernels and the native library built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase41(dev, smi)
+    log(f"chip_smoke --phase 41: passed in {time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -5468,6 +5600,9 @@ def main() -> int:
     # ---- phase 40: the SVGF kernels ----
     svgf_stats = phase40(dev, smi)
     mark(40)
+    # ---- phase 41: SSMM on the live dungeon, captured and traced ----
+    phase41(dev, smi)
+    mark(41)
     log(f"chip_smoke: every phase passed in {time.perf_counter() - run_t0:.1f} s (phase 1 "
         f"{marks[0][1] - run_t0:.1f} s, " + ", ".join(
             f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:])) + ")")
@@ -5620,4 +5755,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(phase40_main() if sys.argv[1:] == ["--phase", "40"] else main())
+    PHASES = {"40": phase40_main, "41": phase41_main}
+    if sys.argv[1:2] == ["--phase"]:
+        sys.exit(PHASES[sys.argv[2]]())
+    sys.exit(main())

@@ -7,6 +7,17 @@ render.layout); the previous-frame state buffer is read with
 motion-vector offset plus a ±15 px tent-distributed jitter, gated by an
 SVGF-style normal/depth compatibility score (``read_neighbour_state``).
 A row slab of a multi-device frame reads them from the gathered image.
+
+The tracer (utils/profiler.py) sees the pass as six spans that tile
+it: ``ssmm.inputs`` (the frame's pixels, RNG, unpacked hits and the
+images the reads gather from), then once a sample ``ssmm.exchange`` (the
+roll and the scored reads), ``ssmm.sample`` (the lobe, the BSDF and
+their pdfs), ``ssmm.trace`` and ``ssmm.chain`` (Metropolis and the state
+adds), and last ``ssmm.smis`` (the estimator and the persist). It
+counts, a sample, the live pixels (``ssmm.pixels_live``), those whose
+tentative chain carries a weight after the exchange
+(``ssmm.chains_valid``) and the live lanes that sampled the vMF lobe
+(``ssmm.guided``).
 """
 from __future__ import annotations
 
@@ -17,6 +28,7 @@ import torch
 from ...accel.build import AccelScene
 from ...models.types import RenderConfig, TextureAtlas, Uniforms
 from ...ops import bsdf, color as color_ops, linalg, rng as rng_ops, vmf
+from ...utils import profiler
 from .. import layout
 from ..gbuffer import GBufferOutput
 from ..hit import decompress_hit
@@ -127,151 +139,163 @@ def render_ssmm(
     rows = H if rows is None else rows
     n = W * rows
     dev = accel.woop_w.device
-    pxf, pyf = layout.gen_pixels(W, rows, y0=y0, device=dev)
-    rng = rng_ops.seed_pixel(pxf, pyf, uniforms.frame, config.seed)
+    like = sstate.sum_w
     gf = (lambda x: x) if shard_ctx is None else (lambda x: shard_ctx.gather_flat(x, W))
-
-    surf = decompress_hit(gbuf.hits)
-    live = (surf.albedo >= 1e-7).any(-1)
-    normal_img = gf(layout.image_to_flat(gbuf.normal, W, rows))
-    z_img = gf(layout.image_to_flat(gbuf.linear_z, W, rows))
-    mv = layout.image_to_flat(gbuf.mv, W, rows)
-    cam_x = uniforms.cam_x
-    alpha_r = bsdf.roughness_to_alpha(surf.roughness)
-    sstate_full = SSMMState(*[gf(x) for x in sstate])
     # the subgroup shuffle: every lane's tentative chain moves one lane on
     # in flat buffer order
     roll1 = (lambda x: torch.roll(x, 1, 0)) if shard_ctx is None else shard_ctx.roll1
     roll_state = lambda t: SSMMState(*[roll1(x) for x in t])
-
-    curr = _state_new(n, dev)
-    tent = _state_new(n, dev)
     sample_dirs, sample_weights, vmf_mus, vmf_kappas = [], [], [], []
 
+    with profiler.span("ssmm.inputs", like):
+        pxf, pyf = layout.gen_pixels(W, rows, y0=y0, device=dev)
+        rng = rng_ops.seed_pixel(pxf, pyf, uniforms.frame, config.seed)
+        surf = decompress_hit(gbuf.hits)
+        live = (surf.albedo >= 1e-7).any(-1)
+        normal_img = gf(layout.image_to_flat(gbuf.normal, W, rows))
+        z_img = gf(layout.image_to_flat(gbuf.linear_z, W, rows))
+        mv = layout.image_to_flat(gbuf.mv, W, rows)
+        cam_x = uniforms.cam_x
+        alpha_r = bsdf.roughness_to_alpha(surf.roughness)
+        sstate_full = SSMMState(*[gf(x) for x in sstate])
+        curr = _state_new(n, dev)
+        tent = _state_new(n, dev)
+
     for _ in range(config.spp):
-        tent = roll_state(tent)
+        with profiler.span("ssmm.exchange", like):
+            tent = roll_state(tent)
 
-        # ---- read_neighbour_state (ssmm.comp:99-121) ----
-        base_x = pxf.to(torch.float32) + mv[:, 0]
-        base_y = pyf.to(torch.float32) + mv[:, 1]
-        bxi, byi = _to_int(base_x), _to_int(base_y)
-        bx = torch.clamp(bxi, 0, W - 1)
-        by = torch.clamp(byi, 0, H - 1)
-        score_sum = _state_score(
-            tent, surf.pos, surf.normal, normal_img, z_img, cam_x, layout.index_of(bx, by, W, H),
-        )
-        for _ in range(scfg.smis_group_size):
-            rng, u12 = rng_ops.uniform4(rng)
-            rng, u34 = rng_ops.uniform4(rng)
-            rng, u56 = rng_ops.uniform4(rng)
-            tentu = (
-                u12[:, 0:2] + u12[:, 2:4] + u34[:, 0:2] + u34[:, 2:4]
-                + u56[:, 0:2] + u56[:, 2:4]
+            # ---- read_neighbour_state (ssmm.comp:99-121) ----
+            base_x = pxf.to(torch.float32) + mv[:, 0]
+            base_y = pyf.to(torch.float32) + mv[:, 1]
+            bxi, byi = _to_int(base_x), _to_int(base_y)
+            bx = torch.clamp(bxi, 0, W - 1)
+            by = torch.clamp(byi, 0, H - 1)
+            score_sum = _state_score(
+                tent, surf.pos, surf.normal, normal_img, z_img, cam_x,
+                layout.index_of(bx, by, W, H),
             )
-            off = torch.floor(15.0 * (tentu - 3.0)).to(torch.int64)
-            rng, u_rep = rng_ops.uniform(rng)
-            ox = torch.clamp(bxi + off[:, 0], 0, W - 1)
-            oy = torch.clamp(byi + off[:, 1], 0, H - 1)
-            oidx = layout.index_of(ox, oy, W, H)
-            cand = SSMMState(*[x[oidx] for x in sstate_full])
-            other = _state_score(cand, surf.pos, surf.normal, normal_img, z_img, cam_x, oidx)
-            take = (score_sum <= 0.0) | (u_rep < other / (other + score_sum))
-            tent = _sel(take, cand, tent)
-            score_sum = score_sum + other
+            for _ in range(scfg.smis_group_size):
+                rng, u12 = rng_ops.uniform4(rng)
+                rng, u34 = rng_ops.uniform4(rng)
+                rng, u56 = rng_ops.uniform4(rng)
+                tentu = (
+                    u12[:, 0:2] + u12[:, 2:4] + u34[:, 0:2] + u34[:, 2:4]
+                    + u56[:, 0:2] + u56[:, 2:4]
+                )
+                off = torch.floor(15.0 * (tentu - 3.0)).to(torch.int64)
+                rng, u_rep = rng_ops.uniform(rng)
+                ox = torch.clamp(bxi + off[:, 0], 0, W - 1)
+                oy = torch.clamp(byi + off[:, 1], 0, H - 1)
+                oidx = layout.index_of(ox, oy, W, H)
+                cand = SSMMState(*[x[oidx] for x in sstate_full])
+                other = _state_score(cand, surf.pos, surf.normal, normal_img, z_img, cam_x, oidx)
+                take = (score_sum <= 0.0) | (u_rep < other / (other + score_sum))
+                tent = _sel(take, cand, tent)
+                score_sum = score_sum + other
 
-        tent_valid = tent.sum_w > 0.0
-        mu, kappa = _state_vmf(tent, surf.pos, scfg)
-        kappa = torch.where(tent_valid, kappa, 0.0)
+            tent_valid = tent.sum_w > 0.0
+            if profiler.counting():
+                profiler.count("ssmm.pixels_live", live.sum())
+                profiler.count("ssmm.chains_valid", (live & tent_valid).sum())
 
         # ---- sample direction (vMF or defensive BSDF) ----
-        rng, u_b = rng_ops.uniform(rng)
-        use_bsdf = (kappa == 0.0) | (u_b < scfg.surf_bsdf_p)
-        rng, u3 = rng_ops.uniform3(rng)
-        wo_b = bsdf.sample(surf.wi, surf.normal, alpha_r, u3)
-        rng, u2 = rng_ops.uniform2(rng)
-        wo_g = vmf.sample(mu, torch.clamp_min(kappa, 1e-6), u2)
-        wo = torch.where(use_bsdf[..., None], wo_b, wo_g)
-        below = (linalg.dot(wo, surf.normal) <= 1e-3) | (linalg.dot(wo, surf.geo_normal) <= 1e-3)
-        ok = live & ~(use_bsdf & below)  # bsdf below-horizon breaks out
-        ok = ok & ~below
+        with profiler.span("ssmm.sample", like):
+            mu, kappa = _state_vmf(tent, surf.pos, scfg)
+            kappa = torch.where(tent_valid, kappa, 0.0)
+            rng, u_b = rng_ops.uniform(rng)
+            use_bsdf = (kappa == 0.0) | (u_b < scfg.surf_bsdf_p)
+            rng, u3 = rng_ops.uniform3(rng)
+            wo_b = bsdf.sample(surf.wi, surf.normal, alpha_r, u3)
+            rng, u2 = rng_ops.uniform2(rng)
+            wo_g = vmf.sample(mu, torch.clamp_min(kappa, 1e-6), u2)
+            wo = torch.where(use_bsdf[..., None], wo_b, wo_g)
+            below = ((linalg.dot(wo, surf.normal) <= 1e-3)
+                     | (linalg.dot(wo, surf.geo_normal) <= 1e-3))
+            ok = live & ~(use_bsdf & below)  # bsdf below-horizon breaks out
+            ok = ok & ~below
 
-        pdf_val = torch.where(
-            use_bsdf,
-            bsdf.pdf(surf.wi, wo, surf.normal, alpha_r),
-            vmf.pdf(wo, mu, torch.clamp_min(kappa, 1e-6)),
-        )
-        micro = bsdf.eval_times_cos(surf.wi, wo, surf.normal, alpha_r)
+            pdf_val = torch.where(
+                use_bsdf,
+                bsdf.pdf(surf.wi, wo, surf.normal, alpha_r),
+                vmf.pdf(wo, mu, torch.clamp_min(kappa, 1e-6)),
+            )
+            micro = bsdf.eval_times_cos(surf.wi, wo, surf.normal, alpha_r)
+            if profiler.counting():
+                profiler.count("ssmm.guided", (live & ~use_bsdf).sum())
 
         # every lane traces, as the reference's does; the rays go as they
         # lie unless the schedule sorts them by its target key
-        origin = surf.pos - surf.wi * 1e-3
-        res = trace_ray(
-            accel, atlas, uniforms, origin, wo,
-            bilinear=config.bilinear, features=config.features,
-            sort_rays=sorts_bounce_rays(schedule), schedule=schedule,
-        )
-        incident = res.contribution
-        position = res.hit.pos
+        with profiler.span("ssmm.trace", like):
+            origin = surf.pos - surf.wi * 1e-3
+            res = trace_ray(
+                accel, atlas, uniforms, origin, wo,
+                bilinear=config.bilinear, features=config.features,
+                sort_rays=sorts_bounce_rays(schedule), schedule=schedule,
+            )
 
-        direct = torch.where(
-            (ok & (pdf_val > 0.0))[..., None],
-            micro[..., None] * incident / torch.clamp_min(pdf_val, 1e-20)[..., None],
-            0.0,
-        )
-        weight = torch.where(ok[..., None], micro[..., None] * incident, 0.0)
-        sample_dirs.append(torch.where(ok[..., None], wo, 0.0))
-        sample_weights.append(weight)
-        vmf_mus.append(mu)
-        vmf_kappas.append(kappa)
+        with profiler.span("ssmm.chain", like):
+            incident = res.contribution
+            position = res.hit.pos
+            direct = torch.where(
+                (ok & (pdf_val > 0.0))[..., None],
+                micro[..., None] * incident / torch.clamp_min(pdf_val, 1e-20)[..., None],
+                0.0,
+            )
+            weight = torch.where(ok[..., None], micro[..., None] * incident, 0.0)
+            sample_dirs.append(torch.where(ok[..., None], wo, 0.0))
+            sample_weights.append(weight)
+            vmf_mus.append(mu)
+            vmf_kappas.append(kappa)
 
-        # ---- Metropolis acceptance (ssmm.comp:196-206) ----
-        tent_f = color_ops.yuv_luminance(direct)
-        rng, u_acc = rng_ops.uniform(rng)
-        accept = ok & ((curr.f == 0.0) | (u_acc < tent_f / torch.clamp_min(curr.f, 1e-30)))
-        fresh = _state_new(n, dev)
-        tent_base = _sel(accept & use_bsdf, fresh, tent)
-        tent_acc = tent_base._replace(f=torch.where(accept, tent_f, tent_base.f))
-        added_acc = _state_add(tent_acc, surf.pos, tent_f, wo, position, scfg)
-        # rejected vMF samples still update the tentative chain
-        added_rej = _state_add(tent, surf.pos, tent_f, wo, position, scfg)
-        keep_rej = ok & ~accept & ~use_bsdf
-        tent = _sel(accept, added_acc, _sel(keep_rej, added_rej, tent))
-        curr = _sel(accept, tent, curr)
+            # ---- Metropolis acceptance (ssmm.comp:196-206) ----
+            tent_f = color_ops.yuv_luminance(direct)
+            rng, u_acc = rng_ops.uniform(rng)
+            accept = ok & ((curr.f == 0.0) | (u_acc < tent_f / torch.clamp_min(curr.f, 1e-30)))
+            fresh = _state_new(n, dev)
+            tent_base = _sel(accept & use_bsdf, fresh, tent)
+            tent_acc = tent_base._replace(f=torch.where(accept, tent_f, tent_base.f))
+            added_acc = _state_add(tent_acc, surf.pos, tent_f, wo, position, scfg)
+            # rejected vMF samples still update the tentative chain
+            added_rej = _state_add(tent, surf.pos, tent_f, wo, position, scfg)
+            keep_rej = ok & ~accept & ~use_bsdf
+            tent = _sel(accept, added_acc, _sel(keep_rej, added_rej, tent))
+            curr = _sel(accept, tent, curr)
 
     # ---- SMIS estimator (ssmm.comp:209-229) ----
-    irr = torch.zeros((n, 3), device=dev)
-    m1 = torch.zeros((n,), device=dev)
-    m2 = torch.zeros((n,), device=dev)
-    for s in range(config.spp):
-        w_s = sample_weights[s]
-        nonzero = (w_s != 0.0).any(-1)
-        bsdf_p = bsdf.pdf(surf.wi, sample_dirs[s], surf.normal, alpha_r)
-        sum_pdf = torch.zeros((n,), device=dev)
-        for t in range(config.spp):
-            p_t = torch.where(
-                vmf_kappas[t] > 0.0,
-                vmf.pdf(sample_dirs[s], vmf_mus[t], torch.clamp_min(vmf_kappas[t], 1e-6)),
-                bsdf_p,
+    with profiler.span("ssmm.smis", like):
+        irr = torch.zeros((n, 3), device=dev)
+        m1 = torch.zeros((n,), device=dev)
+        m2 = torch.zeros((n,), device=dev)
+        for s in range(config.spp):
+            w_s = sample_weights[s]
+            nonzero = (w_s != 0.0).any(-1)
+            bsdf_p = bsdf.pdf(surf.wi, sample_dirs[s], surf.normal, alpha_r)
+            sum_pdf = torch.zeros((n,), device=dev)
+            for t in range(config.spp):
+                p_t = torch.where(
+                    vmf_kappas[t] > 0.0,
+                    vmf.pdf(sample_dirs[s], vmf_mus[t], torch.clamp_min(vmf_kappas[t], 1e-6)),
+                    bsdf_p,
+                )
+                sum_pdf = sum_pdf + p_t
+            sum_pdf = (
+                scfg.surf_bsdf_p * scfg.smis_group_size * bsdf_p
+                + (1.0 - scfg.surf_bsdf_p) * sum_pdf
             )
-            sum_pdf = sum_pdf + p_t
-        sum_pdf = (
-            scfg.surf_bsdf_p * scfg.smis_group_size * bsdf_p
-            + (1.0 - scfg.surf_bsdf_p) * sum_pdf
-        )
-        con = torch.where(
-            (nonzero & (sum_pdf > 0.0))[..., None],
-            w_s / torch.clamp_min(sum_pdf, 1e-30)[..., None],
-            0.0,
-        )
-        finite = torch.isfinite(con).all(-1)
-        con = torch.where(finite[..., None], con, 0.0)
-        irr = irr + con
-        l = color_ops.yuv_luminance(con)
-        m1 = m1 + l
-        m2 = m2 + l * l
+            con = torch.where(
+                (nonzero & (sum_pdf > 0.0))[..., None],
+                w_s / torch.clamp_min(sum_pdf, 1e-30)[..., None],
+                0.0,
+            )
+            finite = torch.isfinite(con).all(-1)
+            con = torch.where(finite[..., None], con, 0.0)
+            irr = irr + con
+            l = color_ops.yuv_luminance(con)
+            m1 = m1 + l
+            m2 = m2 + l * l
 
-    # persist only for live pixels (ssmm.comp:232)
-    new_state = _sel(live, curr, sstate)
-
-    img = layout.flat_to_image(torch.cat([irr, m2[..., None]], dim=-1), W, rows)
+        # persist only for live pixels (ssmm.comp:232)
+        new_state = _sel(live, curr, sstate)
+        img = layout.flat_to_image(torch.cat([irr, m2[..., None]], dim=-1), W, rows)
     return img, new_state
