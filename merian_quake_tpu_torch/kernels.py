@@ -19,10 +19,11 @@ import shutil
 import subprocess
 
 # every kernel source under csrc/: K1, K2, K3, K4 + K5 (woop_keys), the
-# list walker K6 + K7 (woop_list), K8, the alpha walk (woop_alpha) and the
-# SVGF's temporal and à-trous kernels (svgf)
+# list walker K6 + K7 (woop_list), K8, the alpha walk (woop_alpha), the
+# SVGF's temporal and à-trous kernels (svgf) and MCPG's guide-state draws
+# (mcpg_draw)
 KERNELS = ("woop_nearest", "woop_any", "woop_stream", "woop_keys", "woop_list", "mt_dense",
-           "woop_alpha", "svgf")
+           "woop_alpha", "svgf", "mcpg_draw")
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")

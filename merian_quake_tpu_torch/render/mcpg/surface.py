@@ -34,7 +34,8 @@ from ..hit import Hit, decompress_hit
 from ..pt import _where_hit, sorts_bounce_rays
 from ..trace import trace_ray
 from .config import MCPGConfig, MCPGState
-from . import grids
+from . import draw, grids
+from .draw import _select_state
 from .light_cache import _pack_lc, lc_get
 
 
@@ -182,11 +183,6 @@ def pack_tables(mstate: MCPGState, uniforms: Uniforms):
     return grids.pack_states_draw(mstate.mc, uniforms.cl_time), _pack_lc(mstate.lc)
 
 
-def _select_state(mask, a: grids.StateSample, b: grids.StateSample):
-    pick = lambda x, y: torch.where(mask[..., None] if x.dim() > mask.dim() else mask, x, y)
-    return grids.StateSample(*[pick(x, y) for x, y in zip(a, b)])
-
-
 def render_mcpg_surface(
     accel: AccelScene,
     atlas: TextureAtlas,
@@ -251,74 +247,22 @@ def render_mcpg_surface(
         # sample 0 looks up at the previous-frame position (better
         # temporal stability), later samples at the current one
         lookup_pos = torch.where(first_lane[:, None], cur.prev_pos, cur.pos)
-        lookup_level = grids.adaptive_target_level(lookup_pos, cam_x, mcfg)
 
         # ---- draw K chain states, reservoir-select by sum_w ----
         # STRATIFIED grid choice: draw slots are statically assigned —
         # floor(K·p) adaptive, K−ceil(K·p) static, one Bernoulli(frac)
         # boundary slot — so all but one draw run ONE grid's math. Draws
         # are exchangeable in the reservoir and the MIS mixture, and the
-        # expected adaptive count stays exactly K·p.
-        # mc_samples_adaptive_prob must be a Python float: the slot
-        # split below is computed in Python.
-        assert isinstance(mcfg.mc_samples_adaptive_prob, float), (
-            "mc_samples_adaptive_prob must be a static float"
-        )
-        ka_exact = K * mcfg.mc_samples_adaptive_prob
-        score_sum = torch.zeros((nl,), device=dev)
-        mus, kappas, scores, draw_ns = [], [], [], []
-        rng_state, win = grids.new_state(rng_state)
-        win_buf = torch.full((nl,), -1, dtype=torch.int64, device=dev)
-        for k in range(K):
-            if k + 1 <= int(ka_exact):
-                mode = "adaptive"
-            elif k >= math.ceil(ka_exact):
-                mode = "static"
-            else:
-                mode = "mixed"
-            if mode != "static":
-                rng_state, abuf, ahash = grids.adaptive_cell(
-                    rng_state, lookup_pos, cur.normal, cam_x, mcfg,
-                    target_level=lookup_level,
-                )
-            if mode != "adaptive":
-                rng_state, sbuf, shash = grids.static_cell(rng_state, lookup_pos, mcfg)
-            if mode == "adaptive":
-                buf = abuf
-            elif mode == "static":
-                buf = sbuf
-            else:
-                frac = ka_exact - int(ka_exact)
-                rng_state, u_grid = rng_ops.uniform(rng_state)
-                adaptive = u_grid < frac
-                buf = torch.where(adaptive, abuf, sbuf)
-            # dead lanes gather row 0: their results are discarded
-            # anyway (everything downstream is gated on ``active``)
-            st = grids.gather_state_packed_draw(mc_packed, torch.where(done, 0, buf))
-            if mode == "adaptive":
-                st = grids.finalize_load(st, ahash, uniforms.cl_time)
-            elif mode == "static":
-                st = grids.finalize_load(
-                    st, shash, uniforms.cl_time, pos=cur.pos,
-                    normal=cur.normal, hemisphere_check=True,
-                )
-            else:
-                st_a = grids.finalize_load(st, ahash, uniforms.cl_time)
-                st_s = grids.finalize_load(
-                    st, shash, uniforms.cl_time, pos=cur.pos,
-                    normal=cur.normal, hemisphere_check=True,
-                )
-                st = _select_state(adaptive, st_a, st_s)
-            score_sum = score_sum + st.sum_w
-            rng_state, u_res = rng_ops.uniform(rng_state)
-            take = u_res < st.sum_w / score_sum  # NaN-compare false
-            win = _select_state(take, st, win)
-            win_buf = torch.where(take, buf, win_buf)
-            mu_i, kap_i = grids.state_vmf(st, cur.pos, mcfg)
-            mus.append(mu_i)
-            kappas.append(kap_i)
-            scores.append(st.sum_w)
-            draw_ns.append(st.N)
+        # expected adaptive count stays exactly K·p. Dead lanes gather
+        # row 0 (everything downstream is gated on ``active``); static
+        # draws are tested against the surface's hemisphere.
+        with profiler.span(f"mcpg.surface.seg{seg_idx}.draw", cur.pos):
+            dr = draw.draw_states(
+                rng_state, lookup_pos, cur.pos, cur.normal, cam_x, uniforms.cl_time, mc_packed,
+                mcfg, dead=done, hemisphere=True,
+            )
+        rng_state, win, win_buf, score_sum = dr.rng, dr.win, dr.win_buf, dr.score_sum
+        mus, kappas, scores, draw_ns = dr.mu, dr.kappa, dr.sum_w, dr.N
 
         have_guiding = score_sum > 0.0
 

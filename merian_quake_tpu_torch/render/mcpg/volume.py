@@ -33,15 +33,17 @@ from ...ops import (
     transmittance as trans_ops,
     vmf,
 )
+from ...utils import profiler
 from .. import layout
 from ..gbuffer import GBufferOutput
 from ..pt import sorts_bounce_rays
 from ..trace import trace_ray
-from . import grids
+from . import draw, grids
+from .draw import _select_state
 from .config import MCPGConfig, MCPGState
 from .light_cache import lc_get
 from .surface import (
-    DistQueue, LCQueue, SurfaceResult, UpdateQueue, ZeroQueue, _i2f, _select_state, pack_tables,
+    DistQueue, LCQueue, SurfaceResult, UpdateQueue, ZeroQueue, _i2f, pack_tables,
 )
 
 DIST_ML_MAX_N = 1024
@@ -194,7 +196,6 @@ def render_volume(
     m2_acc = torch.zeros((n,), device=dev)
     lcq_all, upq_all, zq_all, dq_all = [], [], [], []
     expected_depth = linear_z
-    ka_exact = K * mcfg.mc_samples_adaptive_prob
     cam_shift = linalg.dot(cam_x - uniforms.prev_cam_x, first_wi)
 
     for s in range(vcfg.volume_spp):
@@ -260,54 +261,11 @@ def render_volume(
         vnormal = -first_wi
 
         # ---- guided direction sampling (same MC grids; the stratified
-        # grid choice of the surface pass) ----
-        score_sum = torch.zeros((n,), device=dev)
-        gmus, gkaps, gscores, gns = [], [], [], []
-        rng, win = grids.new_state(rng)
-        win_buf = torch.full((n,), -1, dtype=torch.int64, device=dev)
-        vol_level = grids.adaptive_target_level(pos, cam_x, mcfg)
-        for k in range(K):
-            if k + 1 <= int(ka_exact):
-                mode = "adaptive"
-            elif k >= math.ceil(ka_exact):
-                mode = "static"
-            else:
-                mode = "mixed"
-            if mode != "static":
-                rng, abuf, ahash = grids.adaptive_cell(
-                    rng, pos, vnormal, cam_x, mcfg, target_level=vol_level
-                )
-            if mode != "adaptive":
-                rng, sbuf, shash = grids.static_cell(rng, pos, mcfg)
-            if mode == "adaptive":
-                buf = abuf
-            elif mode == "static":
-                buf = sbuf
-            else:
-                rng, u_grid = rng_ops.uniform(rng)
-                adaptive = u_grid < (ka_exact - int(ka_exact))
-                buf = torch.where(adaptive, abuf, sbuf)
-            st = grids.gather_state_packed_draw(mc_packed, buf)
-            if mode == "adaptive":
-                st = grids.finalize_load(st, ahash, uniforms.cl_time)
-            elif mode == "static":
-                st = grids.finalize_load(st, shash, uniforms.cl_time)
-            else:
-                st = _select_state(
-                    adaptive,
-                    grids.finalize_load(st, ahash, uniforms.cl_time),
-                    grids.finalize_load(st, shash, uniforms.cl_time),
-                )
-            score_sum = score_sum + st.sum_w
-            rng, u_res = rng_ops.uniform(rng)
-            take = u_res < st.sum_w / score_sum
-            win = _select_state(take, st, win)
-            win_buf = torch.where(take, buf, win_buf)
-            mu_g, kap_g = grids.state_vmf(st, pos, mcfg)
-            gmus.append(mu_g)
-            gkaps.append(kap_g)
-            gscores.append(st.sum_w)
-            gns.append(st.N)
+        # grid choice of the surface pass, at the scatter point) ----
+        with profiler.span("mcpg.volume.draw", pos):
+            dr = draw.draw_states(rng, pos, pos, vnormal, cam_x, uniforms.cl_time, mc_packed, mcfg)
+        rng, win, win_buf, score_sum = dr.rng, dr.win, dr.win_buf, dr.score_sum
+        gmus, gkaps, gscores, gns = dr.mu, dr.kappa, dr.sum_w, dr.N
 
         have_guide = score_sum > 0.0
 
