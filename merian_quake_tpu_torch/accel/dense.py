@@ -25,10 +25,10 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import I64, INT, P, check, entry, launch
 from ..models.types import CLUSTER_SIZE
 from ..ops.linalg import as_f32
-from .woop import (_I64, _INT, _P, BIG, RAY_BLOCK, _cached, _call, _check, _kernel_lib,
-                   _pack_rays)
+from .woop import BIG, RAY_BLOCK, _cached, _pack_rays
 
 DET_EPS = 1e-9
 # (rays × triangles) elements per step of the plain version: bounds its
@@ -150,7 +150,7 @@ def intersect_dense_reference(rays: torch.Tensor, table: torch.Tensor):
 
 # the arguments of K8's entry point: (rays, n_pad, table, T, block, keys,
 # t, tri, u, v, counts, stream)
-_ARGS = (_P, _I64, _P, _I64, _INT, _P, _P, _P, _P, _P, _P, _P)
+_ARGS = (P, I64, P, I64, INT, P, P, P, P, P, P, P)
 # the columns of K8's ``counts=`` (int64[n_pad / RAY_BLOCK, 3]): per 128-ray
 # block the (ray, triangle) pairs that pass pre-test level 1 (front and the
 # flag), level 2 (and u's sign) and level 3 (and v's and t's: every
@@ -176,8 +176,8 @@ def mt_dense(rays: torch.Tensor, table: torch.Tensor, counts=None):
         raise ValueError(f"{n_pad} rays: must be a positive multiple of {RAY_BLOCK}")
     if T <= 0 or T % CLUSTER_SIZE:
         raise ValueError(f"{T} triangles: must be a positive multiple of {CLUSTER_SIZE}")
-    _check("rays", rays, torch.float32, (8, n_pad), dev)
-    _check("table", table, torch.float32, (T, 12), dev)
+    check("rays", rays, torch.float32, (8, n_pad), dev)
+    check("table", table, torch.float32, (T, 12), dev)
     if dev.type == "cpu":
         if counts is not None:
             raise ValueError("counts: only a kernel on the card counts its work")
@@ -188,16 +188,16 @@ def mt_dense(rays: torch.Tensor, table: torch.Tensor, counts=None):
         raise ValueError("table: must be 16-byte aligned (bulk copies)")
     cptr = None
     if counts is not None:
-        _check("counts", counts, torch.int64, (n_pad // RAY_BLOCK, len(COUNT_FIELDS)), dev)
+        check("counts", counts, torch.int64, (n_pad // RAY_BLOCK, len(COUNT_FIELDS)), dev)
         cptr = counts.zero_().data_ptr()
     keys = torch.empty(n_pad, dtype=torch.int64, device=dev)
     out_t = torch.empty(n_pad, dtype=torch.float32, device=dev)
     out_tri = torch.empty(n_pad, dtype=torch.int32, device=dev)
     out_u = torch.empty(n_pad, dtype=torch.float32, device=dev)
     out_v = torch.empty(n_pad, dtype=torch.float32, device=dev)
-    _call(_kernel_lib("mt_dense", None, _ARGS), dev, rays.data_ptr(), n_pad, table.data_ptr(), T,
-          RAY_BLOCK, keys.data_ptr(), out_t.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(),
-          out_v.data_ptr(), cptr)
+    launch(entry("mt_dense", None, _ARGS), dev, rays.data_ptr(), n_pad, table.data_ptr(), T,
+           RAY_BLOCK, keys.data_ptr(), out_t.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(),
+           out_v.data_ptr(), cptr)
     mt_dense.launches += 1
     return out_t, out_tri, out_u, out_v
 

@@ -63,12 +63,12 @@ a subset of): they change which tiles a TPU block visits, never the hit.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..kernels import I64, INT, P, check, entry, launch
 from ..models import atlas as atlas_mod
 from ..models import materials
 from ..models.types import CLUSTER_SIZE
@@ -181,7 +181,7 @@ def packed_rows(w: torch.Tensor) -> torch.Tensor:
     if rows4 is None:
         raise ValueError("this Woop table has no packed rows: build it with build_accel, or "
                          "call woop.pack_table(w) once where it is placed on the device")
-    _check("w.rows4", rows4, torch.float32, (w.shape[0], 4), w.device)
+    check("w.rows4", rows4, torch.float32, (w.shape[0], 4), w.device)
     return rows4
 
 
@@ -442,33 +442,6 @@ def intersect_woop_any_reference(rays: torch.Tensor, w: torch.Tensor, occluded_i
     return out
 
 
-_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-
-
-def _kernel_lib(name, entry, argtypes):
-    """The C entry point ``entry`` (default ``mq_<name>``) of
-    ``csrc/<name>.cu``, taking ``argtypes`` and returning a CUDA error."""
-    from ..kernels import load_library
-
-    fn = getattr(load_library(name), entry or f"mq_{name}")
-    if fn.argtypes is None:
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _call(fn, device, *args):
-    """Call a kernel's C entry point on ``device``'s current stream (the
-    last argument); raise on a refused launch. The entry points launch,
-    query (occupancy, a function attribute) and read the launch error:
-    none synchronizes or allocates, so a CUDA graph captures them as
-    they are, on the capture's stream."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {err}")
-
-
 # the columns of the walk's profile (K1, K2, K3 and the list walker;
 # ``counts=`` int64[n_pad / RAY_BLOCK, 10]): cycles (clock64, summed over a
 # CTA's warps) in the node list, in the gates that look for the next tile
@@ -488,20 +461,20 @@ def ctas_per_sm(name, nc):
     fit one SM for a table of ``nc`` clusters
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     lib = "woop_alpha" if name.endswith("_alpha") else name
-    return _kernel_lib(lib, f"mq_{name}_ctas_per_sm", (_INT,))(nc)
+    return entry(lib, f"mq_{name}_ctas_per_sm", (INT,))(nc)
 
 
 def node_sizes(name):
     """(clusters a node, clusters a sub-node) of kernel ``name``'s walk
     (``woop_nearest``, ``woop_any`` or ``woop_stream``): compile-time constants of
     csrc/woop_walk.cuh, read from the built library."""
-    return tuple(_kernel_lib(name, f"mq_{name}_{level}", ())() for level in ("node", "sub"))
+    return tuple(entry(name, f"mq_{name}_{level}", ())() for level in ("node", "sub"))
 
 
 # the arguments of the walk's entry points: (rays, n_pad, rows4, boxes, nc,
 # block, out0, out1, prof, stream); the any-hit ones (K2, K3's any-hit
 # form) take (occ_in, out) as (out0, out1)
-_WALK_ARGS = (_P, _I64, _P, _P, _INT, _INT, _P, _P, _P, _P)
+_WALK_ARGS = (P, I64, P, P, INT, INT, P, P, P, P)
 
 
 def _profile(counts, n_pad, device, short=("pairs",)):
@@ -516,10 +489,10 @@ def _profile(counts, n_pad, device, short=("pairs",)):
     if counts is None:
         return None, lambda: None
     if counts.dim() == 2 and counts.shape[1] == len(PROF_FIELDS):
-        _check("counts", counts, torch.int64, (nb, len(PROF_FIELDS)), device)
+        check("counts", counts, torch.int64, (nb, len(PROF_FIELDS)), device)
         return counts.zero_(), lambda: None
     want = (nb,) if len(short) == 1 else (nb, len(short))
-    _check("counts", counts, torch.int64, want, device)
+    check("counts", counts, torch.int64, want, device)
     prof = torch.zeros((nb, len(PROF_FIELDS)), dtype=torch.int64, device=device)
     cols = [PROF_FIELDS.index(f) for f in short]
     return prof, lambda: counts.copy_(prof[:, cols].reshape(want))
@@ -533,7 +506,7 @@ def _aligned_rows(name, w):
     return rows4
 
 
-def _launch_walk(name, rays, w, cluster_lo, cluster_hi, out0, out1, counts, entry=None):
+def _launch_walk(name, rays, w, cluster_lo, cluster_hi, out0, out1, counts, symbol=None):
     """Launch K1, K2 or K3 (the walk of csrc/woop_walk.cuh) on the current
     stream, with the table's packed rows and its cached boxes, packed for
     the library's :func:`node_sizes`; raise on a refused launch or a table
@@ -546,9 +519,9 @@ def _launch_walk(name, rays, w, cluster_lo, cluster_hi, out0, out1, counts, entr
     rows4 = _aligned_rows(name, w)
     boxes = walk_boxes(cluster_lo, cluster_hi, *node_sizes(name))
     prof, finish = _profile(counts, n_pad, rays.device)
-    _call(_kernel_lib(name, entry, _WALK_ARGS), rays.device, rays.data_ptr(), n_pad,
-          rows4.data_ptr(), boxes.data_ptr(), cluster_lo.shape[0], RAY_BLOCK, out0, out1,
-          None if prof is None else prof.data_ptr())
+    launch(entry(name, symbol, _WALK_ARGS), rays.device, rays.data_ptr(), n_pad,
+           rows4.data_ptr(), boxes.data_ptr(), cluster_lo.shape[0], RAY_BLOCK, out0, out1,
+           None if prof is None else prof.data_ptr())
     finish()
 
 
@@ -557,23 +530,12 @@ def _refuse_counts_on_cpu(counts):
         raise ValueError("counts: only a kernel on the card counts its work")
 
 
-def _check(name, x, dtype, shape, device):
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
-        raise ValueError(
-            f"{name}: expected {dtype}{tuple(shape)}, got {x.dtype}{tuple(x.shape)}"
-        )
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def _check_rays(rays):
     """Validate packed rays f32[8, n_pad]; returns n_pad."""
     n_pad = rays.shape[1] if rays.dim() == 2 else -1
     if n_pad <= 0 or n_pad % RAY_BLOCK:
         raise ValueError(f"{n_pad} rays: must be a positive multiple of {RAY_BLOCK}")
-    _check("rays", rays, torch.float32, (8, n_pad), rays.device)
+    check("rays", rays, torch.float32, (8, n_pad), rays.device)
     if rays.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {rays.device}")
     return n_pad
@@ -583,9 +545,9 @@ def _check_k_inputs(rays, w, cluster_lo, cluster_hi):
     """Validate the arguments the Woop sweeps share; returns n_pad."""
     n_pad = _check_rays(rays)
     nc = w.shape[0] // 3 // CLUSTER_SIZE
-    _check("w", w, torch.float32, (3 * nc * CLUSTER_SIZE, 8), rays.device)
-    _check("cluster_lo", cluster_lo, torch.float32, (nc, 3), rays.device)
-    _check("cluster_hi", cluster_hi, torch.float32, (nc, 3), rays.device)
+    check("w", w, torch.float32, (3 * nc * CLUSTER_SIZE, 8), rays.device)
+    check("cluster_lo", cluster_lo, torch.float32, (nc, 3), rays.device)
+    check("cluster_hi", cluster_hi, torch.float32, (nc, 3), rays.device)
     return n_pad
 
 
@@ -630,7 +592,7 @@ def woop_any(rays, w, cluster_lo, cluster_hi, occluded_in=None, counts=None):
     """
     n_pad = _check_k_inputs(rays, w, cluster_lo, cluster_hi)
     if occluded_in is not None:
-        _check("occluded_in", occluded_in, torch.bool, (n_pad,), rays.device)
+        check("occluded_in", occluded_in, torch.bool, (n_pad,), rays.device)
     if rays.device.type == "cpu":
         _refuse_counts_on_cpu(counts)
         return intersect_woop_any_reference(rays, w, occluded_in)
@@ -666,7 +628,7 @@ def woop_stream(rays, w, cluster_lo, cluster_hi, *, anyhit=False, occluded_in=No
     if occluded_in is not None:
         if not anyhit:
             raise ValueError("woop_stream: occluded_in needs anyhit=True")
-        _check("occluded_in", occluded_in, torch.bool, (n_pad,), rays.device)
+        check("occluded_in", occluded_in, torch.bool, (n_pad,), rays.device)
     if rays.device.type == "cpu":
         _refuse_counts_on_cpu(counts)
         if anyhit:
@@ -676,7 +638,7 @@ def woop_stream(rays, w, cluster_lo, cluster_hi, *, anyhit=False, occluded_in=No
         out = torch.empty(n_pad, dtype=torch.bool, device=rays.device)
         occ_ptr = None if occluded_in is None else occluded_in.data_ptr()
         _launch_walk("woop_stream", rays, w, cluster_lo, cluster_hi, occ_ptr,
-                     out.data_ptr(), counts, entry="mq_woop_stream_any")
+                     out.data_ptr(), counts, symbol="mq_woop_stream_any")
         woop_stream.anyhit_launches += 1
     else:
         out_t = torch.empty(n_pad, dtype=torch.float32, device=rays.device)
@@ -756,14 +718,14 @@ def target_keys_reference(rays, lo, hi):
 
 def _check_boxes(name, lo, hi, device):
     m = lo.shape[0] if lo.dim() == 2 else -1
-    _check(f"{name}_lo", lo, torch.float32, (m, 3), device)
-    _check(f"{name}_hi", hi, torch.float32, (m, 3), device)
+    check(f"{name}_lo", lo, torch.float32, (m, 3), device)
+    check(f"{name}_hi", hi, torch.float32, (m, 3), device)
     return m
 
 
-_KEYS_ARGS = (_P, _I64, _P, _P, _INT, _P, _P, _P)
-_UNION_ARGS = (_P, _I64, _P, _P, _INT, _INT, _P, _P)
-_VISIT_LIST_ARGS = (_P, _I64, _P, _P, _INT, _P, _P, _P)
+_KEYS_ARGS = (P, I64, P, P, INT, P, P, P)
+_UNION_ARGS = (P, I64, P, P, INT, INT, P, P)
+_VISIT_LIST_ARGS = (P, I64, P, P, INT, P, P, P)
 # K4's ``counts`` columns, per CTA: the (ray, box) slabs of member boxes and
 # of node boxes it computed (32 a warp's slab) and its warps' insertions
 KEY_COUNTS = ("slabs", "node_slabs", "inserts")
@@ -786,12 +748,12 @@ def target_keys(rays, lo, hi, counts=None):
         _refuse_counts_on_cpu(counts)
         return target_keys_reference(rays, lo, hi)
     if counts is not None:
-        _check("counts", counts, torch.int64, (n_pad // RAY_BLOCK, len(KEY_COUNTS)), rays.device)
+        check("counts", counts, torch.int64, (n_pad // RAY_BLOCK, len(KEY_COUNTS)), rays.device)
         counts.zero_()
     out = torch.empty(n_pad, dtype=torch.int32, device=rays.device)
-    _call(_kernel_lib("woop_keys", "mq_target_keys", _KEYS_ARGS), rays.device, rays.data_ptr(),
-          n_pad, lo.data_ptr(), hi.data_ptr(), nc, out.data_ptr(),
-          None if counts is None else counts.data_ptr())
+    launch(entry("woop_keys", "mq_target_keys", _KEYS_ARGS), rays.device, rays.data_ptr(),
+           n_pad, lo.data_ptr(), hi.data_ptr(), nc, out.data_ptr(),
+           None if counts is None else counts.data_ptr())
     target_keys.launches += 1
     return out
 
@@ -834,8 +796,8 @@ def te_union(rays, lo, hi, slack=False):
     if rays.device.type == "cpu":
         return te_union_reference(rays, lo, hi, slack)
     out = torch.empty((n_pad // RAY_BLOCK, m), dtype=torch.float32, device=rays.device)
-    _call(_kernel_lib("woop_keys", "mq_te_union", _UNION_ARGS), rays.device, rays.data_ptr(),
-          n_pad, lo.data_ptr(), hi.data_ptr(), m, int(slack), out.data_ptr())
+    launch(entry("woop_keys", "mq_te_union", _UNION_ARGS), rays.device, rays.data_ptr(),
+           n_pad, lo.data_ptr(), hi.data_ptr(), m, int(slack), out.data_ptr())
     te_union.launches += 1
     return out
 
@@ -888,9 +850,9 @@ def visit_list(rays, lo, hi):
         return _sorted_rows(te_union(rays, lo, hi, slack=True))
     te_s = torch.empty((n_pad // RAY_BLOCK, m), dtype=torch.float32, device=rays.device)
     order = torch.empty((n_pad // RAY_BLOCK, m), dtype=torch.int32, device=rays.device)
-    _call(_kernel_lib("woop_keys", "mq_visit_list", _VISIT_LIST_ARGS), rays.device,
-          rays.data_ptr(), n_pad, lo.data_ptr(), hi.data_ptr(), m, te_s.data_ptr(),
-          order.data_ptr())
+    launch(entry("woop_keys", "mq_visit_list", _VISIT_LIST_ARGS), rays.device,
+           rays.data_ptr(), n_pad, lo.data_ptr(), hi.data_ptr(), m, te_s.data_ptr(),
+           order.data_ptr())
     visit_list.launches += 1
     return te_s, order
 
@@ -900,7 +862,7 @@ visit_list.launches = 0
 
 # mq_woop_list's arguments: (rays, n_pad, rows4, boxes, nc, te_s, order, m,
 # P, compact, anyhit, occ_in, out_t, out_tri, out_occ, prof, stream)
-_LIST_ARGS = (_P, _I64, _P, _P, _INT, _P, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P, _P, _P)
+_LIST_ARGS = (P, I64, P, P, INT, P, P, INT, INT, INT, INT, P, P, P, P, P, P)
 # the walker's ``counts`` of three columns: pairs tested, tile visits,
 # compacted visits (PROF_FIELDS' names)
 LIST_COUNTS = ("pairs", "visits", "compact_visits")
@@ -910,14 +872,14 @@ def list_sub(nodes):
     """Clusters a sub-node of the list walker at nodes of ``nodes``
     clusters (``nodes`` itself where it has no sub-node level): a
     constant of csrc/woop_list.cu, read from the built library."""
-    return _kernel_lib("woop_list", "mq_woop_list_sub", (_INT,))(nodes)
+    return entry("woop_list", "mq_woop_list_sub", (INT,))(nodes)
 
 
 def compact_lanes(compact):
     """The reaching lanes of a warp up to which the list walker compacts a
     visit under the schedule's ``compact`` (reaching rays of a 128-ray
     block): csrc/woop_list.cu's mapping, read from the built library."""
-    return _kernel_lib("woop_list", "mq_woop_list_compact_lanes", (_INT,))(compact)
+    return entry("woop_list", "mq_woop_list_compact_lanes", (INT,))(compact)
 
 
 def woop_list(rays, w, cluster_lo, cluster_hi, te_s, order, *, node_lo=None, node_hi=None,
@@ -955,17 +917,17 @@ def woop_list(rays, w, cluster_lo, cluster_hi, te_s, order, *, node_lo=None, nod
     if nodes < 1 or compact < 0 or (anyhit and compact):
         raise ValueError(f"woop_list: nodes={nodes}, compact={compact}, anyhit={anyhit}")
     m = -(-nc // nodes)
-    _check("te_s", te_s, torch.float32, (nb, m), dev)
-    _check("order", order, torch.int32, (nb, m), dev)
+    check("te_s", te_s, torch.float32, (nb, m), dev)
+    check("order", order, torch.int32, (nb, m), dev)
     if nodes > 1:
         if node_lo is None or node_hi is None:
             raise ValueError("woop_list: nodes > 1 needs node_lo and node_hi")
-        _check("node_lo", node_lo, torch.float32, (m, 3), dev)
-        _check("node_hi", node_hi, torch.float32, (m, 3), dev)
+        check("node_lo", node_lo, torch.float32, (m, 3), dev)
+        check("node_hi", node_hi, torch.float32, (m, 3), dev)
     if occluded_in is not None:
         if not anyhit:
             raise ValueError("woop_list: occluded_in needs anyhit=True")
-        _check("occluded_in", occluded_in, torch.bool, (n_pad,), dev)
+        check("occluded_in", occluded_in, torch.bool, (n_pad,), dev)
     if dev.type == "cpu":
         _refuse_counts_on_cpu(counts)
         if anyhit:
@@ -982,9 +944,9 @@ def woop_list(rays, w, cluster_lo, cluster_hi, te_s, order, *, node_lo=None, nod
         out = (torch.empty(n_pad, dtype=torch.float32, device=dev),
                torch.empty(n_pad, dtype=torch.int32, device=dev))
         outs = (out[0].data_ptr(), out[1].data_ptr(), None)
-    _call(_kernel_lib("woop_list", "mq_woop_list", _LIST_ARGS), dev, rays.data_ptr(), n_pad,
-          rows4.data_ptr(), boxes.data_ptr(), nc, te_s.data_ptr(), order.data_ptr(), m, nodes,
-          compact, int(anyhit), ptr(occluded_in), *outs, ptr(prof))
+    launch(entry("woop_list", "mq_woop_list", _LIST_ARGS), dev, rays.data_ptr(), n_pad,
+           rows4.data_ptr(), boxes.data_ptr(), nc, te_s.data_ptr(), order.data_ptr(), m, nodes,
+           compact, int(anyhit), ptr(occluded_in), *outs, ptr(prof))
     finish()
     woop_list.launches += 1
     woop_list.node_launches += nodes > 1
@@ -1257,8 +1219,8 @@ def woop_alpha_reference(rays, w, tables: AlphaTables,
 # the alpha walk's entry points: (rays, n_pad, rows4, boxes, nc, block, out_t,
 # out_tri, out_u, out_v, attr, attr_stride, st, texnum, needs, rect, ntex,
 # texels, width, n, rounds, prof, stream)
-_ALPHA_ARGS = (_P, _I64, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P, _INT, _P,
-               _INT, _I64, _INT, _P, _P)
+_ALPHA_ARGS = (P, I64, P, P, INT, INT, P, P, P, P, P, INT, P, P, P, P, INT, P,
+               INT, I64, INT, P, P)
 # the alpha walk's ``counts`` columns, per warp of 32 rays: the rounds it
 # walked and the (ray, triangle) pairs its lanes tested over them
 ALPHA_COUNTS = ("rounds", "pairs")
@@ -1267,47 +1229,47 @@ ALPHA_COUNTS = ("rounds", "pairs")
 def _check_alpha_tables(tables: AlphaTables, T, device):
     nt = tables.atlas.table.shape[0]
     H, W = tables.atlas.data.shape[:2]
-    _check("tri_attr", tables.tri_attr, torch.float32, (T, tables.tri_attr.shape[1]), device)
+    check("tri_attr", tables.tri_attr, torch.float32, (T, tables.tri_attr.shape[1]), device)
     if tables.tri_attr.shape[1] < 9:
         raise ValueError("tri_attr: columns 0-8 must hold the vertices")
-    _check("st", tables.st, torch.float32, (T, 3, 2), device)
-    _check("texnum", tables.texnum, torch.int32, (T,), device)
-    _check("needs_alpha", tables.needs_alpha, torch.bool, (T,), device)
-    _check("atlas.table", tables.atlas.table, torch.int32, (nt, 4), device)
-    _check("atlas.data", tables.atlas.data, torch.float32, (H, W, 4), device)
+    check("st", tables.st, torch.float32, (T, 3, 2), device)
+    check("texnum", tables.texnum, torch.int32, (T,), device)
+    check("needs_alpha", tables.needs_alpha, torch.bool, (T,), device)
+    check("atlas.table", tables.atlas.table, torch.int32, (nt, 4), device)
+    check("atlas.data", tables.atlas.data, torch.float32, (H, W, 4), device)
     if nt <= 0:
         raise ValueError("atlas.table: no texture")
 
 
-def _woop_alpha(entry, rays, w, cluster_lo, cluster_hi, tables, max_intersections, n, counts):
-    """The alpha walks' checks, CPU route and launch of ``entry`` (a C
+def _woop_alpha(symbol, rays, w, cluster_lo, cluster_hi, tables, max_intersections, n, counts):
+    """The alpha walks' checks, CPU route and launch of ``symbol`` (a C
     entry point of csrc/woop_alpha.cu); returns (t, tri, u, v)."""
     n_pad = _check_k_inputs(rays, w, cluster_lo, cluster_hi)
     n = n_pad if n is None else n
     if not 0 <= n <= n_pad or max_intersections < 0:
-        raise ValueError(f"{entry}: n={n} of {n_pad} rays, max_intersections={max_intersections}")
+        raise ValueError(f"{symbol}: n={n} of {n_pad} rays, max_intersections={max_intersections}")
     _check_alpha_tables(tables, w.shape[0] // 3, rays.device)
     if rays.device.type == "cpu":
         _refuse_counts_on_cpu(counts)
         return woop_alpha_reference(rays, w, tables, max_intersections, n)
     if counts is not None:
-        _check("counts", counts, torch.int64, (n_pad // 32, len(ALPHA_COUNTS)), rays.device)
+        check("counts", counts, torch.int64, (n_pad // 32, len(ALPHA_COUNTS)), rays.device)
         counts.zero_()
     dev = rays.device
     out = (torch.empty(n_pad, dtype=torch.float32, device=dev),
            torch.empty(n_pad, dtype=torch.int32, device=dev),
            torch.empty(n_pad, dtype=torch.float32, device=dev),
            torch.empty(n_pad, dtype=torch.float32, device=dev))
-    rows4 = _aligned_rows(entry, w)
+    rows4 = _aligned_rows(symbol, w)
     boxes = walk_boxes(cluster_lo, cluster_hi, *node_sizes("woop_alpha"))
     atlas = tables.atlas
-    _call(_kernel_lib("woop_alpha", entry, _ALPHA_ARGS), dev, rays.data_ptr(), n_pad,
-          rows4.data_ptr(), boxes.data_ptr(), cluster_lo.shape[0], RAY_BLOCK,
-          *(x.data_ptr() for x in out),
-          tables.tri_attr.data_ptr(), tables.tri_attr.shape[1], tables.st.data_ptr(),
-          tables.texnum.data_ptr(), tables.needs_alpha.data_ptr(), atlas.table.data_ptr(),
-          atlas.table.shape[0], atlas.data.data_ptr(), atlas.data.shape[1], n,
-          max_intersections, None if counts is None else counts.data_ptr())
+    launch(entry("woop_alpha", symbol, _ALPHA_ARGS), dev, rays.data_ptr(), n_pad,
+           rows4.data_ptr(), boxes.data_ptr(), cluster_lo.shape[0], RAY_BLOCK,
+           *(x.data_ptr() for x in out),
+           tables.tri_attr.data_ptr(), tables.tri_attr.shape[1], tables.st.data_ptr(),
+           tables.texnum.data_ptr(), tables.needs_alpha.data_ptr(), atlas.table.data_ptr(),
+           atlas.table.shape[0], atlas.data.data_ptr(), atlas.data.shape[1], n,
+           max_intersections, None if counts is None else counts.data_ptr())
     return out
 
 

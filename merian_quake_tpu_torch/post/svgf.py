@@ -19,13 +19,12 @@ exact; the arithmetic keeps the JAX package's order.
 """
 from __future__ import annotations
 
-import ctypes
 from functools import lru_cache
 from typing import NamedTuple
 
 import torch
 
-from ..accel.woop import _INT, _P, _call, _kernel_lib
+from ..kernels import F, INT, P, check, entry, launch
 from ..ops import color as color_ops
 from .accumulate import reproject
 
@@ -215,14 +214,13 @@ def svgf(state: SVGFState, irr, moments_in, mv, normal, linear_z, z_grad, albedo
 
 # ---------------------------------------------------------------- the kernels (csrc/svgf.cu)
 
-_F = ctypes.c_float
 # (pointer, pixel stride) of 11 images, H, W, alpha_irr, alpha_moments,
 # normal_reject_cos, depth_reject · 10, then out_irr, out_mom, out_len, rec,
 # geo and the stream
-_TEMPORAL_ARGS = (_P, _INT) * 11 + (_INT, _INT, _F, _F, _F, _F) + (_P,) * 6
+_TEMPORAL_ARGS = (P, INT) * 11 + (INT, INT, F, F, F, F) + (P,) * 6
 # rec, geo, z_grad, its stride, H, W, step, sigma_z, sigma_n, sigma_l, out,
 # rgb, albedo, its stride, the stream
-_ATROUS_ARGS = (_P, _P, _P, _INT, _INT, _INT, _INT, _F, _F, _F, _P, _P, _P, _INT, _P)
+_ATROUS_ARGS = (P, P, P, INT, INT, INT, INT, F, F, F, P, P, P, INT, P)
 
 
 def _pixels(name, x, shape, device) -> int:
@@ -230,12 +228,7 @@ def _pixels(name, x, shape, device) -> int:
     W) or (H, W, C)) on ``device``, its pixels evenly spaced row after row
     and its channels adjacent (a contiguous image or a channel slice of
     one, such as ``irr[..., :3]`` or ``irr[..., 3]``). Raises otherwise."""
-    if x.dtype != torch.float32 or tuple(x.shape) != tuple(shape):
-        raise ValueError(
-            f"{name}: expected torch.float32{tuple(shape)}, got {x.dtype}{tuple(x.shape)}"
-        )
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    check(name, x, torch.float32, shape, device, contiguous=False)
     st = x.stride()
     channels = shape[2] if len(shape) == 3 else 1
     if (channels > 1 and st[2] != 1) or st[1] < channels or st[0] != shape[1] * st[1]:
@@ -275,11 +268,11 @@ def svgf_temporal(state: SVGFState, irr, moments_in, mv, normal, linear_z, z_gra
                 torch.cat([normal, linear_z[..., None]], -1))
     empty = lambda *c: torch.empty((H, W) + c, device=dev)
     out_irr, out_mom, out_len, rec, geo = empty(3), empty(2), empty(), empty(4), empty(4)
-    _call(_kernel_lib("svgf", "mq_svgf_temporal", _TEMPORAL_ARGS), dev,
-          *[v for (_, x, _), ps in zip(images, strides) for v in (x.data_ptr(), ps)], H, W,
-          params.alpha_irr, params.alpha_moments, params.normal_reject_cos,
-          params.depth_reject * 10.0, *[x.data_ptr() for x in (out_irr, out_mom, out_len, rec,
-                                                                geo)])
+    launch(entry("svgf", "mq_svgf_temporal", _TEMPORAL_ARGS), dev,
+           *[v for (_, x, _), ps in zip(images, strides) for v in (x.data_ptr(), ps)], H, W,
+           params.alpha_irr, params.alpha_moments, params.normal_reject_cos,
+           params.depth_reject * 10.0, *[x.data_ptr() for x in (out_irr, out_mom, out_len, rec,
+                                                                 geo)])
     svgf_temporal.launches += 1
     new_state = SVGFState(irr=out_irr, moments=out_mom, history_len=out_len, normal=normal,
                           linear_z=linear_z)
@@ -313,10 +306,10 @@ def svgf_atrous(rec, geo, z_grad, step: int, params: SVGFParams = SVGFParams(), 
         return irr * torch.clamp_min(albedo, 0.0)
     out = torch.empty((H, W, 4 if albedo is None else 3), device=dev)
     rgb = None if albedo is None else out.data_ptr()
-    _call(_kernel_lib("svgf", "mq_svgf_atrous", _ATROUS_ARGS), dev, rec.data_ptr(),
-          geo.data_ptr(), z_grad.data_ptr(), zg_ps, H, W, step, params.sigma_z, params.sigma_n,
-          params.sigma_l, None if rgb else out.data_ptr(), rgb,
-          None if albedo is None else albedo.data_ptr(), alb_ps)
+    launch(entry("svgf", "mq_svgf_atrous", _ATROUS_ARGS), dev, rec.data_ptr(),
+           geo.data_ptr(), z_grad.data_ptr(), zg_ps, H, W, step, params.sigma_z, params.sigma_n,
+           params.sigma_l, None if rgb else out.data_ptr(), rgb,
+           None if albedo is None else albedo.data_ptr(), alb_ps)
     svgf_atrous.launches += 1
     return out
 

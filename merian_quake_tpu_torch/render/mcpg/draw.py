@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ...accel.woop import _INT, _P, _call, _kernel_lib
+from ...kernels import F, INT, P, check, entry, launch
 from ...ops import rng as rng_ops
 from . import grids
 from .config import MCPGConfig
@@ -129,13 +129,12 @@ def _select_state(mask, a: grids.StateSample, b: grids.StateSample):
 # the most draws a call takes: kMaxDraws of csrc/mcpg_draw.cu
 MAX_DRAWS = 16
 
-_F = ctypes.c_float
 # rng, lookup, pos, normal, dead, cam_x, cl_time, table, n, K, n_adaptive,
 # n_mixed_end, frac, hemisphere, tan2, min_w, inv_min_w, steps, inv_steps,
 # inv_log_p, power, inv_static_w, the two grid sizes, tile_bits, prior,
 # kappa_max, the 13 outputs and the stream
-_DRAW_ARGS = ((_P,) * 8 + (_INT,) * 4 + (_F, _INT) + (_F,) * 8
-              + (ctypes.c_uint, ctypes.c_uint, _INT, _F, _F) + (_P,) * 14)
+_DRAW_ARGS = ((P,) * 8 + (INT,) * 4 + (F, INT) + (F,) * 8
+              + (ctypes.c_uint, ctypes.c_uint, INT, F, F) + (P,) * 14)
 
 
 def _f32(x: float) -> float:
@@ -161,18 +160,6 @@ def _constants(mcfg: MCPGConfig) -> tuple:
             _recip(mcfg.mc_static_width))
 
 
-def _check(name, x, dtype, shape, device):
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected {dtype}{tuple(shape)}, got {x.dtype}{tuple(x.shape)}")
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-
-
-def _contiguous(name, x):
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def draw_states(rng_state, lookup_pos, pos, normal, cam_x, cl_time, table, mcfg: MCPGConfig,
                 dead=None, hemisphere: bool = False) -> Draws:
     """The draw loop of ``mcfg.mc_samples`` draws over n lanes. rng_state:
@@ -195,16 +182,12 @@ def draw_states(rng_state, lookup_pos, pos, normal, cam_x, cl_time, table, mcfg:
                                   ("lookup_pos", lookup_pos, torch.float32, (n, 3)),
                                   ("pos", pos, torch.float32, (n, 3)),
                                   ("normal", normal, torch.float32, (n, 3))):
-        _check(name, x, dtype, shape, dev)
-        _contiguous(name, x)
+        check(name, x, dtype, shape, dev)
     if dead is not None:
-        _check("dead", dead, torch.bool, (n,), dev)
-        _contiguous("dead", dead)
-    _check("cam_x", cam_x, torch.float32, (3,), dev)
-    _contiguous("cam_x", cam_x)
-    _check("cl_time", cl_time, torch.float32, (), dev)
-    _check("table", table, torch.int32, (mcfg.mc_total_size, 8), dev)
-    _contiguous("table", table)
+        check("dead", dead, torch.bool, (n,), dev)
+    check("cam_x", cam_x, torch.float32, (3,), dev)
+    check("cl_time", cl_time, torch.float32, (), dev, contiguous=False)
+    check("table", table, torch.int32, (mcfg.mc_total_size, 8), dev)
     if table.data_ptr() % 16:
         raise ValueError("table: must be 16-byte aligned")
     if not 1 <= mcfg.mc_samples <= MAX_DRAWS:
@@ -221,15 +204,15 @@ def draw_states(rng_state, lookup_pos, pos, normal, cam_x, cl_time, table, mcfg:
     score = empty(n)
     mu, kappa, sum_w, n_k = empty(K, n, 3), empty(K, n), empty(K, n), empty(K, n, dtype=torch.int32)
     if n:
-        _call(_kernel_lib("mcpg_draw", "mq_mcpg_draw", _DRAW_ARGS), dev,
-              rng_state.data_ptr(), lookup_pos.data_ptr(), pos.data_ptr(), normal.data_ptr(),
-              None if dead is None else dead.data_ptr(),
-              cam_x.data_ptr(), cl_time.data_ptr(), table.data_ptr(), n, K, n_adaptive,
-              n_mixed_end, frac, int(hemisphere), *consts,
-              mcfg.mc_adaptive_size, mcfg.mc_static_size, mcfg.grid_tile_bits,
-              _f32(mcfg.dir_guide_prior), _f32(mcfg.kappa_max),
-              *[x.data_ptr() for x in (rng_out, win_id, win_w, win_sum_w, win_w_cos, win_n,
-                                       win_hash, win_buf, score, mu, kappa, sum_w, n_k)])
+        launch(entry("mcpg_draw", "mq_mcpg_draw", _DRAW_ARGS), dev,
+               rng_state.data_ptr(), lookup_pos.data_ptr(), pos.data_ptr(), normal.data_ptr(),
+               None if dead is None else dead.data_ptr(),
+               cam_x.data_ptr(), cl_time.data_ptr(), table.data_ptr(), n, K, n_adaptive,
+               n_mixed_end, frac, int(hemisphere), *consts,
+               mcfg.mc_adaptive_size, mcfg.mc_static_size, mcfg.grid_tile_bits,
+               _f32(mcfg.dir_guide_prior), _f32(mcfg.kappa_max),
+               *[x.data_ptr() for x in (rng_out, win_id, win_w, win_sum_w, win_w_cos, win_n,
+                                        win_hash, win_buf, score, mu, kappa, sum_w, n_k)])
         draw_states.launches += 1
     zero = torch.zeros((n, 4), device=dev)  # mv and T: zero, as the draw table gives them
     win = grids.StateSample(id=win_id, w_tgt=win_w, sum_w=win_sum_w, w_cos=win_w_cos,

@@ -9,24 +9,20 @@ unpacked with ``git archive``, or a copy of this one whose ``csrc/`` holds
 other constants or another walk order (a variant). The kernel sources of
 both checkouts are built with nvcc for sm_90a into this checkout's
 ``_build/`` (a library's name carries a hash of its sources, so the two
-builds never collide) and launched on the same inputs. A kernel that is
-an instance of the walk of ``csrc/woop_walk.cuh`` is launched through
-this checkout's wrappers (which read the node sizes from each library);
-an older one (a CTA of 128 rays walking the clusters, entry points that
-take ``woop_w`` and the cluster bounds) through this script's own calls
-with that argument list; K8 likewise (the first design takes the
-f32[16, T] triangle rows, this one ``dense.mt_table``'s f32[T, 12]). The
-inputs: city's (16,640 triangles) 1080p primary rays and sorted
+builds never collide) and launched on the same inputs through this
+checkout's wrappers (which read the walks' node sizes from each
+library), so both checkouts' entry points must take the same arguments.
+The inputs: city's (16,640 triangles) 1080p primary rays and sorted
 first-bounce rays (K1, and K3 forced on the same table), and the ReSTIR
 shade pass's shadow rays (K2 on the proxy table, on the shadow table, and
 on the shadow table warm-started by the proxy pre-pass; K3's any-hit
 form); the court's shade rays (K2 on its shadow table). With ``--map``
 the map scene (``city(28000, 11)``, 281,536 triangles) adds its primary,
 bounce and shadow rays through K3, its proxy pre-pass through K2, and K8
-on 65,536 of its primary rays (those chip_smoke.py phase 9 takes).
+on 65,536 of its primary rays (those chip_smoke's phase 9 takes).
 K6/K7, the list walker (``csrc/woop_list.cu``), runs on city(1600, 7)
 (252 clusters, so the target key applies) on the populations
-chip_smoke.py phase 13 takes: the target-sorted first bounce at P = 1, P
+chip_smoke's phase 13 takes: the target-sorted first bounce at P = 1, P
 = 8 and (P = 8, compact 32), the primary rays at (8, 32), the shade
 pass's shadow rays any-hit at P = 8, and the 4,147,200 guided rays of an
 MCPG bounce segment (a frame after 4 warm-up frames), target-sorted, at
@@ -35,18 +31,14 @@ MCPG bounce segment (a frame after 4 warm-up frames), target-sorted, at
 in pixel order (as the frames key it) and target-sorted, K5 in the
 walker's mode on the target-sorted bounce over the 252 cluster boxes and
 32 node boxes of 8, in the JAX package's mode on the bounce, and the
-visit list on the target-sorted bounce (a checkout without the fused
-entry makes it as K5 + torch's stable row sort); each also on
-chip_smoke.py's edge-case boxes and rays; K4 beside the change's slab
-counts and its bounds at 24 and 18 operations a slab and at the slabs it
-computed. An older K4 (no ``counts``) is launched through this script's
-own call. ``--frames`` adds city(1600)'s 1080p frames that launch K4 and
+visit list on the target-sorted bounce; each also on chip_smoke's
+edge-case boxes and rays; K4 beside the change's slab counts and its
+bounds at 24 and 18 operations a slab and at the slabs it computed.
+``--frames`` adds city(1600)'s 1080p frames that launch K4 and
 the visit list (PT under the target key, PT and MCPG under (True, 8,
 32)) with each checkout's kernels in turns, on the host clock and the
-device's (the profiler's kernel time a frame). A walker of
-the walk (``woop_walk.cuh`` in its source) is launched through
-``woop.woop_list``, an older one through this script's own call with its
-argument list (``woop_w`` and the node boxes). Beside each: the list's
+device's (the profiler's kernel time a frame). The walker is launched
+through ``woop.woop_list``. Beside each: the list's
 time (the visit list) and K1's (K2's) on the same rays, the pairs
 each tested, the bound at its own pairs and at the fewest pairs
 measured, and the change's profile (cycle shares, lane use); then the
@@ -74,7 +66,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import chip_smoke  # noqa: E402  (ray populations, cuda_time)
+from chip_smoke import common, fixtures, trace  # noqa: E402  (ray populations, cuda_time)
 from merian_quake_tpu_torch import kernels  # noqa: E402
 from merian_quake_tpu_torch.accel import build_accel, dense, woop  # noqa: E402
 from merian_quake_tpu_torch.accel.build import scene_features  # noqa: E402
@@ -83,106 +75,12 @@ from merian_quake_tpu_torch.models.types import RenderConfig  # noqa: E402
 from merian_quake_tpu_torch.renderer import init_state, render_frame  # noqa: E402
 
 SOURCES = ("woop_nearest", "woop_any", "woop_stream", "woop_keys", "woop_list", "mt_dense")
-# the arguments of a pre-walk entry point: (rays, n_pad, woop_w, lo, hi,
-# nc, block, out0, out1, counts, stream)
-OLDER_ARGS = (woop._P, woop._I64, woop._P, woop._P, woop._P, woop._INT, woop._INT, woop._P,
-              woop._P, woop._P, woop._P)
-# the first list walker's: (rays, n_pad, woop_w, lo, hi, nc, te_s, order, m,
-# node_lo, node_hi, P, compact, anyhit, occ_in, out_t, out_tri, out_occ,
-# counts u64[n_pad / 128, 3], stream)
-OLDER_LIST_ARGS = (woop._P, woop._I64, woop._P, woop._P, woop._P, woop._INT, woop._P, woop._P,
-                   woop._INT, woop._P, woop._P, woop._INT, woop._INT, woop._INT, woop._P, woop._P,
-                   woop._P, woop._P, woop._P, woop._P)
-# the first K4's: (rays, n_pad, lo, hi, nc, out, stream)
-OLDER_KEYS_ARGS = (woop._P, woop._I64, woop._P, woop._P, woop._INT, woop._P, woop._P)
-# the first K8's: (rays, n_pad, tris f32[16, T], T, block, t, tri, u, v, stream)
-OLDER_K8_ARGS = (woop._P, woop._I64, woop._P, woop._I64, woop._INT, woop._P, woop._P, woop._P,
-                 woop._P, woop._P)
 
 
-def use(csrc: str) -> dict:
-    """Have every wrapper launch the kernels built from ``csrc``; returns
-    which of its kernels are the current designs: ``walk`` (K1 and K3 are
-    the walk), ``k2`` (K2 is too), ``list`` (the list walker is too),
-    ``k8`` (K8 takes mt_table's layout), ``keys`` (K4 takes ``counts`` and
-    the visit list is one launch)."""
+def use(csrc: str) -> None:
+    """Have every wrapper launch the kernels built from ``csrc``."""
     kernels.CSRC_DIR = csrc
     kernels.load_library.cache_clear()
-    read = lambda name: open(os.path.join(csrc, name)).read()
-    return {"walk": os.path.exists(os.path.join(csrc, "woop_walk.cuh")),
-            "k2": "woop_walk.cuh" in read("woop_any.cu"),
-            "list": "woop_walk.cuh" in read("woop_list.cu"),
-            "k8": "mt_resolve_kernel" in read("mt_dense.cu"),
-            "keys": "mq_visit_list" in read("woop_keys.cu")}
-
-
-def older(name, rays, w, lo, hi, occ=None, anyhit=False):
-    """K1, K2 or K3 of a checkout from before the walk (the older argument
-    list)."""
-    n, dev = rays.shape[1], rays.device
-    if anyhit:
-        out = torch.empty(n, dtype=torch.bool, device=dev)
-        outs = (None if occ is None else occ.data_ptr(), out.data_ptr())
-    else:
-        out = (torch.empty(n, dtype=torch.float32, device=dev),
-               torch.empty(n, dtype=torch.int32, device=dev))
-        outs = (out[0].data_ptr(), out[1].data_ptr())
-    entry = "mq_woop_stream_any" if anyhit and name == "woop_stream" else None
-    woop._call(woop._kernel_lib(name, entry, OLDER_ARGS), dev, rays.data_ptr(), n,
-               w.data_ptr(), lo.data_ptr(), hi.data_ptr(), lo.shape[0], woop.RAY_BLOCK, *outs, None)
-    return out
-
-
-def older_k8(rays, tris):
-    """The first K8 on the f32[16, T] triangle rows."""
-    n, dev = rays.shape[1], rays.device
-    out = (torch.empty(n, dtype=torch.float32, device=dev),
-           torch.empty(n, dtype=torch.int32, device=dev),
-           torch.empty(n, dtype=torch.float32, device=dev),
-           torch.empty(n, dtype=torch.float32, device=dev))
-    woop._call(woop._kernel_lib("mt_dense", None, OLDER_K8_ARGS), dev, rays.data_ptr(), n,
-               tris.data_ptr(), tris.shape[1], woop.RAY_BLOCK, *(x.data_ptr() for x in out))
-    return out
-
-
-def older_keys(rays, lo, hi):
-    """The first K4, whose entry point takes no ``counts``."""
-    out = torch.empty(rays.shape[1], dtype=torch.int32, device=rays.device)
-    woop._call(woop._kernel_lib("woop_keys", "mq_target_keys", OLDER_KEYS_ARGS), rays.device,
-               rays.data_ptr(), rays.shape[1], lo.data_ptr(), hi.data_ptr(), lo.shape[0],
-               out.data_ptr())
-    return out
-
-
-def visit_list_of(c, rays, lo, hi):
-    """The visit list as a checkout makes it: one launch, or K5 in its
-    walker mode and torch's stable row sort."""
-    if c["keys"]:
-        return woop.visit_list(rays, lo, hi)
-    te_s, order = torch.sort(woop.te_union(rays, lo, hi, slack=True), dim=1, stable=True)
-    return te_s, order.int()
-
-
-def older_list(rays, w, lo, hi, lst, nodes, compact, anyhit=False, occ=None, counts=None):
-    """The first list walker (a CTA of 128 rays walking its block's list),
-    with its own argument list; ``counts`` None or int64[n_pad / 128, 3]."""
-    n, dev = rays.shape[1], rays.device
-    ptr = lambda x: None if x is None else x.data_ptr()
-    nlo, nhi = woop.node_bounds(lo, hi, nodes) if nodes > 1 else (None, None)
-    if anyhit:
-        out = torch.empty(n, dtype=torch.bool, device=dev)
-        outs = (None, None, out.data_ptr())
-    else:
-        out = (torch.empty(n, dtype=torch.float32, device=dev),
-               torch.empty(n, dtype=torch.int32, device=dev))
-        outs = (out[0].data_ptr(), out[1].data_ptr(), None)
-    if counts is not None:
-        counts.zero_()
-    woop._call(woop._kernel_lib("woop_list", None, OLDER_LIST_ARGS), dev, rays.data_ptr(), n,
-               w.data_ptr(), lo.data_ptr(), hi.data_ptr(), lo.shape[0], lst[0].data_ptr(),
-               lst[1].data_ptr(), lst[0].shape[1], ptr(nlo), ptr(nhi), nodes, compact,
-               int(anyhit), ptr(occ), *outs, ptr(counts))
-    return out
 
 
 def spills(name):
@@ -214,33 +112,32 @@ def same(name, a, b) -> None:
 
 
 def k2_case(name, rays, table, occ=None):
-    """(name, fn): K2 on one table, the walk's instance or the older one."""
-    return (name, lambda c: woop.woop_any(rays, *table, occ) if c["k2"]
-            else older("woop_any", rays, *table, occ=occ, anyhit=True))
+    """(name, fn): K2 on one table."""
+    return (name, lambda: woop.woop_any(rays, *table, occ))
 
 
 def cases(dev, scene_kw, with_k1_k2):
-    """(name, fn) pairs on one scene's 1080p rays; fn(c) launches the
-    kernel of the checkout in use (``c``: what :func:`use` returned)."""
+    """(name, fn) pairs on one scene's 1080p rays; fn() launches the
+    kernel of the checkout in use."""
     bundle = city(**scene_kw, device=dev)
     accel = build_accel(bundle.scene, bundle.atlas)
     feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
-    config = RenderConfig(width=chip_smoke.W, height=chip_smoke.H, spp=chip_smoke.SPP,
-                          max_path_length=chip_smoke.MPL, features=feats)
-    n = chip_smoke.W * chip_smoke.H
+    config = RenderConfig(width=common.W, height=common.H, spp=common.SPP,
+                          max_path_length=common.MPL, features=feats)
+    n = common.W * common.H
     full = lambda v, k=n: torch.full((k,), v, device=dev)
-    po, pd = chip_smoke.primary_rays(bundle, accel, dev)
-    bo, bd, bt = chip_smoke.bounce_rays(bundle, accel, config, dev)
+    po, pd = fixtures.primary_rays(bundle, accel, dev)
+    bo, bd, bt = fixtures.bounce_rays(bundle, accel, config, dev)
     perm = woop.sort_perm(accel, bo, bd, bt)
     bo, bd, bt = bo[perm].contiguous(), bd[perm].contiguous(), bt[perm].contiguous()
-    so, sd, st = chip_smoke.shade_rays(bundle, accel, config, dev)
+    so, sd, st = fixtures.shade_rays(bundle, accel, config, dev)
     prim = woop.k1_inputs(accel, po, pd, full(0.0), full(1e4))
     boun = woop.k1_inputs(accel, bo, bd, full(0.0), bt)
     rays, proxy, shadow = woop.k2_inputs(accel, so, sd, full(1e-3), st)
     pre = woop.intersect_woop_any_reference(rays, proxy[0])
     tag = "map" if scene_kw else "city"
-    k1 = lambda a: lambda c: woop.woop_nearest(*a) if c["walk"] else older("woop_nearest", *a)
-    k3 = lambda a: lambda c: woop.woop_stream(*a) if c["walk"] else older("woop_stream", *a)
+    k1 = lambda a: lambda: woop.woop_nearest(*a)
+    k3 = lambda a: lambda: woop.woop_stream(*a)
     out = [k2_case(f"{tag} K2 proxy", rays, proxy)]
     if with_k1_k2:
         out += [(f"{tag} K1 primary", k1(prim)), (f"{tag} K1 bounce", k1(boun)),
@@ -248,17 +145,14 @@ def cases(dev, scene_kw, with_k1_k2):
                 k2_case(f"{tag} K2 shadow after proxy", rays, shadow, pre)]
     out += [(f"{tag} K3 primary", k3(prim)), (f"{tag} K3 bounce", k3(boun)),
             (f"{tag} K3 shadow after proxy",
-             lambda c: woop.woop_stream(rays, *shadow, anyhit=True, occluded_in=pre) if c["walk"]
-             else older("woop_stream", rays, *shadow, occ=pre, anyhit=True))]
+             lambda: woop.woop_stream(rays, *shadow, anyhit=True, occluded_in=pre))]
     if scene_kw:
-        mid = slice(n // 2, n // 2 + chip_smoke.SUBSET)
+        mid = slice(n // 2, n // 2 + common.SUBSET)
         k8_rays = woop._pack_rays(po[mid].contiguous(), pd[mid].contiguous(),
-                                  full(0.0, chip_smoke.SUBSET), full(1e4, chip_smoke.SUBSET),
+                                  full(0.0, common.SUBSET), full(1e4, common.SUBSET),
                                   woop.RAY_BLOCK)
-        tris = dense.pack_tris(accel.scene.v0, accel.scene.v1, accel.scene.v2, accel.candidate)
         table = dense.scene_table(accel)
-        out.append((f"{tag} K8 primary {chip_smoke.SUBSET}",
-                    lambda c: dense.mt_dense(k8_rays, table) if c["k8"] else older_k8(k8_rays, tris)))
+        out.append((f"{tag} K8 primary {common.SUBSET}", lambda: dense.mt_dense(k8_rays, table)))
     return out
 
 
@@ -267,9 +161,9 @@ def court_cases(dev):
     bundle = outdoor_court(device=dev)
     accel = build_accel(bundle.scene, bundle.atlas)
     feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
-    config = RenderConfig(width=chip_smoke.W, height=chip_smoke.H, spp=chip_smoke.SPP,
-                          max_path_length=chip_smoke.MPL, features=feats)
-    so, sd, st = chip_smoke.shade_rays(bundle, accel, config, dev)
+    config = RenderConfig(width=common.W, height=common.H, spp=common.SPP,
+                          max_path_length=common.MPL, features=feats)
+    so, sd, st = fixtures.shade_rays(bundle, accel, config, dev)
     rays, _, shadow = woop.k2_inputs(accel, so, sd, torch.full_like(st, 1e-3), st)
     return [k2_case("court K2 shadow", rays, shadow)]
 
@@ -277,16 +171,16 @@ def court_cases(dev):
 def list_populations(dev):
     """The walker's populations on city(1600, 7) at 1080p: (name, (rays, w,
     lo, hi), P, compact, anyhit)."""
-    bundle, accel, config, pops = chip_smoke.city1600(dev)
-    n = chip_smoke.W * chip_smoke.H
+    bundle, accel, config, pops = fixtures.city1600(dev)
+    n = common.W * common.H
     # the guided rays of the first MCPG bounce segment after 4 frames,
     # target-sorted as the schedule sorts them
-    cfg, mcfg = chip_smoke.mcpg_scene_config(config)
+    cfg, mcfg = common.mcpg_scene_config(config)
     state = init_state(cfg, mcfg, device=dev)
     for f in range(4):
         state, _ = render_frame(accel, bundle.atlas, bundle.uniforms._replace(frame=f), cfg,
                                 state, mcfg)
-    go, gd, gt = chip_smoke.guided_population(bundle, accel, cfg, mcfg, state, 4)[1][0]
+    go, gd, gt = common.guided_population(bundle, accel, cfg, mcfg, state, 4)[1][0]
     perm = torch.sort(woop.target_sort_key(accel, go, gd, gt), stable=True).indices
     guided = (go[perm].contiguous(), gd[perm].contiguous(), torch.zeros_like(gt),
               gt[perm].contiguous())
@@ -312,14 +206,15 @@ def list_ab(dev, parent, change, reps, smi) -> int:
         lst = woop.visit_list(rays, blo, bhi)
         kw = dict(node_lo=blo, node_hi=bhi, nodes=nodes) if nodes > 1 else {}
 
-        def fn(c, counts=None, compact=compact):
-            if c["list"]:
-                return woop.woop_list(rays, w, lo, hi, *lst, compact=compact, anyhit=anyhit,
-                                      counts=counts, **kw)
-            return older_list(rays, w, lo, hi, lst, nodes, compact, anyhit, counts=counts)
+        def fn(counts=None, compact=compact):
+            return woop.woop_list(rays, w, lo, hi, *lst, compact=compact, anyhit=anyhit,
+                                  counts=counts, **kw)
 
         label = f"city1600 K{7 if compact else 6} {name}"
-        base, new = fn(use(parent)), fn(use(change))
+        use(parent)
+        base = fn()
+        use(change)
+        new = fn()
         torch.cuda.synchronize()
         pairs_out = zip(base if isinstance(base, tuple) else (base,),
                         new if isinstance(new, tuple) else (new,))
@@ -330,14 +225,15 @@ def list_ab(dev, parent, change, reps, smi) -> int:
             continue
         times = []
         for csrc in (parent, change, change, parent):
-            c = use(csrc)
-            fn(c)
-            times.append(chip_smoke.cuda_time(lambda: fn(c), reps))
+            use(csrc)
+            fn()
+            times.append(common.cuda_time(fn, reps))
         counts_parent = torch.zeros((nb, 3), dtype=torch.int64, device=dev)
-        fn(use(parent), counts=counts_parent)
-        c = use(change)
+        use(parent)
+        fn(counts=counts_parent)
+        use(change)
         prof = torch.zeros((nb, len(woop.PROF_FIELDS)), dtype=torch.int64, device=dev)
-        fn(c, counts=prof)
+        fn(counts=prof)
         rec = dict(zip(woop.PROF_FIELDS, (int(x) for x in prof.sum(0))))
         shares = {k: rec[k] / max(rec["total"], 1) for k in woop.PROF_FIELDS[:5]}
         lane_use = rec["pairs"] / 32 / max(rec["warp_pairs"], 1)
@@ -348,15 +244,14 @@ def list_ab(dev, parent, change, reps, smi) -> int:
         ref_counts = torch.zeros(nb, dtype=torch.int64, device=dev)
         (woop.woop_any if anyhit else woop.woop_nearest)(rays, w, lo, hi, counts=ref_counts)
         make_list = lambda: woop.visit_list(rays, blo, bhi)
-        walk = lambda: fn(c)
-        turns = [chip_smoke.cuda_time(f, reps) for f in (make_list, ref, ref, make_list)]
+        turns = [common.cuda_time(f, reps) for f in (make_list, ref, ref, make_list)]
         pairs = {"parent": int(counts_parent[:, 0].sum()), "change": rec["pairs"],
                  "K2" if anyhit else "K1": int(ref_counts.sum())}
         nbytes = (n * 32 + (n if anyhit else 8 * n) + nb * lst[0].shape[1] * 8
                   + (w.shape[0] // 3) * 48 + blo.shape[0] * 24)
-        per_pair = chip_smoke.OPS_ANY if anyhit else chip_smoke.OPS_NEAREST
-        own, by = chip_smoke.bound_ms(rec["pairs"] * per_pair, nbytes)
-        fewest, _ = chip_smoke.bound_ms(min(pairs.values()) * per_pair, nbytes)
+        per_pair = common.OPS_ANY if anyhit else common.OPS_NEAREST
+        own, by = common.bound_ms(rec["pairs"] * per_pair, nbytes)
+        fewest, _ = common.bound_ms(min(pairs.values()) * per_pair, nbytes)
         p, ch = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
         print(f"{label} [{smi}]: parent {times[0]:.4f} / {times[3]:.4f} ms, change "
               f"{times[1]:.4f} / {times[2]:.4f} ms, change / parent {ch / p:.4f}; list (K5 + "
@@ -372,8 +267,8 @@ def list_ab(dev, parent, change, reps, smi) -> int:
             lim = [32, 96, 128]
             ms = {k: [] for k in lim}
             for k in lim + lim[::-1]:
-                fn(c, compact=k)
-                ms[k].append(chip_smoke.cuda_time(lambda: fn(c, compact=k), reps))
+                fn(compact=k)
+                ms[k].append(common.cuda_time(lambda: fn(compact=k), reps))
             print(f"city1600 K7 {name} compaction A/B [{smi}]: " + ", ".join(
                 f"compact {k} ({woop.compact_lanes(k)} lanes) {v[0]:.4f} / {v[1]:.4f} ms"
                 for k, v in ms.items()), flush=True)
@@ -384,19 +279,18 @@ def keys_ab(dev, parent, change, reps, smi) -> None:
     """K4, K5 and the visit list of the two checkouts on city(1600, 7)'s
     1080p rays and on chip_smoke's edge-case boxes: bit-equal, then timed
     in turns; K4 with the change's slab counts and its bounds."""
-    _, accel, _, pops = chip_smoke.city1600(dev)
+    _, accel, _, pops = fixtures.city1600(dev)
     k1 = lambda name: woop.k1_inputs(accel, *pops[name])
     bounce, (target, _, lo, hi) = k1("bounce")[0], k1("bounce_target")
     nlo, nhi = woop.node_bounds(lo, hi, 8)
     clo, chi = accel.cluster_lo, accel.cluster_hi
     erng = np.random.default_rng(12)
-    edge = chip_smoke.edge_rays(erng, device=dev)
-    elo, ehi = chip_smoke.edge_boxes(erng, 100, device=dev)
-    flo, fhi = chip_smoke.edge_boxes(erng, 100, few_empty=True, device=dev)
-    k4 = lambda rays, a, b: lambda c: woop.target_keys(rays, a, b) if c["keys"] else older_keys(
-        rays, a, b)
-    k5 = lambda rays, a, b, slack: lambda c: woop.te_union(rays, a, b, slack=slack)
-    lst = lambda rays, a, b: lambda c: visit_list_of(c, rays, a, b)
+    edge = fixtures.edge_rays(erng, device=dev)
+    elo, ehi = fixtures.edge_boxes(erng, 100, device=dev)
+    flo, fhi = fixtures.edge_boxes(erng, 100, few_empty=True, device=dev)
+    k4 = lambda rays, a, b: lambda: woop.target_keys(rays, a, b)
+    k5 = lambda rays, a, b, slack: lambda: woop.te_union(rays, a, b, slack=slack)
+    lst = lambda rays, a, b: lambda: woop.visit_list(rays, a, b)
     runs = [("K4 bounce (pixel order)", k4(bounce, clo, chi), (bounce, clo, chi)),
             ("K4 bounce_target", k4(target, clo, chi), (target, clo, chi)),
             ("K4 edge boxes", k4(edge, flo, fhi), None),
@@ -409,13 +303,15 @@ def keys_ab(dev, parent, change, reps, smi) -> None:
             ("list bounce_target nodes8", lst(target, nlo, nhi), None),
             ("list edge boxes", lst(edge, elo, ehi), None)]
     for name, fn, count_args in runs:
-        base = fn(use(parent))
-        same(name, fn(use(change)), base)
+        use(parent)
+        base = fn()
+        use(change)
+        same(name, fn(), base)
         times = []
         for csrc in (parent, change, change, parent):
-            c = use(csrc)
-            fn(c)
-            times.append(chip_smoke.cuda_time(lambda: fn(c), reps))
+            use(csrc)
+            fn()
+            times.append(common.cuda_time(fn, reps))
         p, ch = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
         extra = ""
         if count_args is not None:
@@ -426,12 +322,12 @@ def keys_ab(dev, parent, change, reps, smi) -> None:
             woop.target_keys(rays, a, b, counts=counts)
             work = dict(zip(woop.KEY_COUNTS, (int(x) for x in counts.sum(0))))
             tested = work["slabs"] + work["node_slabs"]
-            bound = lambda ops: chip_smoke.bound_ms(ops, n * 36 + nc * 24)[0]
+            bound = lambda ops: common.bound_ms(ops, n * 36 + nc * 24)[0]
             extra = (f"; change's work {work} ({tested / (n * nc):.4f} of rays x boxes); bound "
-                     f"{bound(chip_smoke.OPS_SLAB_CHOSEN * tested):.4f} ms at 18 operations a "
+                     f"{bound(trace.OPS_SLAB_CHOSEN * tested):.4f} ms at 18 operations a "
                      f"slab it computed; over every ray x box "
-                     f"{bound(chip_smoke.OPS_SLAB_CHOSEN * n * nc):.4f} at 18, "
-                     f"{bound(chip_smoke.OPS_SLAB * n * nc):.4f} at the JAX slab's 24")
+                     f"{bound(trace.OPS_SLAB_CHOSEN * n * nc):.4f} at 18, "
+                     f"{bound(trace.OPS_SLAB * n * nc):.4f} at the JAX slab's 24")
         print(f"city1600 {name} [{smi}]: parent {times[0]:.4f} / {times[3]:.4f} ms, change "
               f"{times[1]:.4f} / {times[2]:.4f} ms, change / parent {ch / p:.4f}; outputs "
               f"bit-equal{extra}", flush=True)
@@ -461,15 +357,7 @@ def frames_ab(dev, parent, change, smi, frames=3) -> None:
     through the turns."""
     from merian_quake_tpu_torch.render.mcpg import MCPGConfig
 
-    bundle, accel, config, _ = chip_smoke.city1600(dev)
-    own = (woop.target_keys, woop.visit_list)
-
-    def switch(csrc):
-        c = use(csrc)
-        woop.target_keys, woop.visit_list = own if c["keys"] else (
-            lambda rays, lo, hi, counts=None: older_keys(rays, lo, hi),
-            lambda rays, lo, hi: visit_list_of(c, rays, lo, hi))
-
+    bundle, accel, config, _ = fixtures.city1600(dev)
     S = woop.TraceSchedule
     try:
         for path, integrator, sched in (("pt target key", "pt", S(target_key=True)),
@@ -486,13 +374,13 @@ def frames_ab(dev, parent, change, smi, frames=3) -> None:
                                            state[0], mcfg, schedule=sched)
                 frame[0] += 1
 
-            switch(change)
+            use(change)
             for _ in range(4):
                 step()
             host, device = {}, {}
             for label, csrc in (("parent", parent), ("change", change), ("change", change),
                                 ("parent", parent)):
-                switch(csrc)
+                use(csrc)
                 step()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -507,7 +395,6 @@ def frames_ab(dev, parent, change, smi, frames=3) -> None:
                   f"{fmt(device, 'parent')}, change {fmt(device, 'change')} (turns parent, "
                   f"change, change, parent)", flush=True)
     finally:
-        woop.target_keys, woop.visit_list = own
         use(change)
 
 
@@ -549,18 +436,20 @@ def main() -> int:
     if not only or set(only) - {"K4", "K5", "K6", "K7"}:
         runs = cases(dev, {}, True) + court_cases(dev)
         if args.map:
-            runs += cases(dev, chip_smoke.MAP, False)
+            runs += cases(dev, fixtures.MAP, False)
     for name, fn in runs:
         if only and not any(f" {k} " in name for k in only):
             continue
-        base = fn(use(parent))
-        same(name, fn(use(change)), base)
+        use(parent)
+        base = fn()
+        use(change)
+        same(name, fn(), base)
         reps = 3 if " K8 " in name else args.reps
         times = []
         for csrc in (parent, change, change, parent):
-            c = use(csrc)
-            fn(c)
-            times.append(chip_smoke.cuda_time(lambda: fn(c), reps))
+            use(csrc)
+            fn()
+            times.append(common.cuda_time(fn, reps))
         p = (times[0] + times[3]) / 2
         ch = (times[1] + times[2]) / 2
         print(f"{name} [{smi}]: parent {times[0]:.4f} / {times[3]:.4f} ms, change "

@@ -3,7 +3,7 @@
 
     python3 scripts/multichip_torch.py [--ranks N] [--backend nccl|gloo] [--frames F] [--out DIR]
 
-Runs chip_smoke.py's phase 37 with N ranks (default 4, NCCL), rank r on
+Runs chip_smoke's phase 37 with N ranks (default 4, NCCL), rank r on
 card r: ``dryrun_multichip(N)``, then the sharded city frames at
 1920x1080, 2 spp, max path length 3 (F frames each, default 4: MCPG at
 ``MCPGConfig()`` and at N times its queue capacities, ReSTIR, denoised
@@ -39,7 +39,7 @@ def main() -> int:
     if not torch.cuda.is_available() or torch.cuda.device_count() < args.ranks:
         raise SystemExit(f"multichip_torch: needs {args.ranks} CUDA devices, has "
                          f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
-    import chip_smoke
+    from chip_smoke.native import phase37
     from merian_quake_tpu_torch import kernels
     from merian_quake_tpu_torch.utils import native
 
@@ -52,8 +52,8 @@ def main() -> int:
     kernels.build_libraries(*kernels.KERNELS)
     native.build_library()
     print(f"kernels and native builder built in {time.perf_counter() - t0:.1f} s", flush=True)
-    paths, stats = chip_smoke.phase37(torch.device("cuda", 0), smi[0], n=args.ranks,
-                                      backend=args.backend, frames=args.frames)
+    paths, stats = phase37(torch.device("cuda", 0), smi[0], n=args.ranks, backend=args.backend,
+                           frames=args.frames)
     record = {"cards": smi, "ranks": args.ranks, "backend": args.backend,
               "torch": torch.__version__, "launches": paths, "readings": stats}
     os.makedirs(args.out, exist_ok=True)

@@ -9,7 +9,7 @@ Needs one CUDA device. On procedural ``city`` (its defaults: 16,640
 triangles; ``--n-buildings 28000 --seed 11`` is the map scene, 281,536
 triangles, traced by K3) or ``--scene court`` (``outdoor_court``: 20
 triangles, two alpha-tested grates; ``--fog MU`` its fog's extinction) at
-1920×1080 with chip_smoke.py's configurations (``pt``: 2 spp, max path
+1920×1080 with chip_smoke's configurations (``pt``: 2 spp, max path
 length 3; ``restir``: ``ReSTIRConfig()``; ``mcpg``: 2 spp, max path
 length 3, ``MCPGConfig()``, with ``VolumeConfig()`` when ``--fog`` is
 given, ``production_config()`` with ``--production``; 12 warm-up frames
@@ -65,7 +65,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import chip_smoke  # noqa: E402  (primary/bounce ray populations, cuda_time)
+from chip_smoke import common, fixtures  # noqa: E402  (bounce rays, cuda_time)
 from merian_quake_tpu_torch.accel import build_accel, woop  # noqa: E402
 from merian_quake_tpu_torch.accel.build import scene_features  # noqa: E402
 from merian_quake_tpu_torch.models.procedural import city, outdoor_court  # noqa: E402
@@ -80,7 +80,7 @@ from merian_quake_tpu_torch.renderer import compile_frame, init_state, render_fr
 from merian_quake_tpu_torch.utils import profiler  # noqa: E402
 from quakebench import devtrace  # noqa: E402  (the profiler's device operations)
 
-W, H, SPP, MPL = chip_smoke.W, chip_smoke.H, chip_smoke.SPP, chip_smoke.MPL
+W, H, SPP, MPL = common.W, common.H, common.SPP, common.MPL
 
 
 def host_ms(fn):
@@ -358,7 +358,7 @@ def main() -> int:
 def sort_one_trace(bundle, accel, config, dev, kernel, smi):
     """One 2,073,600-ray bounce population traced with the coherence sort
     and without: the same hits, the whole trace and its kernel timed."""
-    bo, bd, bt = chip_smoke.bounce_rays(bundle, accel, config, dev)
+    bo, bd, bt = fixtures.bounce_rays(bundle, accel, config, dev)
     perm = woop.sort_perm(accel, bo, bd, bt)
     trace = lambda s: woop.intersect_woop(accel, bo, bd, 0.0, bt, sort_rays=s)
     hr_s, hr_n = trace(True), trace(False)
@@ -370,8 +370,8 @@ def sort_one_trace(bundle, accel, config, dev, kernel, smi):
     }
     times = {}
     for label in ("sort", "none", "none", "sort"):
-        whole = chip_smoke.cuda_time(lambda: trace(label == "sort"), 10)
-        k1 = chip_smoke.cuda_time(lambda: kernel(*k1_args[label]), 10)
+        whole = common.cuda_time(lambda: trace(label == "sort"), 10)
+        k1 = common.cuda_time(lambda: kernel(*k1_args[label]), 10)
         times.setdefault(label, []).append((whole, k1))
     print(f"sort bounce {W * H} rays [{smi}]: " + "; ".join(
         f"{k}: trace {'/'.join(f'{a:.3f}' for a, _ in v)} ms, "

@@ -36,7 +36,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import chip_smoke  # noqa: E402  (ray populations, trace_split)
+from chip_smoke import common, fixtures  # noqa: E402  (ray populations, trace_split)
 from merian_quake_tpu_torch import kernels  # noqa: E402
 from merian_quake_tpu_torch.accel import build_accel, woop  # noqa: E402
 from merian_quake_tpu_torch.accel.build import scene_features  # noqa: E402
@@ -50,15 +50,15 @@ def populations(dev, scene_kw):
     bundle = city(**scene_kw, device=dev)
     accel = build_accel(bundle.scene, bundle.atlas)
     feats = scene_features(bundle.scene, bundle.uniforms, bundle.atlas)
-    config = RenderConfig(width=chip_smoke.W, height=chip_smoke.H, spp=chip_smoke.SPP,
-                          max_path_length=chip_smoke.MPL, features=feats)
-    n = chip_smoke.W * chip_smoke.H
+    config = RenderConfig(width=common.W, height=common.H, spp=common.SPP,
+                          max_path_length=common.MPL, features=feats)
+    n = common.W * common.H
     full = lambda v: torch.full((n,), v, device=dev)
-    po, pd = chip_smoke.primary_rays(bundle, accel, dev)
-    bo, bd, bt = chip_smoke.bounce_rays(bundle, accel, config, dev)
+    po, pd = fixtures.primary_rays(bundle, accel, dev)
+    bo, bd, bt = fixtures.bounce_rays(bundle, accel, config, dev)
     perm = woop.sort_perm(accel, bo, bd, bt)
     bo, bd, bt = bo[perm].contiguous(), bd[perm].contiguous(), bt[perm].contiguous()
-    so, sd, st = chip_smoke.shade_rays(bundle, accel, config, dev)
+    so, sd, st = fixtures.shade_rays(bundle, accel, config, dev)
     rays, proxy, shadow = woop.k2_inputs(accel, so, sd, full(1e-3), st)
     return (accel, woop.k1_inputs(accel, po, pd, full(0.0), full(1e4)),
             woop.k1_inputs(accel, bo, bd, full(0.0), bt),
@@ -88,24 +88,24 @@ def main() -> int:
     print(f"city: {nc} clusters; CTAs an SM: K1 {woop.ctas_per_sm('woop_nearest', nc)}, "
           f"K2 {woop.ctas_per_sm('woop_any', nc)}, K3 {woop.ctas_per_sm('woop_stream', nc)}",
           flush=True)
-    chip_smoke.trace_split(0, "city primary K1", woop.woop_nearest, prim, smi)
-    chip_smoke.trace_split(0, "city bounce K1", woop.woop_nearest, boun, smi)
-    chip_smoke.trace_split(0, "city shadow K2", woop.woop_any, (rays, *shadow), smi)
-    chip_smoke.trace_split(0, "city primary K3", woop.woop_stream, prim, smi)
-    chip_smoke.trace_split(0, "city bounce K3", woop.woop_stream, boun, smi)
+    common.trace_split(0, "city primary K1", woop.woop_nearest, prim, smi)
+    common.trace_split(0, "city bounce K1", woop.woop_nearest, boun, smi)
+    common.trace_split(0, "city shadow K2", woop.woop_any, (rays, *shadow), smi)
+    common.trace_split(0, "city primary K3", woop.woop_stream, prim, smi)
+    common.trace_split(0, "city bounce K3", woop.woop_stream, boun, smi)
     if args.map:
-        accel, prim, boun, (rays, shadow, pre) = populations(dev, chip_smoke.MAP)
+        accel, prim, boun, (rays, shadow, pre) = populations(dev, fixtures.MAP)
         nc = accel.cluster_lo.shape[0]
         print(f"map: {nc} clusters; CTAs an SM: K3 {woop.ctas_per_sm('woop_stream', nc)}",
               flush=True)
-        chip_smoke.trace_split(0, "map primary K3", woop.woop_stream, prim, smi)
-        chip_smoke.trace_split(0, "map bounce K3", woop.woop_stream, boun, smi)
-        chip_smoke.trace_split(0, "map shadow K3 any-hit after proxy", woop.woop_stream,
+        common.trace_split(0, "map primary K3", woop.woop_stream, prim, smi)
+        common.trace_split(0, "map bounce K3", woop.woop_stream, boun, smi)
+        common.trace_split(0, "map shadow K3 any-hit after proxy", woop.woop_stream,
                                (rays, *shadow), smi, anyhit=True, occluded_in=pre)
         for name, fn in (("map K3 primary", lambda: woop.woop_stream(*prim)),
                          ("map K3 bounce", lambda: woop.woop_stream(*boun))):
             fn()
-            print(f"{name} [{smi}]: {chip_smoke.cuda_time(fn, 5):.4f} ms", flush=True)
+            print(f"{name} [{smi}]: {common.cuda_time(fn, 5):.4f} ms", flush=True)
     return 0
 
 

@@ -15,7 +15,7 @@ warm start and the walk's end once every lane is occluded; both modelled
 in tests/torch_walk_model.py) are modelled in torch and must give exactly
 the dense plain versions' results, and mutants of the models must not.
 The kernels are compared with the plain versions on the card by the
-``cuda``-marked tests and by chip_smoke.py.
+``cuda``-marked tests and by chip_smoke.
 
 Any-hit (K2): the shadow, alpha-only and proxy tables are built as the
 JAX package builds them (zero-row masks and AABBs exact, rows to
@@ -393,7 +393,7 @@ def test_woop_nearest_rejects_bad_inputs(rng):
 def test_k1_kernel_matches_plain_version_on_card(rng):
     """K1 against its plain version on city's primary rays, bit for bit.
     The card's machine has no JAX, so this file cannot run there:
-    chip_smoke.py phase 2 makes the same comparison on a 65,536-ray
+    chip_smoke phase 2 makes the same comparison on a 65,536-ray
     subset and on the whole 1080p primary population of city."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
@@ -769,7 +769,7 @@ def test_trace_visibility_outdoor_court(rng, monkeypatch):
 def test_k2_kernel_matches_plain_version_on_card():
     """K2 against its plain version on city's shade-pass shadow rays (the
     proxy pre-pass, then the shadow table warm-started by it). On the
-    card: chip_smoke.py phase 5 ("city shade ... proxy / shadow / shadow
+    card: chip_smoke phase 5 ("city shade ... proxy / shadow / shadow
     after proxy", a 65,536-ray subset and the whole population)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")

@@ -18,7 +18,7 @@ grates, dead rays (t_max -1), out-of-range texnum and negative and
 wrapping UVs. The card's glue (``woop.intersect_woop_alpha``: one sort of
 the rays, the walk, the scatter back) runs here with the wrappers' plain
 versions and is held against the round loop too. The kernel itself needs
-the card: the ``cuda`` test skips here and names chip_smoke.py's phase 39,
+the card: the ``cuda`` test skips here and names chip_smoke's phase 39,
 which holds both instances bit for bit against the plain version and the
 eager round loop there.
 """
@@ -63,7 +63,7 @@ def _grate(period):
 
 def _room(rng):
     """A box room 200 x 100 x 100 with two two-sided grates across it and an
-    opaque pillar (chip_smoke.py's grate soup); the grates' UV scale comes
+    opaque pillar (chip_smoke's grate soup); the grates' UV scale comes
     from the seed."""
     b = j_procedural._SoupBuilder()
     X, Y, Z = 200.0, 100.0, 100.0
@@ -345,7 +345,7 @@ def test_alpha_walk_rejects_bad_inputs():
 @pytest.mark.cuda
 def test_alpha_walk_matches_plain_on_card():
     """Both instances of the alpha walk on the card against the plain
-    version and the eager round loop, bit for bit (chip_smoke.py phase 39
+    version and the eager round loop, bit for bit (chip_smoke phase 39
     makes this comparison on the grate soup, seven rejecting planes, the
     court's 1080p populations and the live dungeon's refreshed tables)."""
     if not torch.cuda.is_available():

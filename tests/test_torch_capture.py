@@ -31,7 +31,7 @@ what it rests on, on the CPU:
   ``CompiledFrame.set_state`` writes a state into the static one in
   place (certification's steady skip).
 - (f) the captures themselves need the card: the ``cuda``-marked tests
-  skip here and name chip_smoke.py's phase 38, which makes them there.
+  skip here and name chip_smoke's phase 38, which makes them there.
 """
 import contextlib
 import importlib
@@ -462,7 +462,7 @@ def test_captured_frames_equal_eager_on_the_card():
     volume, city ReSTIR, denoised city MCPG, map MCPG) against eager
     frame_core from the same state, bit for bit over 8 replays, with K1,
     K2 and K3 launched inside the graphs. The card's machine has no JAX,
-    so this file cannot run there: chip_smoke.py phase 38 makes these
+    so this file cannot run there: chip_smoke phase 38 makes these
     comparisons."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA graph has no CPU mode")
@@ -481,7 +481,7 @@ def test_captured_frames_equal_eager_on_the_card():
 
 @pytest.mark.cuda
 def test_captured_flagship_graph_equals_run_on_the_card():
-    """The flagship graph's compile() against run on the card: chip_smoke.py
+    """The flagship graph's compile() against run on the card: chip_smoke
     phase 38."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA graph has no CPU mode")

@@ -27,7 +27,7 @@ Every run goes through ``renderer.compile_frame`` (on the card one CUDA
 graph): ``_run`` equals the eager ``frame_core`` loop bit for bit on the
 CPU (PT, ReSTIR with the steady skip, MCPG; frame numbers from
 4,000,000), one compiled frame a run, a call a frame. The card's side
-(captured against eager, relMSEs equal to the bit) is chip_smoke.py's
+(captured against eager, relMSEs equal to the bit) is chip_smoke's
 phase 26.
 
 Mutants, each failing its bound: the truth's frame numbers kept in 19
@@ -206,7 +206,7 @@ def test_certify_script_row_suffix(tmp_path):
 def test_certify_captured_equals_eager_on_the_card():
     """certify_presets captured against eager on the card, each relMSE
     equal to the bit (config1, config6 and config3's steady skip): the
-    card's machine has no JAX, so chip_smoke.py phase 26 makes this
+    card's machine has no JAX, so chip_smoke phase 26 makes this
     comparison."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA graph has no CPU mode")

@@ -8,7 +8,7 @@ irradiance and the uniforms across. The JAX views run op by op, as its
 tests call them. Bounds: every view within atol 1e-6 (read: at most
 6.0e-8, views 2 and the ReSTIR direction) except view 3, within 2e-6:
 its colour is computed in f64 and rounded once to f32 (so that the card
-and the CPU draw the same colour, chip_smoke.py phase 28), where the JAX
+and the CPU draw the same colour, chip_smoke phase 28), where the JAX
 package rounds each step of its OKLab transform in f32 (read: 1.0e-6;
 the JAX package jitted against op by op: 7.2e-7). View 3's cell keys
 (the 16-bit hash of each pixel's cell) are equal bit for bit.

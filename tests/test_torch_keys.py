@@ -23,7 +23,7 @@ csrc/woop_keys.cu: a torch model of the kernels' schedule
   the schedule's slab count.
 
 The CUDA kernels cannot run here; the ``cuda``-marked test and
-chip_smoke.py phase 12 hold them against their plain versions on the card.
+chip_smoke phase 12 hold them against their plain versions on the card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +31,7 @@ import pytest
 import torch
 
 import torch_keys_model as model
-from chip_smoke import edge_boxes, edge_rays
+from chip_smoke.fixtures import edge_boxes, edge_rays
 from merian_quake_tpu.accel import woop as j_woop
 from merian_quake_tpu_torch.accel import build_accel, woop
 from merian_quake_tpu_torch.models.procedural import city
@@ -291,7 +291,7 @@ def test_key_and_list_wrappers_on_the_cpu(rng):
 @pytest.mark.cuda
 def test_visit_list_kernel_matches_plain_on_card(rng):
     """The fused list on the card against its plain version, bit for bit
-    (chip_smoke.py phase 12 makes this comparison on every population)."""
+    (chip_smoke phase 12 makes this comparison on every population)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     lo, hi = (x.cuda() for x in edge_boxes(rng, 252))

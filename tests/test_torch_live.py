@@ -21,7 +21,7 @@ drops them to be made anew fails it. A compiled live step
 recorded once and fed to two live accels, equals the eager step bit for
 bit. The card's side (K1, K2, K3 on refreshed tables, the rows4 mutant;
 the captured live dungeon and arena against eager, the stale-cache
-mutant) is chip_smoke.py's phases 30-31.
+mutant) is chip_smoke's phases 30-31.
 """
 import jax
 import numpy as np
@@ -289,7 +289,7 @@ def test_captured_live_loop_equals_eager_on_the_card():
     """The live dungeon (K3) and the arena's MCPG and ReSTIR frames
     captured against eager on the card over 10 moving frames, the
     stale-cache mutant differing: the card's machine has no JAX, so
-    chip_smoke.py phases 30-31 make these comparisons."""
+    chip_smoke phases 30-31 make these comparisons."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA graph has no CPU mode")
     live = make_arena(dynamic_capacity=512, device="cuda")

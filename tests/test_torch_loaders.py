@@ -3,7 +3,7 @@ extract.py) against the JAX package's, on the same bytes: twins of
 tests/test_loaders.py.
 
 The files are built in memory: tests/test_loaders.py's one-face map and
-chip_smoke.py's ``room_bsp`` (a closed room, four textures: plain, sky,
+chip_smoke's ``room_bsp`` (a closed room, four textures: plain, sky,
 fullbright; a sun and a player start). Both packages parse them to the
 same lumps, faces, textures, models and entities, the same sun, and
 ``scene_from_bsp`` gives the same triangles, attributes, atlas table and
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+from chip_smoke.fixtures import room_bsp
 from merian_quake_tpu.models import bsp as j_bsp
 from merian_quake_tpu.models import extract as j_extract
 from merian_quake_tpu.models import pak as j_pak
@@ -25,11 +25,11 @@ from test_loaders import _build_bsp
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
-MAPS = {"one_face": _build_bsp, "room": chip_smoke.room_bsp}
+MAPS = {"one_face": _build_bsp, "room": room_bsp}
 
 
 def test_pak_both_ways(tmp_path):
-    files = {"maps/room.bsp": chip_smoke.room_bsp(), "gfx/palette.lmp": bytes(range(256)) * 3,
+    files = {"maps/room.bsp": room_bsp(), "gfx/palette.lmp": bytes(range(256)) * 3,
              "progs/Mixed.Case": b"x" * 77}
     for write, read in ((j_pak.write_pak, pak.PakFile), (pak.write_pak, j_pak.PakFile)):
         p = str(tmp_path / f"{write.__module__}.pak")

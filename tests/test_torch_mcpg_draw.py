@@ -23,7 +23,7 @@ Here:
   library or counts a launch.
 
 The kernel itself needs the card: the ``cuda`` test skips here and names
-chip_smoke.py's phase 42, which holds it bit for bit against the torch
+chip_smoke's phase 42, which holds it bit for bit against the torch
 loop there (1080p surface and volume populations on the production-size
 table, a 37x53 input, a captured live dungeon frame against eager frames).
 """
@@ -338,12 +338,12 @@ def test_max_draws_matches_the_source():
 def test_draw_kernel_matches_torch_loop_on_card():
     """The kernel against the torch loop on the card, bit for bit on every
     output: the 1080p × 2 spp surface population and the 1080p volume
-    population on the production-size table, a 37x53 input (chip_smoke.py
+    population on the production-size table, a 37x53 input (chip_smoke
     phase 42 makes these comparisons, and holds a captured live dungeon
     mcpg_default frame against eager frames on the torch loop)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    import chip_smoke
+    from chip_smoke.draw import draw_random
 
-    worst = chip_smoke.draw_random(torch.device("cuda"), "")
+    worst = draw_random(torch.device("cuda"), "")
     assert not {k: v for k, v in worst.items() if v[0]}

@@ -5,7 +5,7 @@ ReSTIR frame, two 32×16 guided (MCPG) frames, two 32×16 MCPG frames
 with the volume pass on the fogged court, one path-traced frame
 under a trace schedule, two denoised path-traced frames and two SSMM
 frames on the CPU, trace it under the schedule through ``woop.intersect_woop``'s glue,
-time two frames through ``bench_torch.phases``, import ``interop``, ``presets``,
+import ``interop``, ``presets``,
 ``utils.certify`` and both debug view modules, and run res/pt_graph.json
 through the frame graph for one 16×8 frame; boot the live arena
 (``make_arena(device="cpu")``, the game host built from native/game),
@@ -18,7 +18,7 @@ device="cpu")``); compile the fogged court's MCPG + volume frame
 (``compile_frame``) and the PT graph (``Graph.compile``) and step each
 twice. And the port's entry points run on the card unless the
 caller asks for the CPU: without a CUDA device, a call without
-``device=`` raises."""
+``device=`` raises, and ``python3 -m chip_smoke`` exits."""
 import os
 import subprocess
 import sys
@@ -65,10 +65,7 @@ assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["ldr"]).all()
 state, out = render_sequence(cornell_box(device="cpu"), RenderConfig(width=32, height=16, spp=2, integrator="ssmm"), frames=2, device="cpu")
 assert out["ldr"].shape == (16, 32, 3) and bool(torch.isfinite(out["ldr"]).all()) and float(state.ssmm.sum_w.max()) > 0
 import merian_quake_tpu_torch.interop
-import bench_torch
 b = cornell_box(device="cpu")
-t, peak = bench_torch.phases(b, build_accel(b.scene, b.atlas), RenderConfig(width=16, height=8, integrator="mcpg"), MCPGConfig(), {"cold": 0, "warm": 1}, 1, "cpu")
-assert set(t) == {"cold", "warm"} and min(t.values()) > 0 and peak is None
 import merian_quake_tpu_torch.presets, merian_quake_tpu_torch.utils.certify
 import merian_quake_tpu_torch.render.mcpg.debug, merian_quake_tpu_torch.render.restir.debug
 from merian_quake_tpu_torch.graph import Graph
@@ -131,13 +128,15 @@ def test_port_runs_without_jax():
     assert proc.stdout.strip().endswith("ok")
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the defaults run on it")
-    import bench_torch
+    import runpy
 
-    with pytest.raises(SystemExit):  # a measurement without a card fails
-        bench_torch.main()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke"])
+    # a measurement without a card fails
+    with pytest.raises(SystemExit, match="torch.cuda.is_available"):
+        runpy.run_module("chip_smoke", run_name="__main__")
     # torch built for the CPU raises AssertionError, a CUDA build with no
     # device RuntimeError
     with pytest.raises((AssertionError, RuntimeError)):

@@ -23,7 +23,7 @@
   tables derived from it keep their storage and take the new values; an
   accel of another structure (a table missing, another shape, the
   shadow table aliasing ``woop_w`` in one and not the other) raises. The
-  card's side is chip_smoke.py's phases 26 and 33.
+  card's side is chip_smoke's phases 26 and 33.
 
 The bounds are equality; a mutant fails them: config3's temporal bias
 correction changed, and the volume's reference keeping its guided
@@ -289,7 +289,7 @@ def test_write_accel_refuses_another_structure(change):
 def test_run_preset_captured_equals_eager_on_the_card():
     """run_preset of every preset captured against eager on the card,
     every frame's ldr and hdr bit for bit: the card's machine has no JAX,
-    so chip_smoke.py phases 26 (config1, config3, config6) and 33 (config2,
+    so chip_smoke phases 26 (config1, config3, config6) and 33 (config2,
     config4, config5) make these comparisons."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA graph has no CPU mode")

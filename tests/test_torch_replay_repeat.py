@@ -9,7 +9,7 @@ guided frames whose replays sum with it (at a chunk small enough that
 the chunks nest) give an equal guiding table ``mc.f``, within rounding of
 the frames that sum with ``torch.cumsum`` (and the light cache too). The card's reading (two
 ``frame_core`` runs from one state bit-equal, and the repair's cost
-in turns) is chip_smoke.py's phase 29.
+in turns) is chip_smoke's phase 29.
 """
 import numpy as np
 import pytest

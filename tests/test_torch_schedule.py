@@ -19,7 +19,7 @@ against the JAX package, on the same inputs.
   frame with tests/test_torch_slice.py's bounds.
 
 The CUDA kernels cannot run here; the ``cuda``-marked test and
-chip_smoke.py hold them against their plain versions on the card.
+chip_smoke hold them against their plain versions on the card.
 """
 import importlib
 
@@ -583,7 +583,7 @@ def test_scheduled_pt_frame_matches_jax(monkeypatch):
 @pytest.mark.parametrize("nodes,compact", [(1, 0), (8, 32)])
 def test_list_kernels_match_plain_versions_on_card(city_1600, nodes, compact):
     """K4, K5 and the walker (K6/K7) against their plain versions on
-    city(1600)'s primary rays. On the card: chip_smoke.py phase 12 (K4
+    city(1600)'s primary rays. On the card: chip_smoke phase 12 (K4
     and K5 on 65,536-ray subsets and the whole populations) and phase 13
     (the walker in every mode, P = 1, 8, 16, 32, 64 and 128, compact 0
     and 32, and on the MCPG guided rays under (True, 8, 32))."""

@@ -19,7 +19,7 @@ tensors as its torch path (``temporal_reference``,
   row, records not contiguous, a step below 1.
 
 The kernels themselves need the card: the ``cuda`` test skips here and
-names chip_smoke.py's phase 40, which holds them bit for bit against the
+names chip_smoke's phase 40, which holds them bit for bit against the
 torch path there (1080p and 37x53 inputs, halo-padded row slabs, a
 captured city ReSTIR frame with denoise).
 """
@@ -124,7 +124,7 @@ def test_cpu_wrappers_give_the_torch_path(frames, monkeypatch):
     def no_library(*a, **k):
         raise AssertionError("a CPU tensor reached the kernel library")
 
-    monkeypatch.setattr(sv, "_kernel_lib", no_library)
+    monkeypatch.setattr(sv, "entry", no_library)
     launches = (sv.svgf_temporal.launches, sv.svgf_atrous.launches)
     state = _history(frames)
     x = _args(_inputs(20 + frames))
@@ -221,16 +221,15 @@ def test_svgf_kernels_match_torch_path_on_card():
     motion vectors off-screen and non-finite, normal and depth edges; every
     state leaf, the temporal records and each pass's), the same at 37x53
     (step 16 past both borders) and halo-padded row slabs as svgf_sharded
-    passes them (chip_smoke.py phase 40 makes these comparisons, and holds
+    passes them (chip_smoke phase 40 makes these comparisons, and holds
     a captured city ReSTIR frame with denoise against eager frames with the
     torch SVGF)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    import chip_smoke
+    from chip_smoke.svgf import svgf_random, svgf_slab
 
     dev = torch.device("cuda")
-    worst = {**chip_smoke.svgf_random(dev, 1080, 1920, "")[0],
-             **chip_smoke.svgf_random(dev, 37, 53, "")[0]}
+    worst = {**svgf_random(dev, 1080, 1920, "")[0], **svgf_random(dev, 37, 53, "")[0]}
     for rows, y0, step in ((64, 0, 1), (64, 1016, 16), (40, 520, 16)):
-        worst |= chip_smoke.svgf_slab(dev, 1080, 1920, rows, y0, step, "")
+        worst |= svgf_slab(dev, 1080, 1920, rows, y0, step, "")
     assert not {k: v for k, v in worst.items() if v[0]}

@@ -21,7 +21,7 @@ synchronizing spans of the JAX package's profiler, whose own test
 - A live arena frame: the game step's and the refresh's host spans open
   the frame the compiled frame closes, one id a frame.
 The captured frame's side (the stage table of the graph, the events that
-tile the replay, recorded and not bit-equal) is chip_smoke.py's phase 28.
+tile the replay, recorded and not bit-equal) is chip_smoke's phase 28.
 """
 import pytest
 import torch

@@ -16,7 +16,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import chip_smoke  # noqa: E402  (the tie table and the sparse-warp mask)
+from chip_smoke.fixtures import sparse_warps, tie_table  # noqa: E402,F401
 from merian_quake_tpu_torch.accel import woop  # noqa: E402
 
 WARP = 32
@@ -51,8 +51,6 @@ def compact_lanes(compact):
     schedule's ``compact`` (reaching rays of a 128-ray block)."""
     return 0 if compact <= 0 else min(32, -(-compact // COMPACT_SHARE))
 
-tie_table = chip_smoke.tie_table
-sparse_warps = chip_smoke.sparse_warps
 
 
 def _slack(x):
