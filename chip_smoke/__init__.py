@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch + CUDA port on one GPU.
 
-    python3 -m chip_smoke                   # phases 1-42
+    python3 -m chip_smoke                   # phases 1-43
     python3 -m chip_smoke --phase 23 39 42  # phase 1, then those alone
 
 Drives merian_quake_tpu_torch's paths at 1920×1080 — the guided
@@ -26,19 +26,20 @@ walker K6/K7 (csrc/woop_list.cu, node walk and compacted visits), K8
 (csrc/mt_dense.cu, the dense Möller–Trumbore sweep of
 ``accel.dense.intersect_dense``), the alpha walk (csrc/woop_alpha.cu,
 trace_nearest's whole alpha loop on K1's or K3's walk), the SVGF's
-temporal and à-trous kernels (csrc/svgf.cu) and MCPG's guide-state draws
-(csrc/mcpg_draw.cu). Phases, one line each or more, in the order of
+temporal and à-trous kernels (csrc/svgf.cu), MCPG's guide-state draws
+(csrc/mcpg_draw.cu) and the u32 RNG and hash-grid chains
+(csrc/u32_chains.cu). Phases, one line each or more, in the order of
 ``registry.PHASES`` (39 runs after 31, on its live dungeon). ``--phase``
 runs phase 1 and then the phases named, each with the fixtures it reads
 (``fixtures.py``), among them what an earlier phase makes: phase 23 runs
 16 first, 39 runs 30. The modules hold the phases by what they check:
 ``trace`` (2, 5, 8-15, 39), ``frames`` (3-4, 6-7, 16-25), ``presets``
 (26-28), ``live`` (29-34, 41), ``native`` (35-37), ``capture`` (38),
-``svgf`` (40), ``draw`` (42); ``common`` the helpers they share,
+``svgf`` (40), ``draw`` (42), ``u32`` (43); ``common`` the helpers they share,
 ``summary`` the kernels' record:
 
 1. device: the card's name and power limit (nvidia-smi), and the time to
-   build the nine kernel sources with nvcc for sm_90a (all started
+   build the ten kernel sources with nvcc for sm_90a (all started
    together), with each kernel's ptxas lines;
 2. K1 against its plain PyTorch version on the card, bit for bit: a
    random soup with half misses, the same with one or two live rays a
@@ -391,7 +392,24 @@ runs phase 1 and then the phases named, each with the fixtures it reads
     the benchmark's captured mcpg_default live dungeon frame against 6
     eager frames on the torch loop, every state leaf and output, and the
     4 launches its graph records; then the kernel alone by CUDA events
-    against its bytes floor and the torch loop.
+    against its bytes floor and the torch loop. The torch loop's u32
+    chains run on their int64 references here (``u32.int64_chains``);
+43. the u32 chains (csrc/u32_chains.cu: ``ops.rng.seed_pixel``,
+    ``ops.rng.uniforms``, ``render.mcpg.grids.cell``,
+    ``render.mcpg.light_cache.lookup``) bit for bit against their int64
+    references (``*_reference``) on the card: every entry point and form
+    (per-lane, strided-column, device-scalar and host-scalar seed
+    operands; 1-5 draws; the adaptive cell with its target level computed
+    or given, the static cell, the light cache's cell; the lookup with
+    and without dead lanes or a given level) on the 1080p × 2 spp and
+    1080p populations and 37x53 inputs, production_config()'s grids and a
+    light-cache table of its size whose rows meet 70% of the lanes, both
+    slot layouts (grid_tile_bits 0 and 2), lanes at inf and NaN; the
+    benchmark's captured mcpg_default live dungeon frame against 6 eager
+    frames with every chain on its int64 reference, every state leaf and
+    output, and each chain's launches its graph records; then each entry
+    point alone on 4,147,200 lanes by CUDA events against its bytes floor
+    and its reference.
 
 Each path (PT city, ReSTIR city, dense map, PT map, ReSTIR map, the five
 city(1600) frame runs of phase 14, MCPG city, MCPG map, the two

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from .common import H, HBM_RATE, SPP, W, cuda_time, leaf_diff, log
+from .u32 import int64_chains
 
 
 DRAW_SOURCE = "merian_quake_tpu_torch/csrc/mcpg_draw.cu"
@@ -89,7 +90,8 @@ def draw_table(dev, inp, kind, mcfg, seed):
 
     grids.gather_state_packed_draw, grids.finalize_load = rec_gather, rec_finalize
     try:
-        draw_call(draw.draw_states_reference, inp, kind, mcfg, table)
+        with int64_chains():
+            draw_call(draw.draw_states_reference, inp, kind, mcfg, table)
     finally:
         grids.gather_state_packed_draw, grids.finalize_load = gather, finalize
     for r, h in zip(rows, hashes):
@@ -130,7 +132,8 @@ def draw_random(dev, smi):
         inp = draw_inputs(dev, n, kind, 4200 + j)
         table = draw_table(dev, inp, kind, mcfg, 4300 + j)
         got = draw_leaves(draw_call(draw.draw_states, inp, kind, mcfg, table))
-        ref = draw_leaves(draw_call(draw.draw_states_reference, inp, kind, mcfg, table))
+        with int64_chains():
+            ref = draw_leaves(draw_call(draw.draw_states_reference, inp, kind, mcfg, table))
         res = leaf_diff(f"draw kernel, {label} [{smi}]", got, ref, phase=42)
         hits = float((ref["score_sum"] > 0).float().mean())
         log(f"phase 42 {label}: lanes with a weighted draw {hits:.3f}, winner rows "
@@ -174,8 +177,9 @@ def draw_captured(dev, smi):
         before = clone(cell.cf.state)
         draw.draw_states = draw.draw_states_reference
         try:
-            ref_st, ref_out = render_frame(la_e.accel, cell.bundle.atlas, u, cell.config, before,
-                                           mcpg_config=cell.icfg)
+            with int64_chains():
+                ref_st, ref_out = render_frame(la_e.accel, cell.bundle.atlas, u, cell.config,
+                                               before, mcpg_config=cell.icfg)
         finally:
             draw.draw_states = plain
         st, out = cell.cf(u)
@@ -214,7 +218,8 @@ def draw_timing(dev, smi):
         call = lambda fn: draw_call(fn, inp, kind, mcfg, table)
         call(draw.draw_states)
         ms = cuda_time(lambda: call(draw.draw_states), 20)
-        plain = cuda_time(lambda: call(draw.draw_states_reference), 3)
+        with int64_chains():
+            plain = cuda_time(lambda: call(draw.draw_states_reference), 3)
         nbytes = n * draw_lane_bytes(mcfg.mc_samples, kind == "surface", kind == "surface")
         out[kind] = {"ms": ms, "plain_ms": plain, "bound_ms": nbytes / HBM_RATE * 1e3,
                      "bound_by": "bytes", "lanes": n, "bytes": nbytes}

@@ -14,7 +14,7 @@ import time
 
 import torch
 
-from . import capture, draw, fixtures, frames, live, native, presets, svgf, trace
+from . import capture, draw, fixtures, frames, live, native, presets, svgf, trace, u32
 from .common import card, log
 from .summary import kernels_line
 
@@ -53,7 +53,8 @@ def phase1():
     log(f"phase 1 device: {kind} x{count} [{smi}] torch {torch.__version__} "
         f"cuda {torch.version.cuda}; the native accel builder (g++ "
         f"{' '.join(native_builder.CXXFLAGS)}) {native_build_s:.2f} s; K1, K2, K3, K4 + K5, "
-        f"K6 + K7, K8, the alpha walk, the SVGF kernels and MCPG's draws build {build_s:.2f} s; "
+        f"K6 + K7, K8, the alpha walk, the SVGF kernels, MCPG's draws and the u32 chains build "
+        f"{build_s:.2f} s; "
         f"spill bytes {spills}; " + "; ".join(f"{k} ({ptxas[k]})" for k in kernels.KERNELS))
     fixtures.keep(dev=dev, smi=smi, native_build_s=native_build_s)
     return {"kind": kind, "count": count, "spills": spills}
@@ -102,6 +103,7 @@ PHASES = (
     (40, svgf.phase40),
     (41, live.phase41),
     (42, draw.phase42),
+    (43, u32.phase43),
 )
 _results: dict = {}
 _marks: list = []  # (phase, when it ended), in the order the phases ran

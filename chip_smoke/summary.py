@@ -9,6 +9,7 @@ import json
 from .common import H, SPP, SUBSET, W
 from .draw import DRAW_REPLACES, DRAW_SOURCE
 from .svgf import SVGF_REPLACES, SVGF_SOURCE
+from .u32 import CHAINS_REPLACES, CHAINS_SOURCE
 from .trace import ALPHA_WALKS
 
 KERNEL_SOURCE = "merian_quake_tpu_torch/csrc/woop_nearest.cu"
@@ -55,7 +56,7 @@ def kernels_line(results: dict) -> str:
     cli_stats, (native_paths, native_stats), (bsp_paths, bsp_stats) = (results[34], results[35],
                                                                        results[36])
     (shard_paths, shard_stats), (capture_paths, capture_stats) = results[37], results[38]
-    svgf_stats, draw_stats = results[40], results[42]
+    svgf_stats, draw_stats, chain_stats = results[40], results[42], results[43]
     paths = {"pt": pt_city, "restir": restir_city, "dense_map": k8["launches"],
              "pt_map": map_paths["pt"], "restir_map": map_paths["restir"], **sched_paths,
              "mcpg": mcpg_city, "mcpg_map": mcpg_map, **mcpg_sched, **court_paths,
@@ -205,4 +206,11 @@ def kernels_line(results: dict) -> str:
         "plain_ms": draw_stats["by_population"]["surface"]["plain_ms"],
         "bound_ms": draw_stats["by_population"]["surface"]["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "lanes": W * H * SPP, "by_population": draw_stats["by_population"],
-        "leaves_compared": draw_stats["leaves_compared"]}]})
+        "leaves_compared": draw_stats["leaves_compared"]}, {
+        "name": "u32_chains", "route": "cuda", "source": CHAINS_SOURCE, "replaces": CHAINS_REPLACES,
+        "launches_in_graph": chain_stats["launches_in_graph"],
+        "max_abs_err": chain_stats["max_abs_err"], "ms": chain_stats["by_entry"]["cell adaptive"]["ms"],
+        "plain_ms": chain_stats["by_entry"]["cell adaptive"]["plain_ms"],
+        "bound_ms": chain_stats["by_entry"]["cell adaptive"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "lanes": W * H * SPP, "by_entry": chain_stats["by_entry"],
+        "leaves_compared": chain_stats["leaves_compared"]}]})

@@ -28,17 +28,11 @@
 //   out: the RNG state; the winner's id, w_tgt, sum_w, w_cos, N and hash;
 //     its row (-1 where the fresh chain stayed), the score sum; each
 //     draw's mu f32[K, n, 3], kappa, sum_w f32[K, n] and N i32[K, n].
-// Exactness: bit for bit the torch path on the card. Every add, multiply
-// and division is rounded on its own (__fadd_rn / __fmul_rn / __fdiv_rn,
-// never contracted), sqrt is IEEE's, logf, log2f and powf are the
-// functions torch's log, log2 and pow call, round is half to even, and a
-// Python scalar is the float torch rounds it to. Rules of torch on the
-// card that its CPU kernels do not share: a division by a Python scalar is
-// a multiply by the scalar's float reciprocal (the wrapper passes those
-// reciprocals), and the sum over a 3-element last dimension adds elements
-// 0 and 2 first, then 1. A Python scalar divided by a tensor is torch's
-// reciprocal times the scalar, on both devices. NaN passes clamp_min,
-// clamp_max and clamp as it passes torch's.
+// Exactness: bit for bit the torch path on the card, by the rules of
+// csrc/hash_grid.cuh, which holds the RNG, the hashes and the cell
+// selection this kernel shares with csrc/u32_chains.cu. Besides: a Python
+// scalar divided by a tensor is torch's reciprocal times the scalar, on
+// both devices.
 //
 // What bounds it on this card: the row gathers and the integer work. A
 // lane reads 45 bytes of its own and K random 32-byte rows of a table of
@@ -57,111 +51,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash_grid.cuh"
+
 namespace {
+
+using namespace mq;
 
 constexpr int kChunk = 8;       // draws whose rows are in flight together
 constexpr int kMaxDraws = 16;   // the most draws a call takes
 constexpr int kBlock = 128;
 
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
-
-// torch.clamp_min / clamp_max / clamp with scalars: a NaN passes through
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-  return isnan(v) ? v : fmaxf(v, lo);
-}
-__device__ __forceinline__ float clamp_max(float v, float hi) {
-  return isnan(v) ? v : fminf(v, hi);
-}
-__device__ __forceinline__ float clamp(float v, float lo, float hi) {
-  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
-
-// (a * b).sum(-1) over 3 elements, in the order of torch's reduction on the card
-__device__ __forceinline__ float sum3(float a0, float a1, float a2) {
-  return add(add(a0, a2), a1);
-}
-
-// ops/rng.py: one xorshift32 step, and the uniform it gives
-__device__ __forceinline__ uint32_t xorshift(uint32_t s) {
-  s ^= s << 13;
-  s ^= s >> 17;
-  s ^= s << 5;
-  return s;
-}
-__device__ __forceinline__ float uniform(uint32_t& s) {
-  s = xorshift(s);
-  return mul(__uint2float_rn(s), 2.3283064365386963e-10f);
-}
-
-// ops/hashgrid.py::_hash_coords over n coordinates
-__device__ __forceinline__ uint32_t hash_coords(const uint32_t* v, int n) {
-  uint32_t h = 0x9E3779B1u;
-  for (int j = 0; j < n; ++j) {
-    h ^= v[j] * 0x85EBCA77u;
-    h = (h << 13) | (h >> 19);
-    h *= 0xC2B2AE3Du;
-  }
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  return h;
-}
-
-// ops/hashgrid.py::_hash2_coords, masked to its 16 bits
-__device__ __forceinline__ uint32_t hash2_coords(const uint32_t* v, int n) {
-  uint32_t h = 0x27220A95u;
-  for (int j = 0; j < n; ++j) {
-    h = (h + v[j] * 0x165667B1u) * 0x01000193u;
-    h ^= h >> 17;
-  }
-  return h & 0xFFFFu;
-}
-
-// ops/hashgrid.py::hash_grid / hash_grid_normal_level: the slot of cell
-// idx (with `extra` coordinates after it), plain or tiled
-__device__ __forceinline__ uint32_t slot_of(const int* idx, const uint32_t* extra, int n_extra,
-                                            uint32_t size, int tile_bits) {
-  uint32_t v[5];
-  if (tile_bits == 0) {
-    for (int j = 0; j < 3; ++j) v[j] = (uint32_t)idx[j];
-    for (int j = 0; j < n_extra; ++j) v[3 + j] = extra[j];
-    return hash_coords(v, 3 + n_extra) % size;
-  }
-  // _tiled_slot: hash the tile, place the cell at bucket·T + its sub-coordinate
-  const int mask = (1 << tile_bits) - 1;
-  const uint32_t sub_lin = (uint32_t)((idx[0] & mask) | ((idx[1] & mask) << tile_bits)
-                                      | ((idx[2] & mask) << (2 * tile_bits)));
-  for (int j = 0; j < 3; ++j) v[j] = (uint32_t)(idx[j] >> tile_bits);
-  for (int j = 0; j < n_extra; ++j) v[3 + j] = extra[j];
-  const uint64_t t = 1ull << (3 * tile_bits);
-  uint64_t buckets = size / t;
-  if (buckets < 1) buckets = 1;
-  return (uint32_t)((hash_coords(v, 3 + n_extra) % buckets) * t + sub_lin);
-}
-
-// ops/hashgrid.py::quantize_normal: the dominant axis' bucket 0..5
-__device__ __forceinline__ uint32_t quantize_normal(const float* nrm) {
-  const float ax = fabsf(nrm[0]), ay = fabsf(nrm[1]), az = fabsf(nrm[2]);
-  const bool is_x = ax >= ay && ax >= az;
-  const bool is_y = !is_x && ay >= az;
-  const uint32_t axis = is_x ? 0u : (is_y ? 1u : 2u);
-  const float val = is_x ? nrm[0] : (is_y ? nrm[1] : nrm[2]);
-  return axis * 2u + (val < 0.0f ? 1u : 0u);
-}
-
 struct Params {
   int n, K, n_adaptive, n_mixed_end, hemisphere, tile_bits;
   float frac;         // f32(K·p - int(K·p))
-  float tan2;         // f32(2 · mc_adaptive_tan_alpha_half)
-  float min_w;        // f32(mc_adaptive_min_width)
-  float inv_min_w;    // 1 / f32(mc_adaptive_min_width), in f32
-  float steps;        // f32(mc_adaptive_steps_per_unit)
-  float inv_steps;    // 1 / f32(mc_adaptive_steps_per_unit), in f32
-  float inv_log_p;    // 1 / f32(log of f32(mc_adaptive_power)), in f32
-  float power;        // f32(mc_adaptive_power)
+  Level level;        // the adaptive grid's level scale
   float inv_static_w; // 1 / f32(mc_static_width), in f32
   float prior;        // f32(dir_guide_prior)
   float kappa_max;    // f32(kappa_max)
@@ -212,14 +115,8 @@ __global__ void __launch_bounds__(kBlock) mcpg_draw(
   const float cl = __ldg(cl_time);
 
   // grids.py::adaptive_target_level at the lookup position
-  float target;
-  {
-    const float d0 = sub(__ldg(cam_x), lp[0]), d1 = sub(__ldg(cam_x + 1), lp[1]),
-                d2 = sub(__ldg(cam_x + 2), lp[2]);
-    const float dist = __fsqrt_rn(clamp_min(sum3(mul(d0, d0), mul(d1, d1), mul(d2, d2)), 0.0f));
-    const float width = clamp_min(mul(P.tan2, dist), P.min_w);
-    target = rintf(mul(mul(P.steps, logf(mul(width, P.inv_min_w))), P.inv_log_p));
-  }
+  const float cam[3] = {__ldg(cam_x), __ldg(cam_x + 1), __ldg(cam_x + 2)};
+  const float target = target_level(P.level, cam, lp);
   const uint32_t qn = quantize_normal(nrm);
 
   // grids.py::new_state: the fresh chain the reservoir starts from
@@ -247,32 +144,11 @@ __global__ void __launch_bounds__(kBlock) mcpg_draw(
       const bool a_mode = k < P.n_adaptive, s_mode = k >= P.n_mixed_end;
       uint32_t a_buf = 0, a_hash = 0, s_buf = 0, s_hash = 0;
       if (!s_mode) {
-        // grids.py::adaptive_cell
-        const float u_level = uniform(s);
-        const float off = floorf(-log2f(clamp_min(sub(1.0f, u_level), 1e-7f)));
-        const int level = (int)add(target, off);
-        const float width = mul(P.min_w, powf(P.power, mul((float)level, P.inv_steps)));
-        int idx[3];
-        for (int j3 = 0; j3 < 3; ++j3) {
-          const float u = uniform(s);
-          idx[j3] = (int)floorf(add(sub(div(lp[j3], width), 0.5f), u));
-        }
-        const uint32_t extra[2] = {qn, (uint32_t)level};
-        a_buf = slot_of(idx, extra, 2, P.adaptive_size, P.tile_bits);
-        const uint32_t hv[4] = {(uint32_t)idx[0], (uint32_t)idx[1], (uint32_t)idx[2],
-                                (uint32_t)level};
-        a_hash = hash2_coords(hv, 4);
+        adaptive_cell(s, P.level, target, lp, qn, P.adaptive_size, P.tile_bits, a_buf, a_hash);
       }
       if (!a_mode) {
-        // grids.py::static_cell
-        int idx[3];
-        for (int j3 = 0; j3 < 3; ++j3) {
-          const float u = uniform(s);
-          idx[j3] = (int)floorf(add(sub(mul(lp[j3], P.inv_static_w), 0.5f), u));
-        }
-        s_buf = slot_of(idx, nullptr, 0, P.static_size, P.tile_bits) + P.adaptive_size;
-        const uint32_t hv[3] = {(uint32_t)idx[0], (uint32_t)idx[1], (uint32_t)idx[2]};
-        s_hash = hash2_coords(hv, 3);
+        static_cell(s, P.inv_static_w, lp, P.static_size, P.adaptive_size, P.tile_bits, s_buf,
+                    s_hash);
       }
       bool ad = a_mode;
       if (!a_mode && !s_mode) ad = uniform(s) < P.frac;
@@ -378,13 +254,7 @@ extern "C" int mq_mcpg_draw(
   P.hemisphere = hemisphere;
   P.tile_bits = tile_bits;
   P.frac = frac;
-  P.tan2 = tan2;
-  P.min_w = min_w;
-  P.inv_min_w = inv_min_w;
-  P.steps = steps;
-  P.inv_steps = inv_steps;
-  P.inv_log_p = inv_log_p;
-  P.power = power;
+  P.level = {tan2, min_w, inv_min_w, steps, inv_steps, inv_log_p, power};
   P.inv_static_w = inv_static_w;
   P.prior = prior;
   P.kappa_max = kappa_max;

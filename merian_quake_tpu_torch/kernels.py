@@ -22,14 +22,15 @@ import os
 import shutil
 import subprocess
 
+import numpy as np
 import torch
 
 # every kernel source under csrc/: K1, K2, K3, K4 + K5 (woop_keys), the
 # list walker K6 + K7 (woop_list), K8, the alpha walk (woop_alpha), the
-# SVGF's temporal and à-trous kernels (svgf) and MCPG's guide-state draws
-# (mcpg_draw)
+# SVGF's temporal and à-trous kernels (svgf), MCPG's guide-state draws
+# (mcpg_draw) and the u32 RNG and hash-grid chains (u32_chains)
 KERNELS = ("woop_nearest", "woop_any", "woop_stream", "woop_keys", "woop_list", "mt_dense",
-           "woop_alpha", "svgf", "mcpg_draw")
+           "woop_alpha", "svgf", "mcpg_draw", "u32_chains")
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -100,6 +101,17 @@ def load_library(name: str) -> ctypes.CDLL:
 P, I64, INT, F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 
 
+def f32(x: float) -> float:
+    """A Python scalar as the float torch rounds it to in an f32 operation."""
+    return float(np.float32(x))
+
+
+def f32_recip(x: float) -> float:
+    """The float reciprocal torch multiplies by on the card where an f32
+    tensor is divided by the Python scalar ``x``."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
 def entry(name: str, symbol, argtypes):
     """The C entry point ``symbol`` (default ``mq_<name>``) of
     ``csrc/<name>.cu``, taking ``argtypes`` and returning a CUDA error."""
@@ -125,6 +137,8 @@ def launch(fn, device, *args) -> None:
 def check(name: str, x, dtype, shape, device, contiguous: bool = True) -> None:
     """Raise unless tensor ``x`` (argument ``name``) is ``dtype`` of
     ``shape`` on ``device`` and, with ``contiguous``, contiguous."""
+    if not isinstance(x, torch.Tensor):
+        raise ValueError(f"{name}: expected a tensor, got {type(x).__name__}")
     if x.dtype != dtype or tuple(x.shape) != tuple(shape):
         raise ValueError(
             f"{name}: expected {dtype}{tuple(shape)}, got {x.dtype}{tuple(x.shape)}"

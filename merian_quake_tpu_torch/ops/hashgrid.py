@@ -10,6 +10,11 @@ int64 tensors in [0, 2^32), as in ops/rng.py: a signed index enters a
 hash by its two's-complement bits (``rng._u32`` masks, never clamps),
 and every multiply, add and left shift is masked back to 32 bits. A slot
 is smaller than the table size, so it indexes a table as it is.
+
+These are the plain versions of the hash-grid chains: on CUDA tensors a
+whole cell selection (render/mcpg/grids.py::cell) is one launch of
+csrc/u32_chains.cu, whose hashes and slots (csrc/hash_grid.cuh) follow
+these functions in native u32.
 """
 from __future__ import annotations
 

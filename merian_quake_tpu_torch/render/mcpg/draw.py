@@ -25,10 +25,9 @@ import math
 from functools import lru_cache
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from ...kernels import F, INT, P, check, entry, launch
+from ...kernels import F, INT, P, check, entry, f32, f32_recip, launch
 from ...ops import rng as rng_ops
 from . import grids
 from .config import MCPGConfig
@@ -137,27 +136,13 @@ _DRAW_ARGS = ((P,) * 8 + (INT,) * 4 + (F, INT) + (F,) * 8
               + (ctypes.c_uint, ctypes.c_uint, INT, F, F) + (P,) * 14)
 
 
-def _f32(x: float) -> float:
-    return float(np.float32(x))
-
-
-def _recip(x: float) -> float:
-    """The float reciprocal torch multiplies by on the card where a tensor
-    is divided by the Python scalar ``x``."""
-    return float(np.float32(1.0) / np.float32(x))
-
-
 @lru_cache(maxsize=64)
 def _constants(mcfg: MCPGConfig) -> tuple:
     """The configuration's scalars as the torch path rounds them on the
     card: (frac, tan2, min_w, inv_min_w, steps, inv_steps, inv_log_p, power,
     inv_static_w)."""
     frac = slot_split(mcfg)[2]
-    return (_f32(frac), _f32(2.0 * mcfg.mc_adaptive_tan_alpha_half),
-            _f32(mcfg.mc_adaptive_min_width), _recip(mcfg.mc_adaptive_min_width),
-            _f32(mcfg.mc_adaptive_steps_per_unit), _recip(mcfg.mc_adaptive_steps_per_unit),
-            _recip(grids._log_f32(mcfg.mc_adaptive_power)), _f32(mcfg.mc_adaptive_power),
-            _recip(mcfg.mc_static_width))
+    return (f32(frac), *grids.level_scale(mcfg, "adaptive"), f32_recip(mcfg.mc_static_width))
 
 
 def draw_states(rng_state, lookup_pos, pos, normal, cam_x, cl_time, table, mcfg: MCPGConfig,
@@ -210,7 +195,7 @@ def draw_states(rng_state, lookup_pos, pos, normal, cam_x, cl_time, table, mcfg:
                cam_x.data_ptr(), cl_time.data_ptr(), table.data_ptr(), n, K, n_adaptive,
                n_mixed_end, frac, int(hemisphere), *consts,
                mcfg.mc_adaptive_size, mcfg.mc_static_size, mcfg.grid_tile_bits,
-               _f32(mcfg.dir_guide_prior), _f32(mcfg.kappa_max),
+               f32(mcfg.dir_guide_prior), f32(mcfg.kappa_max),
                *[x.data_ptr() for x in (rng_out, win_id, win_w, win_sum_w, win_w_cos, win_n,
                                         win_hash, win_buf, score, mu, kappa, sum_w, n_k)])
         draw_states.launches += 1

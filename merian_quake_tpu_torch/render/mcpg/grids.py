@@ -11,15 +11,20 @@ Port of merian_quake_tpu/render/mcpg/grids.py:
   cosine with a distance-based ML prior.
 
 ``gather_rows`` is the plain row index. Slots, ids and hashes are u32
-values in int64 tensors (ops/hashgrid.py).
+values in int64 tensors (ops/hashgrid.py). A cell of any of the three
+hash grids (the adaptive and the static guide grid, the light cache) is
+:func:`cell`: on CUDA tensors one launch of csrc/u32_chains.cu, on CPU
+tensors its plain version.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
 import torch
 
+from ...kernels import F, I64, INT, P, check, entry, f32, f32_recip, launch
 from ...ops import hashgrid, linalg, rng as rng_ops, vmf
 from ...ops.rng import _M32
 from .config import MCPGConfig, MCStates
@@ -128,18 +133,32 @@ def _log_f32(x: float) -> float:
     return float(torch.log(torch.tensor(x, dtype=torch.float32)))
 
 
+def _lc_width_for_level(level, cfg: MCPGConfig):
+    return cfg.lc_min_width * torch.pow(cfg.lc_power, level / cfg.lc_steps_per_unit)
+
+
 def adaptive_cell(rng_state, pos, normal, cam_x, cfg: MCPGConfig, target_level=None):
     """Stochastic adaptive cell for pos: (rng, buffer_index, hash16).
 
     ``target_level`` may be precomputed (it is deterministic in pos) and
     reused across the K state draws — the stochastic level offset and
     trilinear jitter still differ per draw."""
-    rng_state, u_level = rng_ops.uniform(rng_state)
+    return cell(rng_state, pos, cfg, "adaptive", normal=normal, cam_x=cam_x, level=target_level)
+
+
+def static_cell(rng_state, pos, cfg: MCPGConfig):
+    """Static cell: (rng, buffer_index [offset past adaptive], hash16)."""
+    return cell(rng_state, pos, cfg, "static")
+
+
+def adaptive_cell_reference(rng_state, pos, normal, cam_x, cfg: MCPGConfig, target_level=None):
+    """The torch path of :func:`adaptive_cell`."""
+    rng_state, u_level = rng_ops.uniform_reference(rng_state)
     if target_level is None:
         target_level = adaptive_target_level(pos, cam_x, cfg)
     level = target_level + torch.floor(-torch.log2(torch.clamp_min(1.0 - u_level, 1e-7)))
     level = level.to(torch.int32)
-    rng_state, u3 = rng_ops.uniform3(rng_state)
+    rng_state, u3 = rng_ops.uniforms_reference(rng_state, 3)
     idx = hashgrid.grid_idx_interpolate(
         pos, _adaptive_width_for_level(level.to(torch.float32), cfg)[..., None], u3
     )
@@ -150,9 +169,9 @@ def adaptive_cell(rng_state, pos, normal, cam_x, cfg: MCPGConfig, target_level=N
     return rng_state, buf, h
 
 
-def static_cell(rng_state, pos, cfg: MCPGConfig):
-    """Static cell: (rng, buffer_index [offset past adaptive], hash16)."""
-    rng_state, u3 = rng_ops.uniform3(rng_state)
+def static_cell_reference(rng_state, pos, cfg: MCPGConfig):
+    """The torch path of :func:`static_cell`."""
+    rng_state, u3 = rng_ops.uniforms_reference(rng_state, 3)
     idx = hashgrid.grid_idx_interpolate(pos, cfg.mc_static_width, u3)
     buf = (
         hashgrid.hash_grid(idx, cfg.mc_static_size, tile_bits=cfg.grid_tile_bits)
@@ -160,6 +179,115 @@ def static_cell(rng_state, pos, cfg: MCPGConfig):
     ) & _M32
     h = hashgrid.hash2_grid(idx)
     return rng_state, buf, h
+
+
+def light_cache_cell_reference(rng_state, pos, normal, level, cfg: MCPGConfig):
+    """The light cache's cell at a (float) level: (rng, buffer_index,
+    hash16), the torch path."""
+    rng_state, u3 = rng_ops.uniforms_reference(rng_state, 3)
+    idx = hashgrid.grid_idx_interpolate(
+        pos, _lc_width_for_level(level, cfg)[..., None], u3
+    )
+    lvl = level.to(torch.int32)
+    buf = hashgrid.hash_grid_normal_level(
+        idx, normal, lvl, cfg.lc_size, tile_bits=cfg.grid_tile_bits
+    )
+    h = hashgrid.hash2_grid_level(idx, lvl)
+    return rng_state, buf, h
+
+
+GRIDS = ("adaptive", "static", "light_cache")
+
+
+def cell_reference(rng_state, pos, cfg: MCPGConfig, grid: str, normal=None, cam_x=None,
+                   level=None):
+    """The torch path of :func:`cell`: the plain version of
+    csrc/u32_chains.cu's mq_grid_cell."""
+    if grid == "adaptive":
+        return adaptive_cell_reference(rng_state, pos, normal, cam_x, cfg, target_level=level)
+    if grid == "static":
+        return static_cell_reference(rng_state, pos, cfg)
+    return light_cache_cell_reference(rng_state, pos, normal, level, cfg)
+
+
+@functools.lru_cache(maxsize=64)
+def level_scale(cfg: MCPGConfig, grid: str) -> tuple:
+    """The adaptive grid's or the light cache's level scale as torch rounds
+    it on the card, csrc/hash_grid.cuh's Level: (tan2, min_w, inv_min_w,
+    steps, inv_steps, inv_log_p, power)."""
+    pre = {"adaptive": "mc_adaptive_", "light_cache": "lc_"}[grid]
+    tan, min_w, steps, power = (getattr(cfg, pre + k) for k in
+                                ("tan_alpha_half", "min_width", "steps_per_unit", "power"))
+    return (f32(2.0 * tan), f32(min_w), f32_recip(min_w), f32(steps), f32_recip(steps),
+            f32_recip(_log_f32(power)), f32(power))
+
+
+@functools.lru_cache(maxsize=64)
+def _cell_constants(cfg: MCPGConfig, grid: str) -> tuple:
+    """mq_grid_cell's level scale, inv_width, size and offset for a grid."""
+    if grid == "static":
+        return (0.0,) * 7, f32_recip(cfg.mc_static_width), cfg.mc_static_size, cfg.mc_adaptive_size
+    size = cfg.mc_adaptive_size if grid == "adaptive" else cfg.lc_size
+    return level_scale(cfg, grid), 0.0, size, 0
+
+
+def check_lanes(name, x, n, dev, cols=None, dtype=torch.float32):
+    """Raise unless ``x`` is ``dtype`` [n] (contiguous) or, with ``cols``,
+    [n, cols] at any strides, on ``dev``."""
+    shape = (n,) if cols is None else (n, cols)
+    check(name, x, dtype, shape, dev, contiguous=cols is None)
+
+
+# rng, pos and its strides, normal and its strides, cam_x, level, n, grid,
+# the level scale, inv_width, size, offset, tile_bits, the 3 outputs and
+# the stream
+_CELL_ARGS = ((P, P, I64, I64, P, I64, I64, P, P, I64, INT) + (F,) * 8
+              + (ctypes.c_uint, ctypes.c_uint, INT) + (P,) * 4)
+
+
+def cell(rng_state, pos, cfg: MCPGConfig, grid: str, normal=None, cam_x=None, level=None):
+    """The cell of each lane's position on one hash grid, with its draws:
+    (rng, buffer_index, hash16), u32 values in int64[n] each.
+
+    ``grid``: "adaptive" (needs ``normal`` and, unless ``level`` gives the
+    target level, ``cam_x``), "static" or "light_cache" (``normal`` and a
+    float ``level``). rng_state: int64[n]; pos, normal: f32[n,
+    3] at any strides; cam_x f32[3]; level f32[n].
+
+    On CUDA tensors one launch of csrc/u32_chains.cu, its outputs new and
+    nothing synchronized, counted in ``cell.launches``; on CPU tensors
+    :func:`cell_reference`. Raises on another grid, dtype, shape, device
+    or layout."""
+    if grid not in GRIDS:
+        raise ValueError(f"grid {grid!r}: one of {GRIDS}")
+    n = rng_state.shape[0] if rng_state.dim() == 1 else -1
+    dev = rng_state.device
+    check_lanes("rng_state", rng_state, n, dev, dtype=torch.int64)
+    check_lanes("pos", pos, n, dev, cols=3)
+    if grid != "static":
+        check_lanes("normal", normal, n, dev, cols=3)
+        if level is not None or grid == "light_cache":
+            check_lanes("level", level, n, dev)
+        else:
+            check("cam_x", cam_x, torch.float32, (3,), dev)
+    if dev.type == "cpu":
+        return cell_reference(rng_state, pos, cfg, grid, normal=normal, cam_x=cam_x, level=level)
+    scale, inv_width, size, offset = _cell_constants(cfg, grid)
+    rng_out, buf, h = (torch.empty(n, dtype=torch.int64, device=dev) for _ in range(3))
+    if n:
+        static = grid == "static"
+        launch(entry("u32_chains", "mq_grid_cell", _CELL_ARGS), dev,
+               rng_state.data_ptr(), pos.data_ptr(), *pos.stride(),
+               None if static else normal.data_ptr(), *((0, 0) if static else normal.stride()),
+               None if static or level is not None else cam_x.data_ptr(),
+               None if level is None else level.data_ptr(), n, GRIDS.index(grid), *scale,
+               inv_width, size, offset, cfg.grid_tile_bits, rng_out.data_ptr(), buf.data_ptr(),
+               h.data_ptr())
+        cell.launches += 1
+    return rng_out, buf, h
+
+
+cell.launches = 0
 
 
 def gather_rows(tab: torch.Tensor, idx) -> torch.Tensor:

@@ -2,16 +2,21 @@
 
 Port of merian_quake_tpu/render/mcpg/light_cache.py: one EWA step per
 cell per frame, from the MEAN of the frame's samples for that cell.
-Hash-mismatch cells are re-initialized from one coarser level.
+Hash-mismatch cells are re-initialized from one coarser level. A lookup
+(:func:`lookup`) is one launch of csrc/u32_chains.cu on CUDA tensors.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from ...ops import hashgrid, linalg, rng as rng_ops, segments
+from ...kernels import F, I64, INT, P, check, entry, launch
+from ...ops import linalg, rng as rng_ops, segments
 from ...ops.hashgrid import u32_to_i32
 from ...ops.rng import _M32
 from .config import LightCache, MCPGConfig
+from . import grids
 from .grids import _log_f32, gather_rows
 
 
@@ -36,32 +41,6 @@ def unpack_f16_pair(p):
     return f16(p & 0xFFFF), f16(p >> 16)
 
 
-def _lc_width_for_level(level, cfg: MCPGConfig):
-    return cfg.lc_min_width * torch.pow(cfg.lc_power, level / cfg.lc_steps_per_unit)
-
-
-def _lc_level(pos, cam_x, cfg: MCPGConfig):
-    width = 2.0 * cfg.lc_tan_alpha_half * linalg.distance(cam_x, pos)
-    return torch.round(
-        cfg.lc_steps_per_unit
-        * torch.log(torch.clamp_min(width, cfg.lc_min_width) / cfg.lc_min_width)
-        / _log_f32(cfg.lc_power)
-    )
-
-
-def _lc_cell(rng_state, pos, normal, level, cfg: MCPGConfig):
-    rng_state, u3 = rng_ops.uniform3(rng_state)
-    idx = hashgrid.grid_idx_interpolate(
-        pos, _lc_width_for_level(level, cfg)[..., None], u3
-    )
-    lvl = level.to(torch.int32)
-    buf = hashgrid.hash_grid_normal_level(
-        idx, normal, lvl, cfg.lc_size, tile_bits=cfg.grid_tile_bits
-    )
-    h = hashgrid.hash2_grid_level(idx, lvl)
-    return rng_state, buf, h
-
-
 def _pack_lc(lc: LightCache) -> torch.Tensor:
     """(L, 5) i32 table [hash, irr(3 bitcast), N]: ONE row-gather per
     lookup instead of three."""
@@ -75,20 +54,92 @@ def _pack_lc(lc: LightCache) -> torch.Tensor:
     )
 
 
-def _get_level(rng_state, lc: LightCache, pos, normal, level, cfg: MCPGConfig,
-               packed=None, dead=None):
-    rng_state, buf, h = _lc_cell(rng_state, pos, normal, level, cfg)
-    tab = _pack_lc(lc) if packed is None else packed
+def _lc_level(pos, cam_x, cfg: MCPGConfig):
+    width = 2.0 * cfg.lc_tan_alpha_half * linalg.distance(cam_x, pos)
+    return torch.round(
+        cfg.lc_steps_per_unit
+        * torch.log(torch.clamp_min(width, cfg.lc_min_width) / cfg.lc_min_width)
+        / _log_f32(cfg.lc_power)
+    )
+
+
+def _lc_cell(rng_state, pos, normal, level, cfg: MCPGConfig):
+    return grids.cell(rng_state, pos, cfg, "light_cache", normal=normal, level=level)
+
+
+def lookup_reference(rng_state, table, pos, normal, cfg: MCPGConfig, cam_x=None, level=None,
+                     dead=None):
+    """The torch path of :func:`lookup`: the plain version of
+    csrc/u32_chains.cu's mq_lc_lookup."""
+    if level is None:
+        level = _lc_level(pos, cam_x, cfg)
+    rng_state, buf, h = grids.cell_reference(rng_state, pos, cfg, "light_cache", normal=normal,
+                                             level=level)
     idx = buf
     if dead is not None:
         # dead lanes read row 0 (result discarded by the caller)
         idx = torch.where(dead, 0, idx)
-    rows = gather_rows(tab, idx)  # (..., 5)
+    rows = gather_rows(table, idx)  # (..., 5)
     stored_h = rows[..., 0].to(torch.int64) & _M32
     irr = rows[..., 1:4].contiguous().view(torch.float32)
     n = rows[..., 4]
     ok = (stored_h == h) & torch.isfinite(irr).all(-1)
     return rng_state, torch.where(ok[..., None], irr, 0.0), torch.where(ok, n, 0)
+
+
+# rng, pos and its strides, normal and its strides, cam_x, level, dead,
+# table, n, the level scale, size, tile_bits, the 3 outputs and the stream
+_LOOKUP_ARGS = ((P, P, I64, I64, P, I64, I64, P, P, P, P, I64) + (F,) * 7
+                + (ctypes.c_uint, INT) + (P,) * 4)
+
+
+def lookup(rng_state, table, pos, normal, cfg: MCPGConfig, cam_x=None, level=None, dead=None):
+    """The light cache's cell of each lane and its row of ``table`` (the
+    i32[lc_size, 5] ``_pack_lc``): (rng, irradiance f32[n, 3], N i32[n]),
+    zero where the row's hash is another cell's or its irradiance is not
+    finite. The cell's level is ``level`` (f32[n]) or, without it, the
+    level at pos seen from ``cam_x`` (f32[3]). rng_state: int64[n]; pos,
+    normal: f32[n, 3] at any strides; dead: None or bool[n] (such lanes
+    read row 0).
+
+    On CUDA tensors one launch of csrc/u32_chains.cu, its outputs new and
+    nothing synchronized, counted in ``lookup.launches``; on CPU tensors
+    :func:`lookup_reference`. Raises on another dtype, shape, device or
+    layout, and on a tiled layout whose slots can pass the table."""
+    n = rng_state.shape[0] if rng_state.dim() == 1 else -1
+    dev = rng_state.device
+    grids.check_lanes("rng_state", rng_state, n, dev, dtype=torch.int64)
+    grids.check_lanes("pos", pos, n, dev, cols=3)
+    grids.check_lanes("normal", normal, n, dev, cols=3)
+    if level is not None:
+        grids.check_lanes("level", level, n, dev)
+    else:
+        check("cam_x", cam_x, torch.float32, (3,), dev)
+    if dead is not None:
+        grids.check_lanes("dead", dead, n, dev, dtype=torch.bool)
+    check("table", table, torch.int32, (cfg.lc_size, 5), dev)
+    if cfg.grid_tile_bits and cfg.lc_size < 1 << (3 * cfg.grid_tile_bits):
+        raise ValueError(f"lc_size {cfg.lc_size} is smaller than a tile of grid_tile_bits "
+                         f"{cfg.grid_tile_bits}: slots would pass the table")
+    if dev.type == "cpu":
+        return lookup_reference(rng_state, table, pos, normal, cfg, cam_x=cam_x, level=level,
+                                dead=dead)
+    rng_out = torch.empty(n, dtype=torch.int64, device=dev)
+    irr = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    n_out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        launch(entry("u32_chains", "mq_lc_lookup", _LOOKUP_ARGS), dev,
+               rng_state.data_ptr(), pos.data_ptr(), *pos.stride(), normal.data_ptr(),
+               *normal.stride(), None if level is not None else cam_x.data_ptr(),
+               None if level is None else level.data_ptr(),
+               None if dead is None else dead.data_ptr(), table.data_ptr(), n,
+               *grids.level_scale(cfg, "light_cache"), cfg.lc_size, cfg.grid_tile_bits,
+               rng_out.data_ptr(), irr.data_ptr(), n_out.data_ptr())
+        lookup.launches += 1
+    return rng_out, irr, n_out
+
+
+lookup.launches = 0
 
 
 def lc_get(rng_state, lc: LightCache, pos, normal, cam_x, cfg: MCPGConfig,
@@ -98,10 +149,8 @@ def lc_get(rng_state, lc: LightCache, pos, normal, cam_x, cfg: MCPGConfig,
     ``packed``: optional _pack_lc(lc) table — pass it when calling in a
     loop so the (L, 5) pack is built once, not per call. ``dead``:
     optional bool mask of lanes whose result the caller discards."""
-    level = _lc_level(pos, cam_x, cfg)
-    rng_state, irr, _ = _get_level(
-        rng_state, lc, pos, normal, level, cfg, packed=packed, dead=dead
-    )
+    table = _pack_lc(lc) if packed is None else packed
+    rng_state, irr, _ = lookup(rng_state, table, pos, normal, cfg, cam_x=cam_x, dead=dead)
     return rng_state, irr
 
 
@@ -177,8 +226,8 @@ def lc_update_batch(
     mismatch = (old_hash != new_hash) | ~torch.isfinite(old_irr).all(-1)
     # per-CELL rng stream for the coarse-level jitter
     cell_rng = rng_ops.seed_pixel(cell_r, 2, 0, rng_state[0])
-    _, coarse_irr, coarse_n = _get_level(
-        cell_rng, lc, rep_pos, rep_norm, rep_level + 1.0, cfg
+    _, coarse_irr, coarse_n = lookup(
+        cell_rng, _pack_lc(lc), rep_pos, rep_norm, cfg, level=rep_level + 1.0
     )
     base_irr = torch.where(mismatch[..., None], coarse_irr, old_irr)
     base_n = torch.where(mismatch, coarse_n, old_n)

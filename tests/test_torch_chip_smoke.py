@@ -1,5 +1,5 @@
 """The card-side check's phase registry (chip_smoke/registry.py), read on
-the CPU: phases 1-42 once each, in the order a whole run takes them (39
+the CPU: phases 1-43 once each, in the order a whole run takes them (39
 right after 31, on its live dungeon), each a function whose parameters
 name fixtures that are defined, each fixture a phase makes kept by that
 phase and made before any phase reads it; and the run itself on stub
@@ -12,12 +12,12 @@ import json
 
 from chip_smoke import fixtures, registry
 
-RUN_ORDER = list(range(1, 32)) + [39] + list(range(32, 39)) + [40, 41, 42]
+RUN_ORDER = list(range(1, 32)) + [39] + list(range(32, 39)) + [40, 41, 42, 43]
 
 
 def test_registry_lists_every_phase_once_with_defined_fixtures():
     numbers = [n for n, _ in registry.PHASES]
-    assert numbers == RUN_ORDER and sorted(numbers) == list(range(1, 43))
+    assert numbers == RUN_ORDER and sorted(numbers) == list(range(1, 44))
     defined = set(fixtures.FIXTURES) | set(fixtures.MADE_BY)
     for n, fn in registry.PHASES:
         assert callable(fn) and fn.__name__ == f"phase{n}"
